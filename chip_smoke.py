@@ -3,29 +3,42 @@
     python3 chip_smoke.py            # every phase (what a release check runs)
     python3 chip_smoke.py --quick    # build + kernels against plain only
 
-Phases, each of which makes the script exit non-zero if it fails:
+Phases, each of which makes the script exit non-zero if it fails. Two
+solver paths run: the fused SMO pair (kernel A, ``working_set=2``) and the
+large-working-set decomposition (kernel B, ``working_set=DECOMP_Q``,
+``inner_iters=DECOMP_CAP``).
 
-1. build every CUDA source of the port with nvcc (``dpsvm_tpu_torch/build``);
-2. hold each kernel of the training path against its plain PyTorch version
-   on the card at 60000 x 784 (and a ragged 60001), float32 and bfloat16 X,
-   with alpha exactly at 0 and at C and deliberate ties within and across
-   blocks: one SMO body through ``launch_fused_chunk``, the wrapper the
-   training loop calls, against one plain body from the same state;
-3. drive the main path at full width through the entry points a user
-   calls: ``api.fit`` on planted 60000 x 784 data (C=10, gamma=0.25,
-   eps=1e-3) to convergence in both precisions, then ``save_model``,
-   ``load_model`` and ``evaluate`` on 10000 held-out rows; each kernel's
-   device-counted runs must equal the iterations run;
-4. the kernel path against the plain path, both on the card: ``fit`` and
-   ``train_single_device_plain`` at 60000 x 784 for PREFIX_ITERS
-   iterations (the same n_iter, alpha within rtol 1e-4 / atol 1e-5,
-   held-out decision values within 5e-3), and both converged on 4096 x
-   784 with n_sv within 2% or 3 and held-out accuracy within one example
-   (``Smoke.convergence`` says why the bar splits so);
-5. time each kernel on the main path (a chunk of TIMED_ITERS iterations,
-   device times per kernel from torch.profiler), its plain version and a
-   PyTorch yardstick, and print the ``{"kernels": [...]}`` line, the
-   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+1. build every CUDA source of the port with nvcc, one process per source,
+   in parallel (``dpsvm_tpu_torch/build``);
+2. hold each kernel against its plain PyTorch version on the card, through
+   the wrapper the training loop calls. Kernel A: one SMO body through
+   ``launch_fused_chunk`` at 60000 x 784 (and a ragged 60001), float32 and
+   bfloat16 X, with alpha exactly at 0 and at C and deliberate ties within
+   and across blocks. Kernel B: ``launch_inner_subsolve`` on K_WW blocks of
+   planted 784-wide rows at q in SUBSOLVE_QS (1030 is ragged), caps 1, 37
+   and 128 with both clips, weighted boxes with masked slots, a mid-run
+   state, a dynamic step cap below the static one and an already-optimal
+   block: bitwise the same (a, f, b_hi, b_lo, t), and the kernel's own run
+   count one per launch;
+3. drive both paths at full width through the entry points a user calls:
+   ``api.fit`` on planted 60000 x 784 data (C=10, gamma=0.25, eps=1e-3) to
+   convergence in both precisions, then ``save_model``, ``load_model`` and
+   ``evaluate`` on 10000 held-out rows. The counts are set to 0 before each
+   path and read after it: kernel A's device-counted runs must equal the
+   iterations; kernel B's launches, runs and rounds must be equal and its
+   device-counted steps must add up to n_iter. The decomposition's model
+   must match the pair's (n_sv within 2%, held-out accuracy within 0.5%);
+4. the kernel paths against the plain paths, both on the card: the pair
+   for PREFIX_ITERS iterations at 60000 x 784 and converged on 4096 x 784;
+   the decomposition for DECOMP_PREFIX_ROUNDS rounds at full width and
+   converged on planted 8000 x 784 at q=4096 (``Smoke.convergence`` says
+   why the bars split so);
+5. time each kernel on its path (kernel A over a chunk of TIMED_ITERS
+   iterations; kernel B and the other parts of a decomposition round over
+   one round from a real carry, device times from torch.profiler), the
+   plain versions and a PyTorch yardstick where one exists, and print the
+   ``{"kernels": [...]}`` line, the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port beside it, it exits 2 and prints no result.
@@ -55,6 +68,18 @@ F_RTOL = 1e-5
 MAIN_MAX_ITER = 400_000
 PREFIX_ITERS = 100
 TIMED_ITERS = 500
+# The decomposition at the reference shape: q must exceed n_sv (~8.3k
+# here) by ~1.3x (dpsvm_tpu/solver/decomp.py), and cap 128 is the inner
+# cap the JAX package's scan found load-bearing.
+DECOMP_Q, DECOMP_CAP = 12288, 128
+DECOMP_MAX_ITER = 600_000
+DECOMP_PREFIX_ROUNDS = 5
+DECOMP_WARM_ROUNDS = 20          # rounds run before the timed one
+SUBSOLVE_QS = (32, 1030, DECOMP_Q)
+# Pair updates to convergence of the JAX package's decomposition (q=4096,
+# cap 128, float32, on the CPU) at planted 8000 x 784, C=10, gamma=0.25:
+# docs/PERF.md, benchmarks/results/iteration_economy_r4.jsonl.
+JAX_UPDATES_8000 = 13_035
 
 
 def log(msg: str) -> None:
@@ -233,14 +258,112 @@ class Smoke:
                         f"{perr:.3g}")
         self.rec["max_abs_err"] = errs
         self.rec["near_ties"] = near_ties
+        self.check_subsolve()
+
+    def subsolve_inputs(self, q: int, seed: int, weighted=False, masked=0,
+                        mid=False):
+        """(K_WW, y, c, alpha, f, active) for a block of q planted rows:
+        K_WW in exact float32, boxes C (or 2C / C/2 by class), the last
+        ``masked`` slots inactive; alpha 0 and f = -y, or with ``mid`` a
+        mid-run state with alpha at 0, at C and inside and f off -y."""
+        torch = self.torch
+        from dpsvm_tpu_torch.ops.kernels import (host_row_norms_sq,
+                                                 rows_from_dots)
+        xtr, ytr, _, _ = self.planted()
+        rng = np.random.default_rng(seed)
+        idx = np.sort(rng.choice(N, q, replace=False))
+        rows = torch.from_numpy(xtr[idx]).to(self.dev)
+        x2 = torch.from_numpy(host_row_norms_sq(xtr[idx])).to(self.dev)
+        k = rows_from_dots(rows @ rows.T, x2, x2, GAMMA).contiguous()
+        y = torch.from_numpy(ytr[idx].astype(np.float32)).to(self.dev)
+        c = (torch.where(y > 0, 2.0 * C, C / 2.0) if weighted
+             else torch.full((q,), C, device=self.dev))
+        active = torch.arange(q, device=self.dev) < q - masked
+        a = torch.zeros(q, device=self.dev)
+        f = -y
+        if mid:
+            pick = torch.from_numpy(rng.integers(0, 3, q)).to(self.dev)
+            inner = torch.from_numpy(rng.uniform(0.05, 0.95, q).astype(
+                np.float32)).to(self.dev)
+            a = torch.where(pick == 0, 0.0, torch.where(pick == 1, c,
+                                                        inner * c))
+            f = f + torch.from_numpy(rng.normal(0, 0.3, q).astype(
+                np.float32)).to(self.dev)
+        return k, y, c, a.contiguous(), f.contiguous(), active
+
+    def subsolve_case(self, tag: str, inp, step_cap: int, max_cap: int,
+                      pairwise: bool):
+        """One launch through ``launch_inner_subsolve`` against the plain
+        version on the same inputs. Returns (t, max |difference|)."""
+        torch = self.torch
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        runs = torch.zeros(2, dtype=torch.int32, device=self.dev)
+        got = sk.launch_inner_subsolve(*inp, 1e-3, step_cap, max_cap=max_cap,
+                                       pairwise=pairwise, runs=runs)
+        ref = sk.inner_subsolve_plain(*inp, 1e-3, step_cap, max_cap=max_cap,
+                                      pairwise=pairwise)
+        torch.cuda.synchronize()
+        t = int(got[4])
+        err = max(float((u - v).abs().max()) for u, v in zip(got[:4], ref[:4]))
+        bitwise = all(torch.equal(u, v) for u, v in zip(got, ref))
+        if not bitwise or t != int(ref[4]) or runs.tolist() != [1, t]:
+            self.fail("kernel", f"subsolve {tag}: bitwise {bitwise}, t "
+                      f"{t} vs plain {int(ref[4])}, max |diff| {err:.3g}, "
+                      f"device runs/steps {runs.tolist()}")
+        return t, err
+
+    def check_subsolve(self) -> None:
+        torch = self.torch
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        from dpsvm_tpu_torch.ops.selection import masked_scores_and_masks
+        err, lines = 0.0, []
+        for q in SUBSOLVE_QS:
+            specs = [(f"cap {cap} {'pairwise' if pw else 'indep'}", cap, pw,
+                      {}, cap)
+                     for cap in (1, 37, DECOMP_CAP) for pw in (False, True)]
+            specs += [(f"weighted masked {'pairwise' if pw else 'indep'}",
+                       DECOMP_CAP, pw, dict(weighted=True, masked=8),
+                       DECOMP_CAP) for pw in (False, True)]
+            specs += [(f"mid-run {'pairwise' if pw else 'indep'}", DECOMP_CAP,
+                       pw, dict(mid=True), DECOMP_CAP) for pw in (False, True)]
+            specs += [("step_cap 7 < max_cap", DECOMP_CAP, False, {}, 7)]
+            ts = []
+            for i, (tag, cap, pw, kw, step_cap) in enumerate(specs):
+                t, e = self.subsolve_case(
+                    f"q={q} {tag}", self.subsolve_inputs(q, q + i, **kw),
+                    step_cap, cap, pw)
+                ts.append(t)
+                err = max(err, e)
+            if ts[-1] != 7:
+                self.fail("kernel", f"subsolve q={q}: the dynamic cap ran "
+                          f"{ts[-1]} steps, not 7")
+            # An already-optimal block: a mid-run state whose f closes the
+            # gap (0 on slots in both index sets, +1 on I_up only, -1 on
+            # I_low only), so b_lo <= b_hi at entry.
+            k, y, c, a, f, act = self.subsolve_inputs(q, q + 99, mid=True)
+            _, _, in_up, in_low = masked_scores_and_masks(a, y, f, c,
+                                                          valid=act)
+            f = torch.where(in_up & in_low, 0.0,
+                            torch.where(in_up, 1.0, -1.0)).contiguous()
+            got = sk.launch_inner_subsolve(k, y, c, a, f, act, 1e-3, 100,
+                                           max_cap=100, pairwise=False)
+            t, e = self.subsolve_case(f"q={q} optimal block",
+                                      (k, y, c, a, f, act), 100, 100, False)
+            err = max(err, e)
+            if t != 0 or not (torch.equal(got[0], a)
+                              and torch.equal(got[1], f)):
+                self.fail("kernel", f"subsolve q={q}: an optimal block took "
+                          f"{t} steps or changed its state")
+            lines.append(f"q={q}: t {ts}, then {t} on the optimal block")
+        for ln in lines:
+            log(f"[kernel] subsolve {ln}")
+        self.rec["max_abs_err"]["inner_subsolve"] = err
 
     # ------------------------------------------------------------ phase 3
     def main_path(self) -> None:
         torch = self.torch
-        from dpsvm_tpu_torch import SVMConfig, evaluate, fit, load_model
-        from dpsvm_tpu_torch import save_model
+        from dpsvm_tpu_torch import SVMConfig, fit
         from dpsvm_tpu_torch.experimental import fused_step as fs
-        from dpsvm_tpu_torch.models.svm import decision_function
         xtr, ytr, xte, yte = self.planted()
         self.rec["main"] = {}
         launches = dict.fromkeys(fs.KERNELS, 0)
@@ -261,27 +384,14 @@ class Smoke:
                     self.fail("main", f"{prec}: {name} enqueued {ln} "
                               f"launches, ran {rn}, for {res.n_iter} "
                               f"iterations")
-            t = time.perf_counter()
-            with tempfile.TemporaryDirectory() as tmp:
-                path = os.path.join(tmp, "model.svm")
-                wrote = save_model(model, path)
-                loaded = load_model(path)
-            io_s = time.perf_counter() - t
-            same = (wrote == model.n_sv
-                    and np.array_equal(loaded.x_sv, model.x_sv)
-                    and np.array_equal(loaded.alpha, model.alpha)
-                    and np.array_equal(loaded.y_sv, model.y_sv))
-            t = time.perf_counter()
-            dec = decision_function(loaded, xte)
-            eval_s = time.perf_counter() - t
-            acc = evaluate(loaded, xte, yte)
-            ok = (same and res.converged and np.all(np.isfinite(dec))
-                  and dec.shape == (10000,) and acc > 0.9
+            same, finite, acc, io_s, eval_s = self._round_trip(model, xte,
+                                                               yte)
+            ok = (same and res.converged and finite and acc > 0.9
                   and np.all(np.isfinite(res.alpha)))
             if not ok:
                 self.fail("main", f"{prec}: model round trip {same}, "
-                          f"converged {res.converged}, finite "
-                          f"{np.all(np.isfinite(dec))}, acc {acc}")
+                          f"converged {res.converged}, finite {finite}, "
+                          f"acc {acc}")
             r = {"n_iter": res.n_iter, "converged": res.converged,
                  "gap": res.gap, "n_sv": res.n_sv, "b": res.b,
                  "train_seconds": res.train_seconds,
@@ -293,6 +403,81 @@ class Smoke:
             log(f"[main] {prec}: {json.dumps(r)}")
         self.rec["main_launches"] = launches
         self.rec["main_runs"] = runs
+        self.main_decomp()
+
+    def _round_trip(self, model, xte, yte):
+        """save, load, evaluate on the held-out rows. Returns (same model,
+        finite decisions of the right shape, accuracy, save+load s, eval
+        s)."""
+        from dpsvm_tpu_torch import evaluate, load_model, save_model
+        from dpsvm_tpu_torch.models.svm import decision_function
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "model.svm")
+            wrote = save_model(model, path)
+            loaded = load_model(path)
+        io_s = time.perf_counter() - t
+        same = (wrote == model.n_sv
+                and np.array_equal(loaded.x_sv, model.x_sv)
+                and np.array_equal(loaded.alpha, model.alpha)
+                and np.array_equal(loaded.y_sv, model.y_sv))
+        t = time.perf_counter()
+        dec = decision_function(loaded, xte)
+        eval_s = time.perf_counter() - t
+        finite = bool(np.all(np.isfinite(dec)) and dec.shape == (len(yte),))
+        return same, finite, evaluate(loaded, xte, yte), io_s, eval_s
+
+    def main_decomp(self) -> None:
+        """The decomposition at full width through ``api.fit``."""
+        torch = self.torch
+        from dpsvm_tpu_torch import SVMConfig, fit
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        from dpsvm_tpu_torch.solver import decomp as sd
+        xtr, ytr, xte, yte = self.planted()
+        self.rec["decomp"] = {}
+        totals = {"launches": 0, "runs": 0}
+        for prec in ("highest", "default"):
+            cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
+                            max_iter=DECOMP_MAX_ITER, working_set=DECOMP_Q,
+                            inner_iters=DECOMP_CAP, matmul_precision=prec)
+            torch.cuda.reset_peak_memory_stats()
+            sk.reset_counts()
+            reads0 = sd.READS["stats"]
+            model, res = fit(xtr, ytr, cfg)
+            name = "inner_subsolve"
+            got = {"launches": sk.LAUNCHES[name], "runs": sk.RUNS[name],
+                   "steps": sk.STEPS[name]}
+            reads = sd.READS["stats"] - reads0
+            peak = torch.cuda.max_memory_allocated()
+            for k in totals:
+                totals[k] += got[k]
+            same, finite, acc, io_s, eval_s = self._round_trip(model, xte,
+                                                               yte)
+            pair = self.rec["main"][prec]
+            ok = (same and finite and res.converged and acc > 0.9
+                  and np.all(np.isfinite(res.alpha))
+                  and got["launches"] == got["runs"] == res.rounds > 0
+                  and got["steps"] == res.n_iter
+                  and abs(res.n_sv - pair["n_sv"]) <= 0.02 * pair["n_sv"]
+                  and abs(acc - pair["heldout_accuracy"]) <= 0.005)
+            r = {"n_iter": res.n_iter, "rounds": res.rounds,
+                 "converged": res.converged, "gap": res.gap,
+                 "n_sv": res.n_sv, "b": res.b,
+                 "train_seconds": res.train_seconds,
+                 "updates_per_s": res.n_iter / res.train_seconds,
+                 "ms_per_round": 1e3 * res.train_seconds / res.rounds,
+                 **got, "stats_reads": reads,
+                 "reads_per_round": reads / res.rounds,
+                 "peak_bytes": int(peak), "save_load_seconds": io_s,
+                 "eval_seconds": eval_s, "heldout_accuracy": acc,
+                 "pair_n_sv": pair["n_sv"],
+                 "pair_heldout_accuracy": pair["heldout_accuracy"]}
+            if not ok:
+                self.fail("main", f"decomposition {prec}: round trip "
+                          f"{same}, finite {finite}: {json.dumps(r)}")
+            self.rec["decomp"][prec] = r
+            log(f"[main] decomposition {prec}: {json.dumps(r)}")
+        self.rec["decomp_counts"] = totals
 
     # ------------------------------------------------------------ phase 4
     def convergence(self) -> None:
@@ -359,6 +544,73 @@ class Smoke:
                     self.fail("convergence", f"{prec} {what}: {r[what]}")
             self.rec["convergence"][prec] = r
             log(f"[convergence] {prec}: {json.dumps(r)}")
+        self.convergence_decomp()
+
+    def convergence_decomp(self) -> None:
+        """The decomposition's kernel path (``fit``) against its plain path
+        (``train_single_device_decomp(plain=True)``: the same rounds with
+        ``inner_subsolve_plain``), both on the card. The subsolve is
+        bitwise to its plain version (phase 2) and the rest of a round is
+        the same PyTorch code, so the prefix is held to the float32 bars.
+        Converged, on planted 8000 x 784 (the JAX package's scan data, in
+        float32 as that scan ran), the two are held to the LibSVM bar on the
+        training rows, as the pair's converged runs are."""
+        from dpsvm_tpu_torch import SVMConfig, fit
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        from dpsvm_tpu_torch.models.svm import (SVMModel, decision_function,
+                                                evaluate)
+        from dpsvm_tpu_torch.solver.decomp import train_single_device_decomp
+        xtr, ytr, xte, yte = self.planted()
+        x8, y8 = make_planted(8000, D, GAMMA, seed=0)
+        self.rec["convergence_decomp"] = {}
+        for prec in ("highest", "default"):
+            r = {}
+            for what, (xa, ya, xb, yb), q, max_iter in (
+                    ("prefix", (xtr, ytr, xte, yte), DECOMP_Q,
+                     DECOMP_PREFIX_ROUNDS * DECOMP_CAP),
+                    ("converged", (x8, y8, x8, y8), 4096, 200_000)
+                    )[:2 if prec == "highest" else 1]:
+                cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
+                                max_iter=max_iter, working_set=q,
+                                inner_iters=DECOMP_CAP,
+                                matmul_precision=prec)
+                mk, rk = fit(xa, ya, cfg)
+                rp = train_single_device_decomp(xa, ya, cfg, self.dev,
+                                                plain=True)
+                mp = SVMModel.from_train_result(xa, ya, rp)
+                dmax = float(np.abs(decision_function(mk, xb)
+                                    - decision_function(mp, xb)).max())
+                acc_k, acc_p = evaluate(mk, xb, yb), evaluate(mp, xb, yb)
+                r[what] = {
+                    "n": len(ya), "q": q,
+                    "kernel": {"n_iter": rk.n_iter, "rounds": rk.rounds,
+                               "n_sv": rk.n_sv, "converged": rk.converged,
+                               "b": rk.b, "seconds": rk.train_seconds,
+                               "accuracy": acc_k},
+                    "plain": {"n_iter": rp.n_iter, "rounds": rp.rounds,
+                              "n_sv": rp.n_sv, "converged": rp.converged,
+                              "b": rp.b, "seconds": rp.train_seconds,
+                              "accuracy": acc_p},
+                    "max_alpha_diff": float(np.abs(rk.alpha
+                                                   - rp.alpha).max()),
+                    "max_decision_diff": dmax}
+                if what == "prefix":
+                    ok = ((rk.n_iter, rk.rounds) == (rp.n_iter, rp.rounds)
+                          and rk.rounds == DECOMP_PREFIX_ROUNDS
+                          and dmax <= 5e-3
+                          and np.allclose(rk.alpha, rp.alpha, rtol=1e-4,
+                                          atol=1e-5))
+                else:
+                    r[what]["jax_cpu_updates"] = JAX_UPDATES_8000
+                    ok = (rk.converged and rp.converged
+                          and abs(rk.n_sv - rp.n_sv)
+                          <= max(0.02 * rp.n_sv, 3.0)
+                          and abs(acc_k - acc_p) <= 1.0 / len(yb) + 1e-9)
+                if not ok:
+                    self.fail("convergence", f"decomposition {prec} {what}: "
+                              f"{r[what]}")
+            self.rec["convergence_decomp"][prec] = r
+            log(f"[convergence] decomposition {prec}: {json.dumps(r)}")
 
     # ------------------------------------------------------------ phase 5
     def timing(self) -> None:
@@ -456,6 +708,104 @@ class Smoke:
                     "library_ms": None, "bound_ms": p_bound}}
             log(f"[timing] {key}: {json.dumps(out[key])}")
         self.rec["timing"] = out
+        self.timing_decomp()
+
+    def timing_decomp(self) -> None:
+        """One decomposition round at full width from a real carry (the
+        state after DECOMP_WARM_ROUNDS rounds), in both precisions: its
+        wall time (CUDA events), the device time of each of its parts (the
+        ``decomp.*`` profiler ranges of ``decomp_step``) and of kernel B,
+        kernel B per launch on the round's own inputs (CUDA events over
+        repeated launches), and the plain subsolve on the same inputs."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from dpsvm_tpu_torch import SVMConfig
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        from dpsvm_tpu_torch.solver import decomp as sd
+        xtr, ytr, _, _ = self.planted()
+        q, cap = DECOMP_Q, DECOMP_CAP
+        out = {}
+        for prec in ("highest", "default"):
+            key = "f32" if prec == "highest" else "bf16"
+            cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3, working_set=q,
+                            inner_iters=cap, matmul_precision=prec,
+                            max_iter=10 ** 9)
+            prob = sd.DecompProblem.build(xtr, ytr, cfg, self.dev)
+            run = sd.make_runner(prob, cfg, q, sd.DecompWorkspace(self.dev))
+            carry, _ = run(sd.init_carry(prob.y), DECOMP_WARM_ROUNDS * cap)
+            seen = []
+
+            def capture(*args, **kw):
+                seen[:] = [args, kw]
+                return sk.launch_inner_subsolve(*args, **kw)
+
+            def one_round(subsolve=sk.launch_inner_subsolve):
+                fresh = carry._replace(alpha=carry.alpha.clone(),
+                                       f=carry.f.clone())
+                return sd.decomp_step(fresh, prob, q=q, inner_cap=cap,
+                                      epsilon=1e-3, step_cap=cap,
+                                      subsolve=subsolve)
+
+            one_round(capture)                                 # warm up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            after = one_round()
+            t1.record()
+            torch.cuda.synchronize()
+            round_ms = t0.elapsed_time(t1)
+            peak = torch.cuda.max_memory_allocated()
+            steps = int(after.n_iter - carry.n_iter)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                one_round()
+                torch.cuda.synchronize()
+            parts, kern_ms, busy_ms = {}, None, 0.0
+            for evt in prof.key_averages():
+                dev_us = _device_us(evt)
+                if not evt.key.startswith("decomp."):
+                    busy_ms += dev_us / 1e3
+                if "subsolve_kernel" in evt.key:
+                    kern_ms = dev_us / 1e3
+                if evt.key.startswith("decomp."):
+                    tot = getattr(evt, "device_time_total", None)
+                    if tot is None:
+                        tot = getattr(evt, "cuda_time_total", 0.0)
+                    span = parts.setdefault(evt.key, {})
+                    if dev_us:
+                        span["gpu_span_ms"] = dev_us / 1e3
+                    elif tot:
+                        span["kernels_ms"] = float(tot) / 1e3
+            if kern_ms is None:
+                raise RuntimeError(f"{key}: torch.profiler gave no device "
+                                   "time for subsolve_kernel")
+            args, kw = seen
+            launch_ms = time_ms(lambda: sk.launch_inner_subsolve(*args, **kw),
+                                reps=20)
+            plain = dict(kw)
+            plain.pop("runs", None)
+            plain_ms = time_ms(lambda: sk.inner_subsolve_plain(*args, **plain),
+                               reps=3, warmup=1)
+            # Each step reads two K rows; the state goes in and out once
+            # (y, c, alpha, f, diag in; active bytes; alpha, f, stats out).
+            # Operations: 7 a slot for the partner's objective, 4 for the
+            # f update, each step.
+            bytes_ = 8 * q * steps + 4 * q * 5 + q + 4 * q * 2 + 12
+            flops = 11 * q * steps
+            bound = max(bytes_ / HBM_BYTES_PER_S,
+                        flops / FP32_FLOPS_PER_S) * 1e3
+            out[key] = {
+                "round_ms": round_ms, "steps": steps, "peak_bytes": int(peak),
+                "device_busy_ms": busy_ms, "parts": parts,
+                "inner_subsolve": {
+                    "ms": kern_ms, "launch_ms": launch_ms,
+                    "ms_per_step": kern_ms / max(steps, 1),
+                    "plain_ms": plain_ms, "library_ms": None,
+                    "bound_ms": bound, "bytes": bytes_, "flops": flops}}
+            log(f"[timing] decomposition {key}: {json.dumps(out[key])}")
+        self.rec["timing_decomp"] = out
 
     def kernels_line(self) -> dict:
         t, errs = self.rec["timing"], self.rec["max_abs_err"]
@@ -480,6 +830,22 @@ class Smoke:
                 "library_ms": f32["library_ms"],
                 "bf16": {k: bf16[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "library_ms")}})
+        td = self.rec["timing_decomp"]
+        f32, bf16 = td["f32"]["inner_subsolve"], td["bf16"]["inner_subsolve"]
+        counts = self.rec["decomp_counts"]
+        rows.append({
+            "name": "inner_subsolve", "route": "cuda",
+            "source": "dpsvm_tpu_torch/csrc/subsolve.cu",
+            "replaces": "dpsvm_tpu/experimental/subsolve_kernel.py:45 "
+                        "(_subsolve_kernel, pallas_call at :152)",
+            "launches": counts["launches"], "runs": counts["runs"],
+            "max_abs_err": errs["inner_subsolve"],
+            "max_err": errs["inner_subsolve"],
+            "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+            "bound_ms": f32["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "ms_per_step": f32["ms_per_step"],
+            "bf16": {k: bf16[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms")}})
         return {"kernels": rows}
 
 

@@ -1,8 +1,10 @@
 """Library entry points (port of ``dpsvm_tpu/api.py``): ``train`` and
-``fit`` for the exact solver on one device, through the fused iteration.
+``fit`` for the exact solver on one device, through the fused iteration
+(``working_set == 2``) or the large-working-set decomposition
+(``working_set > 2``).
 
 Both run on the card unless the caller passes ``device="cpu"``. Every
-solver path beside the fused first-order SMO raises: it is not ported yet.
+other solver path raises: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ def _check_xy(x, y):
 def train(x: np.ndarray, y: np.ndarray,
           config: Optional[SVMConfig] = None,
           device: Device = None) -> TrainResult:
-    """Train a binary RBF SVM with the modified-SMO solver.
+    """Train a binary RBF SVM with the modified-SMO solver (the SMO pair,
+    or the decomposition for ``working_set > 2``).
 
     x: (n, d) float features; y: (n,) labels in {+1, -1}. ``device``
     None means the GPU; ``"cpu"`` runs the plain PyTorch path."""
@@ -48,6 +51,17 @@ def train(x: np.ndarray, y: np.ndarray,
     if config.working_set == 0:
         # The JAX auto plan resolves to the classic pair at every shape.
         config = dataclasses.replace(config, working_set=2)
+    if config.working_set > 2:
+        why = config.decomp_incompatibility()
+        if why is not None:
+            raise NotImplementedError(
+                f"dpsvm_tpu_torch does not support {why} yet: the "
+                "decomposition (working_set > 2) is ported for binary RBF "
+                "C-SVC on one device")
+        dev = resolve_device(device)
+        x, y = _check_xy(x, y)
+        from dpsvm_tpu_torch.solver.decomp import train_single_device_decomp
+        return train_single_device_decomp(x, y, config, dev)
     why = config.fused_incompatibility()
     if why is not None:
         raise NotImplementedError(

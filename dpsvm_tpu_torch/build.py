@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Every source of the port, by library name.
-SOURCES = {"fused_step": "fused_step.cu"}
+SOURCES = {"fused_step": "fused_step.cu", "subsolve": "subsolve.cu"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

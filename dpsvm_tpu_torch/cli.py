@@ -3,15 +3,30 @@ subcommands of ``dpsvm_tpu/cli.py``, with the same flag names and closing
 report, plus ``--device {cuda,cpu}`` (default cuda).
 
     python -m dpsvm_tpu_torch.cli train -f train.csv -m model.svm -c 10 -g 0.25
+    python -m dpsvm_tpu_torch train -f train.csv -m model.svm -c 10 -g 0.25 \
+        --working-set 12288 --inner-iters 128      # the decomposition
     python -m dpsvm_tpu_torch.cli test  -f test.csv  -m model.svm
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 import time
 from typing import List, Optional
+
+
+def _finite_weight(v: str) -> float:
+    """Class weights must be finite and > 0, rejected at parse time."""
+    try:
+        w = float(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{v!r} is not a number")
+    if not (math.isfinite(w) and w > 0):
+        raise argparse.ArgumentTypeError(
+            f"class weights must be finite and > 0, got {v}")
+    return w
 
 
 def _add_common(p: argparse.ArgumentParser, model_help: str) -> None:
@@ -39,6 +54,30 @@ def build_parser() -> argparse.ArgumentParser:
                     help="'highest'/'high': X stored float32; 'default': "
                          "X stored bfloat16 (half the bytes per "
                          "iteration); accumulation is float32 always")
+    tr.add_argument("--weight-pos", type=_finite_weight, default=1.0,
+                    help="cost weight for y=+1 examples (box bound "
+                         "C*weight; LIBSVM -w1; decomposition only)")
+    tr.add_argument("--weight-neg", type=_finite_weight, default=1.0,
+                    help="cost weight for y=-1 examples (LIBSVM -w-1; "
+                         "decomposition only)")
+    tr.add_argument("--clip", default="independent",
+                    choices=["independent", "pairwise"],
+                    help="alpha-step clip rule: 'independent' = the "
+                         "reference's (both alphas clipped separately), "
+                         "'pairwise' = the textbook/LIBSVM joint box "
+                         "(decomposition only)")
+    tr.add_argument("--working-set", type=int, default=2, metavar="Q",
+                    help="violators optimized per kernel fetch: 2 = the "
+                         "reference's SMO pair; even Q > 2 = large-"
+                         "working-set decomposition (one (Q,d)@(d,n) "
+                         "pass per outer round + an inner subsolve)")
+    tr.add_argument("--inner-iters", type=int, default=0,
+                    help="decomposition inner-step cap per round "
+                         "(0 = auto: Q/4; only with --working-set > 2)")
+    tr.add_argument("--grow-working-set", action="store_true",
+                    help="adaptive decomposition: grow Q when the SV "
+                         "count approaches it; start with a modest "
+                         "--working-set")
     tr.add_argument("-q", "--quiet", action="store_true")
 
     te = sub.add_parser("test", help="evaluate a saved model on a dataset")
@@ -56,6 +95,12 @@ def cmd_train(args: argparse.Namespace) -> int:
     x, y = load_dataset(args.input)
     config = SVMConfig(c=args.cost, gamma=args.gamma, epsilon=args.epsilon,
                        max_iter=args.max_iter,
+                       working_set=args.working_set,
+                       inner_iters=args.inner_iters,
+                       grow_working_set=args.grow_working_set,
+                       weight_pos=args.weight_pos,
+                       weight_neg=args.weight_neg,
+                       clip=args.clip,
                        matmul_precision=args.precision,
                        verbose=not args.quiet)
     model, result = fit(x, y, config, device=args.device)

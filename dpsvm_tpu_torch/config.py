@@ -4,10 +4,16 @@ A copy of the fields of ``dpsvm_tpu.config.SVMConfig`` that training and
 testing read, with the same names, defaults and validation messages. The
 port keeps its own copy: it never imports the JAX package.
 
-What this slice trains is the envelope ``fused_incompatibility`` accepts:
-binary C-SVC, RBF kernel, first-order (Keerthi) selection, the reference's
-independent clip, one device, no class weights, no row cache. ``api.train``
-raises with that method's message for any other config.
+Two solver paths are ported, each with the envelope a method names:
+
+* ``working_set == 2``: the fused first-order SMO pair, within
+  ``fused_incompatibility`` (binary RBF C-SVC, the reference's independent
+  clip, one device, no class weights, no row cache);
+* ``working_set > 2``: the large-working-set decomposition, within
+  ``decomp_incompatibility`` (binary RBF C-SVC on one device; both clips
+  and class weights).
+
+``api.train`` raises with that method's message for any other config.
 """
 
 from __future__ import annotations
@@ -34,15 +40,33 @@ class SVMConfig:
     epsilon: float = 0.001              # convergence tolerance
     max_iter: int = 150_000             # iteration cap
     cache_size: int = 0                 # kernel-row cache lines (0 = off)
-    weight_pos: float = 1.0             # class-weighted costs (not ported:
-    weight_neg: float = 1.0             # both must stay 1.0)
+    weight_pos: float = 1.0             # class-weighted costs: the box
+    weight_neg: float = 1.0             # bound is C*weight_pos for y=+1,
+                                        # C*weight_neg for y=-1
+                                        # (decomposition only)
     selection: str = "first-order"      # working-set rule
-    working_set: int = 2                # 2 = the reference's SMO pair
-    clip: str = "independent"           # the reference's alpha clip
+    working_set: int = 2                # 2 = the reference's SMO pair;
+                                        # even q > 2 = large-working-set
+                                        # decomposition (solver/decomp.py);
+                                        # 0 = auto, which resolves to 2
+    inner_iters: int = 0                # decomposition inner-step cap per
+                                        # outer round (0 = auto: q/4, at
+                                        # least 32)
+    grow_working_set: bool = False      # adaptive decomposition: grow q
+                                        # when the SV count approaches it
+    clip: str = "independent"           # "independent" (the reference's)
+                                        # or "pairwise" (decomposition only)
 
     # --- execution ---
     shards: int = 1                     # devices along the data axis
     chunk_iters: int = 512              # host polls convergence every chunk
+    use_pallas: str = "auto"            # accepted and validated as in the
+                                        # JAX package, where it picks the
+                                        # Pallas kernels. It changes no path
+                                        # here: on the card the fused
+                                        # iteration and the decomposition's
+                                        # inner subsolve always run their
+                                        # CUDA kernels
     matmul_precision: str = "highest"   # "highest"/"high": X stored f32;
                                         # "default": X stored bf16 (half
                                         # the bytes of the per-iteration
@@ -70,6 +94,19 @@ class SVMConfig:
             return "working_set > 2 (decomposition)"
         if self.weight_pos != 1.0 or self.weight_neg != 1.0:
             return "class-weighted costs"
+        return None
+
+    def decomp_incompatibility(self) -> Optional[str]:
+        """Why the port's decomposition cannot run this config (None if it
+        can). What the JAX guard tables reject with ``working_set > 2`` or
+        ``grow_working_set`` (second-order selection, the row cache,
+        ``use_pallas="on"`` past q = 2048 or with growth) ``validate``
+        rejects with the same messages; this names what the port has not
+        ported beyond them."""
+        if self.shards > 1:
+            return "shards > 1"
+        if self.kernel != "rbf":
+            return f"kernel {self.kernel!r} (RBF only)"
         return None
 
     def resolve_gamma(self, num_attributes: int) -> float:
@@ -107,15 +144,83 @@ class SVMConfig:
             raise ValueError(f"kernel must be 'linear', 'poly', 'rbf', "
                              f"'sigmoid' or 'precomputed', got "
                              f"{self.kernel!r}")
+        if self.kernel == "precomputed" and self.use_pallas == "on":
+            raise ValueError(
+                "the Pallas kernels are built around the vector-"
+                "kernel row fetch; precomputed uses the plain XLA "
+                "gather path")
         if self.selection not in ("first-order", "second-order"):
             raise ValueError(f"selection must be 'first-order' or "
                              f"'second-order', got {self.selection!r}")
-        if self.working_set not in (0, 2) and (
-                self.working_set < 4 or self.working_set % 2
-                or self.working_set > 16384):
-            raise ValueError("working_set must be 0 (auto), 2 "
-                             "(classic SMO pair) or an even value "
-                             f"in [4, 16384], got {self.working_set}")
+        if self.selection == "second-order":
+            if self.cache_size > 0:
+                raise ValueError("second-order selection needs the hi row "
+                                 "before the lo index is known; the pair "
+                                 "row-cache does not apply (cache_size=0)")
+            if self.use_pallas == "on" and self.working_set == 2:
+                raise ValueError("the fused Pallas kernel implements "
+                                 "first-order selection only")
+        if self.working_set == 0:
+            # The sentinel may resolve to either 2 or q > 2; knobs whose
+            # meaning depends on which must be pinned by an explicit
+            # working_set.
+            if self.inner_iters:
+                raise ValueError(
+                    "inner_iters requires an explicit working_set > 2 "
+                    "(working_set=0 may resolve to the classic pair)")
+            if self.use_pallas == "on":
+                raise ValueError(
+                    "use_pallas='on' pins a specific kernel (fused "
+                    "iteration at working_set=2, inner subsolve at "
+                    "q > 2); use an explicit working_set with it")
+        if self.working_set not in (0, 2):
+            if (self.working_set < 4 or self.working_set % 2
+                    or self.working_set > 16384):
+                raise ValueError("working_set must be 0 (auto), 2 "
+                                 "(classic SMO pair) or an even value "
+                                 f"in [4, 16384], got {self.working_set}")
+            # The JAX guard table, row for row (its rows on fields the
+            # port does not have, select_impl and backend, cannot fire).
+            for field, bad, what in (
+                    ("selection", self.selection != "first-order",
+                     "the decomposition subsolve is WSS2 internally"),
+                    ("cache_size", self.cache_size > 0,
+                     "the block fetch replaces the pair row-cache"),
+                    ("use_pallas+shards",
+                     self.use_pallas == "on" and self.shards > 1,
+                     "the Pallas inner subsolve is single-device today"),
+                    ("use_pallas+working_set",
+                     self.use_pallas == "on" and self.working_set > 2048,
+                     "the inner-subsolve kernel keeps the (q, q) f32 "
+                     "block VMEM-resident; q caps at 2048 (16 MB)")):
+                if bad:
+                    raise ValueError(
+                        f"working_set > 2 does not support {field}: {what}")
+        if self.grow_working_set:
+            for field, bad, what in (
+                    ("working_set", self.working_set in (0, 2),
+                     "growth needs an explicit starting q > 2 "
+                     "(working_set=0 may resolve to the classic pair)"),
+                    ("use_pallas", self.use_pallas == "on",
+                     "the Pallas inner subsolve caps q at 2048, which "
+                     "growth would cross")):
+                if bad:
+                    raise ValueError(
+                        f"grow_working_set does not support {field}: "
+                        f"{what}")
+        if self.inner_iters < 0:
+            raise ValueError(
+                f"inner_iters must be >= 0, got {self.inner_iters}")
+        if self.inner_iters and self.working_set == 2:
+            raise ValueError("inner_iters applies only to working_set > 2")
+        if self.use_pallas not in ("auto", "on", "off"):
+            raise ValueError(f"use_pallas must be 'auto', 'on' or 'off', "
+                             f"got {self.use_pallas!r}")
+        if (self.use_pallas == "on" and self.working_set == 2
+                and self.fused_incompatibility()):
+            raise ValueError("the fused Pallas kernel does not support "
+                             f"{self.fused_incompatibility()}; use "
+                             "use_pallas='auto' or 'off'")
         if self.matmul_precision not in _PRECISIONS:
             raise ValueError(f"matmul_precision must be one of "
                              f"{_PRECISIONS}, got {self.matmul_precision!r}")
@@ -139,6 +244,9 @@ class TrainResult:
     kernel: str = "rbf"
     coef0: float = 0.0
     degree: int = 3
+    rounds: int = 0                     # decomposition outer rounds (the
+                                        # JAX package reports them in its
+                                        # run trace)
 
     @property
     def gap(self) -> float:

@@ -6,7 +6,10 @@ The two packages share no objects; what crosses is plain arrays:
   ``SVMModel``) into the port's ``SVMModel``;
 * ``carry_from_numpy`` rebuilds the fused carry from solver state
   (alpha, f), the way ``init_fused_carry`` does on resume: the working set
-  is a pure function of (alpha, f).
+  is a pure function of (alpha, f);
+* ``decomp_carry_from_numpy`` turns the fields of a JAX ``DecompCarry``
+  into the port's, so a decomposition run handed over mid-way goes on
+  along the same trajectory.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from dpsvm_tpu_torch.device import resolve_device
 from dpsvm_tpu_torch.experimental.fused import init_fused_carry
 from dpsvm_tpu_torch.experimental.fused_step import FusedCarry
 from dpsvm_tpu_torch.models.svm import SVMModel
+from dpsvm_tpu_torch.solver.decomp import DecompCarry
 
 
 def model_from_numpy(x_sv, alpha, y_sv, b, gamma) -> SVMModel:
@@ -40,3 +44,29 @@ def carry_from_numpy(alpha, f, y, c: float, n_iter: int = 0,
 
     return init_fused_carry(vec(alpha), vec(f), vec(y), float(c),
                             n_iter=n_iter)
+
+
+def decomp_carry_from_numpy(alpha, f, y, b_hi, b_lo, n_iter, rounds,
+                            device=None) -> DecompCarry:
+    """The port's decomposition carry from a JAX ``DecompCarry``'s fields
+    as numpy values, on ``device`` (None means the GPU). ``y`` gives the
+    problem's size, which alpha and f must have. The carry owns copies:
+    the solver updates alpha and f in place."""
+    dev = resolve_device(device)
+    n = np.asarray(y).reshape(-1).shape[0]
+
+    def vec(v):
+        v = np.asarray(v, np.float32).reshape(-1)
+        if v.shape != (n,):
+            raise ValueError(f"alpha and f must have {n} entries, got "
+                             f"{v.shape[0]}")
+        return torch.tensor(v, device=dev)
+
+    def scalar(v, dtype):
+        return torch.tensor(np.asarray(v, dtype).reshape(()), device=dev)
+
+    return DecompCarry(alpha=vec(alpha), f=vec(f),
+                       b_hi=scalar(b_hi, np.float32),
+                       b_lo=scalar(b_lo, np.float32),
+                       n_iter=scalar(n_iter, np.int32),
+                       rounds=scalar(rounds, np.int32))

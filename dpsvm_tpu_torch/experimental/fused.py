@@ -50,8 +50,8 @@ def init_fused_carry(alpha: torch.Tensor, f: torch.Tensor, y: torch.Tensor,
 def _stats(carry: FusedCarry) -> torch.Tensor:
     s = carry.state
     return pack_stats(s[S_NITER], s[S_BLO], s[S_BHI],
-                      device_sv_count(carry.alpha), s[S_RUN_PROLOGUE],
-                      s[S_RUN_PASS])
+                      device_sv_count(carry.alpha), torch.zeros_like(s[0]),
+                      s[S_RUN_PROLOGUE], s[S_RUN_PASS])
 
 
 def _prepare(x: np.ndarray, y: np.ndarray, config: SVMConfig,

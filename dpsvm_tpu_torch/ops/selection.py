@@ -5,6 +5,11 @@ Membership follows ``svmTrain.cu:54-91``; non-members get the +/-1e9
 sentinels, and the joint (argmin, argmax) keeps the first index on ties,
 as ``jnp.argmin`` / ``torch.argmin`` do. Rows with ``valid`` False belong
 to neither set.
+
+The decomposition's outer selection (``dpsvm_tpu/solver/decomp.py``) adds
+two fixed-shape helpers: ``top_k_first``, ``lax.top_k`` with its tie rule,
+and ``unique_padded``, ``jnp.unique(..., size=, fill_value=-1)``. Neither
+reads anything back to the host.
 """
 
 from __future__ import annotations
@@ -59,3 +64,27 @@ def masked_extrema(alpha: torch.Tensor, y: torch.Tensor, f: torch.Tensor,
     i_hi = torch.argmin(f_up)
     i_lo = torch.argmax(f_low)
     return i_hi, f_up[i_hi], i_lo, f_low[i_lo]
+
+
+def top_k_first(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest scores, largest first and the lower index
+    first among equal scores: the order of ``lax.top_k``. A stable sort
+    gives that order; ``torch.topk`` promises none among ties, and the
+    sentinel-scored rows are often exactly such ties."""
+    return torch.sort(scores, descending=True, stable=True).indices[:k]
+
+
+def unique_padded(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """``jnp.unique(idx, size=size, fill_value=-1)`` for non-negative
+    indices, at a fixed shape: the distinct values in increasing order,
+    then -1 up to ``size``. Duplicates are pushed past every real index
+    by a second sort, so the length never depends on the data."""
+    s = torch.sort(idx).values
+    dup = torch.zeros_like(s, dtype=torch.bool)
+    dup[1:] = s[1:] == s[:-1]
+    top = torch.iinfo(s.dtype).max
+    s = torch.sort(torch.where(dup, top, s)).values
+    s = torch.where(s == top, -1, s)
+    if s.shape[0] < size:
+        s = torch.cat([s, s.new_full((size - s.shape[0],), -1)])
+    return s[:size]

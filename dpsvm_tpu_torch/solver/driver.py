@@ -6,6 +6,14 @@ inside the chunk. The loop polls once per chunk: one packed-stats tensor,
 one device-to-host read, with the floats carried as bit patterns so every
 field is exact. Checkpoints, tracing, watch rules, health monitoring and
 fault injection of the JAX driver are not ported yet.
+
+``poll_hook`` follows the JAX contract: called at each poll of a run that
+is not done, ``poll_hook(n_iter, carry, stats) -> Optional[new_step]``, a
+non-None return replacing the chunk runner. The JAX loop dispatches the
+next chunk before it polls (pipelined dispatch), so its replacement first
+runs one chunk after the poll that chose it. This loop keeps that
+schedule, so that a run whose hook swaps runners (the decomposition's
+working-set growth) walks the JAX run's trajectory.
 """
 
 from __future__ import annotations
@@ -13,7 +21,7 @@ from __future__ import annotations
 import logging
 import math
 import time
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -27,6 +35,7 @@ class ChunkStats(NamedTuple):
     b_lo: float
     b_hi: float
     n_sv: int
+    rounds: int         # decomposition outer rounds (0 on other paths)
     runs: tuple         # per kernel, launches whose body ran, ever
 
 
@@ -39,12 +48,12 @@ def device_sv_count(alpha: torch.Tensor) -> torch.Tensor:
     return (alpha > 0).sum(dtype=torch.int32)
 
 
-def pack_stats(n_iter, b_lo, b_hi, n_sv, *runs) -> torch.Tensor:
+def pack_stats(n_iter, b_lo, b_hi, n_sv, rounds, *runs) -> torch.Tensor:
     """Poll scalars as one int32 tensor on the device, the layout every
-    poll reads: [n_iter, b_lo bits, b_hi bits, n_sv, runs...]. Every
-    argument is a 0-d int32 device tensor; the b's are bit patterns (the
-    carry state stores them so)."""
-    return torch.stack([n_iter, b_lo, b_hi, n_sv, *runs])
+    poll reads: [n_iter, b_lo bits, b_hi bits, n_sv, rounds, runs...].
+    Every argument is a 0-d int32 device tensor; the b's are bit patterns
+    (the carry states store them so)."""
+    return torch.stack([n_iter, b_lo, b_hi, n_sv, rounds, *runs])
 
 
 def read_stats(stats: torch.Tensor) -> ChunkStats:
@@ -52,7 +61,7 @@ def read_stats(stats: torch.Tensor) -> ChunkStats:
     s = stats.cpu().numpy()
     b = s[1:3].view(np.float32)
     return ChunkStats(int(s[0]), float(b[0]), float(b[1]), int(s[3]),
-                      tuple(int(v) for v in s[4:]))
+                      int(s[4]), tuple(int(v) for v in s[5:]))
 
 
 def _finite_converged(b_lo: float, b_hi: float, eps: float) -> bool:
@@ -78,20 +87,24 @@ def log_progress(config: SVMConfig, n_iter: int, b_lo: float, b_hi: float,
 
 
 def host_training_loop(config: SVMConfig, gamma: float, carry,
-                       step_chunk: Callable,
-                       carry_to_host: Callable) -> TrainResult:
+                       step_chunk: Callable, carry_to_host: Callable,
+                       poll_hook: Optional[Callable] = None) -> TrainResult:
     """Run chunks until convergence, ``max_iter`` or the wall budget.
 
     ``step_chunk(carry, limit) -> (carry, ChunkStats)`` advances the carry
     to at most ``limit`` iterations (plus the trailing do-while body on
     convergence) and performs the poll's single read.
-    ``carry_to_host(carry)`` returns alpha as a numpy array."""
+    ``carry_to_host(carry)`` returns alpha as a numpy array.
+    ``poll_hook``: see the module docstring."""
     eps = float(config.epsilon)
     t0 = time.perf_counter()
     n_iter = prev = 0
+    pending = None
     while True:
         limit = min(n_iter + config.chunk_iters, config.max_iter)
         carry, st = step_chunk(carry, limit)
+        if pending is not None:     # chosen one poll ago: runs from here
+            step_chunk, pending = pending, None
         n_iter, b_lo, b_hi = st.n_iter, st.b_lo, st.b_hi
         # Finite-aware: every NaN comparison is False, so a plain
         # `not (b_lo > ...)` would call a NaN gap converged.
@@ -108,6 +121,8 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
         prev = n_iter
         if done:
             break
+        if poll_hook is not None:
+            pending = poll_hook(n_iter, carry, st)
     alpha = np.array(carry_to_host(carry), np.float32, copy=True)
     return TrainResult(
         alpha=alpha,
@@ -119,4 +134,5 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
         train_seconds=time.perf_counter() - t0,
         gamma=gamma,
         n_sv=int(np.sum(alpha > 0)),
+        rounds=st.rounds,
     )

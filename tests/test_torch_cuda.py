@@ -5,14 +5,18 @@ one (no JAX needed, hence --noconftest):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Every kernel is driven through its one wrapper, ``launch_fused_chunk``,
-the code the training loop runs. Covers what chip_smoke.py's 60000 x 784
-checks do not: widths whose rows do not fill 16-byte loads (the kernel's
-scalar path), tiny n, and the chunked training loop against the
-host-driven plain loop (iteration for iteration in float32; in bfloat16
-on a 20-iteration prefix, then model quality once converged).
-Tolerance on f: 1e-5 * max(1, |f|), as chip_smoke.py states it (two
-float32 sums of d products in different orders).
+Every kernel is driven through its one wrapper, ``launch_fused_chunk``
+or ``launch_inner_subsolve``, the code the training loops run. Covers
+what chip_smoke.py's 60000 x 784 checks do not: widths whose rows do not
+fill 16-byte loads (the kernel's scalar path), tiny n, and the chunked
+training loop against the host-driven plain loop (iteration for iteration
+in float32; in bfloat16 on a 20-iteration prefix, then model quality once
+converged). Tolerance on f: 1e-5 * max(1, |f|), as chip_smoke.py states
+it (two float32 sums of d products in different orders).
+
+The inner subsolve (kernel B) is held bitwise to its plain version: both
+perform the same rounded float32 operations, the kernel without FMA
+contraction and with IEEE division.
 """
 
 import dataclasses
@@ -23,10 +27,14 @@ import torch
 
 from dpsvm_tpu_torch import SVMConfig, train
 from dpsvm_tpu_torch.data.synthetic import make_blobs, make_xor
+from dpsvm_tpu_torch.data.synthetic import make_planted
 from dpsvm_tpu_torch.experimental import fused_step as fs
+from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
 from dpsvm_tpu_torch.experimental.fused import train_single_device_plain
 from dpsvm_tpu_torch.models.svm import SVMModel, evaluate
-from dpsvm_tpu_torch.ops.kernels import row_norms_sq
+from dpsvm_tpu_torch.ops.kernels import row_norms_sq, rows_from_dots
+from dpsvm_tpu_torch.ops.selection import masked_scores_and_masks
+from dpsvm_tpu_torch.solver.decomp import train_single_device_decomp
 
 pytestmark = pytest.mark.cuda
 
@@ -172,3 +180,111 @@ def test_chunk_edges_match_plain(dev, eps, max_iter):
     ref = train_single_device_plain(x, y, cfg, dev)
     assert got.n_iter == ref.n_iter
     np.testing.assert_allclose(got.alpha, ref.alpha, rtol=1e-5, atol=1e-6)
+
+
+def _block(q, dev, seed=0, weighted=False, masked=0):
+    """A (q, q) RBF block of planted 64-wide rows, labels, boxes, and the
+    active flags with the last ``masked`` slots off."""
+    rng = np.random.default_rng(seed)
+    x, y = make_planted(max(2 * q, 64), 64, 0.05, seed=seed)
+    idx = rng.choice(len(y), q, replace=False)
+    rows = torch.from_numpy(x[idx]).to(dev)
+    x2 = row_norms_sq(rows)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = rows_from_dots(rows @ rows.T, x2, x2, 0.05).contiguous()
+    y_w = torch.from_numpy(y[idx].astype(np.float32)).to(dev)
+    c_w = (torch.where(y_w > 0, 20.0, 5.0) if weighted
+           else torch.full((q,), 10.0, device=dev))
+    active = torch.arange(q, device=dev) < q - masked
+    return k, y_w, c_w, active
+
+
+def _both(k, y_w, c_w, a0, f0, active, eps, step_cap, max_cap, pairwise):
+    runs = torch.zeros(2, dtype=torch.int32, device=k.device)
+    before = sk.LAUNCHES["inner_subsolve"]
+    got = sk.launch_inner_subsolve(k, y_w, c_w, a0, f0, active, eps,
+                                   step_cap, max_cap=max_cap,
+                                   pairwise=pairwise, runs=runs)
+    ref = sk.inner_subsolve_plain(k, y_w, c_w, a0, f0, active, eps,
+                                  step_cap, max_cap=max_cap,
+                                  pairwise=pairwise)
+    torch.cuda.synchronize()
+    assert runs.tolist() == [1, int(got[4])]
+    assert sk.LAUNCHES["inner_subsolve"] == before + 1
+    for u, v in zip(got, ref):
+        assert u.dtype == v.dtype and torch.equal(u, v)
+    return got
+
+
+@pytest.mark.parametrize("pairwise", [False, True])
+@pytest.mark.parametrize("q", [4, 32, 33, 1030])
+def test_subsolve_kernel_matches_plain_bitwise(dev, q, pairwise):
+    for cap, weighted, masked, step_cap in ((1, False, 0, 1),
+                                            (37, False, 0, 37),
+                                            (200, True, min(8, q - 1), 200),
+                                            (128, False, 0, 7)):
+        k, y_w, c_w, active = _block(q, dev, q + cap, weighted, masked)
+        t = _both(k, y_w, c_w, torch.zeros(q, device=dev), -y_w, active,
+                  1e-3, step_cap, cap, pairwise)[4]
+        assert int(t) <= step_cap
+    # An already-optimal block takes no step and returns its input: alpha
+    # at 0, at C and inside, and an f that closes the gap (0 on slots in
+    # both index sets, +1 on I_up only, -1 on I_low only).
+    k, y_w, c_w, active = _block(q, dev, 5)
+    rng = np.random.default_rng(q)
+    pick = torch.from_numpy(rng.integers(0, 3, q)).to(dev)
+    a = torch.where(pick == 0, 0.0, torch.where(pick == 1, c_w, 0.5 * c_w))
+    _, _, in_up, in_low = masked_scores_and_masks(a, y_w, -y_w, c_w,
+                                                  valid=active)
+    f = torch.where(in_up & in_low, 0.0, torch.where(in_up, 1.0, -1.0))
+    got = _both(k, y_w, c_w, a, f, active, 1e-3, 100, 100, pairwise)
+    assert int(got[4]) == 0
+    assert torch.equal(got[0], a) and torch.equal(got[1], f)
+
+
+def test_subsolve_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    k, y_w, c_w, active = _block(32, dev)
+    a0 = torch.zeros(32, device=dev)
+
+    def launch(k=k, y_w=y_w, c_w=c_w, a0=a0, active=active, runs=None):
+        sk.launch_inner_subsolve(k, y_w, c_w, a0, -y_w, active, 1e-3, 10,
+                                 max_cap=10, pairwise=False, runs=runs)
+
+    with pytest.raises(ValueError, match="c_w"):
+        launch(c_w=c_w.cpu())                           # wrong device
+    with pytest.raises(ValueError, match="a_w0"):
+        launch(a0=a0.double())                          # wrong type
+    with pytest.raises(ValueError, match="active"):
+        launch(active=active.float())
+    with pytest.raises(ValueError, match="k_ww"):
+        launch(k=k.T)                                   # not contiguous
+    with pytest.raises(ValueError, match="runs"):
+        launch(runs=torch.zeros(1, dtype=torch.int64, device=dev))
+    for q in (0, sk.MAX_Q + 2):                         # q out of range
+        z = torch.zeros(q, device=dev)
+        with pytest.raises(ValueError, match="q <="):
+            sk.launch_inner_subsolve(
+                torch.zeros((q, q), device=dev), z, z, z, z,
+                torch.zeros(q, dtype=torch.bool, device=dev), 1e-3, 1,
+                max_cap=1, pairwise=False)
+
+
+@pytest.mark.parametrize("extra", [
+    dict(working_set=32), dict(working_set=64, clip="pairwise",
+                               weight_pos=2.0, weight_neg=0.5, chunk_iters=100),
+    dict(working_set=16, grow_working_set=True)], ids=["q32", "q64-pw-w",
+                                                      "grow"])
+def test_chunked_decomposition_kernel_path_matches_plain(dev, extra):
+    x, y = make_planted(1200, 16, 0.5, seed=4)
+    cfg = SVMConfig(c=10.0, gamma=0.5, epsilon=1e-3, max_iter=200_000,
+                    **extra)
+    sk.reset_counts()
+    got = train(x, y, cfg)
+    assert (sk.LAUNCHES["inner_subsolve"] == sk.RUNS["inner_subsolve"]
+            == got.rounds)
+    assert sk.STEPS["inner_subsolve"] == got.n_iter
+    ref = train_single_device_decomp(x, y, cfg, dev, plain=True)
+    assert got.converged and ref.converged
+    assert (got.n_iter, got.rounds) == (ref.n_iter, ref.rounds)
+    np.testing.assert_allclose(got.alpha, ref.alpha, rtol=1e-4, atol=1e-5)
+    assert got.n_sv == ref.n_sv

@@ -119,7 +119,7 @@ def test_nan_in_x_raises_instead_of_spinning():
 @pytest.mark.parametrize("kw", [dict(kernel="linear"), dict(shards=2),
                                 dict(clip="pairwise"), dict(cache_size=4),
                                 dict(selection="second-order"),
-                                dict(working_set=8),
+                                dict(working_set=8, kernel="linear"),
                                 dict(weight_pos=2.0)])
 def test_paths_outside_the_slice_raise(kw):
     x, y = make_blobs(n=40, d=3, seed=0)
