@@ -9,17 +9,20 @@ large-working-set decomposition (kernel B, ``working_set=DECOMP_Q``,
 ``inner_iters=DECOMP_CAP``).
 
 1. build every CUDA source of the port with nvcc, one process per source,
-   in parallel (``dpsvm_tpu_torch/build``);
+   in parallel (``dpsvm_tpu_torch/build``), and print each kernel's
+   registers, spills and shared memory;
 2. hold each kernel against its plain PyTorch version on the card, through
-   the wrapper the training loop calls. Kernel A: one SMO body through
+   the wrapper the training loop calls. Kernel A (one launch an iteration:
+   the scalar prologue, the pass and the finalize): one SMO body through
    ``launch_fused_chunk`` at 60000 x 784 (and a ragged 60001), float32 and
    bfloat16 X, with alpha exactly at 0 and at C and deliberate ties within
-   and across blocks. Kernel B: ``launch_inner_subsolve`` on K_WW blocks of
-   planted 784-wide rows at q in SUBSOLVE_QS (1030 is ragged), caps 1, 37
-   and 128 with both clips, weighted boxes with masked slots, a mid-run
-   state, a dynamic step cap below the static one and an already-optimal
-   block: bitwise the same (a, f, b_hi, b_lo, t), and the kernel's own run
-   count one per launch;
+   and across blocks, against ``fused_prologue_plain`` and
+   ``fused_smo_body_plain``; its device-counted runs one. Kernel B:
+   ``launch_inner_subsolve`` on K_WW blocks of planted 784-wide rows at q
+   in SUBSOLVE_QS (1030 is ragged), caps 1, 37 and 128 with both clips,
+   weighted boxes with masked slots, a mid-run state, a dynamic step cap
+   below the static one and an already-optimal block: bitwise the same (a,
+   f, b_hi, b_lo, t), and the kernel's own run count one per launch;
 3. drive both paths at full width through the entry points a user calls:
    ``api.fit`` on planted 60000 x 784 data (C=10, gamma=0.25, eps=1e-3) to
    convergence in both precisions, then ``save_model``, ``load_model`` and
@@ -33,12 +36,13 @@ large-working-set decomposition (kernel B, ``working_set=DECOMP_Q``,
    the decomposition for DECOMP_PREFIX_ROUNDS rounds at full width and
    converged on planted 8000 x 784 at q=4096 (``Smoke.convergence`` says
    why the bars split so);
-5. time each kernel on its path (kernel A over a chunk of TIMED_ITERS
-   iterations; kernel B and the other parts of a decomposition round over
-   one round from a real carry, device times from torch.profiler), the
-   plain versions and a PyTorch yardstick where one exists, and print the
-   ``{"kernels": [...]}`` line, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+5. time each kernel on its path (kernel A: CUDA events over a chunk of
+   TIMED_ITERS launches, its rate and share of its bound; kernel B and the
+   other parts of a decomposition round over one round from a real carry,
+   device times from torch.profiler), the plain versions and a PyTorch
+   yardstick where one exists, and print the ``{"kernels": [...]}`` line,
+   the card's name and power limit, and last ``{"ok": true, "device":
+   {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port beside it, it exits 2 and prints no result.
@@ -80,6 +84,7 @@ SUBSOLVE_QS = (32, 1030, DECOMP_Q)
 # cap 128, float32, on the CPU) at planted 8000 x 784, C=10, gamma=0.25:
 # docs/PERF.md, benchmarks/results/iteration_economy_r4.jsonl.
 JAX_UPDATES_8000 = 13_035
+KERNEL_A = "fused_iter_kernel"     # kernel A's name in torch.profiler
 
 
 def log(msg: str) -> None:
@@ -186,6 +191,7 @@ class Smoke:
         torch = self.torch
         from dpsvm_tpu_torch.experimental import fused_step as fs
         errs = dict.fromkeys(fs.KERNELS, 0.0)
+        prologue_err = 0.0
         near_ties = []
         for x_dtype in (torch.float32, torch.bfloat16):
             for n in (N, N + 1):
@@ -210,21 +216,21 @@ class Smoke:
                     fs.fused_smo_body_plain(p, x, x2, y, C, GAMMA)
                     torch.cuda.synchronize()
                     ks, ps = k.state.tolist(), p.state.tolist()
-                    ran = [ks[fs.S_RUN_PROLOGUE], ks[fs.S_RUN_PASS],
-                           ks[fs.S_NITER]]
-                    if ran != [1, 1, 1] or ps[fs.S_NITER] != 1:
+                    ran = [ks[fs.S_RUN], ks[fs.S_NITER]]
+                    if ran != [1, 1] or ps[fs.S_NITER] != 1:
                         self.fail("kernel", f"{tag}: one body ran "
-                                  f"(prologue, pass, n_iter) = {ran}")
-                    # prologue: rows, scalars, the alpha pair
+                                  f"(runs, n_iter) = {ran}")
+                    # the prologue inside the kernel: rows, scalars, the
+                    # alpha pair
                     perr = max(float((k.alpha - p.alpha).abs().max()),
                                float((ws.scalars - sc_p).abs().max()))
                     ptol = F_RTOL * max(1.0, float(sc_p.abs().max()))
-                    errs["fused_prologue"] = max(errs["fused_prologue"], perr)
+                    prologue_err = max(prologue_err, perr)
                     rows_eq = torch.equal(ws.rows, rows_p)
                     if not rows_eq or not perr <= ptol:
                         self.fail("kernel", f"{tag}: prologue err {perr:.3g}"
                                   f" (tol {ptol:.3g}) rows equal {rows_eq}")
-                    # pass + finalize: f, [i_hi, i_lo], [b_hi, b_lo]
+                    # the pass and the finalize: f, [i_hi, i_lo], [b_hi, b_lo]
                     err = float((k.f - p.f).abs().max())
                     tol = F_RTOL * max(1.0, float(p.f.abs().max()))
                     errs["fused_update_select"] = max(
@@ -257,6 +263,7 @@ class Smoke:
                         f"sel_i {si_k} plain {si_p}; prologue err "
                         f"{perr:.3g}")
         self.rec["max_abs_err"] = errs
+        self.rec["prologue_err"] = prologue_err
         self.rec["near_ties"] = near_ties
         self.check_subsolve()
 
@@ -614,12 +621,15 @@ class Smoke:
 
     # ------------------------------------------------------------ phase 5
     def timing(self) -> None:
-        """Each kernel as the main path runs it: a training run's carry at
-        its start, advanced by chunks of TIMED_ITERS iterations through
-        ``launch_fused_chunk``. The iteration's time is CUDA events around
-        one chunk; each kernel's device time is torch.profiler's sum over
-        another chunk, divided by its iterations (the chunk's trailing
-        slot, three launches that exit at once, is in the sum)."""
+        """Kernel A as the main path runs it: a training run's carry at its
+        start, advanced by chunks of TIMED_ITERS iterations through
+        ``launch_fused_chunk``. An iteration is one launch, so the kernel's
+        time is CUDA events around one chunk over its iterations (the
+        chunk's trailing slot, a launch that exits at once, and the poll's
+        16-word read are in it). torch.profiler's sum over another chunk is
+        kept beside it: with programmatic dependent launch a launch starts
+        on the SMs the previous one has left and waits there, so that sum
+        counts the overlap twice."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         from dpsvm_tpu_torch.experimental import fused_step as fs
@@ -658,22 +668,17 @@ class Smoke:
                                      ProfilerActivity.CUDA]) as prof:
                 chunk(TIMED_ITERS)
                 torch.cuda.synchronize()
-            dev_ms = {}
-            for evt in prof.key_averages():
-                for kern in ("prologue_kernel", "pass_kernel",
-                             "finalize_kernel"):
-                    if kern in evt.key:
-                        dev_ms[kern] = dev_ms.get(kern, 0.0) + _device_us(
-                            evt) / 1e3 / TIMED_ITERS
-            if len(dev_ms) != 3 or not all(v > 0 for v in dev_ms.values()):
+            prof_ms = sum(_device_us(evt) for evt in prof.key_averages()
+                          if KERNEL_A in evt.key) / 1e3 / TIMED_ITERS
+            if not prof_ms > 0:
                 raise RuntimeError(f"{key}: torch.profiler gave no device "
-                                   f"time per kernel: {dev_ms}")
+                                   f"time for {KERNEL_A}")
             # The plain versions and the yardstick on the same inputs: the
             # carry and the last body's rows and scalars.
             rows, scal = ws.rows.clone(), ws.scalars.clone()
             alpha, f = carry.alpha.clone(), carry.f.clone()
-            f_scratch, a_scratch = f.clone(), alpha.clone()
-            state = carry.state.clone()
+            scratch = fs.FusedCarry(alpha.clone(), f.clone(),
+                                    carry.state.clone())
 
             def yardstick():
                 dots = torch.matmul(rows, x.T).float()
@@ -683,29 +688,22 @@ class Smoke:
                 f_up, f_low = masked_scores(alpha, y, fn, C)
                 return torch.argmin(f_up), torch.argmax(f_low)
 
-            plain = time_ms(lambda: fs.fused_update_select_plain(
-                rows, scal, x, x2, y, alpha, f_scratch), reps=20)
+            plain = time_ms(lambda: fs.fused_smo_body_plain(
+                scratch, x, x2, y, C, GAMMA), reps=20)
             lib = time_ms(yardstick, reps=20)
-            p_plain = time_ms(lambda: fs.fused_prologue_plain(
-                state, x, x2, y, a_scratch, C, GAMMA), reps=20)
             el = x.element_size()
             bytes_ = N * D * el + 2 * D * el + 5 * N * 4 + 8 * 4
             flops = 4 * N * D
             bound = max(bytes_ / HBM_BYTES_PER_S,
                         flops / FP32_FLOPS_PER_S) * 1e3
-            p_bytes = 4 * D * el + 16 * 4
-            p_bound = max(p_bytes / HBM_BYTES_PER_S,
-                          6 * D / FP32_FLOPS_PER_S) * 1e3
-            us_ms = dev_ms["pass_kernel"] + dev_ms["finalize_kernel"]
             out[key] = {
-                "iteration_ms": iter_ms, "device_ms": dev_ms,
+                "iteration_ms": iter_ms,
                 "fused_update_select": {
-                    "ms": us_ms, "plain_ms": plain, "library_ms": lib,
-                    "bound_ms": bound, "bytes": bytes_, "flops": flops,
-                    "pass_hbm_GBps": bytes_ / dev_ms["pass_kernel"] / 1e6},
-                "fused_prologue": {
-                    "ms": dev_ms["prologue_kernel"], "plain_ms": p_plain,
-                    "library_ms": None, "bound_ms": p_bound}}
+                    "ms": iter_ms, "profiler_ms": prof_ms,
+                    "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": bound, "bound_share": bound / iter_ms,
+                    "GBps": bytes_ / iter_ms / 1e6, "bytes": bytes_,
+                    "flops": flops}}
             log(f"[timing] {key}: {json.dumps(out[key])}")
         self.rec["timing"] = out
         self.timing_decomp()
@@ -809,27 +807,26 @@ class Smoke:
 
     def kernels_line(self) -> dict:
         t, errs = self.rec["timing"], self.rec["max_abs_err"]
-        src = "dpsvm_tpu_torch/csrc/fused_step.cu"
-        rows = []
-        for name, replaces in (
-                ("fused_update_select",
-                 "dpsvm_tpu/experimental/fused_step.py:55 (_fused_iter_kernel"
-                 ", pallas_call at :137)"),
-                ("fused_prologue",
-                 "dpsvm_tpu/experimental/fused_step.py:193 (scalar prologue "
-                 "of fused_smo_body, XLA ops)")):
-            f32, bf16 = t["f32"][name], t["bf16"][name]
-            rows.append({
-                "name": name, "route": "cuda", "source": src,
-                "replaces": replaces,
-                "launches": self.rec["main_launches"][name],
-                "runs": self.rec["main_runs"][name],
-                "max_abs_err": errs[name], "max_err": errs[name],
-                "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-                "bound_ms": f32["bound_ms"], "bound_by": "bytes",
-                "library_ms": f32["library_ms"],
-                "bf16": {k: bf16[k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "library_ms")}})
+        name = "fused_update_select"
+        f32, bf16 = t["f32"][name], t["bf16"][name]
+        rows = [{
+            "name": name, "route": "cuda",
+            "source": "dpsvm_tpu_torch/csrc/fused_step.cu",
+            "replaces": "dpsvm_tpu/experimental/fused_step.py:55 "
+                        "(_fused_iter_kernel, pallas_call at :137) and the "
+                        "scalar prologue of fused_smo_body at :193",
+            "includes": "the scalar prologue and the finalize: one launch "
+                        "an iteration",
+            "launches": self.rec["main_launches"][name],
+            "runs": self.rec["main_runs"][name],
+            "max_abs_err": errs[name], "max_err": errs[name],
+            "prologue_max_err": self.rec["prologue_err"],
+            "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+            "bound_ms": f32["bound_ms"], "bound_by": "bytes",
+            "library_ms": f32["library_ms"],
+            "profiler_ms": f32["profiler_ms"],
+            "bf16": {k: bf16[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms", "profiler_ms")}}]
         td = self.rec["timing_decomp"]
         f32, bf16 = td["f32"]["inner_subsolve"], td["bf16"]["inner_subsolve"]
         counts = self.rec["decomp_counts"]

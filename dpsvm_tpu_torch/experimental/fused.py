@@ -2,8 +2,8 @@
 ``dpsvm_tpu/experimental/fused.py``).
 
 Each iteration's O(n) work (kernel rows, f update, next working-set
-selection) is one pass over X: on the card, the CUDA kernels of
-``fused_step``, enqueued a chunk at a time with no host synchronisation
+selection) is one pass over X: on the card, one launch of the CUDA kernel
+of ``fused_step``, enqueued a chunk at a time with no host synchronisation
 inside the chunk; on the CPU, their plain PyTorch versions. The chunk
 semantics are those of the JAX ``_run_chunk``:
 
@@ -27,9 +27,8 @@ import torch
 
 from dpsvm_tpu_torch.config import SVMConfig, TrainResult
 from dpsvm_tpu_torch.experimental.fused_step import (
-    S_BHI, S_BLO, S_NITER, S_RUN_PASS, S_RUN_PROLOGUE, FusedCarry,
-    FusedWorkspace, book_runs, launch_fused_chunk, pack_state,
-    run_chunk_plain)
+    S_BHI, S_BLO, S_NITER, S_RUN, FusedCarry, FusedWorkspace, book_runs,
+    launch_fused_chunk, pack_state, run_chunk_plain)
 from dpsvm_tpu_torch.ops.kernels import row_norms_sq
 from dpsvm_tpu_torch.ops.selection import masked_extrema
 from dpsvm_tpu_torch.solver.driver import (device_sv_count,
@@ -51,7 +50,7 @@ def _stats(carry: FusedCarry) -> torch.Tensor:
     s = carry.state
     return pack_stats(s[S_NITER], s[S_BLO], s[S_BHI],
                       device_sv_count(carry.alpha), torch.zeros_like(s[0]),
-                      s[S_RUN_PROLOGUE], s[S_RUN_PASS])
+                      s[S_RUN])
 
 
 def _prepare(x: np.ndarray, y: np.ndarray, config: SVMConfig,
@@ -77,7 +76,7 @@ def train_single_device_fused(x: np.ndarray, y: np.ndarray,
                               config: SVMConfig,
                               device: torch.device) -> TrainResult:
     """Train on one device through ``launch_fused_chunk``: the CUDA
-    kernels on the card, their plain versions on the CPU."""
+    kernel on the card, its plain versions on the CPU."""
     config.validate()
     gamma = float(config.resolve_gamma(x.shape[1]))
     xd, x2, yd, carry = _prepare(x, y, config, device)

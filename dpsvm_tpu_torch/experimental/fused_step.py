@@ -1,38 +1,39 @@
 """Fused SMO iteration: one pass over X per iteration, on Hopper.
 
 Port of ``dpsvm_tpu/experimental/fused_step.py``. Its Pallas TPU kernel
-``_fused_iter_kernel`` (reached through ``fused_update_select``) becomes
-the hand-written CUDA kernels in ``dpsvm_tpu_torch/csrc/fused_step.cu``:
-
-    prologue  (1 block)  eta, the clipped alpha pair (lo slot written
-                         before hi), the pass's scalars
-    pass      (grid)     dots = rows . X^T, K = exp(-gamma (x2 + w2 - 2 dots))
-                         for hi and lo, f += d_hi K_hi + d_lo K_lo in place,
-                         Keerthi-masked scores of the post-update (alpha, f),
-                         one (argmin, argmax) partial per block
-    finalize  (1 block)  partials -> [i_hi, i_lo], [b_hi, b_lo] in the carry
+``_fused_iter_kernel`` (reached through ``fused_update_select``) and the
+scalar prologue of ``fused_smo_body`` become one hand-written CUDA kernel,
+``fused_iter_kernel`` in ``dpsvm_tpu_torch/csrc/fused_step.cu``, launched
+once per iteration. Every block computes the prologue (eta, the clipped
+alpha pair, the f deltas) itself, then streams its share of X:
+dots = rows . X^T, K = exp(-gamma (x2 + w2 - 2 dots)) for hi and lo,
+f += d_hi K_hi + d_lo K_lo in place, Keerthi-masked scores of the
+post-update (alpha, f), one (argmin, argmax) partial per block; the block
+that finishes last reduces the partials into [i_hi, i_lo], [b_hi, b_lo]
+and writes the alpha pair (lo slot before hi).
 
 What bounds it on the card: the pass reads X once per iteration (n*d*4
 bytes in f32, n*d*2 in bf16, 188 MB / 94 MB at 60000 x 784, both larger
 than the 50 MB L2) for 4*n*d flops, so it is bound by HBM bandwidth. The
-design streams X with coalesced 16-byte loads, one warp per row, keeps the
-two working rows in shared memory and accumulates with fp32 FMA; it uses
-no tensor cores. Ties go to the lower index in both reductions, so the
-working set is the one ``jnp.argmin`` / ``jnp.argmax`` pick whatever the
-order the blocks ran in. The source's header says more.
+design keeps many 16-byte loads in flight (units of four rows in a
+software pipeline, dealt to the warps and then taken from a device
+counter), runs the epilogue of four rows at once and accumulates with
+fp32 FMA; it uses no tensor cores. Ties go to the lower
+index in both reductions, so the working set is the one ``jnp.argmin`` /
+``jnp.argmax`` pick whatever the order the blocks ran in. The source's
+header says more; ``launch_geometry`` mirrors its launch shape.
 
-The kernels have one wrapper, ``launch_fused_chunk``, which enqueues a
-chunk of iterations (three launches each) for CUDA tensors and runs the
-plain version, ``run_chunk_plain``, for CPU tensors. ``LAUNCHES`` counts
-the launches the wrapper enqueued, per kernel. Launches past the end of a
-chunk's work exit at their first instruction; each kernel counts the
-launches whose body ran in a carry word of its own, and ``book_runs``
-adds them to ``RUNS`` at the poll.
+The kernel has one wrapper, ``launch_fused_chunk``, which enqueues a chunk
+of iterations (one launch each) for CUDA tensors and runs the plain
+version, ``run_chunk_plain``, for CPU tensors. ``LAUNCHES`` counts the
+launches the wrapper enqueued. Launches past the end of a chunk's work
+exit at their first instruction; the kernel counts the launches whose body
+ran in a carry word, and ``book_runs`` adds them to ``RUNS`` at the poll.
 
 The plain versions (``fused_update_select_plain``,
 ``fused_prologue_plain``, ``fused_smo_body_plain``) keep the JAX
 functions' argument order and run on any device: the CPU path, and the
-reference the kernels are held against on the card.
+reference the kernel is held against on the card.
 
 Layout differences from the JAX module: vectors are 1-D (n,) and nothing is
 padded (the kernel masks the ragged edge itself); the carry's scalars live
@@ -51,19 +52,26 @@ import torch
 from dpsvm_tpu_torch.ops.selection import masked_scores
 from dpsvm_tpu_torch.ops.update import alpha_pair_step
 
-# Carry words, as in csrc/fused_step.cu. Words 5-8 are the device's own
-# chunk-loop control (S_ACTIVE, S_TRAIL, S_DONE, S_ENTRY there).
+# Carry words, as in csrc/fused_step.cu. Words 5, 6, 8 and 9 are the
+# device's own: chunk-loop control, the blocks' ticket and the pool cursor
+# (S_DONE, S_ENTRY, S_TICKET, S_CURSOR there).
 S_IHI, S_ILO, S_BHI, S_BLO, S_NITER = 0, 1, 2, 3, 4
-S_RUN_PROLOGUE, S_RUN_PASS = 9, 10
+S_RUN = 7
 STATE_WORDS = 16
 
-PASS_WARPS = 8          # kPassThreads / 32 in the source
-BLOCKS_PER_SM = 8
+# Launch shape, as in the source: kWarps warps a block, at most one block
+# per SM, units of kGroup rows of which the first kStaticShare percent are
+# dealt to the warps in turn; Hopper's shared memory a block can use.
+WARPS = 8
+GROUP = 4
+UNROLL = 3
+STATIC_SHARE = 85
+SMEM_LIMIT = 232_448
 
 # Per kernel: launches enqueued by launch_fused_chunk (host), and launches
 # whose body ran (counted by the kernel on the device, booked at the poll).
-# "fused_update_select" is the pass with its finalize.
-KERNELS = ("fused_prologue", "fused_update_select")
+# "fused_update_select" is the whole iteration: prologue, pass, finalize.
+KERNELS = ("fused_update_select",)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 RUNS = dict.fromkeys(KERNELS, 0)
 
@@ -202,8 +210,9 @@ _ARGTYPES = {
     "dpsvm_fused_chunk": [ctypes.c_int] + [ctypes.c_void_p] * 9
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-       ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
+_GEOMETRY_MISMATCH = -1     # kGeometryMismatch in the source
 
 
 def _lib() -> ctypes.CDLL:
@@ -225,7 +234,7 @@ def _dtype_code(x: torch.Tensor) -> int:
 
 
 def _require(x: torch.Tensor, vectors, state: torch.Tensor) -> None:
-    """Checks the kernels rely on: device, type, shape, contiguity."""
+    """Checks the kernel relies on: device, type, shape, contiguity."""
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"X must be a contiguous (n, d) tensor, got "
                          f"{tuple(x.shape)}")
@@ -241,9 +250,45 @@ def _require(x: torch.Tensor, vectors, state: torch.Tensor) -> None:
         raise ValueError("state must be an int32 carry state on X's device")
 
 
-def pass_grid(n: int, device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-n // PASS_WARPS), sms * BLOCKS_PER_SM))
+class Geometry(NamedTuple):
+    """One iteration's launch: ``grid`` blocks of ``threads``; X read in
+    chunks of ``chunk`` elements (16 bytes, or one element off the vector
+    path), ``tail`` chunks of each row past its last whole 32-chunk round;
+    ``units`` units of ``group`` rows, the first ``dealt`` dealt to the
+    warps in turn and the rest taken from a shared counter; ``smem`` bytes
+    of dynamic shared memory; one (argmin, argmax) partial per block."""
+    grid: int
+    threads: int
+    group: int
+    chunk: int
+    tail: int
+    units: int
+    dealt: int
+    smem: int
+    partials: int
+
+
+def launch_geometry(n: int, d: int, elem: int, sms: int,
+                    vec: bool = True) -> Geometry:
+    """The kernel's launch shape for an (n, d) X of ``elem``-byte elements
+    on a card with ``sms`` SMs: one block per SM (fewer for a small n).
+    Raises where the shared memory would not fit."""
+    chunk = 16 // elem if vec else 1
+    if d % chunk:
+        raise ValueError(f"d = {d} does not fill {chunk}-element chunks")
+    grid = max(1, min(sms, -(-n // 32)))
+    units = -(-n // GROUP)
+    gwarps = grid * WARPS
+    dealt = units * STATIC_SHARE // 100 // gwarps * gwarps
+    # the two working rows as f32, then on the vector path each warp's
+    # first UNROLL rounds of GROUP rows of 16-byte chunks, copied ahead
+    smem = 4 * 2 * (-(-d // 4) * 4) + (WARPS * UNROLL * GROUP * 32 * 16
+                                       if vec else 0)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"d = {d} needs {smem} bytes of shared memory, "
+                         f"more than a block has ({SMEM_LIMIT})")
+    return Geometry(grid, 32 * WARPS, GROUP, chunk, (d // chunk) % 32,
+                    units, dealt, smem, grid)
 
 
 def vec_ok(x: torch.Tensor) -> int:
@@ -260,12 +305,17 @@ class FusedWorkspace:
     def __init__(self, x: torch.Tensor, n_iter: int = 0):
         n, d = x.shape
         dev = x.device
-        self.grid = pass_grid(n, dev) if dev.type == "cuda" else 0
         self.vec_ok = vec_ok(x)
+        self.geometry = None
+        if dev.type == "cuda":
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            self.geometry = launch_geometry(n, d, x.element_size(), sms,
+                                            bool(self.vec_ok))
         self.rows = torch.empty((2, d), dtype=x.dtype, device=dev)
         self.scalars = torch.empty(8, dtype=torch.float32, device=dev)
-        self.partials = torch.empty((max(self.grid, 1), 4),
-                                    dtype=torch.int32, device=dev)
+        self.partials = torch.empty(
+            (self.geometry.partials if self.geometry else 1, 4),
+            dtype=torch.int32, device=dev)
         self.n_iter = n_iter  # polled
         self.runs = dict.fromkeys(KERNELS, 0)   # polled device counts
 
@@ -279,7 +329,7 @@ def launch_fused_chunk(carry: FusedCarry, x, x2, y, ws: FusedWorkspace, *,
     b's. alpha, f and state are updated in place.
 
     For CUDA tensors this enqueues ``limit - n_iter + 1`` iterations (the
-    last is the trailing-body slot), three launches each, with no host
+    last is the trailing-body slot), one launch each, with no host
     synchronisation; the device turns the launches it does not need into
     no-ops. For CPU tensors it runs ``run_chunk_plain``. ``ws.n_iter`` must
     be the carry's n_iter at the last poll. Returns the iterations
@@ -291,14 +341,19 @@ def launch_fused_chunk(carry: FusedCarry, x, x2, y, ws: FusedWorkspace, *,
     _require(x, {"x2": x2, "y": y, "alpha": carry.alpha, "f": carry.f},
              carry.state)
     n, d = x.shape
+    g = ws.geometry
     iters = limit - ws.n_iter + 1          # + the trailing-body slot
     rc = _lib().dpsvm_fused_chunk(
         _dtype_code(x), carry.state.data_ptr(), x.data_ptr(), x2.data_ptr(),
         y.data_ptr(), carry.alpha.data_ptr(), carry.f.data_ptr(),
         ws.rows.data_ptr(), ws.scalars.data_ptr(), ws.partials.data_ptr(),
         n, d, float(c), float(gamma), float(two_eps), int(limit),
-        int(max_iter), iters, ws.grid, ws.vec_ok,
+        int(max_iter), iters, g.grid, ws.vec_ok, g.smem,
         torch.cuda.current_stream(x.device).cuda_stream)
+    if rc == _GEOMETRY_MISMATCH:
+        raise RuntimeError(f"fused chunk launch: launch_geometry gives "
+                           f"{g.smem} bytes of shared memory, not the "
+                           f"source's layout")
     if rc != 0:
         raise RuntimeError(f"fused chunk launch: CUDA error {rc} "
                            f"({torch.cuda.get_device_name(x.device)})")
@@ -307,11 +362,10 @@ def launch_fused_chunk(carry: FusedCarry, x, x2, y, ws: FusedWorkspace, *,
     return iters
 
 
-def book_runs(ws: FusedWorkspace, n_iter: int, run_prologue: int,
-              run_pass: int) -> None:
-    """Book the device's run counts (``state[S_RUN_*]``, read by the poll)
+def book_runs(ws: FusedWorkspace, n_iter: int, *runs: int) -> None:
+    """Book the device's run counts (``state[S_RUN]``, read by the poll)
     into ``RUNS``, and record the polled n_iter in ``ws``."""
-    for k, total in zip(KERNELS, (run_prologue, run_pass)):
+    for k, total in zip(KERNELS, runs):
         RUNS[k] += total - ws.runs[k]
         ws.runs[k] = total
     ws.n_iter = n_iter

@@ -4,7 +4,11 @@ Trains planted 60000 x 784 data (C=10, gamma=0.25, eps=1e-3) through
 ``dpsvm_tpu_torch.api.train`` for ``--iters`` iterations per precision
 under ``torch.profiler``, and prints one JSON line per precision: device
 time per kernel and copy (sum, count, mean), the device's busy share of
-the profiled wall window (their sum over it), and iterations per second. Run on the card:
+the profiled wall window, and iterations per second. The busy share is the
+union of the kernels' and copies' intervals over the window: with
+programmatic dependent launch a launch starts on the SMs the previous one
+has left and waits there, so the intervals overlap and their sum would
+count the overlap twice. Run on the card:
 
     PYTHONPATH=. python scripts/profile_fused_train.py [--iters 20000]
 """
@@ -33,6 +37,18 @@ def _kernel_us(evt) -> float:
         if v:
             return float(v)
     return 0.0
+
+
+def _busy_ms(prof) -> float:
+    """Length of the union of the device intervals in the trace."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if _kernel_us(e) > 0)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
 
 
 def main() -> None:
@@ -64,7 +80,7 @@ def main() -> None:
                 kernels[evt.key[:60]] = {"sum_ms": us / 1e3,
                                          "count": evt.count,
                                          "mean_us": us / max(evt.count, 1)}
-        busy = sum(k["sum_ms"] for k in kernels.values()) / 1e3
+        busy = _busy_ms(prof) / 1e3
         print(json.dumps({
             "precision": prec, "card": smi, "n_iter": res.n_iter,
             "wall_s": wall, "train_seconds": res.train_seconds,

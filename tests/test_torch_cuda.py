@@ -8,11 +8,15 @@ one (no JAX needed, hence --noconftest):
 Every kernel is driven through its one wrapper, ``launch_fused_chunk``
 or ``launch_inner_subsolve``, the code the training loops run. Covers
 what chip_smoke.py's 60000 x 784 checks do not: widths whose rows do not
-fill 16-byte loads (the kernel's scalar path), tiny n, and the chunked
-training loop against the host-driven plain loop (iteration for iteration
-in float32; in bfloat16 on a 20-iteration prefix, then model quality once
-converged). Tolerance on f: 1e-5 * max(1, |f|), as chip_smoke.py states
-it (two float32 sums of d products in different orders).
+fill 16-byte loads and misaligned X (kernel A's scalar path), n below one
+unit of rows, at a unit or at 32 rows +- 1 and across every block,
+ties across units and blocks, i_hi == i_lo, a NaN in f, a long chunk of
+consecutive launches, the trailing body and its progress gate, and the
+chunked training loop against the host-driven plain loop (iteration for
+iteration in float32; in bfloat16 on a 20-iteration prefix, then model
+quality once converged). Tolerance on f: 1e-5 * max(1, |f|), as
+chip_smoke.py states it (two float32 sums of d products in different
+orders).
 
 The inner subsolve (kernel B) is held bitwise to its plain version: both
 perform the same rounded float32 operations, the kernel without FMA
@@ -89,7 +93,7 @@ def test_update_select_kernel_matches_plain(dev, dtype, n, d):
     k, p, _, _, _ = _one_body(inp, 0, n - 1)
     assert all(fs.LAUNCHES[name] == before[name] + 2 for name in fs.KERNELS)
     ks, ps = k.state.tolist(), p.state.tolist()
-    assert ks[fs.S_RUN_PROLOGUE] == ks[fs.S_RUN_PASS] == 1
+    assert ks[fs.S_RUN] == 1
     assert ks[fs.S_NITER] == ps[fs.S_NITER] == 1
     tol = 1e-5 * max(1.0, float(p.f.abs().max()))
     assert float((k.f - p.f).abs().max()) <= tol
@@ -106,6 +110,160 @@ def test_prologue_kernel_matches_plain(dev, dtype):
     assert torch.equal(ws.rows, rows_p)
     assert float((k.alpha - p.alpha).abs().max()) <= 1e-6
     assert float((ws.scalars - sc_p).abs().max()) <= 1e-6
+
+
+def _check_body(k, p, tol=None):
+    """Kernel carry against plain carry after one body: f within 1e-5 *
+    max(1, |f|), the same selection, b's within the same tolerance, alpha
+    equal to 1e-6."""
+    ks, ps = k.state.tolist(), p.state.tolist()
+    tol = tol or 1e-5 * max(1.0, float(p.f.abs().max()))
+    assert float((k.f - p.f).abs().max()) <= tol
+    assert ks[fs.S_IHI:fs.S_ILO + 1] == ps[fs.S_IHI:fs.S_ILO + 1]
+    b_k = k.state[fs.S_BHI:fs.S_BLO + 1].view(torch.float32)
+    b_p = p.state[fs.S_BHI:fs.S_BLO + 1].view(torch.float32)
+    assert float((b_k - b_p).abs().max()) <= tol
+    assert float((k.alpha - p.alpha).abs().max()) <= 1e-6
+    return ks
+
+
+def _planted_inputs(n, d, dtype, dev, seed):
+    """_inputs' alpha and f on planted rows (``make_planted`` at GAMMA, as
+    chip_smoke.py's kernel checks use): |x|^2 stays ~1/GAMMA, so a row's
+    distance to itself is not a cancellation of two ~d-sized sums."""
+    inp = _inputs(n, d, dtype, dev, seed)
+    x, _ = make_planted(n, d, GAMMA, seed=seed)
+    xd = torch.from_numpy(x).to(dev).to(dtype).contiguous()
+    return dict(inp, x=xd, x2=row_norms_sq(xd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [
+    (3, 784), (4, 784), (5, 784),          # n below one unit, a unit +- 1
+    (31, 784), (32, 784), (33, 784),       # a warp's 32 rows +- 1
+    (20001, 784),                          # many units, every block
+    (517, 131),                            # odd d: the scalar path
+])
+def test_kernel_matches_plain_at_unit_edges(dev, dtype, n, d):
+    inp = _planted_inputs(n, d, dtype, dev, seed=n + d)
+    k, p, _, _, _ = _one_body(inp, 0, n - 1)
+    assert k.state.tolist()[fs.S_RUN] == 1
+    _check_body(k, p)
+
+
+def test_kernel_takes_misaligned_x_on_the_scalar_path(dev):
+    n, d = 300, 16
+    inp = _inputs(n, d, torch.float32, dev, seed=9)
+    buf = torch.empty(n * d + 1, device=dev)
+    x = buf[1:].view(n, d)                       # contiguous, 4 bytes off
+    x.copy_(inp["x"])
+    inp["x"] = x
+    assert fs.vec_ok(x) == 0 and fs.vec_ok(inp["x"].clone()) == 1
+    k, p, _, _, _ = _one_body(inp, 3, 200)
+    _check_body(k, p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ties_go_to_the_first_index_across_units_and_blocks(dev, dtype):
+    """Equal f at rows in one 4-row unit, in different units, and in the
+    first and the last block; a pair whose clipped step is zero on both
+    sides keeps f as made, so the ties decide the selection."""
+    n, d = 20001, 64
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(n, d)).astype(np.float32) / 8.0
+    y = rng.choice([-1.0, 1.0], size=n).astype(np.float32)
+    alpha = rng.choice([0.0, C, 0.5], size=n).astype(np.float32)
+    f = (-y + rng.normal(0, .3, n)).astype(np.float32)
+    up = [9, 10, 4000, 4003, n - 1]
+    low = [12, 15, 9999, n - 2]
+    for idx, lab, val in ((up, 1.0, -6.0), (low, -1.0, 6.0)):
+        x[idx] = x[idx[0]]
+        y[idx] = lab
+        alpha[idx] = 0.0
+        f[idx] = val
+    xd = torch.from_numpy(x).to(dev).to(dtype).contiguous()
+    t = lambda a: torch.from_numpy(a).to(dev)
+    inp = dict(x=xd, x2=row_norms_sq(xd), y=t(y), alpha=t(alpha), f=t(f))
+    k, p, _, _, _ = _one_body(inp, low[1], up[1])   # zero step: y -1 / +1
+    ks = _check_body(k, p)
+    assert ks[fs.S_IHI:fs.S_ILO + 1] == [up[0], low[0]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hi_equal_lo_keeps_the_hi_value(dev, dtype):
+    inp = _inputs(300, 20, dtype, dev, seed=5)
+    k, p, ws, rows_p, sc_p = _one_body(inp, 10, 10)
+    assert torch.equal(ws.rows, rows_p)
+    assert torch.equal(k.alpha, p.alpha)         # the hi slot's value
+    _check_body(k, p)
+
+
+def test_nan_in_f_surfaces_as_a_non_finite_b(dev):
+    """A NaN score wins its extremum, the first NaN index winning."""
+    inp = _inputs(5000, 32, torch.float32, dev, seed=6)
+    y, a = inp["y"], inp["alpha"]
+    in_up = ((a == 0) & (y > 0)) | ((a == C) & (y < 0)) | ((a > 0) & (a < C))
+    rows = torch.nonzero(in_up).flatten().tolist()
+    j1, j2 = rows[len(rows) // 3], rows[-1]
+    inp["f"][[j1, j2]] = float("nan")
+    k, p, _, _, _ = _one_body(inp, 0, 4999)
+    ks = k.state.tolist()
+    b = k.state[fs.S_BHI:fs.S_BLO + 1].view(torch.float32)
+    assert ks[fs.S_IHI] == j1 and torch.isnan(b[0])
+    assert ks[fs.S_IHI:fs.S_ILO + 1] == p.state.tolist()[fs.S_IHI:fs.S_ILO + 1]
+
+
+def test_consecutive_launches_match_plain_chunk(dev):
+    """A 2000-iteration chunk (one launch an iteration, the block ticket
+    and the unit counter reset by each launch's last block) against
+    run_chunk_plain, float32, ragged n and d."""
+    x, y = make_planted(5001, 132, 0.05, seed=8)
+    xd = torch.from_numpy(x).to(dev)
+    yd = torch.from_numpy(y.astype(np.float32)).to(dev)
+    x2 = row_norms_sq(xd)
+    from dpsvm_tpu_torch.experimental.fused import init_fused_carry
+    kw = dict(c=10.0, gamma=0.05, two_eps=2e-9, limit=2000, max_iter=10**6)
+    k = init_fused_carry(torch.zeros_like(yd), -yd, yd, 10.0)
+    p = init_fused_carry(torch.zeros_like(yd), -yd, yd, 10.0)
+    ws = fs.FusedWorkspace(xd)
+    fs.reset_counts()
+    assert fs.launch_fused_chunk(k, xd, x2, yd, ws, **kw) == 2001
+    fs.run_chunk_plain(p, xd, x2, yd, **kw)
+    torch.cuda.synchronize()
+    ks, ps = k.state.tolist(), p.state.tolist()
+    assert ks[fs.S_NITER] == ps[fs.S_NITER] == 2000 == ks[fs.S_RUN]
+    assert ks[fs.S_IHI:fs.S_ILO + 1] == ps[fs.S_IHI:fs.S_ILO + 1]
+    assert ks[8] == ks[9] == 0                   # ticket, unit counter
+    np.testing.assert_allclose(k.alpha.cpu().numpy(), p.alpha.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(k.f.cpu().numpy(), p.f.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_iter,limit,max_iter,ran", [
+    (0, 10, 100, 1),      # converged at start of the run: the trailing body
+    (5, 10, 100, 0),      # converged, no progress in this chunk: nothing
+    (0, 10, 0, 0),        # max_iter reached
+])
+def test_trailing_body_and_progress_gate(dev, n_iter, limit, max_iter, ran):
+    inp = _inputs(700, 24, torch.float32, dev, seed=7)
+    x, x2, y = inp["x"], inp["x2"], inp["y"]
+    state = fs.pack_state(3, 500, 1.0, -1.0, n_iter, dev)   # gap closed
+    k = fs.FusedCarry(inp["alpha"].clone(), inp["f"].clone(), state.clone())
+    p = fs.FusedCarry(inp["alpha"].clone(), inp["f"].clone(), state.clone())
+    ws = fs.FusedWorkspace(x, n_iter=n_iter)
+    kw = dict(c=C, gamma=GAMMA, two_eps=2e-3, limit=limit, max_iter=max_iter)
+    fs.launch_fused_chunk(k, x, x2, y, ws, **kw)
+    fs.run_chunk_plain(p, x, x2, y, **kw)
+    torch.cuda.synchronize()
+    ks, ps = k.state.tolist(), p.state.tolist()
+    assert ks[fs.S_RUN] == ran
+    assert ks[fs.S_NITER] == ps[fs.S_NITER] == n_iter + ran
+    assert ks[fs.S_BHI:fs.S_BLO + 1] == ps[fs.S_BHI:fs.S_BLO + 1]  # kept
+    assert ks[fs.S_IHI:fs.S_ILO + 1] == ps[fs.S_IHI:fs.S_ILO + 1]
+    assert float((k.f - p.f).abs().max()) <= 1e-5 * max(
+        1.0, float(p.f.abs().max()))
+    assert float((k.alpha - p.alpha).abs().max()) <= 1e-6
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):

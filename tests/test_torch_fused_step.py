@@ -1,6 +1,8 @@
 """The port's plain fused_update_select and fused_smo_body against the JAX
 package's, with the Pallas kernel in interpret mode (as tests/test_fused.py
-drives it on the CPU), and the chunk wrapper's CPU path.
+drives it on the CPU), the chunk wrapper's CPU path, and the CUDA kernel's
+launch geometry (``launch_geometry``, a pure function the kernel's
+indexing mirrors).
 
 JAX pads to a multiple of its 512-row block with y = 0 rows; the port
 does not pad. Both get the same numpy inputs (bf16 cases: the same
@@ -168,3 +170,86 @@ def test_prologue_corner_hi_equals_lo_keeps_hi():
     out = jfs.fused_smo_body(jc, _jax_x(x, 512, False), _pad(x2, 512),
                              _pad(y, 512), C, GAMMA, interpret=True)
     np.testing.assert_array_equal(np.asarray(out.alpha)[0, 10], got)
+
+
+# Shapes of the card tests and chip_smoke.py: (n, d).
+CARD_SHAPES = [(2, 8), (3, 4), (33, 7), (1000, 130), (4099, 12), (2048, 784),
+               (3, 784), (4, 784), (5, 784), (31, 784), (32, 784), (33, 784),
+               (20001, 784), (517, 131), (300, 16), (20001, 64), (300, 20),
+               (5001, 132), (700, 24), (60000, 784), (60001, 784)]
+H100_SMS = 132
+
+# The kernel's indexing (csrc/fused_step.cu, fused_iter_kernel and Pass),
+# written out in Python.
+
+
+def _dealt_units(g, block, warp):
+    """The units dealt to warp ``warp`` of block ``block``, in order. The
+    units from ``g.dealt`` on are taken at run time, one each time."""
+    return list(range(block * tfs.WARPS + warp, g.dealt, g.grid * tfs.WARPS))
+
+
+def _unit_rows(g, n, unit):
+    return list(range(unit * g.group, min(n, (unit + 1) * g.group)))
+
+
+def _unit_chunks(g, d, lane):
+    """The (row of the unit, chunk) pairs lane ``lane`` reads in a unit:
+    whole 32-chunk rounds of each row, then the tail chunks of the unit's
+    rows spread over the lanes."""
+    full = (d // g.chunk) // 32
+    out = [(r, k * 32 + lane) for r in range(g.group) for k in range(full)]
+    for idx in range(lane, g.group * g.tail, 32):
+        out.append((idx // g.tail, full * 32 + idx % g.tail))
+    return out
+
+
+def _geometry_covers(n, d, elem, vec):
+    g = tfs.launch_geometry(n, d, elem, H100_SMS, vec)
+    assert 1 <= g.grid <= H100_SMS and g.partials == g.grid
+    assert g.threads == 32 * tfs.WARPS and g.smem <= tfs.SMEM_LIMIT
+    # every unit exactly once: dealt to one warp, or taken from the pool
+    dealt = [u for b in range(g.grid) for w in range(tfs.WARPS)
+             for u in _dealt_units(g, b, w)]
+    assert len(dealt) == g.dealt == len(set(dealt))
+    assert sorted(dealt + list(range(g.dealt, g.units))) == list(
+        range(g.units))
+    assert g.dealt % (g.grid * tfs.WARPS) == 0   # an equal share a warp
+    rows = [r for u in range(g.units) for r in _unit_rows(g, n, u)]
+    assert rows == list(range(n))                # every row exactly once
+    # every chunk of every row of a unit exactly once, over the 32 lanes
+    seen = [c for lane in range(32) for c in _unit_chunks(g, d, lane)]
+    assert sorted(seen) == [(r, c) for r in range(g.group)
+                            for c in range(d // g.chunk)]
+    return g
+
+
+@pytest.mark.parametrize("n,d", CARD_SHAPES)
+@pytest.mark.parametrize("elem", [4, 2])
+def test_launch_geometry_covers_every_row_once(n, d, elem):
+    vec = d % (16 // elem) == 0
+    g = _geometry_covers(n, d, elem, vec)
+    if (n, d) == (60000, 784):
+        assert g.grid == H100_SMS and g.units == 15000
+        assert g.chunk == 16 // elem and g.tail == (2 if elem == 2 else 4)
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+def test_launch_geometry_fits_every_width(elem):
+    """d from 1 to 4096: the vector path where d fills 16-byte chunks, the
+    scalar path always; shared memory within the 227 KB a block has; the
+    whole rounds and the tail add up to the row."""
+    for d in range(1, 4097):
+        for vec in ((True, False) if d % (16 // elem) == 0 else (False,)):
+            g = tfs.launch_geometry(1000, d, elem, H100_SMS, vec)
+            assert g.smem <= tfs.SMEM_LIMIT
+            assert (d // g.chunk) // 32 * 32 + g.tail == d // g.chunk
+    for d in (1, 31, 33, 97, 1000, 4095, 4096):   # chunk coverage, sampled
+        _geometry_covers(1000, d, elem, False)
+
+
+def test_launch_geometry_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="does not fill"):
+        tfs.launch_geometry(100, 7, 4, H100_SMS, vec=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfs.launch_geometry(100, 40000, 4, H100_SMS, vec=False)
