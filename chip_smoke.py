@@ -10,7 +10,9 @@ large-working-set decomposition (kernel B, ``working_set=DECOMP_Q``,
 
 1. build every CUDA source of the port with nvcc, one process per source,
    in parallel (``dpsvm_tpu_torch/build``), and print each kernel's
-   registers, spills and shared memory;
+   registers, spills and shared memory, and kernel B's launch shape
+   (cluster, threads, slots a block, shared memory) at the q it is timed
+   at;
 2. hold each kernel against its plain PyTorch version on the card, through
    the wrapper the training loop calls. Kernel A (one launch an iteration:
    the scalar prologue, the pass and the finalize): one SMO body through
@@ -22,7 +24,11 @@ large-working-set decomposition (kernel B, ``working_set=DECOMP_Q``,
    in SUBSOLVE_QS (1030 is ragged), caps 1, 37 and 128 with both clips,
    weighted boxes with masked slots, a mid-run state, a dynamic step cap
    below the static one and an already-optimal block: bitwise the same (a,
-   f, b_hi, b_lo, t), and the kernel's own run count one per launch;
+   f, b_hi, b_lo, t), and the kernel's own run count one per launch. Then
+   kernel B's cluster edges at full width: q = MAX_Q, a short last block
+   (q = 12290), q below the cluster size (4 and 33 in a forced cluster of
+   16), ties on f and on the WSS2 objective in two different blocks,
+   i_hi == i_lo, and a NaN in f (the same non-finite b's and t);
 3. drive both paths at full width through the entry points a user calls:
    ``api.fit`` on planted 60000 x 784 data (C=10, gamma=0.25, eps=1e-3) to
    convergence in both precisions, then ``save_model``, ``load_model`` and
@@ -39,7 +45,9 @@ large-working-set decomposition (kernel B, ``working_set=DECOMP_Q``,
 5. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
-   device times from torch.profiler), the plain versions and a PyTorch
+   device times from torch.profiler; kernel B also at q in
+   SUBSOLVE_TIMED_QS, a launch of DECOMP_CAP steps from alpha = 0, by CUDA
+   events, with the cluster each used), the plain versions and a PyTorch
    yardstick where one exists, and print the ``{"kernels": [...]}`` line,
    the card's name and power limit, and last ``{"ok": true, "device":
    {...}}``.
@@ -80,6 +88,7 @@ DECOMP_MAX_ITER = 600_000
 DECOMP_PREFIX_ROUNDS = 5
 DECOMP_WARM_ROUNDS = 20          # rounds run before the timed one
 SUBSOLVE_QS = (32, 1030, DECOMP_Q)
+SUBSOLVE_TIMED_QS = (1024, 4096, DECOMP_Q, 16384)
 # Pair updates to convergence of the JAX package's decomposition (q=4096,
 # cap 128, float32, on the CPU) at planted 8000 x 784, C=10, gamma=0.25:
 # docs/PERF.md, benchmarks/results/iteration_economy_r4.jsonl.
@@ -152,6 +161,12 @@ class Smoke:
             for ln in r["log"].splitlines():
                 if "registers" in ln or "spill" in ln or "Compiling" in ln:
                     log(f"[build]   {ln.strip()}")
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        sms = self.torch.cuda.get_device_properties(
+            self.dev).multi_processor_count
+        for q in (*SUBSOLVE_QS, *SUBSOLVE_TIMED_QS):
+            log(f"[build] subsolve launch at q={q}: "
+                f"{sk.launch_geometry(q, sms)._asdict()}")
 
     # ------------------------------------------------------------ phase 2
     def kernel_inputs(self, n: int, x_dtype, zero_deltas: bool, seed: int):
@@ -299,25 +314,32 @@ class Smoke:
         return k, y, c, a.contiguous(), f.contiguous(), active
 
     def subsolve_case(self, tag: str, inp, step_cap: int, max_cap: int,
-                      pairwise: bool):
+                      pairwise: bool, cluster=None):
         """One launch through ``launch_inner_subsolve`` against the plain
-        version on the same inputs. Returns (t, max |difference|)."""
+        version on the same inputs: the same values, and NaN at the same
+        places. Returns (t, max |difference| of the finite values, the
+        kernel's outputs)."""
         torch = self.torch
         from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
         runs = torch.zeros(2, dtype=torch.int32, device=self.dev)
         got = sk.launch_inner_subsolve(*inp, 1e-3, step_cap, max_cap=max_cap,
-                                       pairwise=pairwise, runs=runs)
+                                       pairwise=pairwise, runs=runs,
+                                       cluster=cluster)
         ref = sk.inner_subsolve_plain(*inp, 1e-3, step_cap, max_cap=max_cap,
                                       pairwise=pairwise)
         torch.cuda.synchronize()
         t = int(got[4])
-        err = max(float((u - v).abs().max()) for u, v in zip(got[:4], ref[:4]))
-        bitwise = all(torch.equal(u, v) for u, v in zip(got, ref))
+        err = max(float((u - v).nan_to_num().abs().max())
+                  for u, v in zip(got[:4], ref[:4]))
+        bitwise = all(u.dtype == v.dtype
+                      and torch.equal(u.isnan(), v.isnan())
+                      and torch.equal(u.nan_to_num(), v.nan_to_num())
+                      for u, v in zip(got, ref))
         if not bitwise or t != int(ref[4]) or runs.tolist() != [1, t]:
             self.fail("kernel", f"subsolve {tag}: bitwise {bitwise}, t "
                       f"{t} vs plain {int(ref[4])}, max |diff| {err:.3g}, "
                       f"device runs/steps {runs.tolist()}")
-        return t, err
+        return t, err, got
 
     def check_subsolve(self) -> None:
         torch = self.torch
@@ -336,7 +358,7 @@ class Smoke:
             specs += [("step_cap 7 < max_cap", DECOMP_CAP, False, {}, 7)]
             ts = []
             for i, (tag, cap, pw, kw, step_cap) in enumerate(specs):
-                t, e = self.subsolve_case(
+                t, e, _ = self.subsolve_case(
                     f"q={q} {tag}", self.subsolve_inputs(q, q + i, **kw),
                     step_cap, cap, pw)
                 ts.append(t)
@@ -354,17 +376,101 @@ class Smoke:
                             torch.where(in_up, 1.0, -1.0)).contiguous()
             got = sk.launch_inner_subsolve(k, y, c, a, f, act, 1e-3, 100,
                                            max_cap=100, pairwise=False)
-            t, e = self.subsolve_case(f"q={q} optimal block",
-                                      (k, y, c, a, f, act), 100, 100, False)
+            t, e, _ = self.subsolve_case(f"q={q} optimal block",
+                                         (k, y, c, a, f, act), 100, 100,
+                                         False)
             err = max(err, e)
             if t != 0 or not (torch.equal(got[0], a)
                               and torch.equal(got[1], f)):
                 self.fail("kernel", f"subsolve q={q}: an optimal block took "
                           f"{t} steps or changed its state")
             lines.append(f"q={q}: t {ts}, then {t} on the optimal block")
+        err = max(err, self.check_subsolve_edges(lines))
         for ln in lines:
             log(f"[kernel] subsolve {ln}")
         self.rec["max_abs_err"]["inner_subsolve"] = err
+
+    def check_subsolve_edges(self, lines) -> float:
+        """Kernel B where the cluster split could go wrong, at full width.
+        Returns the largest |difference| of the finite values."""
+        torch = self.torch
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        err = 0.0
+        cases = [
+            (f"q={sk.MAX_Q} (MAX_Q) {c}", sk.MAX_Q, None, dict(mid=True), pw)
+            for c, pw in (("indep", False), ("pairwise", True))]
+        cases += [(f"q=12290 short last block {c}", 12290, None,
+                   dict(weighted=True, masked=8), pw)
+                  for c, pw in (("indep", False), ("pairwise", True))]
+        cases += [(f"q={q} in a forced cluster of 16", q, 16, {}, False)
+                  for q in (4, 33)]
+        for i, (tag, q, cl, kw, pw) in enumerate(cases):
+            t, e, _ = self.subsolve_case(
+                tag, self.subsolve_inputs(q, 7 + i, **kw), DECOMP_CAP,
+                DECOMP_CAP, pw, cl)
+            err = max(err, e)
+            lines.append(f"{tag}: t {t}")
+        q = DECOMP_Q
+        g = sk.launch_geometry(q, 132)
+        # Ties: two I_up slots with equal f, two I_low slots with equal f
+        # and equal K rows and columns, each pair in two blocks.
+        k, y, c, a, f, act = self.subsolve_inputs(q, 71)
+        up, low = (100, q - 3 * g.slots // 2), (200, q - 7)
+        for src, dst in (up, low):
+            k[dst, :] = k[src, :]
+            k[:, dst] = k[:, src]
+        y[list(up)], y[list(low)] = 1.0, -1.0
+        f = (-y).contiguous()
+        f[list(up)], f[list(low)] = -5.0, 500.0
+        act = torch.ones(q, dtype=torch.bool, device=self.dev)
+        inp = (k, y, c, a, f, act)
+        t1, e, got = self.subsolve_case(f"q={q} ties across blocks, one step",
+                                        inp, 1, 1, False)
+        moved = torch.nonzero(got[0]).flatten().tolist()
+        t, e2, _ = self.subsolve_case(f"q={q} ties across blocks", inp,
+                                      DECOMP_CAP, DECOMP_CAP, True)
+        err = max(err, e, e2)
+        if moved != [up[0], low[0]]:
+            self.fail("kernel", f"subsolve q={q}: the tied first step moved "
+                      f"{moved}, not the first indices {[up[0], low[0]]}")
+        lines.append(f"q={q} ties across blocks {g.slots}-slot blocks: "
+                     f"moved {moved}, then t {t}")
+        del k
+        # i_hi == i_lo: K = I, two active slots in the first and the last
+        # block; the first step equalises their f at 0, the second finds
+        # every objective at -1 and takes slot 0 for both.
+        k = torch.eye(q, device=self.dev)
+        y = torch.ones(q, device=self.dev)
+        y[q - 1] = -1.0
+        c = torch.full((q,), C, device=self.dev)
+        act = torch.zeros(q, dtype=torch.bool, device=self.dev)
+        act[[0, q - 1]] = True
+        t, e, got = self.subsolve_case(
+            f"q={q} i_hi == i_lo", (k, y, c, torch.zeros(q, device=self.dev),
+                                    (-y).contiguous(), act), 100, 100, False)
+        err = max(err, e)
+        if t != 2 or got[0][0] != 1.0 or got[0][q - 1] != 1.0:
+            self.fail("kernel", f"subsolve q={q}: i_hi == i_lo took {t} "
+                      f"steps, alpha {got[0][[0, q - 1]].tolist()}")
+        lines.append(f"q={q} i_hi == i_lo: t {t}")
+        del k
+        # NaN in f: at an I_up slot of the last block (b_hi NaN, no step),
+        # and at a masked slot (the steps run around it).
+        k, y, c, a, f0, act = self.subsolve_inputs(q, 73, masked=4)
+        j = int(torch.nonzero(y[:q - 4] > 0).flatten()[-1])
+        for where, slot, stops in (("I_up", j, True), ("masked", q - 2, False)):
+            f = f0.clone()
+            f[slot] = float("nan")
+            t, e, got = self.subsolve_case(f"q={q} NaN in f at {where}",
+                                           (k, y, c, a, f, act), DECOMP_CAP,
+                                           DECOMP_CAP, False)
+            err = max(err, e)
+            if (t == 0) != stops or bool(torch.isnan(got[2])) != stops:
+                self.fail("kernel", f"subsolve q={q}: NaN at {where}: t {t},"
+                          f" b_hi {float(got[2])}")
+            lines.append(f"q={q} NaN in f at {where}: t {t}, b's "
+                         f"{float(got[2])}, {float(got[3])}")
+        return err
 
     # ------------------------------------------------------------ phase 3
     def main_path(self) -> None:
@@ -804,6 +910,31 @@ class Smoke:
                     "bound_ms": bound, "bytes": bytes_, "flops": flops}}
             log(f"[timing] decomposition {key}: {json.dumps(out[key])}")
         self.rec["timing_decomp"] = out
+        self.timing_subsolve_sizes()
+
+    def timing_subsolve_sizes(self) -> None:
+        """Kernel B alone at each q of SUBSOLVE_TIMED_QS: a launch of
+        DECOMP_CAP steps from alpha = 0, f = -y on planted rows (CUDA
+        events over 20 launches), with the launch shape it took."""
+        torch = self.torch
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        out = []
+        for q in SUBSOLVE_TIMED_QS:
+            inp = self.subsolve_inputs(q, 5 * q)
+            run = lambda: sk.launch_inner_subsolve(
+                *inp, 1e-3, DECOMP_CAP, max_cap=DECOMP_CAP, pairwise=False)
+            steps = int(run()[4])
+            ms = time_ms(run, reps=20)
+            g = sk.launch_geometry(q, sms)
+            r = {"q": q, "ms": ms, "steps": steps,
+                 "us_per_step": 1e3 * ms / max(steps, 1),
+                 "cluster": g.cluster, "threads": g.threads,
+                 "slots": g.slots}
+            out.append(r)
+            log(f"[timing] subsolve {json.dumps(r)}")
+            del inp
+        self.rec["timing_subsolve"] = out
 
     def kernels_line(self) -> dict:
         t, errs = self.rec["timing"], self.rec["max_abs_err"]
@@ -830,6 +961,9 @@ class Smoke:
         td = self.rec["timing_decomp"]
         f32, bf16 = td["f32"]["inner_subsolve"], td["bf16"]["inner_subsolve"]
         counts = self.rec["decomp_counts"]
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        g = sk.launch_geometry(DECOMP_Q, self.torch.cuda.get_device_properties(
+            self.dev).multi_processor_count)
         rows.append({
             "name": "inner_subsolve", "route": "cuda",
             "source": "dpsvm_tpu_torch/csrc/subsolve.cu",
@@ -841,8 +975,10 @@ class Smoke:
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "ms_per_step": f32["ms_per_step"],
+            "cluster": g.cluster, "threads": g.threads, "q": DECOMP_Q,
             "bf16": {k: bf16[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "library_ms")}})
+                                          "library_ms", "ms_per_step")},
+            "by_q": self.rec["timing_subsolve"]})
         return {"kernels": rows}
 
 

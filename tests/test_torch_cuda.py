@@ -20,7 +20,10 @@ orders).
 
 The inner subsolve (kernel B) is held bitwise to its plain version: both
 perform the same rounded float32 operations, the kernel without FMA
-contraction and with IEEE division.
+contraction and with IEEE division. Beside the default launch shapes, the
+cluster is forced to 16 blocks where q leaves some blocks short or empty;
+ties on f and on the WSS2 objective sit in different blocks; i_hi ==
+i_lo; NaN in f; q = MAX_Q; 200 launches back to back.
 """
 
 import dataclasses
@@ -357,12 +360,14 @@ def _block(q, dev, seed=0, weighted=False, masked=0):
     return k, y_w, c_w, active
 
 
-def _both(k, y_w, c_w, a0, f0, active, eps, step_cap, max_cap, pairwise):
+def _both(k, y_w, c_w, a0, f0, active, eps, step_cap, max_cap, pairwise,
+          cluster=None):
     runs = torch.zeros(2, dtype=torch.int32, device=k.device)
     before = sk.LAUNCHES["inner_subsolve"]
     got = sk.launch_inner_subsolve(k, y_w, c_w, a0, f0, active, eps,
                                    step_cap, max_cap=max_cap,
-                                   pairwise=pairwise, runs=runs)
+                                   pairwise=pairwise, runs=runs,
+                                   cluster=cluster)
     ref = sk.inner_subsolve_plain(k, y_w, c_w, a0, f0, active, eps,
                                   step_cap, max_cap=max_cap,
                                   pairwise=pairwise)
@@ -446,3 +451,158 @@ def test_chunked_decomposition_kernel_path_matches_plain(dev, extra):
     assert (got.n_iter, got.rounds) == (ref.n_iter, ref.rounds)
     np.testing.assert_allclose(got.alpha, ref.alpha, rtol=1e-4, atol=1e-5)
     assert got.n_sv == ref.n_sv
+
+
+def _same(u, v):
+    """Equal values and NaN at the same places (torch.equal, NaN-aware)."""
+    return (u.dtype == v.dtype and torch.equal(torch.isnan(u), torch.isnan(v))
+            and torch.equal(torch.nan_to_num(u), torch.nan_to_num(v)))
+
+
+@pytest.mark.parametrize("pairwise", [False, True])
+@pytest.mark.parametrize("q,cluster", [
+    (4, 16), (32, 16), (33, 16),           # q below the cluster: empty blocks
+    (1030, 16), (4098, None), (12290, None),   # 16k + 2: a short last block
+    (2048, 1), (2048, 4),                  # one shape's q in other clusters
+])
+def test_subsolve_cluster_edges_match_plain_bitwise(dev, q, cluster,
+                                                    pairwise):
+    for cap, weighted, masked in ((37, False, 0), (128, True, min(8, q - 1))):
+        k, y_w, c_w, active = _block(q, dev, q + cap, weighted, masked)
+        _both(k, y_w, c_w, torch.zeros(q, device=dev), -y_w, active, 1e-3,
+              cap, cap, pairwise, cluster)
+
+
+def test_subsolve_at_max_q_matches_plain_bitwise(dev):
+    q = sk.MAX_Q
+    k, y_w, c_w, active = _block(q, dev, 3, weighted=True, masked=8)
+    t = _both(k, y_w, c_w, torch.zeros(q, device=dev), -y_w, active, 1e-3,
+              37, 37, False)[4]
+    assert int(t) == 37
+    assert sk.launch_geometry(q, 132).cluster == sk.MAX_CLUSTER
+
+
+def _duplicate(k, src, dst):
+    """Make slot dst's row and column of K copies of slot src's."""
+    k[dst, :] = k[src, :]
+    k[:, dst] = k[:, src]
+
+
+@pytest.mark.parametrize("cluster", [None, 16])
+def test_subsolve_ties_across_blocks_go_to_the_first_index(dev, cluster):
+    """Two I_up slots with equal f, and two I_low slots with equal f and
+    equal K rows (so an equal WSS2 objective), each pair in two different
+    blocks: the first step takes the first of each, bitwise as the plain
+    version does, and so does every later step."""
+    q = 4096
+    k, y_w, c_w, active = _block(q, dev, 11)
+    up, low = (100, 3 * q // 4 + 5), (200, q - 7)
+    _duplicate(k, up[0], up[1])
+    _duplicate(k, low[0], low[1])
+    y_w[list(up)] = 1.0
+    y_w[list(low)] = -1.0
+    f = -y_w.clone()
+    f[list(up)] = -5.0
+    f[list(low)] = 500.0               # the largest objective by far
+    a0 = torch.zeros(q, device=dev)
+    g = sk.launch_geometry(q, 132, cluster)
+    assert {u // g.slots for u in up} != {up[0] // g.slots}
+    assert {u // g.slots for u in low} != {low[0] // g.slots}
+    got = _both(k, y_w, c_w, a0, f, active, 1e-3, 1, 1, False, cluster)
+    moved = torch.nonzero(got[0]).flatten().tolist()
+    assert moved == [up[0], low[0]]
+    _both(k, y_w, c_w, a0, f, active, 1e-3, 128, 128, True, cluster)
+
+
+@pytest.mark.parametrize("cluster", [None, 16])
+def test_subsolve_hi_equal_lo_keeps_the_hi_value(dev, cluster):
+    """K = I with two active slots, 0 and q - 1 (in the first and the last
+    block): the first step equalises their f exactly at 0, so the second
+    (the stored gap is still open) finds every objective at -1 and picks
+    i_hi = i_lo = 0, which must leave alpha as it was."""
+    q = 4096
+    k = torch.eye(q, device=dev)
+    y_w = torch.ones(q, device=dev)
+    y_w[q - 1] = -1.0
+    c_w = torch.full((q,), 10.0, device=dev)
+    active = torch.zeros(q, dtype=torch.bool, device=dev)
+    active[[0, q - 1]] = True
+    f = -y_w.clone()
+    got = _both(k, y_w, c_w, torch.zeros(q, device=dev), f, active, 1e-3,
+                100, 100, False, cluster)
+    assert int(got[4]) == 2
+    assert got[0][0] == got[0][q - 1] == 1.0
+    assert got[1][0] == got[1][q - 1] == 0.0
+
+
+@pytest.mark.parametrize("cluster", [None, 16])
+def test_subsolve_nan_in_f_matches_plain(dev, cluster):
+    """A NaN in an I_up slot's f (in the last block) wins the argmin: b_hi
+    is NaN and the loop does not start. A NaN in an inactive slot's f
+    stays there while the steps run. Same b's, t, a and f as the plain
+    version, NaNs where it has them, and the kernel returns."""
+    q = 4096
+    k, y_w, c_w, active = _block(q, dev, 13, masked=4)
+    a0 = torch.zeros(q, device=dev)
+    cases = []
+    f = -y_w.clone()
+    j = int(torch.nonzero(y_w[:q - 4] > 0).flatten()[-1])
+    f[j] = float("nan")
+    cases.append((f, True))
+    f = -y_w.clone()
+    f[q - 2] = float("nan")                      # a masked slot
+    cases.append((f, False))
+    for f, stops in cases:
+        runs = torch.zeros(2, dtype=torch.int32, device=dev)
+        got = sk.launch_inner_subsolve(k, y_w, c_w, a0, f, active, 1e-3, 50,
+                                       max_cap=50, pairwise=False, runs=runs,
+                                       cluster=cluster)
+        ref = sk.inner_subsolve_plain(k, y_w, c_w, a0, f, active, 1e-3, 50,
+                                      max_cap=50, pairwise=False)
+        torch.cuda.synchronize()
+        steps = int(ref[4])
+        assert int(got[4]) == steps and (steps == 0) == stops
+        assert runs.tolist() == [1, steps]
+        assert torch.isnan(got[2]) == stops
+        for u, v in zip(got, ref):
+            assert _same(u, v)
+    assert torch.isnan(got[1][q - 2])
+
+
+def test_subsolve_200_launches_back_to_back(dev):
+    """A round loop's launches: 200 on one stream with no synchronisation,
+    each from the last one's (a, f), the run words shared, against the
+    plain version's chain."""
+    q = 4096
+    k, y_w, c_w, active = _block(q, dev, 17, weighted=True)
+    runs = torch.zeros(2, dtype=torch.int32, device=dev)
+    a, f = torch.zeros(q, device=dev), -y_w.clone()
+    ap, fp = a.clone(), f.clone()
+    ts, tps = [], []
+    for i in range(200):
+        a, f, bh, bl, t = sk.launch_inner_subsolve(
+            k, y_w, c_w, a, f, active, 1e-6, 16, max_cap=16,
+            pairwise=bool(i % 2), runs=runs)
+        ts.append(t)
+    for i in range(200):
+        ap, fp, bhp, blp, tp = sk.inner_subsolve_plain(
+            k, y_w, c_w, ap, fp, active, 1e-6, 16, max_cap=16,
+            pairwise=bool(i % 2))
+        tps.append(int(tp))
+    torch.cuda.synchronize()
+    assert [int(t) for t in ts] == tps and sum(tps) > 0
+    assert runs.tolist() == [200, sum(tps)]
+    for u, v in ((a, ap), (f, fp), (bh, bhp), (bl, blp)):
+        assert torch.equal(u, v)
+
+
+def test_subsolve_refuses_a_shape_not_the_sources(dev, monkeypatch):
+    k, y_w, c_w, active = _block(64, dev)
+    real = sk.launch_geometry
+    monkeypatch.setattr(sk, "launch_geometry",
+                        lambda *a, **kw: real(*a, **kw)._replace(
+                            smem=real(*a, **kw).smem + 4))
+    with pytest.raises(RuntimeError, match="launch_geometry"):
+        sk.launch_inner_subsolve(k, y_w, c_w, torch.zeros(64, device=dev),
+                                 -y_w, active, 1e-3, 10, max_cap=10,
+                                 pairwise=False)

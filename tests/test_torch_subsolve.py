@@ -9,7 +9,15 @@ sides are float32 elementwise chains over the same K_WW; only FMA
 contraction and the order of operations differ. At cap 1 the comparison
 is with the XLA subsolve alone: there the interpret-mode kernel rounds its
 single f update differently from XLA (test_subsolve_kernel.py's xfail).
+
+The kernel's launch shape, ``launch_geometry``, is a pure function and is
+checked here too: every slot owned by exactly one block and thread, the
+limits of a cluster and a block, one block below the measured threshold,
+and the constants it shares with ``csrc/subsolve.cu``.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -120,3 +128,99 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert (sk.LAUNCHES, sk.RUNS) == before
     for u, v in zip(got, ref):
         assert torch.equal(u, v)
+
+
+# ------------------------------------------------------------ launch shape
+# launch_geometry against the kernel's indexing (csrc/subsolve.cu): block
+# r owns slots [r * slots, (r + 1) * slots), thread t of a block the slot
+# pairs 2 (t + threads p) + {0, 1} for p < per.
+
+H100_SMS = 132
+GEOMETRY_QS = [1, 2, 4, 30, 32, 33, 1030, 2048, 4096, 12288, 12290, 16384]
+
+
+def _owners(g, q):
+    """slot -> the (block, thread, p) that own it, in the kernel's
+    indexing."""
+    seen = {}
+    for b in range(g.cluster):
+        base = b * g.slots
+        n_loc = max(0, min(g.slots, q - base))
+        for t in range(g.threads):
+            for p in range(g.per):
+                for e in (0, 1):
+                    slot = 2 * (t + g.threads * p) + e
+                    if slot < n_loc:
+                        seen.setdefault(base + slot, []).append((b, t, p))
+    return seen
+
+
+def _check_shape(g, q):
+    seen = _owners(g, q)
+    assert sorted(seen) == list(range(q))               # every slot owned
+    assert all(len(v) == 1 for v in seen.values())      # by exactly one
+    assert 1 <= g.cluster <= sk.MAX_CLUSTER == 16
+    assert g.cluster & (g.cluster - 1) == 0
+    assert g.threads % 32 == 0 and 32 <= g.threads <= sk.MAX_THREADS
+    assert g.slots % 2 == 0 and g.smem == g.slots * sk.SLOT_BYTES
+    assert g.smem + sk.STATIC_SMEM <= sk.SMEM_LIMIT == 227 * 1024
+    assert 2 * g.threads * g.per >= g.slots
+    assert g.per in (1, 2, 4, 8) and g.per <= sk.MAX_PER
+
+
+@pytest.mark.parametrize("q", GEOMETRY_QS)
+def test_launch_geometry_owns_every_slot_once(q):
+    g = sk.launch_geometry(q, H100_SMS)
+    _check_shape(g, q)
+    if q < sk.CLUSTER_MIN_Q:
+        assert g.cluster == 1                 # below the measured threshold
+    else:
+        assert g.cluster > 1
+        assert g.slots <= sk.BLOCK_SLOTS or g.cluster == sk.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("q", [1, 4, 33, 1030, 8192, 12290, 16384])
+def test_launch_geometry_forced_clusters(q, cluster):
+    """A forced cluster gives the same ownership, with short or empty
+    blocks where q is small; a block that would not fit is refused."""
+    fits = -(-q // (2 * cluster)) * 2 * sk.SLOT_BYTES + sk.STATIC_SMEM \
+        <= sk.SMEM_LIMIT and -(-q // (2 * cluster)) <= sk.MAX_THREADS * 8
+    if not fits:
+        with pytest.raises(ValueError, match="shared memory"):
+            sk.launch_geometry(q, H100_SMS, cluster)
+        return
+    g = sk.launch_geometry(q, H100_SMS, cluster)
+    assert g.cluster == cluster
+    _check_shape(g, q)
+
+
+def test_launch_geometry_refuses_what_the_kernel_does_not_take():
+    for q in (0, sk.MAX_Q + 1):
+        with pytest.raises(ValueError, match="q <="):
+            sk.launch_geometry(q, H100_SMS)
+    for cluster in (0, 3, 32):
+        with pytest.raises(ValueError, match="power of two"):
+            sk.launch_geometry(100, H100_SMS, cluster)
+    with pytest.raises(ValueError, match="power of two"):
+        sk.launch_geometry(100, 8, 16)        # more blocks than SMs
+
+
+def test_launch_geometry_constants_match_the_source():
+    src = (Path(sk.__file__).resolve().parents[1] / "csrc"
+           / "subsolve.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kMaxQ") == sk.MAX_Q
+    assert const("kMaxCluster") == sk.MAX_CLUSTER
+    assert const("kMaxThreads") == sk.MAX_THREADS
+    assert const("kMaxPer") == sk.MAX_PER
+    assert "kSlotBytes = 5 * sizeof(float) + 1;" in src and sk.SLOT_BYTES == 21
+    # static shared memory: a 48-byte record a warp, two buffers of one a
+    # block, two 8-byte mbarriers
+    assert "Rec part[kMaxWarps];" in src
+    assert "Rec xbuf[2][kMaxCluster];" in src
+    assert sk.STATIC_SMEM == 48 * (const("kMaxThreads") // 32
+                                   + 2 * const("kMaxCluster")) + 2 * 8
