@@ -3,9 +3,11 @@
     python3 chip_smoke.py            # every phase (what a release check runs)
     python3 chip_smoke.py --quick    # build + kernels against plain only
 
-Phases, each of which makes the script exit non-zero if it fails. Two
-solver paths run: the fused SMO pair (kernel A, ``working_set=2``) and the
-large-working-set decomposition (kernel B, ``working_set=DECOMP_Q``,
+Phases, each of which makes the script exit non-zero if it fails. Three
+solver paths run: the fused SMO pair (kernel A, ``working_set=2``), the
+general SMO pair (``solver/smo.py``: PyTorch calls in a captured CUDA graph,
+for WSS2 and the other kernel kinds) and the large-working-set
+decomposition (kernel B, ``working_set=DECOMP_Q``,
 ``inner_iters=DECOMP_CAP``).
 
 1. build every CUDA source of the port with nvcc, one process per source,
@@ -28,26 +30,46 @@ large-working-set decomposition (kernel B, ``working_set=DECOMP_Q``,
    kernel B's cluster edges at full width: q = MAX_Q, a short last block
    (q = 12290), q below the cluster size (4 and 33 in a forced cluster of
    16), ties on f and on the WSS2 objective in two different blocks,
-   i_hi == i_lo, and a NaN in f (the same non-finite b's and t);
-3. drive both paths at full width through the entry points a user calls:
+   i_hi == i_lo, and a NaN in f (the same non-finite b's and t). Kernel B
+   under every other kernel kind: the K_WW of a first decomposition round
+   at q = DECOMP_Q for linear, poly and sigmoid at 60000 x 784 and for a
+   precomputed K (PRE_N rows), bitwise. The general pair's captured chunk
+   against its eager loop, bitwise, for GRAPH_CHECK_ITERS iterations of
+   WSS2 at 60000 x 784 in both precisions, of each other kind, and of the
+   first-order RBF pair;
+3. drive the paths at full width through the entry points a user calls:
    ``api.fit`` on planted 60000 x 784 data (C=10, gamma=0.25, eps=1e-3) to
    convergence in both precisions, then ``save_model``, ``load_model`` and
    ``evaluate`` on 10000 held-out rows. The counts are set to 0 before each
    path and read after it: kernel A's device-counted runs must equal the
    iterations; kernel B's launches, runs and rounds must be equal and its
    device-counted steps must add up to n_iter. The decomposition's model
-   must match the pair's (n_sv within 2%, held-out accuracy within 0.5%);
+   must match the pair's (n_sv within 2%, held-out accuracy within 0.5%).
+   Then the general pair: WSS2 (``selection="second-order"``) to
+   convergence in both precisions through fit, save, load and evaluate,
+   held to the fused model by the same bar; linear, poly and sigmoid at
+   LIBSVM's defaults (gamma = 1/d, coef0 = 0, degree 3) for a
+   SMO_PREFIX_ITERS prefix of the general pair and a KIND_DECOMP_ROUNDS
+   prefix of the decomposition through kernel B; and a precomputed K of
+   PRE_N planted rows, built on the card, to convergence on both paths,
+   each model held to the RBF model of the same path on the same rows.
+   Counts are set to 0 before each run and read after it: the general
+   pair launches neither kernel, replays its graph and reads once a chunk;
 4. the kernel paths against the plain paths, both on the card: the pair
    for PREFIX_ITERS iterations at 60000 x 784 and converged on 4096 x 784;
    the decomposition for DECOMP_PREFIX_ROUNDS rounds at full width and
    converged on planted 8000 x 784 at q=4096 (``Smoke.convergence`` says
-   why the bars split so);
+   why the bars split so); the general pair's first-order RBF path against
+   kernel A for PREFIX_ITERS iterations;
 5. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
    SUBSOLVE_TIMED_QS, a launch of DECOMP_CAP steps from alpha = 0, by CUDA
-   events, with the cluster each used), the plain versions and a PyTorch
+   events, with the cluster each used), the general pair's WSS2 iteration
+   (CUDA events over a chunk of SMO_TIMED_ITERS iterations, the host's
+   enqueue time, the device's busy share and top operations from
+   torch.profiler), the plain versions and a PyTorch
    yardstick where one exists, and print the ``{"kernels": [...]}`` line,
    the card's name and power limit, and last ``{"ok": true, "device":
    {...}}``.
@@ -94,6 +116,14 @@ SUBSOLVE_TIMED_QS = (1024, 4096, DECOMP_Q, 16384)
 # docs/PERF.md, benchmarks/results/iteration_economy_r4.jsonl.
 JAX_UPDATES_8000 = 13_035
 KERNEL_A = "fused_iter_kernel"     # kernel A's name in torch.profiler
+# The general pair (solver/smo.py).
+GRAPH_CHECK_ITERS = 200          # graph against eager, bitwise
+SMO_PREFIX_ITERS = 2000          # linear, poly, sigmoid on the pair
+KIND_DECOMP_ROUNDS = 10          # ... and on the decomposition
+SMO_TIMED_ITERS = 512
+# Precomputed: planted rows whose RBF matrix (1.07 GB in float32) is built
+# on the card; q for its decomposition above ~1.3x its SV count.
+PRE_N, PRE_Q = 16384, 4096
 
 
 def log(msg: str) -> None:
@@ -281,6 +311,8 @@ class Smoke:
         self.rec["prologue_err"] = prologue_err
         self.rec["near_ties"] = near_ties
         self.check_subsolve()
+        self.check_subsolve_kinds()
+        self.check_general_pair()
 
     def subsolve_inputs(self, q: int, seed: int, weighted=False, masked=0,
                         mid=False):
@@ -472,6 +504,104 @@ class Smoke:
                          f"{float(got[2])}, {float(got[3])}")
         return err
 
+
+    def kernel_matrix(self):
+        """(K, y, K_test, y_test, x, x_test): the RBF matrix (gamma GAMMA)
+        of the first PRE_N planted rows, built on the card in float32, and
+        K(test, train) of the 10000 held-out rows, as numpy (the entry
+        points take numpy); the rows themselves beside them."""
+        if getattr(self, "_kmat", None) is None:
+            torch = self.torch
+            from dpsvm_tpu_torch.ops.kernels import (exact_f32, row_norms_sq,
+                                                     rows_from_dots)
+            xtr, ytr, xte, yte = self.planted()
+            a = torch.from_numpy(xtr[:PRE_N]).to(self.dev)
+            t = torch.from_numpy(xte).to(self.dev)
+            a2, t2 = row_norms_sq(a), row_norms_sq(t)
+            with exact_f32():
+                k = rows_from_dots(a @ a.T, a2, a2, GAMMA).cpu().numpy()
+                kte = rows_from_dots(t @ a.T, t2, a2, GAMMA).cpu().numpy()
+            self._kmat = (k, ytr[:PRE_N], kte, yte, xtr[:PRE_N], xte)
+        return self._kmat
+
+    def kind_config(self, kind: str, **kw):
+        """LIBSVM's defaults for the kind (gamma = 1/d, coef0 = 0, degree
+        3) at C, as the kinds' phases run them."""
+        from dpsvm_tpu_torch import SVMConfig
+        return SVMConfig(c=C, kernel=kind, epsilon=1e-3, **kw)
+
+    def check_subsolve_kinds(self) -> None:
+        """Kernel B on the K_WW of each other kind: the first decomposition
+        round at q = DECOMP_Q through ``decomp_step``, its subsolve inputs
+        held kernel against plain, bitwise."""
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        from dpsvm_tpu_torch.solver import decomp as sd
+        xtr, ytr, _, _ = self.planted()
+        lines = []
+        for kind in ("linear", "poly", "sigmoid", "precomputed"):
+            x, y = (self.kernel_matrix()[:2] if kind == "precomputed"
+                    else (xtr, ytr))
+            cfg = self.kind_config(kind, working_set=DECOMP_Q,
+                                   inner_iters=DECOMP_CAP)
+            prob = sd.DecompProblem.build(x, y, cfg, self.dev)
+            seen = []
+
+            def capture(*args, **kw):
+                seen[:] = [args, kw]
+                return sk.launch_inner_subsolve(*args, **kw)
+
+            sd.decomp_step(sd.init_carry(prob.y), prob, q=DECOMP_Q,
+                           inner_cap=DECOMP_CAP, epsilon=1e-3,
+                           step_cap=DECOMP_CAP, subsolve=capture)
+            args, kw = seen
+            t, e, _ = self.subsolve_case(f"{kind} first round", args[:6],
+                                         args[7], kw["max_cap"],
+                                         kw["pairwise"])
+            self.rec["max_abs_err"]["inner_subsolve"] = max(
+                self.rec["max_abs_err"]["inner_subsolve"], e)
+            lines.append(f"{kind}: t {t}")
+            del prob, seen, args
+        log(f"[kernel] subsolve per kind, bitwise: {'; '.join(lines)}")
+
+    def check_general_pair(self) -> None:
+        """The general pair's captured chunk against its eager loop (the
+        same ``smo_step``), bitwise, on the card at full width."""
+        from dpsvm_tpu_torch.solver import smo as gs
+        xtr, ytr, _, _ = self.planted()
+        k, yk = self.kernel_matrix()[:2]
+        cases = [("rbf second-order f32", xtr, ytr, dict(
+                      kind="rbf", gamma=GAMMA, selection="second-order")),
+                 ("rbf second-order bf16", xtr, ytr, dict(
+                     kind="rbf", gamma=GAMMA, selection="second-order",
+                     matmul_precision="default")),
+                 ("rbf first-order f32", xtr, ytr, dict(kind="rbf",
+                                                        gamma=GAMMA))]
+        cases += [(f"{kind} second-order f32", xtr, ytr, dict(
+            kind=kind, selection="second-order"))
+                  for kind in ("linear", "poly", "sigmoid")]
+        cases += [("precomputed second-order", k, yk, dict(
+            kind="precomputed", selection="second-order"))]
+        out = {}
+        for tag, x, y, kw in cases:
+            cfg = self.kind_config(kw.pop("kind"), max_iter=GRAPH_CHECK_ITERS,
+                                   chunk_iters=64, **kw)
+            gs.reset_counts()
+            g = gs.train_single_device(x, y, cfg, self.dev)
+            counts = dict(gs.COUNTS)
+            e = gs.train_single_device(x, y, cfg, self.dev, plain=True)
+            same = (g.n_iter == e.n_iter == GRAPH_CHECK_ITERS
+                    and np.array_equal(g.alpha, e.alpha)
+                    and (g.b_hi, g.b_lo) == (e.b_hi, e.b_lo))
+            out[tag] = {"bitwise": bool(same), "n_iter": g.n_iter,
+                        "max_alpha_diff": float(np.abs(g.alpha
+                                                       - e.alpha).max()),
+                        **counts}
+            if not same or counts["captures"] != 1:
+                self.fail("kernel", f"general pair {tag}: graph against "
+                          f"eager {out[tag]}")
+        self.rec["graph_vs_eager"] = out
+        log(f"[kernel] general pair, graph against eager: {json.dumps(out)}")
+
     # ------------------------------------------------------------ phase 3
     def main_path(self) -> None:
         torch = self.torch
@@ -517,6 +647,169 @@ class Smoke:
         self.rec["main_launches"] = launches
         self.rec["main_runs"] = runs
         self.main_decomp()
+        self.main_general()
+        self.main_kinds()
+        self.main_precomputed()
+
+    def counted(self, fn):
+        """Run ``fn()`` with every count at 0 before it; return its result
+        and the counts after it: kernel A's and B's launches and runs, B's
+        steps, and the general pair's captures, replays and reads."""
+        from dpsvm_tpu_torch.experimental import fused_step as fs
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        from dpsvm_tpu_torch.solver import smo as gs
+        fs.reset_counts()
+        sk.reset_counts()
+        gs.reset_counts()
+        out = fn()
+        name = "inner_subsolve"
+        return out, {"A_launches": fs.LAUNCHES["fused_update_select"],
+                     "B_launches": sk.LAUNCHES[name],
+                     "B_runs": sk.RUNS[name], "B_steps": sk.STEPS[name],
+                     **{f"pair_{k}": v for k, v in gs.COUNTS.items()}}
+
+    def _pair_counts_ok(self, res, counts) -> bool:
+        """The general pair launched neither kernel, captured one graph,
+        read once a chunk, and enqueued enough bodies for its iterations."""
+        from dpsvm_tpu_torch.solver import smo as gs
+        return (counts["A_launches"] == counts["B_launches"] == 0
+                and counts["pair_captures"] == 1
+                and counts["pair_reads"] >= 1
+                and counts["pair_replays"] * gs.GRAPH_BODIES >= res.n_iter)
+
+    def main_general(self) -> None:
+        """WSS2 on the general pair at full width through ``api.fit``,
+        held to the fused pair's model by the bar between paths."""
+        torch = self.torch
+        from dpsvm_tpu_torch import fit
+        from dpsvm_tpu_torch.solver import smo as gs
+        xtr, ytr, xte, yte = self.planted()
+        self.rec["general"] = {}
+        for prec in ("highest", "default"):
+            cfg = self.kind_config("rbf", gamma=GAMMA, max_iter=MAIN_MAX_ITER,
+                                   selection="second-order",
+                                   matmul_precision=prec)
+            torch.cuda.reset_peak_memory_stats()
+            (model, res), counts = self.counted(lambda: fit(xtr, ytr, cfg))
+            peak = torch.cuda.max_memory_allocated()
+            same, finite, acc, io_s, eval_s = self._round_trip(model, xte,
+                                                               yte)
+            pair = self.rec["main"][prec]
+            bodies = counts["pair_replays"] * gs.GRAPH_BODIES
+            r = {"n_iter": res.n_iter, "converged": res.converged,
+                 "gap": res.gap, "n_sv": res.n_sv, "b": res.b,
+                 "train_seconds": res.train_seconds,
+                 "us_per_iteration": 1e6 * res.train_seconds / res.n_iter,
+                 **counts, "bodies_enqueued": bodies,
+                 "bodies_after_the_end": bodies - res.n_iter,
+                 "peak_bytes": int(peak), "save_load_seconds": io_s,
+                 "eval_seconds": eval_s, "heldout_accuracy": acc,
+                 "fused_n_sv": pair["n_sv"],
+                 "fused_heldout_accuracy": pair["heldout_accuracy"],
+                 "fused_train_seconds": pair["train_seconds"]}
+            ok = (same and finite and res.converged and acc > 0.9
+                  and np.all(np.isfinite(res.alpha))
+                  and self._pair_counts_ok(res, counts)
+                  and abs(res.n_sv - pair["n_sv"]) <= 0.02 * pair["n_sv"]
+                  and abs(acc - pair["heldout_accuracy"]) <= 0.005)
+            if not ok:
+                self.fail("main", f"general pair WSS2 {prec}: round trip "
+                          f"{same}, finite {finite}: {json.dumps(r)}")
+            self.rec["general"][prec] = r
+            log(f"[main] general pair WSS2 {prec}: {json.dumps(r)}")
+
+    def main_kinds(self) -> None:
+        """Linear, poly and sigmoid at LIBSVM's defaults: a prefix of the
+        general pair and a prefix of the decomposition (kernel B) at full
+        width through ``api.train``."""
+        from dpsvm_tpu_torch import train
+        xtr, ytr, _, _ = self.planted()
+        self.rec["kinds"] = {}
+        for kind in ("linear", "poly", "sigmoid"):
+            r = {}
+            cfg = self.kind_config(kind, selection="second-order",
+                                   max_iter=SMO_PREFIX_ITERS)
+            res, counts = self.counted(lambda: train(xtr, ytr, cfg))
+            r["pair"] = {"n_iter": res.n_iter, "gap": res.gap,
+                         "n_sv": res.n_sv,
+                         "train_seconds": res.train_seconds,
+                         "us_per_iteration": 1e6 * res.train_seconds
+                         / max(res.n_iter, 1), **counts}
+            if not (res.n_iter == SMO_PREFIX_ITERS or res.converged) or not (
+                    np.all(np.isfinite(res.alpha)) and np.isfinite(res.b)
+                    and self._pair_counts_ok(res, counts)):
+                self.fail("main", f"{kind} general pair: {r['pair']}")
+            cfg = self.kind_config(kind, working_set=DECOMP_Q,
+                                   inner_iters=DECOMP_CAP,
+                                   max_iter=KIND_DECOMP_ROUNDS * DECOMP_CAP)
+            res, counts = self.counted(lambda: train(xtr, ytr, cfg))
+            r["decomposition"] = {"n_iter": res.n_iter, "rounds": res.rounds,
+                                  "gap": res.gap, "n_sv": res.n_sv,
+                                  "train_seconds": res.train_seconds,
+                                  **counts}
+            self._add_b_counts(counts)
+            if not (counts["B_launches"] == counts["B_runs"] == res.rounds > 0
+                    and counts["B_steps"] == res.n_iter
+                    and np.all(np.isfinite(res.alpha))
+                    and np.isfinite(res.b)):
+                self.fail("main", f"{kind} decomposition: "
+                          f"{r['decomposition']}")
+            self.rec["kinds"][kind] = r
+            log(f"[main] {kind}: {json.dumps(r)}")
+
+    def _add_b_counts(self, counts) -> None:
+        tot = self.rec["decomp_counts"]
+        tot["launches"] += counts["B_launches"]
+        tot["runs"] += counts["B_runs"]
+
+    def main_precomputed(self) -> None:
+        """A precomputed K (PRE_N planted rows, built on the card) to
+        convergence on the general pair (WSS2) and on the decomposition,
+        each held to the RBF model of the same path on the same rows (n_sv
+        within 2%, held-out accuracy within 0.5%)."""
+        from dpsvm_tpu_torch import evaluate, fit
+        from dpsvm_tpu_torch.models.svm import decision_function
+        k, y, kte, yte, x, xte = self.kernel_matrix()
+        self.rec["precomputed"] = {}
+        for path, kw in (("pair", dict(selection="second-order",
+                                       max_iter=MAIN_MAX_ITER)),
+                         ("decomposition", dict(working_set=PRE_Q,
+                                                inner_iters=DECOMP_CAP,
+                                                max_iter=DECOMP_MAX_ITER))):
+            cfg = self.kind_config("precomputed", **kw)
+            (model, res), counts = self.counted(lambda: fit(k, y, cfg))
+            same, finite, acc, io_s, eval_s = self._round_trip(model, kte,
+                                                               yte)
+            rcfg = self.kind_config("rbf", gamma=GAMMA, **kw)
+            (rmodel, rres), _ = self.counted(lambda: fit(x, y, rcfg))
+            racc = evaluate(rmodel, xte, yte)
+            dmax = float(np.abs(decision_function(model, kte)
+                                - decision_function(rmodel, xte)).max())
+            r = {"n": PRE_N, "n_iter": res.n_iter, "rounds": res.rounds,
+                 "converged": res.converged, "n_sv": res.n_sv, "b": res.b,
+                 "train_seconds": res.train_seconds, **counts,
+                 "heldout_accuracy": acc, "save_load_seconds": io_s,
+                 "rbf": {"n_iter": rres.n_iter, "n_sv": rres.n_sv,
+                         "converged": rres.converged,
+                         "train_seconds": rres.train_seconds,
+                         "heldout_accuracy": racc},
+                 "max_decision_diff": dmax}
+            if path == "pair":
+                counts_ok = self._pair_counts_ok(res, counts)
+            else:
+                self._add_b_counts(counts)
+                counts_ok = (counts["B_launches"] == counts["B_runs"]
+                             == res.rounds > 0
+                             and counts["B_steps"] == res.n_iter)
+            ok = (same and finite and res.converged and rres.converged
+                  and counts_ok and acc > 0.9
+                  and abs(res.n_sv - rres.n_sv) <= 0.02 * rres.n_sv
+                  and abs(acc - racc) <= 0.005)
+            if not ok:
+                self.fail("main", f"precomputed {path}: round trip {same}, "
+                          f"finite {finite}: {json.dumps(r)}")
+            self.rec["precomputed"][path] = r
+            log(f"[main] precomputed {path}: {json.dumps(r)}")
 
     def _round_trip(self, model, xte, yte):
         """save, load, evaluate on the held-out rows. Returns (same model,
@@ -531,6 +824,8 @@ class Smoke:
             loaded = load_model(path)
         io_s = time.perf_counter() - t
         same = (wrote == model.n_sv
+                and (model.sv_idx is None
+                     or np.array_equal(loaded.sv_idx, model.sv_idx))
                 and np.array_equal(loaded.x_sv, model.x_sv)
                 and np.array_equal(loaded.alpha, model.alpha)
                 and np.array_equal(loaded.y_sv, model.y_sv))
@@ -658,6 +953,42 @@ class Smoke:
             self.rec["convergence"][prec] = r
             log(f"[convergence] {prec}: {json.dumps(r)}")
         self.convergence_decomp()
+        self.convergence_general()
+
+    def convergence_general(self) -> None:
+        """The general pair's first-order RBF path (its captured graph)
+        against kernel A's fused path, both through their entry points, for
+        PREFIX_ITERS iterations at 60000 x 784: the same working sets, so
+        the float32 bars of the prefix above (decision values within
+        5e-3), on sum(alpha y K) without b: a capped run's b's differ
+        between the two by design (the fused carry holds the next
+        iteration's selection, the general pair's the last body's)."""
+        from dpsvm_tpu_torch import fit
+        from dpsvm_tpu_torch.models.svm import SVMModel, decision_function
+        from dpsvm_tpu_torch.solver import smo as gs
+        xtr, ytr, xte, _ = self.planted()
+        self.rec["convergence_general"] = {}
+        for prec in ("highest", "default"):
+            cfg = self.kind_config("rbf", gamma=GAMMA, max_iter=PREFIX_ITERS,
+                                   matmul_precision=prec)
+            mk, rk = fit(xtr, ytr, cfg)                      # kernel A
+            rg = gs.train_single_device(xtr, ytr, cfg, self.dev)
+            mg = SVMModel.from_train_result(xtr, ytr, rg)
+            dmax = float(np.abs(
+                decision_function(mk, xte, include_b=False)
+                - decision_function(mg, xte, include_b=False)).max())
+            r = {"n_iter": [rk.n_iter, rg.n_iter], "n_sv": [rk.n_sv, rg.n_sv],
+                 "max_alpha_diff": float(np.abs(rk.alpha - rg.alpha).max()),
+                 "max_decision_diff": dmax}
+            if not (rk.n_iter == rg.n_iter == PREFIX_ITERS
+                    and rk.n_sv == rg.n_sv and dmax <= 5e-3
+                    and np.allclose(rk.alpha, rg.alpha, rtol=1e-4,
+                                    atol=1e-5)):
+                self.fail("convergence", f"general pair against kernel A "
+                          f"{prec}: {r}")
+            self.rec["convergence_general"][prec] = r
+            log(f"[convergence] general pair against kernel A {prec}: "
+                f"{json.dumps(r)}")
 
     def convergence_decomp(self) -> None:
         """The decomposition's kernel path (``fit``) against its plain path
@@ -935,6 +1266,83 @@ class Smoke:
             log(f"[timing] subsolve {json.dumps(r)}")
             del inp
         self.rec["timing_subsolve"] = out
+        self.timing_general()
+
+    def timing_general(self) -> None:
+        """The general pair's WSS2 iteration at full width, from the carry
+        at alpha = 0 after a warm-up chunk: CUDA events over a chunk of
+        SMO_TIMED_ITERS iterations (a graph replay runs GRAPH_BODIES
+        bodies), the host's time to enqueue those replays, and from
+        torch.profiler over another chunk the device's busy share (the sum
+        of the kernels' device time over the chunk's device span, an upper
+        bound: kernels do not overlap on one stream) and its top
+        operations."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from dpsvm_tpu_torch.solver import smo as gs
+        xtr, ytr, _, _ = self.planted()
+        out = {}
+        for prec in ("highest", "default"):
+            key = "f32" if prec == "highest" else "bf16"
+            cfg = self.kind_config("rbf", gamma=GAMMA, max_iter=10 ** 9,
+                                   selection="second-order",
+                                   matmul_precision=prec)
+            prob = gs.SMOProblem.build(xtr, ytr, cfg, self.dev)
+            carry = gs.init_carry(prob.y)
+            chunk = gs.GraphChunk(carry, prob, gs.SMOOptions.from_config(cfg),
+                                  gs.two_eps_f32(cfg.epsilon))
+            done = 0
+
+            def run(iters):
+                nonlocal done
+                t = time.perf_counter()
+                replays = chunk.run(done, done + iters)
+                host = time.perf_counter() - t
+                done += iters
+                return replays, host
+
+            run(64)
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            replays, host_s = run(SMO_TIMED_ITERS)
+            t1.record()
+            torch.cuda.synchronize()
+            ms = t0.elapsed_time(t1)
+            if int(carry.n_iter) != done:
+                raise RuntimeError(f"{key}: the chunk ran {int(carry.n_iter)}"
+                                   f" of {done} iterations")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                p0 = torch.cuda.Event(enable_timing=True)
+                p1 = torch.cuda.Event(enable_timing=True)
+                p0.record()
+                run(SMO_TIMED_ITERS)
+                p1.record()
+                torch.cuda.synchronize()
+            span_ms = p0.elapsed_time(p1)
+            ops = sorted(((_device_us(e) / 1e3, e.key, e.count)
+                          for e in prof.key_averages() if _device_us(e) > 0),
+                         reverse=True)
+            busy_ms = sum(t for t, _, _ in ops)
+            if not busy_ms > 0:
+                raise RuntimeError(f"{key}: torch.profiler gave no device "
+                                   "time for the general pair")
+            out[key] = {
+                "us_per_iteration": 1e3 * ms / SMO_TIMED_ITERS,
+                "replays": replays, "bodies_per_replay": gs.GRAPH_BODIES,
+                "host_enqueue_us_per_iteration": 1e6 * host_s
+                / SMO_TIMED_ITERS,
+                "profiled_span_ms": span_ms, "device_busy_ms": busy_ms,
+                "busy_share": busy_ms / span_ms,
+                "kernels_per_iteration": sum(c for _, _, c in ops)
+                / SMO_TIMED_ITERS,
+                "top_ops": [{"name": n[:80], "ms": t, "count": c}
+                            for t, n, c in ops[:8]]}
+            log(f"[timing] general pair WSS2 {key}: {json.dumps(out[key])}")
+            del chunk, carry, prob
+        self.rec["timing_general"] = out
 
     def kernels_line(self) -> dict:
         t, errs = self.rec["timing"], self.rec["max_abs_err"]

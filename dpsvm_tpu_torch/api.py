@@ -1,15 +1,25 @@
-"""Library entry points (port of ``dpsvm_tpu/api.py``): ``train`` and
-``fit`` for the exact solver on one device, through the fused iteration
-(``working_set == 2``) or the large-working-set decomposition
-(``working_set > 2``).
+"""Library entry points (port of ``dpsvm_tpu/api.py``): ``train``, ``fit``
+and ``warm_start`` for the exact solver on one device.
 
-Both run on the card unless the caller passes ``device="cpu"``. Every
-other solver path raises: it is not ported yet.
+``train`` routes as the JAX package does (``api.py:125-147`` there):
+
+* ``working_set > 2``: the large-working-set decomposition
+  (``solver/decomp.py``, kernel B for the inner subsolve);
+* a config within ``SVMConfig.fused_incompatibility`` with no
+  ``f_init``/``alpha_init`` seed and no ``guard_eta``: the fused pair
+  (``experimental/fused.py``, kernel A, one launch an iteration);
+* every other ``working_set == 2`` config: the general pair
+  (``solver/smo.py``);
+* what no path covers raises ``NotImplementedError`` naming it.
+
+All of them run on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+import warnings
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -23,7 +33,8 @@ Device = Optional[Union[str, torch.device]]
 
 
 def _check_xy(x, y):
-    """The cheap shape/label validation of the JAX ``_check_xy``."""
+    """The cheap shape/label validation of the JAX ``_check_xy`` (train
+    and warm_start run it before any kernel work)."""
     x = np.asarray(x, np.float32)
     y = np.asarray(y)
     if x.ndim != 2:
@@ -40,38 +51,97 @@ def _check_xy(x, y):
 
 def train(x: np.ndarray, y: np.ndarray,
           config: Optional[SVMConfig] = None,
-          device: Device = None) -> TrainResult:
-    """Train a binary RBF SVM with the modified-SMO solver (the SMO pair,
-    or the decomposition for ``working_set > 2``).
+          device: Device = None,
+          f_init: Optional[np.ndarray] = None,
+          alpha_init: Optional[np.ndarray] = None,
+          guard_eta: bool = False) -> TrainResult:
+    """Train a binary SVM with the modified-SMO solver.
 
-    x: (n, d) float features; y: (n,) labels in {+1, -1}. ``device``
-    None means the GPU; ``"cpu"`` runs the plain PyTorch path."""
+    x: (n, d) float features (the (n, n) kernel matrix for
+    ``kernel="precomputed"``); y: (n,) labels in {+1, -1}. ``device`` None
+    means the GPU; ``"cpu"`` runs the plain PyTorch path. ``f_init`` /
+    ``alpha_init`` override f = -y, alpha = 0 (``warm_start``'s hook).
+    ``guard_eta`` clamps the first-order update's denominator to LIBSVM's
+    TAU (1e-12); off, plain classification keeps the reference's raw
+    division (svmTrainMain.cpp:289)."""
     config = config or SVMConfig()
     config.validate()
+    x, y = _check_xy(x, y)
     if config.working_set == 0:
         # The JAX auto plan resolves to the classic pair at every shape.
         config = dataclasses.replace(config, working_set=2)
+    if config.kernel == "precomputed" and x.shape[0] != x.shape[1]:
+        raise ValueError("precomputed kernel training needs the square "
+                         f"(n, n) kernel matrix as x, got {x.shape}")
+    if config.polish:
+        return _polish(x, y, config, device, f_init, alpha_init, guard_eta)
     if config.working_set > 2:
         why = config.decomp_incompatibility()
         if why is not None:
             raise NotImplementedError(
                 f"dpsvm_tpu_torch does not support {why} yet: the "
-                "decomposition (working_set > 2) is ported for binary RBF "
+                "decomposition (working_set > 2) is ported for binary "
                 "C-SVC on one device")
         dev = resolve_device(device)
-        x, y = _check_xy(x, y)
         from dpsvm_tpu_torch.solver.decomp import train_single_device_decomp
-        return train_single_device_decomp(x, y, config, dev)
-    why = config.fused_incompatibility()
+        return train_single_device_decomp(x, y, config, dev, f_init=f_init,
+                                          alpha_init=alpha_init)
+    if (f_init is None and alpha_init is None and not guard_eta
+            and config.fused_incompatibility() is None):
+        # the fused kernel hard-codes the classification init and the
+        # reference's raw division
+        dev = resolve_device(device)
+        from dpsvm_tpu_torch.experimental.fused import (
+            train_single_device_fused)
+        return train_single_device_fused(x, y, config, dev)
+    why = config.smo_incompatibility()
     if why is not None:
         raise NotImplementedError(
-            f"dpsvm_tpu_torch does not support {why} yet: only the fused "
-            "first-order SMO path (binary RBF, independent clip, one "
-            "device, unweighted, no row cache) is ported")
+            f"dpsvm_tpu_torch does not support {why} yet: the SMO pair "
+            "(working_set = 2) is ported for binary C-SVC on one device "
+            "without the kernel-row cache")
     dev = resolve_device(device)
-    x, y = _check_xy(x, y)
-    from dpsvm_tpu_torch.experimental.fused import train_single_device_fused
-    return train_single_device_fused(x, y, config, dev)
+    from dpsvm_tpu_torch.solver.smo import train_single_device
+    return train_single_device(x, y, config, dev, f_init=f_init,
+                               alpha_init=alpha_init, guard_eta=guard_eta)
+
+
+def _polish(x, y, config: SVMConfig, device, f_init, alpha_init,
+            guard_eta) -> TrainResult:
+    """Two-phase "polishing" (the fast-SVM recipe, arXiv:2207.01016): the
+    configured solver path does the bulk of the work with bfloat16 X,
+    then an exact-float32 warm start refines to the same epsilon from f
+    recomputed from alpha."""
+    if f_init is not None or alpha_init is not None:
+        raise ValueError(
+            "polish composes with the plain classification init "
+            "only — the SVR/one-class wrappers seed f and manage "
+            "their own duals; polish their output via warm_start "
+            "with matmul_precision='highest' instead")
+    fast_p = ("default" if config.matmul_precision == "highest"
+              else config.matmul_precision)
+    fast = train(x, y, dataclasses.replace(
+        config, polish=False, matmul_precision=fast_p), device=device,
+        guard_eta=guard_eta)
+    budget = config.max_iter - fast.n_iter
+    if budget <= 0:
+        if fast.converged:
+            warnings.warn(
+                "polish: the fast phase consumed the entire "
+                "max_iter budget while converging, so the exact-f32 "
+                "refinement was skipped — the returned model's KKT "
+                "condition holds at fast precision only. Raise "
+                "max_iter to get the polished guarantee.")
+        return fast
+    t0 = time.perf_counter()
+    refined = warm_start(x, y, fast.alpha, dataclasses.replace(
+        config, polish=False, matmul_precision="highest",
+        max_iter=budget), device=device, guard_eta=guard_eta)
+    # The refinement's fresh O(n^2) kernel pass is part of the schedule.
+    refine_seconds = time.perf_counter() - t0
+    return dataclasses.replace(
+        refined, n_iter=fast.n_iter + refined.n_iter,
+        train_seconds=fast.train_seconds + refine_seconds)
 
 
 def fit(x: np.ndarray, y: np.ndarray, config: Optional[SVMConfig] = None,
@@ -79,3 +149,43 @@ def fit(x: np.ndarray, y: np.ndarray, config: Optional[SVMConfig] = None,
     """train + SV compaction in one call."""
     result = train(x, y, config, device=device)
     return SVMModel.from_train_result(x, y, result), result
+
+
+def warm_start(x: np.ndarray, y: np.ndarray, alpha: np.ndarray,
+               config: Optional[SVMConfig] = None, device: Device = None,
+               guard_eta: bool = False) -> TrainResult:
+    """Continue training from a previous solution's alpha.
+
+    Recomputes f = K (alpha*y) - y in one streamed kernel pass
+    (``ops.diagnostics._stream_kv``) and resumes the SMO loop, so a capped
+    run can be continued with a larger ``max_iter`` (or a tighter
+    ``epsilon``), and a converged alpha returns after the first poll. The
+    alphas must come from a run with the same C and weights: membership
+    of the box's corners is an exact comparison against this config's
+    bounds."""
+    from dpsvm_tpu_torch.ops.diagnostics import _stream_kv
+
+    config = config or SVMConfig()
+    config.validate()
+    if config.polish:
+        raise ValueError("warm_start IS the refinement mechanism polish "
+                         "is built from — call it with "
+                         "matmul_precision='highest' instead of "
+                         "polish=True")
+    x, y = _check_xy(x, y)
+    yf = np.asarray(y, np.float32)
+    alpha = np.asarray(alpha, np.float32)
+    if alpha.shape != (x.shape[0],):
+        raise ValueError(f"alpha must be ({x.shape[0]},), got {alpha.shape}")
+    box = np.broadcast_to(np.asarray(config.box_bound(y), np.float32),
+                          alpha.shape)
+    if (not np.isfinite(alpha).all() or (alpha < 0).any()
+            or (alpha > box).any()):
+        raise ValueError("alpha outside [0, C] (or non-finite) — not a "
+                         "feasible dual point for this config")
+    dev = resolve_device(device)
+    kv = _stream_kv(x, alpha * yf, config.kernel_spec(x.shape[1]),
+                    block=4096, device=dev)
+    return train(x, y, config, device=dev,
+                 f_init=(kv - yf).astype(np.float32), alpha_init=alpha,
+                 guard_eta=guard_eta)

@@ -5,7 +5,13 @@ report, plus ``--device {cuda,cpu}`` (default cuda).
     python -m dpsvm_tpu_torch.cli train -f train.csv -m model.svm -c 10 -g 0.25
     python -m dpsvm_tpu_torch train -f train.csv -m model.svm -c 10 -g 0.25 \
         --working-set 12288 --inner-iters 128      # the decomposition
+    python -m dpsvm_tpu_torch train -f train.csv -m model.svm -c 10 \
+        -t poly -d 3 -r 1 --selection second-order # the general pair
     python -m dpsvm_tpu_torch.cli test  -f test.csv  -m model.svm
+
+With ``-t precomputed`` (LIBSVM -t 4) the training CSV holds the (n, n)
+kernel matrix as its rows (``label,K_i1,...,K_in``) and the test CSV the
+rows of K(test, train).
 """
 
 from __future__ import annotations
@@ -29,6 +35,21 @@ def _finite_weight(v: str) -> float:
     return w
 
 
+_KERNEL_BY_T = {"0": "linear", "1": "poly", "2": "rbf", "3": "sigmoid",
+                "4": "precomputed"}
+
+
+def _kernel_name(v: str) -> str:
+    """Accept LIBSVM -t integers as aliases for the kernel names; reject
+    anything else at parse time (before the dataset is loaded)."""
+    name = _KERNEL_BY_T.get(v, v)
+    if name not in _KERNEL_BY_T.values():
+        raise argparse.ArgumentTypeError(
+            f"{v!r} is not a kernel (linear | poly | rbf | sigmoid | "
+            "precomputed, or LIBSVM -t 0..4)")
+    return name
+
+
 def _add_common(p: argparse.ArgumentParser, model_help: str) -> None:
     p.add_argument("-f", "--input", required=True,
                    help="dataset: dense CSV 'label,f1,...,fd'")
@@ -42,11 +63,21 @@ def build_parser() -> argparse.ArgumentParser:
     root = argparse.ArgumentParser(prog="dpsvm_tpu_torch")
     sub = root.add_subparsers(dest="command", required=True)
 
-    tr = sub.add_parser("train", help="train a binary RBF SVM")
+    tr = sub.add_parser("train", help="train a binary SVM (RBF default)")
     _add_common(tr, "model file to write")
     tr.add_argument("-c", "--cost", type=float, default=1.0)
     tr.add_argument("-g", "--gamma", type=float, default=None,
                     help="kernel gamma (default 1/num_attributes)")
+    tr.add_argument("-t", "--kernel", default="rbf", type=_kernel_name,
+                    help="kernel: linear | poly | rbf | sigmoid | "
+                         "precomputed, or the LIBSVM -t integer 0..4 "
+                         "(default rbf — the reference's only kernel; "
+                         "-t 4 trains on a (n, n) kernel matrix CSV and "
+                         "tests on K(test, train) rows)")
+    tr.add_argument("-d", "--degree", type=int, default=3,
+                    help="poly kernel degree (LIBSVM -d)")
+    tr.add_argument("-r", "--coef0", type=float, default=0.0,
+                    help="poly/sigmoid coef0 (LIBSVM -r)")
     tr.add_argument("-e", "--epsilon", type=float, default=0.001)
     tr.add_argument("-n", "--max-iter", type=int, default=150_000)
     tr.add_argument("--precision", default="highest",
@@ -56,16 +87,24 @@ def build_parser() -> argparse.ArgumentParser:
                          "iteration); accumulation is float32 always")
     tr.add_argument("--weight-pos", type=_finite_weight, default=1.0,
                     help="cost weight for y=+1 examples (box bound "
-                         "C*weight; LIBSVM -w1; decomposition only)")
+                         "C*weight; LIBSVM -w1)")
     tr.add_argument("--weight-neg", type=_finite_weight, default=1.0,
-                    help="cost weight for y=-1 examples (LIBSVM -w-1; "
-                         "decomposition only)")
+                    help="cost weight for y=-1 examples (LIBSVM -w-1)")
     tr.add_argument("--clip", default="independent",
                     choices=["independent", "pairwise"],
                     help="alpha-step clip rule: 'independent' = the "
                          "reference's (both alphas clipped separately), "
-                         "'pairwise' = the textbook/LIBSVM joint box "
-                         "(decomposition only)")
+                         "'pairwise' = the textbook/LIBSVM joint box")
+    tr.add_argument("--selection", default="first-order",
+                    choices=["first-order", "second-order"],
+                    help="working-set rule: 'first-order' = reference "
+                         "parity; 'second-order' = LIBSVM WSS2 (usually "
+                         "far fewer iterations)")
+    tr.add_argument("--select-impl", default="argminmax",
+                    choices=["argminmax", "packed"],
+                    help="first-order selection: 'packed' = one min and "
+                         "one max over 64-bit (value, index) keys (the "
+                         "same answer)")
     tr.add_argument("--working-set", type=int, default=2, metavar="Q",
                     help="violators optimized per kernel fetch: 2 = the "
                          "reference's SMO pair; even Q > 2 = large-"
@@ -93,8 +132,11 @@ def cmd_train(args: argparse.Namespace) -> int:
     from dpsvm_tpu_torch.models.svm import evaluate
 
     x, y = load_dataset(args.input)
-    config = SVMConfig(c=args.cost, gamma=args.gamma, epsilon=args.epsilon,
-                       max_iter=args.max_iter,
+    config = SVMConfig(c=args.cost, gamma=args.gamma, kernel=args.kernel,
+                       degree=args.degree, coef0=args.coef0,
+                       epsilon=args.epsilon, max_iter=args.max_iter,
+                       selection=args.selection,
+                       select_impl=args.select_impl,
                        working_set=args.working_set,
                        inner_iters=args.inner_iters,
                        grow_working_set=args.grow_working_set,

@@ -4,14 +4,18 @@ A copy of the fields of ``dpsvm_tpu.config.SVMConfig`` that training and
 testing read, with the same names, defaults and validation messages. The
 port keeps its own copy: it never imports the JAX package.
 
-Two solver paths are ported, each with the envelope a method names:
+Three solver paths are ported, each with the envelope a method names:
 
-* ``working_set == 2``: the fused first-order SMO pair, within
-  ``fused_incompatibility`` (binary RBF C-SVC, the reference's independent
-  clip, one device, no class weights, no row cache);
-* ``working_set > 2``: the large-working-set decomposition, within
-  ``decomp_incompatibility`` (binary RBF C-SVC on one device; both clips
-  and class weights).
+* ``working_set == 2`` within ``fused_incompatibility`` (binary RBF C-SVC,
+  first-order selection, the reference's independent clip, one device, no
+  class weights, no row cache): the fused first-order SMO pair;
+* every other ``working_set == 2`` config within ``smo_incompatibility``
+  (one device, no row cache): the general SMO pair, ``solver/smo.py`` —
+  first- or second-order selection, both clips, class weights, every
+  kernel kind;
+* ``working_set > 2`` within ``decomp_incompatibility`` (one device): the
+  large-working-set decomposition, every kernel kind, both clips and
+  class weights.
 
 ``api.train`` raises with that method's message for any other config.
 """
@@ -36,14 +40,19 @@ class SVMConfig:
     # --- algorithm (reference-parity) ---
     c: float = 1.0                      # box constraint C
     gamma: Optional[float] = None       # kernel gamma; None => 1.0 / d
-    kernel: str = "rbf"                 # only "rbf" is ported
+    kernel: str = "rbf"                 # LIBSVM -t family: "linear" (u.v),
+                                        # "poly" ((g u.v + r)^deg), "rbf"
+                                        # (the reference's only kernel),
+                                        # "sigmoid" (tanh(g u.v + r)),
+                                        # "precomputed" (x is K)
+    degree: int = 3                     # poly degree (LIBSVM -d)
+    coef0: float = 0.0                  # poly/sigmoid coef0 (LIBSVM -r)
     epsilon: float = 0.001              # convergence tolerance
     max_iter: int = 150_000             # iteration cap
     cache_size: int = 0                 # kernel-row cache lines (0 = off)
     weight_pos: float = 1.0             # class-weighted costs: the box
     weight_neg: float = 1.0             # bound is C*weight_pos for y=+1,
                                         # C*weight_neg for y=-1
-                                        # (decomposition only)
     selection: str = "first-order"      # working-set rule
     working_set: int = 2                # 2 = the reference's SMO pair;
                                         # even q > 2 = large-working-set
@@ -55,7 +64,16 @@ class SVMConfig:
     grow_working_set: bool = False      # adaptive decomposition: grow q
                                         # when the SV count approaches it
     clip: str = "independent"           # "independent" (the reference's)
-                                        # or "pairwise" (decomposition only)
+                                        # or "pairwise" (textbook/LIBSVM)
+    select_impl: str = "argminmax"      # first-order selection: "argminmax"
+                                        # (argmin + argmax) or "packed"
+                                        # (one min and one max over 64-bit
+                                        # (value, index) keys; the same
+                                        # answer on finite scores)
+    polish: bool = False                # two-phase precision schedule: the
+                                        # configured path at bf16 X, then an
+                                        # exact-f32 warm start to the same
+                                        # epsilon (api.train)
 
     # --- execution ---
     shards: int = 1                     # devices along the data axis
@@ -78,8 +96,7 @@ class SVMConfig:
 
     def fused_incompatibility(self) -> Optional[str]:
         """Why the fused iteration cannot run this config (None if it can).
-        The port's ``train`` raises with this message: every other solver
-        path is still to be ported."""
+        ``api.train`` sends such a config to the general pair."""
         if self.shards > 1:
             return "shards > 1"
         if self.kernel != "rbf":
@@ -104,15 +121,42 @@ class SVMConfig:
         rejects with the same messages; this names what the port has not
         ported beyond them."""
         if self.shards > 1:
-            return "shards > 1"
-        if self.kernel != "rbf":
-            return f"kernel {self.kernel!r} (RBF only)"
+            return "shards > 1 (parallel/dist_decomp.py)"
         return None
+
+    def smo_incompatibility(self) -> Optional[str]:
+        """Why the port's general SMO pair (``solver/smo.py``) cannot run
+        this config (None if it can): what it still lacks, with the module
+        of the JAX package that brings it."""
+        if self.shards > 1:
+            return "shards > 1 (parallel/dist_smo.py)"
+        if self.cache_size > 0:
+            return "the kernel-row cache, cache_size > 0 (ops/rowcache.py)"
+        return None
+
+    def box_bound(self, y):
+        """Per-example box bound C_i = C * w(y_i), or the scalar C when
+        unweighted: the float32 values the solvers' exact ``alpha == C``
+        membership tests compare against."""
+        import numpy as np
+        if self.weight_pos == 1.0 and self.weight_neg == 1.0:
+            return self.c
+        return np.where(np.asarray(y) > 0,
+                        np.float32(self.c * self.weight_pos),
+                        np.float32(self.c * self.weight_neg))
 
     def resolve_gamma(self, num_attributes: int) -> float:
         if self.gamma is not None:
             return float(self.gamma)
         return 1.0 / float(num_attributes)
+
+    def kernel_spec(self, num_attributes: int):
+        """The KernelSpec every solver path consumes."""
+        from dpsvm_tpu_torch.ops.kernels import KernelSpec
+        return KernelSpec(kind=self.kernel,
+                          gamma=self.resolve_gamma(num_attributes),
+                          coef0=float(self.coef0),
+                          degree=int(self.degree))
 
     def validate(self) -> None:
         if self.c <= 0:
@@ -144,14 +188,29 @@ class SVMConfig:
             raise ValueError(f"kernel must be 'linear', 'poly', 'rbf', "
                              f"'sigmoid' or 'precomputed', got "
                              f"{self.kernel!r}")
-        if self.kernel == "precomputed" and self.use_pallas == "on":
-            raise ValueError(
-                "the Pallas kernels are built around the vector-"
-                "kernel row fetch; precomputed uses the plain XLA "
-                "gather path")
+        if self.kernel == "precomputed":
+            if self.cache_size > 0:
+                raise ValueError(
+                    "precomputed kernel has nothing to cache: the row "
+                    "fetch is already a 2-row gather of the stored K")
+            if self.use_pallas == "on":
+                raise ValueError(
+                    "the Pallas kernels are built around the vector-"
+                    "kernel row fetch; precomputed uses the plain XLA "
+                    "gather path")
+        if self.kernel == "poly" and self.degree < 1:
+            raise ValueError(f"poly degree must be >= 1, got {self.degree}")
         if self.selection not in ("first-order", "second-order"):
             raise ValueError(f"selection must be 'first-order' or "
                              f"'second-order', got {self.selection!r}")
+        if self.select_impl not in ("argminmax", "packed"):
+            raise ValueError(f"select_impl must be 'argminmax' or "
+                             f"'packed', got {self.select_impl!r}")
+        if (self.select_impl != "argminmax" and self.use_pallas == "on"
+                and self.working_set == 2):
+            raise ValueError("the fused Pallas kernel has its own "
+                             "in-kernel selection; select_impl does "
+                             "not apply (use_pallas='on')")
         if self.selection == "second-order":
             if self.cache_size > 0:
                 raise ValueError("second-order selection needs the hi row "
@@ -160,6 +219,10 @@ class SVMConfig:
             if self.use_pallas == "on" and self.working_set == 2:
                 raise ValueError("the fused Pallas kernel implements "
                                  "first-order selection only")
+            if self.select_impl != "argminmax":
+                raise ValueError("select_impl applies to first-order "
+                                 "selection only (WSS2's argmax-over-"
+                                 "objective has no packed lowering)")
         if self.working_set == 0:
             # The sentinel may resolve to either 2 or q > 2; knobs whose
             # meaning depends on which must be pinned by an explicit
@@ -179,8 +242,8 @@ class SVMConfig:
                 raise ValueError("working_set must be 0 (auto), 2 "
                                  "(classic SMO pair) or an even value "
                                  f"in [4, 16384], got {self.working_set}")
-            # The JAX guard table, row for row (its rows on fields the
-            # port does not have, select_impl and backend, cannot fire).
+            # The JAX guard table, row for row (its row on a field the
+            # port does not have, backend, cannot fire).
             for field, bad, what in (
                     ("selection", self.selection != "first-order",
                      "the decomposition subsolve is WSS2 internally"),
@@ -192,7 +255,9 @@ class SVMConfig:
                     ("use_pallas+working_set",
                      self.use_pallas == "on" and self.working_set > 2048,
                      "the inner-subsolve kernel keeps the (q, q) f32 "
-                     "block VMEM-resident; q caps at 2048 (16 MB)")):
+                     "block VMEM-resident; q caps at 2048 (16 MB)"),
+                    ("select_impl", self.select_impl != "argminmax",
+                     "outer selection is top_k, not packed extrema")):
                 if bad:
                     raise ValueError(
                         f"working_set > 2 does not support {field}: {what}")

@@ -7,8 +7,10 @@ Two clip rules:
   separately. This is the clip of the ported training path.
 * "pairwise" — the textbook/LIBSVM joint box: a_lo' clipped to the
   feasible segment of the equality-constraint line through the pair,
-  a_hi' moved along it. Ported with the primitive; no training path of
-  the port uses it yet.
+  a_hi' moved along it.
+
+The constants are made on the operands' device by fills, never copied
+from the host, so that a captured CUDA graph can hold the step.
 """
 
 from __future__ import annotations
@@ -25,9 +27,9 @@ def alpha_pair_step(a_hi, a_lo, y_hi, y_lo, b_hi, b_lo_sel, eta,
     if pairwise:
         # When the joint clip binds, the partner lands on the LITERAL
         # corner value: the I-set masks test alpha == 0 / == C exactly.
-        c_hi = torch.as_tensor(c_hi, dtype=torch.float32, device=a_lo.device)
-        c_lo = torch.as_tensor(c_lo, dtype=torch.float32, device=a_lo.device)
-        zero = torch.zeros((), dtype=torch.float32, device=a_lo.device)
+        c_hi = _on_device(c_hi, a_lo)
+        c_lo = _on_device(c_lo, a_lo)
+        zero = a_lo.new_zeros(())
         pos = s > 0
         ssum = a_lo + a_hi                   # conserved when s > 0
         diff = a_hi - a_lo                   # conserved when s < 0
@@ -48,6 +50,13 @@ def alpha_pair_step(a_hi, a_lo, y_hi, y_lo, b_hi, b_lo_sel, eta,
         a_lo_n = _clip(a_lo_u, c_lo)
         a_hi_n = _clip(a_hi_u, c_hi)
     return a_hi_n, a_lo_n
+
+
+def _on_device(c, like: torch.Tensor) -> torch.Tensor:
+    """A box bound as a float32 tensor on ``like``'s device."""
+    if isinstance(c, torch.Tensor):
+        return c.to(torch.float32)
+    return like.new_full((), c, dtype=torch.float32)
 
 
 def _clip(v: torch.Tensor, hi) -> torch.Tensor:

@@ -7,18 +7,21 @@ One outer round:
    them; the union, deduplicated and padded with inactive slots, is the
    working set W;
 2. K_WW = rows . rows^T in exact float32 (TF32 off whatever the caller set)
-   with the RBF epilogue;
+   with the kernel's epilogue (``KernelSpec``: every LIBSVM kind); for a
+   precomputed kernel, where X is K, the (q, q) block is gathered;
 3. the capped WSS2 subsolve on K_WW: on the card one launch of the CUDA
    kernel ``csrc/subsolve.cu`` (``launch_inner_subsolve``), on the CPU its
    plain version;
 4. the rank-q update: alpha[W] += dalpha and f += (dalpha y_W) . K_WN, with
-   K_WN = RBF(rows . X^T) in column blocks of n so the (q, n) intermediate
-   never exists whole.
+   K_WN = kernel(rows . X^T) in column blocks of n so the (q, n)
+   intermediate never exists whole (precomputed: the gathered K rows).
 
 The two matrix products stay ``torch.matmul`` (the JAX package leaves them
 to XLA). With ``matmul_precision="default"`` the rank-q pass reads a
 bfloat16 copy of X and accumulates in float32, as the JAX package's
-DEFAULT precision does on its chip; K_WW and the norms stay float32.
+DEFAULT precision does on its chip; K_WW and the norms stay float32. A
+precomputed K is never copied to bfloat16 (the JAX package keeps it in
+float32).
 
 Rounds run while ``b_lo > b_hi + 2 eps`` and ``n_iter < limit``, each with
 ``step_cap = min(inner_cap, limit - n_iter)``, so ``n_iter`` (inner pair
@@ -31,13 +34,11 @@ packed-stats tensor per round (its condition needs the gap and n_iter);
 the last read of a chunk is the driver's poll. The four parts of a round
 run inside ``torch.profiler`` ranges named ``decomp.select``,
 ``decomp.k_ww``, ``decomp.subsolve`` and ``decomp.rank_q``. Checkpoints and resume,
-``f_init`` / warm start, shrinking and the distributed decomposition are
-not ported.
+shrinking and the distributed decomposition are not ported.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import sys
@@ -48,7 +49,8 @@ import torch
 
 from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
 from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
-from dpsvm_tpu_torch.ops.kernels import host_row_norms_sq, rows_from_dots
+from dpsvm_tpu_torch.ops.kernels import (KernelSpec, dots_f32, exact_f32,
+                                         host_row_stats, rows_from_dots)
 from dpsvm_tpu_torch.ops.selection import (masked_scores_and_masks,
                                            top_k_first, unique_padded)
 from dpsvm_tpu_torch.solver.driver import (ChunkStats, device_sv_count,
@@ -83,22 +85,12 @@ def init_carry(y: torch.Tensor) -> DecompCarry:
                        rounds=scalar(0, torch.int32))
 
 
-@contextlib.contextmanager
-def exact_f32():
-    """float32 matmuls in full float32: TF32 off for the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 @dataclasses.dataclass
 class DecompProblem:
-    """The device-side inputs of a run: X in float32 (K_WW and the norms),
-    the X the rank-q pass reads (a bfloat16 copy under "default"), labels,
-    host-computed squared norms, and the per-example box."""
+    """The device-side inputs of a run: X in float32 (K_WW and the norms;
+    K itself for a precomputed kernel), the X the rank-q pass reads (a
+    bfloat16 copy under "default"), labels, the host-computed x2 slot
+    (squared norms, or diag(K)), the per-example box and the kernel."""
     x: torch.Tensor
     x_pass: torch.Tensor
     y: torch.Tensor
@@ -106,15 +98,17 @@ class DecompProblem:
     gamma: float
     c: float
     c_box: object          # float C, or the (n,) f32 per-example box
+    spec: KernelSpec = KernelSpec()
 
     @classmethod
     def build(cls, x: np.ndarray, y: np.ndarray, config: SVMConfig,
               device: torch.device) -> "DecompProblem":
+        spec = config.kernel_spec(x.shape[1])
         xd = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
         x_pass = (xd.to(torch.bfloat16) if config.matmul_precision == "default"
-                  else xd)
+                  and spec.kind != "precomputed" else xd)
         yd = torch.from_numpy(np.asarray(y, np.float32)).to(device)
-        x2 = torch.from_numpy(host_row_norms_sq(x)).to(device)
+        x2 = torch.from_numpy(host_row_stats(x, spec)).to(device)
         c = float(config.c)
         wp, wn = float(config.weight_pos), float(config.weight_neg)
         c_box = c
@@ -122,33 +116,25 @@ class DecompProblem:
             c_box = torch.where(
                 yd > 0, torch.tensor(np.float32(c * wp), device=device),
                 torch.tensor(np.float32(c * wn), device=device))
-        return cls(xd, x_pass, yd, x2,
-                   float(config.resolve_gamma(x.shape[1])), c, c_box)
-
-
-def _pass_dots(rows: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
-    """rows . xb^T as float32: full float32 for float32 X; for bfloat16 X
-    bfloat16 products accumulated in float32 (on the CPU, which has no
-    such product, the same values through a float32 product)."""
-    if rows.dtype == torch.float32:
-        with exact_f32():
-            return torch.matmul(rows, xb.T)
-    if rows.is_cuda:
-        return torch.mm(rows, xb.T, out_dtype=torch.float32)
-    return torch.matmul(rows.float(), xb.float().T)
+        return cls(xd, x_pass, yd, x2, float(spec.gamma), c, c_box, spec)
 
 
 def rank_q_update(f: torch.Tensor, coef: torch.Tensor, rows: torch.Tensor,
                   x_pass: torch.Tensor, x2w: torch.Tensor, x2: torch.Tensor,
-                  gamma: float) -> None:
-    """f += coef . K_WN in place, K_WN = RBF(rows . X^T) built one column
-    block at a time (``RANK_Q_BLOCK_ELEMS``)."""
+                  spec) -> None:
+    """f += coef . K_WN in place, K_WN = kernel(rows . X^T) built one
+    column block at a time (``RANK_Q_BLOCK_ELEMS``); for a precomputed
+    kernel ``rows`` are the gathered K rows, K_WN itself."""
+    spec = KernelSpec.coerce(spec)
+    if spec.kind == "precomputed":
+        with exact_f32():
+            f += torch.matmul(coef, rows)
+        return
     n, q = x_pass.shape[0], rows.shape[0]
     step = max(1, min(n, RANK_Q_BLOCK_ELEMS // max(q, 1)))
     for s in range(0, n, step):
         e = min(n, s + step)
-        k = rows_from_dots(_pass_dots(rows, x_pass[s:e]), x2w, x2[s:e],
-                            gamma)
+        k = rows_from_dots(dots_f32(rows, x_pass[s:e]), x2w, x2[s:e], spec)
         with exact_f32():
             f[s:e] += torch.matmul(coef, k)
 
@@ -189,18 +175,23 @@ def decomp_step(carry: DecompCarry, prob: DecompProblem, *, q: int,
 
     with span("decomp.k_ww"):
         # K_WW exactly, in float32 (a bf16 block is not PSD enough: see
-        # the JAX module's note).
+        # the JAX module's note); for a precomputed kernel, a column
+        # gather of the stored K rows.
         rows = prob.x[wi]
         x2w = prob.x2[wi]
-        with exact_f32():
-            dots_ww = torch.matmul(rows, rows.T)
-        k_ww = rows_from_dots(dots_ww, x2w, x2w, prob.gamma)
+        if prob.spec.kind == "precomputed":
+            k_ww = rows[:, wi]
+        else:
+            with exact_f32():
+                dots_ww = torch.matmul(rows, rows.T)
+            k_ww = rows_from_dots(dots_ww, x2w, x2w, prob.spec)
+            del dots_ww
 
     with span("decomp.subsolve"):
         a_in, _, _, _, t = subsolve(k_ww, y_w, c_w, a_w0, f_w0, active,
                                     epsilon, step_cap, max_cap=inner_cap,
                                     pairwise=pairwise_clip)
-    del k_ww, dots_ww
+    del k_ww
 
     with span("decomp.rank_q"):
         # Padding slots carry dalpha == 0, so the repeated index-0 adds
@@ -209,7 +200,7 @@ def decomp_step(carry: DecompCarry, prob: DecompProblem, *, q: int,
         alpha.index_add_(0, wi, dalpha)
         rows_pass = rows if prob.x_pass is prob.x else prob.x_pass[wi]
         rank_q_update(f, dalpha * y_w, rows_pass, prob.x_pass, x2w, prob.x2,
-                      prob.gamma)
+                      prob.spec)
     return DecompCarry(alpha, f, b_hi, b_lo, carry.n_iter + t,
                        carry.rounds + 1)
 
@@ -330,22 +321,33 @@ def _make_growth_hook(config: SVMConfig, n: int, q0: int, build):
 
 def train_single_device_decomp(x: np.ndarray, y: np.ndarray,
                                config: SVMConfig, device: torch.device,
-                               plain: bool = False) -> TrainResult:
+                               plain: bool = False,
+                               f_init: Optional[np.ndarray] = None,
+                               alpha_init: Optional[np.ndarray] = None
+                               ) -> TrainResult:
     """Train with working_set = q > 2 on one device: the CUDA subsolve
     kernel on the card, its plain version on the CPU (or anywhere, with
     ``plain``). q = 2 min(q/2, n): a problem smaller than the block
-    degrades to a smaller one."""
+    degrades to a smaller one. ``f_init`` / ``alpha_init`` override
+    f = -y, alpha = 0 (``api.warm_start``)."""
     config.validate()
     n = x.shape[0]
     q = 2 * min(int(config.working_set) // 2, n)
     prob = DecompProblem.build(x, y, config, device)
     ws = DecompWorkspace(device)
+    carry = init_carry(prob.y)
+    if f_init is not None:
+        carry = carry._replace(f=torch.from_numpy(
+            np.asarray(f_init, np.float32).copy()).to(device))
+    if alpha_init is not None:
+        carry = carry._replace(alpha=torch.from_numpy(
+            np.asarray(alpha_init, np.float32).copy()).to(device))
 
     def build(q_now: int):
         return make_runner(prob, config, q_now, ws, plain)
 
     hook = (_make_growth_hook(config, n, q, build)
             if config.grow_working_set else None)
-    return host_training_loop(config, prob.gamma, init_carry(prob.y),
-                              build(q), lambda cr: cr.alpha.cpu().numpy(),
+    return host_training_loop(config, prob.gamma, carry, build(q),
+                              lambda cr: cr.alpha.cpu().numpy(),
                               poll_hook=hook)

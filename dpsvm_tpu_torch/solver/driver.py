@@ -88,17 +88,19 @@ def log_progress(config: SVMConfig, n_iter: int, b_lo: float, b_hi: float,
 
 def host_training_loop(config: SVMConfig, gamma: float, carry,
                        step_chunk: Callable, carry_to_host: Callable,
-                       poll_hook: Optional[Callable] = None) -> TrainResult:
+                       poll_hook: Optional[Callable] = None,
+                       it0: int = 0) -> TrainResult:
     """Run chunks until convergence, ``max_iter`` or the wall budget.
 
     ``step_chunk(carry, limit) -> (carry, ChunkStats)`` advances the carry
     to at most ``limit`` iterations (plus the trailing do-while body on
     convergence) and performs the poll's single read.
     ``carry_to_host(carry)`` returns alpha as a numpy array.
-    ``poll_hook``: see the module docstring."""
+    ``poll_hook``: see the module docstring. ``it0`` is the carry's
+    n_iter at the start (a run continued mid-way)."""
     eps = float(config.epsilon)
     t0 = time.perf_counter()
-    n_iter = prev = 0
+    n_iter = prev = int(it0)
     pending = None
     while True:
         limit = min(n_iter + config.chunk_iters, config.max_iter)
@@ -134,5 +136,8 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
         train_seconds=time.perf_counter() - t0,
         gamma=gamma,
         n_sv=int(np.sum(alpha > 0)),
+        kernel=config.kernel,
+        coef0=float(config.coef0),
+        degree=int(config.degree),
         rounds=st.rounds,
     )

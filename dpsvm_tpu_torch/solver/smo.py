@@ -1,0 +1,377 @@
+"""Single-device SMO, the general pair (port of ``dpsvm_tpu/solver/smo.py``).
+
+One modified-SMO iteration (select -> kernel rows -> eta -> alpha pair ->
+f) in PyTorch calls, for every ``working_set == 2`` config outside the
+fused kernel's envelope:
+
+* selection: first-order (Keerthi: ``argminmax``, or ``packed`` 64-bit
+  keys) or second-order (LIBSVM's WSS2, Fan/Chen/Lin 2005: the hi row
+  first, then the partner maximising (f_j - b_hi)^2 / a_j, then its row);
+* the kernel family (``KernelSpec``): the rows are one ``(r, d) . (d, n)``
+  product and the kernel's epilogue, or a gather of K rows for a
+  precomputed kernel (X is K);
+* class weights (a per-example box), both clips (``alpha_pair_step``) and
+  ``guard_eta`` (eta clamped to LIBSVM's TAU on the first-order path);
+* ``f_init`` / ``alpha_init`` seeds (``api.warm_start`` and ``polish``).
+
+The JAX package runs its chunk as a ``lax.while_loop`` inside one XLA
+program. Here, on the card, a chunk is a captured CUDA graph of
+``GRAPH_BODIES`` bodies replayed until the chunk's iterations are covered,
+with no host synchronisation inside the chunk. Each body reads the
+do-while condition ``(b_lo > b_hi + 2 eps) & (n_iter < limit)`` from the
+carry on the device and gates every write through ``torch.where``, so a
+body after convergence or past ``limit`` leaves the carry as it found it
+(it still runs its products: the cost of up to a chunk of bodies at the
+end of a run). ``limit`` is a device tensor the host fills before the
+replays. The poll reads one packed-stats tensor per chunk
+(``solver/driver.py``). Rows are fetched with ``index_select`` on 0-d index
+tensors, so nothing in a body reads back to the host; TF32 is off while
+the graph is captured, which is when cuBLAS's math mode is fixed.
+
+The plain version is the same ``smo_step`` in an eager loop that tests the
+condition on the host before each body: the CPU's path, and the reference
+the graph is held against on the card. Not ported yet: ``nu_selection``
+(it comes with ``models/nusvm.py``), the ``valid`` mask (it comes with
+``solver/shrink.py``) and the row cache (``ops/rowcache.py``): inside a
+captured chunk a cache hit cannot skip the product without a conditional
+graph node, so the cache is a design of its own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
+from dpsvm_tpu_torch.ops.kernels import (KernelSpec, dots_f32, exact_f32,
+                                         host_row_stats, kdiag_from_norms,
+                                         rows_from_dots)
+from dpsvm_tpu_torch.ops.selection import (box_sides, extrema_of,
+                                           packed_extrema_of, pick,
+                                           sided_scores)
+from dpsvm_tpu_torch.ops.update import alpha_pair_step
+from dpsvm_tpu_torch.solver.driver import (ChunkStats, device_sv_count,
+                                           host_training_loop, pack_stats,
+                                           read_stats)
+
+# Bodies in one captured graph; a chunk replays it until its iterations
+# are covered (chunk_iters / GRAPH_BODIES replays of a full chunk).
+GRAPH_BODIES = 16
+
+# Ever, in this process: graphs captured, graph replays enqueued, and the
+# packed-stats reads of the polls (one per chunk).
+COUNTS = {"captures": 0, "replays": 0, "reads": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+class SMOCarry(NamedTuple):
+    alpha: torch.Tensor    # (n,) f32
+    f: torch.Tensor        # (n,) f32 optimality/gradient vector
+    b_hi: torch.Tensor     # () f32 from the latest selection
+    b_lo: torch.Tensor     # () f32
+    n_iter: torch.Tensor   # () i32
+
+
+def init_carry(y: torch.Tensor, f_init=None, alpha_init=None,
+               b_hi: float = -SENTINEL, b_lo: float = SENTINEL,
+               n_iter: int = 0) -> SMOCarry:
+    """alpha = 0, f = -y (svmTrain.cu:349,380), or the given seeds; the
+    sentinel b's force the first body to run (the reference's do-while).
+    The carry owns its tensors: the graph updates them in place."""
+    dev = y.device
+
+    def vec(v):
+        return torch.tensor(np.asarray(v, np.float32).reshape(-1),
+                            device=dev)
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    return SMOCarry(
+        alpha=torch.zeros_like(y) if alpha_init is None else vec(alpha_init),
+        f=-y if f_init is None else vec(f_init),
+        b_hi=scalar(float(np.float32(b_hi)), torch.float32),
+        b_lo=scalar(float(np.float32(b_lo)), torch.float32),
+        n_iter=scalar(int(n_iter), torch.int32))
+
+
+class SMOOptions(NamedTuple):
+    """The branches of ``smo_step`` (static, as in the JAX runner)."""
+    second_order: bool = False
+    packed_select: bool = False
+    pairwise_clip: bool = False
+    guard_eta: bool = False
+
+    @classmethod
+    def from_config(cls, config: SVMConfig,
+                    guard_eta: bool = False) -> "SMOOptions":
+        return cls(second_order=config.selection == "second-order",
+                   packed_select=config.select_impl == "packed",
+                   pairwise_clip=config.clip == "pairwise",
+                   guard_eta=bool(guard_eta))
+
+
+@dataclasses.dataclass
+class SMOProblem:
+    """The device-side inputs of a run: X as stored (float32, or bfloat16
+    under ``matmul_precision="default"``; K itself, float32, for a
+    precomputed kernel), labels, the x2 slot of the stored X (squared
+    norms, or diag(K)), K(i, i) for the non-RBF kinds, the box (a float C
+    or the per-example (n,) box of class weights) and its two sides
+    (``ops.selection.box_sides``)."""
+    x: torch.Tensor
+    y: torch.Tensor
+    x2: torch.Tensor
+    kdiag: Optional[torch.Tensor]
+    c_box: object
+    up_side: torch.Tensor
+    low_side: torch.Tensor
+    spec: KernelSpec
+
+    @classmethod
+    def build(cls, x: np.ndarray, y: np.ndarray, config: SVMConfig,
+              device: torch.device) -> "SMOProblem":
+        spec = config.kernel_spec(x.shape[1])
+        xd = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+        stored = np.asarray(x, np.float32)
+        if config.matmul_precision == "default" and spec.kind != "precomputed":
+            # bfloat16 X halves the bytes of the row product; x2 comes
+            # from the stored X, so K(i, i) stays ~1 (as in the fused path).
+            xd = xd.to(torch.bfloat16).contiguous()
+            stored = xd.float().cpu().numpy()
+        yd = torch.from_numpy(np.asarray(y, np.float32)).to(device)
+        x2 = torch.from_numpy(host_row_stats(stored, spec)).to(device)
+        kdiag = None if spec.is_rbf else kdiag_from_norms(x2, spec)
+        box = config.box_bound(y)
+        c_box = (float(box) if np.isscalar(box)
+                 else torch.from_numpy(np.asarray(box, np.float32)).to(device))
+        up, low = box_sides(yd, c_box)
+        return cls(xd, yd, x2, kdiag, c_box, up, low, spec)
+
+    def rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """Kernel rows (r, n) in float32 for the (r,) indices ``idx``."""
+        got = self.x.index_select(0, idx)
+        if self.spec.kind == "precomputed":
+            return got                          # the gathered K rows
+        return rows_from_dots(dots_f32(got, self.x),
+                              self.x2.index_select(0, idx), self.x2,
+                              self.spec)
+
+
+class PairUpdate(NamedTuple):
+    """What one body computes from the carry, before anything is written."""
+    i_hi: torch.Tensor
+    i_lo: torch.Tensor
+    a_hi: torch.Tensor      # alpha[i_hi], alpha[i_lo] before the step
+    a_lo: torch.Tensor
+    a_hi_n: torch.Tensor    # ... and after it
+    a_lo_n: torch.Tensor
+    f: torch.Tensor         # the updated f (a new tensor)
+    b_hi: torch.Tensor
+    b_lo: torch.Tensor
+
+
+def pair_update(carry: SMOCarry, prob: SMOProblem,
+                opts: SMOOptions) -> PairUpdate:
+    """One modified-SMO iteration's values (``smo_step`` of the JAX
+    package, branch for branch), reading the carry only.
+
+    Second-order: among I_low violators j with f_j > b_hi, maximise
+    (f_j - b_hi)^2 / a_j with a_j = K_ii + K_jj - 2 K(hi, j), the literal
+    2 - 2 K(hi, j) for RBF; the stopping gap and the intercept still come
+    from the max violator b_lo (svmTrainMain.cpp:310,329), and the alpha
+    step uses the selected violator's f."""
+    alpha, f, y = carry.alpha, carry.f, prob.y
+    f_up, f_low, in_low = sided_scores(alpha, f, prob.up_side, prob.low_side)
+    if opts.second_order:
+        i_hi = torch.argmin(f_up)
+        b_hi = pick(f_up, i_hi)
+        b_lo = torch.max(f_low)                       # stopping gap only
+        k_hi = prob.rows(i_hi.reshape(1))[0]
+        bb = f_low - b_hi
+        if prob.spec.is_rbf:
+            a = torch.clamp_min(2.0 - 2.0 * k_hi, 1e-12)
+        else:
+            kd = prob.kdiag
+            a = torch.clamp_min(pick(kd, i_hi) + kd - 2.0 * k_hi, 1e-12)
+        obj = torch.where(in_low & (bb > 0), bb * bb / a, -1.0)
+        i_lo = torch.argmax(obj)
+        k = torch.stack([k_hi, prob.rows(i_lo.reshape(1))[0]])
+        b_lo_sel = pick(f_low, i_lo)
+    else:
+        extrema = packed_extrema_of if opts.packed_select else extrema_of
+        i_hi, b_hi, i_lo, b_lo = extrema(f_up, f_low)
+        b_lo_sel = b_lo
+        k = prob.rows(torch.stack([i_hi, i_lo]))
+    pair = torch.stack([i_hi, i_lo])
+    n = k.shape[1]
+    kk = k.reshape(-1).index_select(0, torch.stack([i_hi, n + i_lo, i_lo]))
+    eta = kk[0] + kk[1] - 2.0 * kk[2]
+    if opts.second_order or opts.guard_eta:
+        # WSS2 divides by the clamped a_j, so the update does too (LIBSVM's
+        # TAU); guard_eta applies the clamp to first-order. The plain
+        # classification path keeps the reference's raw division.
+        eta = torch.clamp_min(eta, 1e-12)
+    y_hi, y_lo = y.index_select(0, pair).unbind()
+    a_hi, a_lo = alpha.index_select(0, pair).unbind()
+    if isinstance(prob.c_box, torch.Tensor):
+        c_hi, c_lo = prob.c_box.index_select(0, pair).unbind()
+    else:
+        c_hi = c_lo = prob.c_box
+    a_hi_n, a_lo_n = alpha_pair_step(a_hi, a_lo, y_hi, y_lo, b_hi, b_lo_sel,
+                                     eta, c_hi, c_lo, opts.pairwise_clip)
+    # Each product rounded before its sum, as the NumPy oracle does it
+    # (XLA on the CPU contracts the two into FMAs; with them the linear
+    # kernel's trajectory leaves the oracle's within a few iterations).
+    f_new = (f + ((a_hi_n - a_hi) * y_hi) * k[0]
+             + ((a_lo_n - a_lo) * y_lo) * k[1])
+    return PairUpdate(i_hi, i_lo, a_hi, a_lo, a_hi_n, a_lo_n, f_new, b_hi,
+                      b_lo)
+
+
+def smo_step(carry: SMOCarry, prob: SMOProblem,
+             opts: SMOOptions) -> SMOCarry:
+    """One iteration as a new carry. The write order lo, then hi, mirrors
+    train_step2 (svmTrain.cu:491-492) for the i_hi == i_lo corner."""
+    u = pair_update(carry, prob, opts)
+    alpha = carry.alpha.clone()
+    alpha.index_copy_(0, u.i_lo.reshape(1), u.a_lo_n.reshape(1))
+    alpha.index_copy_(0, u.i_hi.reshape(1), u.a_hi_n.reshape(1))
+    return SMOCarry(alpha, u.f, u.b_hi, u.b_lo, carry.n_iter + 1)
+
+
+def live(carry: SMOCarry, two_eps: float, limit) -> torch.Tensor:
+    """The do-while condition, a bool 0-d tensor on the carry's device:
+    the gap is open (in float32) and n_iter is below ``limit``."""
+    return (carry.b_lo > carry.b_hi + two_eps) & (carry.n_iter < limit)
+
+
+def smo_body(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
+             two_eps: float, limit: torch.Tensor) -> None:
+    """``smo_step`` in place, gated on ``live``: when the condition is
+    false every write puts back what it read, so the carry is unchanged
+    bit for bit. Reads nothing back to the host (the graph's body)."""
+    go = live(carry, two_eps, limit)
+    u = pair_update(carry, prob, opts)
+    carry.alpha.index_copy_(0, u.i_lo.reshape(1),
+                            torch.where(go, u.a_lo_n, u.a_lo).reshape(1))
+    carry.alpha.index_copy_(0, u.i_hi.reshape(1),
+                            torch.where(go, u.a_hi_n, u.a_hi).reshape(1))
+    carry.f.copy_(torch.where(go, u.f, carry.f))
+    carry.b_hi.copy_(torch.where(go, u.b_hi, carry.b_hi))
+    carry.b_lo.copy_(torch.where(go, u.b_lo, carry.b_lo))
+    carry.n_iter.add_(go.to(torch.int32))
+
+
+def run_chunk_plain(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
+                    two_eps: float, limit: int) -> SMOCarry:
+    """The chunk as an eager loop: ``smo_step`` while the condition,
+    read on the host before each body, holds."""
+    while bool(live(carry, two_eps, limit)):
+        carry = smo_step(carry, prob, opts)
+    return carry
+
+
+class GraphChunk:
+    """The chunk on the card: ``bodies`` gated bodies captured once in a
+    CUDA graph over the carry's tensors, replayed ceil(iterations /
+    bodies) times after the host fills ``limit``."""
+
+    def __init__(self, carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
+                 two_eps: float, bodies: int = GRAPH_BODIES):
+        self.carry, self.bodies = carry, int(bodies)
+        self.limit = torch.zeros((), dtype=torch.int32,
+                                 device=carry.alpha.device)
+        # Warm up (cuBLAS handles and workspaces) on a side stream with
+        # limit 0: the body is a no-op.
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), exact_f32():
+            smo_body(carry, prob, opts, two_eps, self.limit)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with exact_f32(), torch.cuda.graph(self.graph):
+            for _ in range(self.bodies):
+                smo_body(carry, prob, opts, two_eps, self.limit)
+        COUNTS["captures"] += 1
+
+    def run(self, n_iter: int, limit: int) -> int:
+        """Advance the carry from ``n_iter`` (the last poll's) towards
+        ``limit``; returns the replays enqueued. Nothing is read back."""
+        self.limit.fill_(int(limit))
+        replays = -(-(int(limit) - int(n_iter)) // self.bodies)
+        for _ in range(replays):
+            self.graph.replay()
+        COUNTS["replays"] += replays
+        return replays
+
+
+def _stats(carry: SMOCarry) -> torch.Tensor:
+    return pack_stats(carry.n_iter, carry.b_lo.view(torch.int32),
+                      carry.b_hi.view(torch.int32),
+                      device_sv_count(carry.alpha),
+                      torch.zeros_like(carry.n_iter))
+
+
+def make_chunk_runner(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
+                      two_eps: float, plain: bool = False):
+    """``step(carry, limit) -> (carry, ChunkStats)`` for
+    ``host_training_loop``: the captured graph on the card, the eager loop
+    on the CPU (or anywhere, with ``plain``). Each chunk ends in the
+    poll's one read."""
+    state = {"n_iter": int(carry.n_iter)}
+    if carry.alpha.is_cuda and not plain:
+        chunk = GraphChunk(carry, prob, opts, two_eps)
+
+        def advance(cr, limit):
+            chunk.run(state["n_iter"], limit)
+            return cr
+    else:
+        def advance(cr, limit):
+            with exact_f32():
+                return run_chunk_plain(cr, prob, opts, two_eps, limit)
+
+    def step(cr: SMOCarry, limit: int):
+        cr = advance(cr, limit)
+        st: ChunkStats = read_stats(_stats(cr))
+        COUNTS["reads"] += 1
+        state["n_iter"] = st.n_iter
+        return cr, st
+
+    return step
+
+
+def two_eps_f32(epsilon: float) -> float:
+    """2 eps as the float32 the condition adds (JAX: f32 + 2.0 * eps)."""
+    return float(np.float32(2.0 * epsilon))
+
+
+def train_single_device(x: np.ndarray, y: np.ndarray, config: SVMConfig,
+                        device: torch.device,
+                        f_init: Optional[np.ndarray] = None,
+                        alpha_init: Optional[np.ndarray] = None,
+                        guard_eta: bool = False, plain: bool = False,
+                        carry: Optional[SMOCarry] = None) -> TrainResult:
+    """Train on one device through the general pair.
+
+    ``f_init`` / ``alpha_init`` override f = -y, alpha = 0 (the caller
+    keeps them consistent: f must be the dual gradient at alpha).
+    ``carry`` continues a run handed over mid-way (``convert.
+    smo_carry_from_numpy``) on the same trajectory. ``plain`` runs the
+    eager loop on any device (the reference the graph is held against)."""
+    config.validate()
+    prob = SMOProblem.build(x, y, config, device)
+    if carry is None:
+        carry = init_carry(prob.y, f_init, alpha_init)
+    step = make_chunk_runner(carry, prob, SMOOptions.from_config(
+        config, guard_eta), two_eps_f32(config.epsilon), plain)
+    return host_training_loop(
+        config, float(prob.spec.gamma), carry, step,
+        lambda cr: cr.alpha.cpu().numpy(), it0=int(carry.n_iter))

@@ -606,3 +606,194 @@ def test_subsolve_refuses_a_shape_not_the_sources(dev, monkeypatch):
         sk.launch_inner_subsolve(k, y_w, c_w, torch.zeros(64, device=dev),
                                  -y_w, active, 1e-3, 10, max_cap=10,
                                  pairwise=False)
+
+
+# --------------------------------------------------------------------------
+# The general pair (solver/smo.py): the captured CUDA graph against the
+# eager loop of the same smo_step, bitwise. Both run the same PyTorch calls
+# on the card; the graph's bodies gate their writes on the device-side
+# condition, the eager loop tests it on the host.
+
+from dpsvm_tpu_torch.convert import smo_carry_from_numpy  # noqa: E402
+from dpsvm_tpu_torch.solver import smo as gsmo  # noqa: E402
+from dpsvm_tpu_torch.solver.driver import DivergenceError  # noqa: E402
+
+SMO_BRANCHES = {
+    "first-order": {},
+    "packed": dict(select_impl="packed"),
+    "second-order": dict(selection="second-order"),
+    "weighted-pairwise": dict(weight_pos=2.0, weight_neg=0.5,
+                              clip="pairwise"),
+    "second-order-weighted": dict(selection="second-order", weight_pos=0.5,
+                                  clip="pairwise"),
+    "guard_eta": {},                   # train(..., guard_eta=True)
+}
+SMO_KINDS = {
+    "linear": dict(kernel="linear"),
+    "poly": dict(kernel="poly", degree=3, coef0=1.0, gamma=0.05),
+    "rbf": dict(kernel="rbf"),
+    "sigmoid": dict(kernel="sigmoid", coef0=-1.0, gamma=0.01),
+    "precomputed": dict(kernel="precomputed"),
+}
+
+
+def _smo_problem(kind, n=400, d=24, seed=1):
+    """Planted rows (K = the RBF matrix of them for precomputed)."""
+    x, y = make_planted(n, d, 0.25, seed=seed)
+    if kind == "precomputed":
+        xt = torch.from_numpy(x).double()
+        d2 = (xt * xt).sum(1)[:, None] + (xt * xt).sum(1)[None] \
+            - 2 * xt @ xt.T
+        x = torch.exp(-0.25 * d2.clamp_min(0)).float().numpy()
+    return x, y
+
+
+def _smo_cfg(kind="rbf", branch="first-order", **kw):
+    return SVMConfig(**{"c": 4.0, "gamma": 0.25, "epsilon": 1e-3,
+                        "max_iter": 20_000, **SMO_KINDS[kind],
+                        **SMO_BRANCHES[branch], **kw})
+
+
+def _graph_and_eager(dev, x, y, cfg, **kw):
+    gsmo.reset_counts()
+    g = gsmo.train_single_device(x, y, cfg, dev, **kw)
+    counts = dict(gsmo.COUNTS)
+    e = gsmo.train_single_device(x, y, cfg, dev, plain=True, **kw)
+    return g, e, counts
+
+
+def _same_run(g, e):
+    assert (g.n_iter, g.converged) == (e.n_iter, e.converged)
+    assert np.array_equal(g.alpha, e.alpha)
+    assert (g.b_hi, g.b_lo) == (e.b_hi, e.b_lo)
+
+
+@pytest.mark.parametrize("kind", sorted(SMO_KINDS))
+@pytest.mark.parametrize("branch", sorted(SMO_BRANCHES))
+def test_smo_graph_matches_eager_bitwise(dev, branch, kind):
+    """Every branch x kind, float32, to convergence; chunk_iters 37 is not
+    a multiple of the graph's 16 bodies, so chunks end mid-graph and the
+    run converges mid-chunk."""
+    x, y = _smo_problem(kind)
+    cfg = _smo_cfg(kind, branch, chunk_iters=37)
+    g, e, counts = _graph_and_eager(dev, x, y, cfg,
+                                    guard_eta=branch == "guard_eta")
+    assert g.converged
+    _same_run(g, e)
+    chunks = -(-g.n_iter // 37)
+    assert counts["captures"] == 1
+    assert counts["reads"] == chunks          # one device-to-host read each
+    assert counts["replays"] == chunks * -(-37 // gsmo.GRAPH_BODIES)
+
+
+@pytest.mark.parametrize("kind", ["rbf", "linear", "poly"])
+@pytest.mark.parametrize("branch", ["first-order", "second-order"])
+def test_smo_graph_matches_eager_in_bfloat16(dev, branch, kind):
+    x, y = _smo_problem(kind)
+    cfg = _smo_cfg(kind, branch, chunk_iters=64, matmul_precision="default")
+    g, e, _ = _graph_and_eager(dev, x, y, cfg)
+    _same_run(g, e)
+
+
+@pytest.mark.parametrize("max_iter", [1, 15, 16, 17, 50])
+def test_smo_graph_stops_at_limit_mid_graph(dev, max_iter):
+    x, y = _smo_problem("rbf")
+    cfg = SVMConfig(c=4.0, gamma=0.25, max_iter=max_iter, chunk_iters=37,
+                    selection="second-order")
+    g, e, counts = _graph_and_eager(dev, x, y, cfg)
+    assert g.n_iter == max_iter and not g.converged
+    _same_run(g, e)
+    # the last chunk replays only what its limit needs
+    assert counts["replays"] == sum(
+        -(-(min(s + 37, max_iter) - s) // gsmo.GRAPH_BODIES)
+        for s in range(0, max_iter, 37))
+
+
+def test_smo_graph_converged_bodies_change_nothing(dev):
+    """A carry whose gap is closed: a whole chunk of bodies is enqueued
+    and every one of them is a no-op, bit for bit."""
+    x, y = _smo_problem("rbf")
+    cfg = SVMConfig(c=4.0, gamma=0.25, selection="second-order")
+    prob = gsmo.SMOProblem.build(x, y, cfg, dev)
+    rng = np.random.default_rng(2)
+    carry = gsmo.init_carry(prob.y, alpha_init=rng.uniform(0, 4, len(y)),
+                            f_init=rng.normal(size=len(y)), b_hi=0.25,
+                            b_lo=0.25, n_iter=7)
+    before = [t.clone() for t in carry]
+    chunk = gsmo.GraphChunk(carry, prob, gsmo.SMOOptions.from_config(cfg),
+                            gsmo.two_eps_f32(cfg.epsilon))
+    assert chunk.run(7, 7 + 512) == 512 // gsmo.GRAPH_BODIES
+    torch.cuda.synchronize()
+    for a, b in zip(carry, before):
+        assert torch.equal(a, b)
+
+
+def test_smo_graph_hi_equal_lo(dev):
+    """One interior example is the only member of I_up and the largest of
+    I_low: i_hi == i_lo, eta = 0, clamped by guard_eta; the lo-then-hi
+    writes leave the hi value, in the graph as in the eager loop."""
+    n = 64
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(n, 8)).astype(np.float32)
+    y = np.full(n, -1, np.int32)
+    y[0] = 1
+    alpha = np.zeros(n, np.float32)
+    alpha[0] = 0.5
+    f = np.linspace(-1, 0, n).astype(np.float32)
+    f[0] = 3.0
+    cfg = SVMConfig(c=1.0, gamma=0.1, max_iter=1, chunk_iters=4)
+    runs = []
+    for plain in (False, True):
+        carry = smo_carry_from_numpy(alpha, f, y, -1e9, 1e9, 0, device=dev)
+        prob = gsmo.SMOProblem.build(x, y, cfg, dev)
+        u = gsmo.pair_update(carry, prob, gsmo.SMOOptions(guard_eta=True))
+        assert int(u.i_hi) == int(u.i_lo) == 0
+        runs.append(gsmo.train_single_device(x, y, cfg, dev, carry=carry,
+                                             guard_eta=True, plain=plain))
+    _same_run(*runs)
+    assert runs[0].n_iter == 1
+
+
+def test_smo_ties_go_to_the_first_index_on_the_card(dev):
+    n, d = 20001, 64
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(n, d)).astype(np.float32) / 8.0
+    y = rng.choice([-1, 1], size=n).astype(np.int32)
+    alpha = np.zeros(n, np.float32)
+    f = (-y + rng.normal(0, .3, n)).astype(np.float32)
+    up, low = [9, 4000, n - 1], [12, 9999, n - 2]
+    y[up], y[low] = 1, -1
+    f[up], f[low] = -6.0, 6.0
+    cfg = SVMConfig(c=1.0, gamma=0.1)
+    prob = gsmo.SMOProblem.build(x, y, cfg, dev)
+    for packed in (False, True):
+        carry = smo_carry_from_numpy(alpha, f, y, -1e9, 1e9, 0, device=dev)
+        u = gsmo.pair_update(carry, prob,
+                             gsmo.SMOOptions(packed_select=packed))
+        assert (int(u.i_hi), int(u.i_lo)) == (up[0], low[0])
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_smo_nan_in_f_raises_divergence(dev, plain):
+    x, y = _smo_problem("rbf")
+    f = -y.astype(np.float32)
+    f[17] = np.nan
+    with pytest.raises(DivergenceError, match="non-finite"):
+        gsmo.train_single_device(x, y, SVMConfig(c=4.0, gamma=0.25,
+                                                 chunk_iters=8), dev,
+                                 f_init=f, plain=plain)
+
+
+@pytest.mark.parametrize("kind", ["linear", "poly", "sigmoid",
+                                  "precomputed"])
+def test_decomposition_kernel_path_matches_plain_per_kind(dev, kind):
+    """Kernel B under every kind: the kernel path's rounds against the
+    plain subsolve's, bitwise (the rest of a round is the same code)."""
+    x, y = _smo_problem(kind, n=600)
+    cfg = _smo_cfg(kind, working_set=64, inner_iters=16)
+    sk.reset_counts()
+    k = train_single_device_decomp(x, y, cfg, dev)
+    assert sk.LAUNCHES["inner_subsolve"] == k.rounds > 0
+    p = train_single_device_decomp(x, y, cfg, dev, plain=True)
+    assert (k.n_iter, k.rounds, k.converged) == (p.n_iter, p.rounds, True)
+    assert np.array_equal(k.alpha, p.alpha)

@@ -304,7 +304,7 @@ def test_config_accepts_and_rejects_what_jax_does(ws):
 
 def test_decomposition_scope_and_dispatch():
     x, y = make_blobs(n=40, d=3, seed=0)
-    for kw, why in ((dict(kernel="linear"), "RBF only"),
+    for kw, why in ((dict(shards=2, kernel="linear"), "dist_decomp"),
                     (dict(shards=2), "shards > 1")):
         with pytest.raises(NotImplementedError, match=why):
             train(x, y, SVMConfig(working_set=8, **kw), device="cpu")
@@ -334,10 +334,10 @@ def test_cli_trains_the_decomposition(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "Number of SVs:" in out.stdout and "NOT converged" not in out.stdout
     assert Path(model).exists()
-    # The pair keeps refusing what only the decomposition takes.
+    # The pair takes the pairwise clip too (through the general pair).
     out = _cli(["train", "--device", "cpu", "-f", csv, "-m", model,
-                "--clip", "pairwise"])
-    assert out.returncode == 2 and "not support" in out.stderr
+                "--clip", "pairwise", "-q"])
+    assert out.returncode == 0 and "NOT converged" not in out.stdout
     out = _cli(["train", "--device", "cpu", "-f", csv, "-m", model,
                 "--working-set", "16", "--weight-pos", "nan"])
     assert out.returncode == 2 and "finite" in out.stderr
