@@ -61,7 +61,24 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    converged on planted 8000 x 784 at q=4096 (``Smoke.convergence`` says
    why the bars split so); the general pair's first-order RBF path against
    kernel A for PREFIX_ITERS iterations;
-5. time each kernel on its path (kernel A: CUDA events over a chunk of
+5. shrinking at full width in float32 through ``api.fit``: WSS2 on the
+   general pair and the decomposition (q = DECOMP_Q, kernel B on padded
+   active sets), each to convergence with save/load/evaluate, held to its
+   unshrunk model of phase 3 by the bar between paths; their active-set
+   sizes, compactions, unshrinks and graph captures (at or under the
+   distinct capacities); the f the last unshrink rebuilt against a fresh
+   streamed pass; kernel B's counts, and no masked slot ever updated; then
+   the shrinking decomposition's kernel path against its plain path on
+   planted 8000 x 784 at q = 4096;
+6. kill and resume on the three paths at full width (f32): 2K iterations
+   straight against K with checkpoints resumed from the file to 2K, and
+   again from the rotation slot after the newest file is truncated, all
+   bitwise equal (alpha, f, b's, n_iter); kernel A's runs equal the
+   resumed iterations; the seconds a checkpoint costs its poll;
+7. libsvm input: the first LIBSVM_ROWS planted rows written as libsvm and
+   as CSV load to the same arrays, and the fused pair trains on both to
+   the same prefix, bitwise;
+8. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
@@ -81,6 +98,7 @@ device, or without the port beside it, it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -124,6 +142,15 @@ SMO_TIMED_ITERS = 512
 # Precomputed: planted rows whose RBF matrix (1.07 GB in float32) is built
 # on the card; q for its decomposition above ~1.3x its SV count.
 PRE_N, PRE_Q = 16384, 4096
+# Kill and resume: K iterations, then resumed to 2K (pairs: about 2000, a
+# multiple of their 512-iteration chunk; the decomposition: 10 rounds'
+# worth, chunks of K/2 so that each run's polls fall on round ends).
+RESUME_PAIR_K = 2048
+RESUME_DECOMP_K = 10 * DECOMP_CAP
+# libsvm input: the first LIBSVM_ROWS planted rows at full width. The
+# port's parser is the JAX package's pure-Python one: ~2.5 us a token on
+# the card's host, 148 s for all 60000 rows (PERF.md §4).
+LIBSVM_ROWS = 10_000
 
 
 def log(msg: str) -> None:
@@ -664,6 +691,7 @@ class Smoke:
         out = fn()
         name = "inner_subsolve"
         return out, {"A_launches": fs.LAUNCHES["fused_update_select"],
+                     "A_runs": fs.RUNS["fused_update_select"],
                      "B_launches": sk.LAUNCHES[name],
                      "B_runs": sk.RUNS[name], "B_steps": sk.STEPS[name],
                      **{f"pair_{k}": v for k, v in gs.COUNTS.items()}}
@@ -1057,6 +1085,303 @@ class Smoke:
             log(f"[convergence] decomposition {prec}: {json.dumps(r)}")
 
     # ------------------------------------------------------------ phase 5
+    def shrinking(self) -> None:
+        """Shrinking (``solver/shrink.py``) at full width through
+        ``api.fit``, in float32: on the general pair with WSS2 (LIBSVM's
+        own default, -h 1) and on the decomposition through kernel B, each
+        held to its unshrunk model of phase 3 by the bar between paths;
+        then the decomposition's kernel path against its plain path with
+        shrinking on planted 8000 x 784."""
+        self.shrink_general()
+        self.shrink_decomp()
+        self.shrink_convergence()
+
+    def _shrink_record(self, res, run, counts, acc, unshrunk):
+        return {"n_iter": res.n_iter, "rounds": res.rounds,
+                "converged": res.converged, "gap": res.gap,
+                "n_sv": res.n_sv, "b": res.b,
+                "train_seconds": res.train_seconds,
+                "heldout_accuracy": acc,
+                "active_sizes": run["active_sizes"],
+                "active_since": run["active_since"],
+                "capacities": run["capacities"],
+                "compactions": run["compactions"],
+                "unshrinks": run["unshrinks"], "captures": run["captures"],
+                "pulls": run["pulls"], "host_seconds": run["seconds"],
+                **counts,
+                "unshrunk": {k: unshrunk[k] for k in (
+                    "n_iter", "n_sv", "train_seconds", "heldout_accuracy")}}
+
+    def _path_bar(self, res, acc, unshrunk) -> bool:
+        return (abs(res.n_sv - unshrunk["n_sv"]) <= 0.02 * unshrunk["n_sv"]
+                and abs(acc - unshrunk["heldout_accuracy"]) <= 0.005)
+
+    def shrink_general(self) -> None:
+        """WSS2 with shrinking to convergence, save, load and evaluate;
+        the captures at or under the distinct capacities; the inactive f
+        the last unshrink rebuilt against a fresh streamed pass."""
+        from dpsvm_tpu_torch import fit
+        from dpsvm_tpu_torch.ops.diagnostics import _stream_kv
+        from dpsvm_tpu_torch.solver import shrink
+        xtr, ytr, xte, yte = self.planted()
+        cfg = self.kind_config("rbf", gamma=GAMMA, max_iter=MAIN_MAX_ITER,
+                               selection="second-order", shrinking=True)
+        (model, res), counts = self.counted(lambda: fit(xtr, ytr, cfg))
+        run = dict(shrink.RUN)
+        same, finite, acc, _, _ = self._round_trip(model, xte, yte)
+        r = self._shrink_record(res, run, counts, acc,
+                                self.rec["general"]["highest"])
+        f_ok = run["rebuilt"] is not None
+        if f_ok:
+            # The rebuilt f (sums over the SVs, in blocks of 8192 rows)
+            # against a fresh _stream_kv over all rows: two float32 sums of
+            # ~8k products in different orders, so F_RTOL is taken relative
+            # to the size of what is summed, sum_j |alpha_j y_j K_ij|
+            # (F_RTOL's own sums have 784 terms of size ~|f|).
+            idx, f_rebuilt, alpha = run["rebuilt"]
+            coef = alpha * ytr.astype(np.float32)
+            spec = cfg.kernel_spec(D)
+            fresh = (_stream_kv(xtr, coef, spec, 4096, self.dev)[idx]
+                     - ytr[idx])
+            size = _stream_kv(xtr, np.abs(coef), spec, 4096, self.dev)[idx]
+            err = np.abs(f_rebuilt - fresh)
+            r["rebuilt_rows"] = int(len(idx))
+            r["rebuilt_f_max_err"] = float(err.max())
+            r["rebuilt_f_max_rel_err"] = float(
+                (err / np.maximum(1.0, size)).max())
+            f_ok = r["rebuilt_f_max_rel_err"] <= F_RTOL
+        ok = (same and finite and res.converged and f_ok
+              and np.all(np.isfinite(res.alpha))
+              and run["compactions"] >= 1
+              and counts["A_launches"] == counts["B_launches"] == 0
+              and counts["pair_captures"] == run["captures"]
+              <= len(set(run["capacities"]))
+              and self._path_bar(res, acc, self.rec["general"]["highest"]))
+        if not ok:
+            self.fail("shrinking", f"general pair WSS2: round trip {same}, "
+                      f"finite {finite}, rebuilt f {f_ok}: {json.dumps(r)}")
+        self.rec["shrink_general"] = r
+        log(f"[shrinking] general pair WSS2 f32: {json.dumps(r)}")
+
+    def _watch_masked_slots(self):
+        """Wrap kernel B's wrapper so that each launch adds, on the device,
+        the masked slots whose alpha it changed; returns (the count tensor,
+        a function that restores the wrapper)."""
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        moved = self.torch.zeros((), dtype=self.torch.int64, device=self.dev)
+        orig = sk.launch_inner_subsolve
+
+        def watched(k_ww, y_w, c_w, a_w0, f_w0, active, *a, **kw):
+            out = orig(k_ww, y_w, c_w, a_w0, f_w0, active, *a, **kw)
+            moved.add_(((out[0] != a_w0) & ~active).sum())
+            return out
+
+        sk.launch_inner_subsolve = watched
+
+        def restore():
+            sk.launch_inner_subsolve = orig
+        return moved, restore
+
+    def shrink_decomp(self) -> None:
+        """The decomposition with shrinking at q = DECOMP_Q, cap
+        DECOMP_CAP, to convergence: kernel B's launches, runs and rounds
+        equal, its steps adding up to n_iter, and no masked slot (capacity
+        padding or W's own padding) ever updated."""
+        from dpsvm_tpu_torch import fit
+        from dpsvm_tpu_torch.solver import shrink
+        xtr, ytr, xte, yte = self.planted()
+        cfg = self.kind_config("rbf", gamma=GAMMA, max_iter=DECOMP_MAX_ITER,
+                               working_set=DECOMP_Q, inner_iters=DECOMP_CAP,
+                               shrinking=True)
+        moved, restore = self._watch_masked_slots()
+        try:
+            (model, res), counts = self.counted(lambda: fit(xtr, ytr, cfg))
+        finally:
+            restore()
+        run = dict(shrink.RUN)
+        self._add_b_counts(counts)
+        same, finite, acc, _, _ = self._round_trip(model, xte, yte)
+        r = self._shrink_record(res, run, counts, acc,
+                                self.rec["decomp"]["highest"])
+        r["masked_slots_moved"] = int(moved)
+        ok = (same and finite and res.converged
+              and np.all(np.isfinite(res.alpha))
+              and counts["B_launches"] == counts["B_runs"] == res.rounds > 0
+              and counts["B_steps"] == res.n_iter and int(moved) == 0
+              and min(run["active_sizes"]) >= DECOMP_Q
+              and self._path_bar(res, acc, self.rec["decomp"]["highest"]))
+        if not ok:
+            self.fail("shrinking", f"decomposition: round trip {same}, "
+                      f"finite {finite}: {json.dumps(r)}")
+        self.rec["shrink_decomp"] = r
+        log(f"[shrinking] decomposition f32: {json.dumps(r)}")
+
+    def shrink_convergence(self) -> None:
+        """The shrinking decomposition's kernel path (``fit``) against its
+        plain path (``train_shrinking(plain=True)``), both on the card, on
+        planted 8000 x 784 at q = 4096, to the bars of the ``convergence``
+        phase (LibSVM bar on the training rows). The active set cannot
+        halve there without going under q (8000 / 2 < 4096), so both runs
+        stay at 8000 rows; the card tests hold kernel B on compacted,
+        padded active sets against its plain version bitwise."""
+        from dpsvm_tpu_torch import fit
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        from dpsvm_tpu_torch.models.svm import SVMModel, evaluate
+        from dpsvm_tpu_torch.solver import shrink
+        x8, y8 = make_planted(8000, D, GAMMA, seed=0)
+        cfg = self.kind_config("rbf", gamma=GAMMA, max_iter=200_000,
+                               working_set=4096, inner_iters=DECOMP_CAP,
+                               shrinking=True)
+        (mk, rk), counts = self.counted(lambda: fit(x8, y8, cfg))
+        self._add_b_counts(counts)
+        sizes_k = list(shrink.RUN["active_sizes"])
+        rp = shrink.train_shrinking(x8, y8, cfg, self.dev, plain=True)
+        sizes_p = list(shrink.RUN["active_sizes"])
+        mp = SVMModel.from_train_result(x8, y8, rp)
+        acc_k, acc_p = evaluate(mk, x8, y8), evaluate(mp, x8, y8)
+        r = {"n": 8000, "q": 4096,
+             "kernel": {"n_iter": rk.n_iter, "rounds": rk.rounds,
+                        "n_sv": rk.n_sv, "converged": rk.converged,
+                        "seconds": rk.train_seconds, "accuracy": acc_k,
+                        "active_sizes": sizes_k},
+             "plain": {"n_iter": rp.n_iter, "rounds": rp.rounds,
+                       "n_sv": rp.n_sv, "converged": rp.converged,
+                       "seconds": rp.train_seconds, "accuracy": acc_p,
+                       "active_sizes": sizes_p},
+             **counts}
+        ok = (rk.converged and rp.converged
+              and counts["B_launches"] == counts["B_runs"] == rk.rounds
+              and counts["B_steps"] == rk.n_iter
+              and abs(rk.n_sv - rp.n_sv) <= max(0.02 * rp.n_sv, 3.0)
+              and abs(acc_k - acc_p) <= 1.0 / len(y8) + 1e-9)
+        if not ok:
+            self.fail("shrinking", f"decomposition kernel against plain: {r}")
+        self.rec["shrink_convergence"] = r
+        log(f"[shrinking] decomposition kernel against plain, 8000 x 784, "
+            f"q=4096: {json.dumps(r)}")
+
+    # ------------------------------------------------------------ phase 6
+    def resume(self) -> None:
+        """Kill and resume on each path at full width, f32, as a prefix
+        comparison: 2K iterations straight against K with checkpoints
+        (every K/2, two slots kept) resumed from the file to 2K, then,
+        with the newest slot truncated, resumed from the rotation slot.
+        The runs end bitwise equal (alpha, f, b_lo, b_hi, n_iter, read
+        from checkpoints each writes at its end); on the fused pair kernel
+        A's device-counted runs equal the iterations the resumed run made.
+        Also the seconds a checkpoint costs its poll."""
+        from dpsvm_tpu_torch import train
+        from dpsvm_tpu_torch.solver import driver
+        from dpsvm_tpu_torch.utils.checkpoint import load_checkpoint
+        xtr, ytr, _, _ = self.planted()
+        paths = (("fused", RESUME_PAIR_K, 512, {}),
+                 ("general pair WSS2", RESUME_PAIR_K, 512,
+                  dict(selection="second-order")),
+                 ("decomposition", RESUME_DECOMP_K, RESUME_DECOMP_K // 2,
+                  dict(working_set=DECOMP_Q, inner_iters=DECOMP_CAP)))
+        self.rec["resume"] = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, k, chunk, kw in paths:
+                cfg = self.kind_config("rbf", gamma=GAMMA, chunk_iters=chunk,
+                                       **kw)
+
+                def run(tag, max_iter, **extra):
+                    end = os.path.join(tmp, f"{tag}.npz")
+                    res, counts = self.counted(lambda: train(
+                        xtr, ytr, dataclasses.replace(
+                            cfg, max_iter=max_iter, checkpoint_path=end,
+                            checkpoint_every=max_iter, **extra)))
+                    if name == "decomposition":
+                        self._add_b_counts(counts)
+                    return res, counts, load_checkpoint(end)
+
+                straight, _, want = run("straight", 2 * k)
+                state = os.path.join(tmp, "state.npz")
+                saves0 = dict(driver.CHECKPOINTS)
+                first, _ = self.counted(lambda: train(
+                    xtr, ytr, dataclasses.replace(
+                        cfg, max_iter=k, checkpoint_path=state,
+                        checkpoint_every=k // 2, checkpoint_keep=2)))
+                saves = {s: driver.CHECKPOINTS[s] - saves0[s]
+                         for s in ("saves", "pulls", "seconds")}
+                r = {"k": k, "chunk_iters": chunk,
+                     "straight_seconds": straight.train_seconds,
+                     "first_seconds": first.train_seconds,
+                     "checkpoint": {**saves, "seconds_a_save":
+                                    saves["seconds"] / max(saves["saves"],
+                                                           1)}}
+                for tag, from_iter in (("resumed", k),
+                                       ("rotation_slot", k // 2)):
+                    if tag == "rotation_slot":
+                        with open(state, "r+b") as fh:
+                            fh.truncate(os.path.getsize(state) // 2)
+                    res, counts, got = run(tag, 2 * k, resume_from=state)
+                    bitwise = (np.array_equal(got.alpha, want.alpha)
+                               and np.array_equal(got.f, want.f)
+                               and (got.b_lo, got.b_hi, got.n_iter)
+                               == (want.b_lo, want.b_hi, want.n_iter)
+                               == (want.b_lo, want.b_hi, 2 * k))
+                    runs = counts["A_runs"]
+                    ok = bitwise and (name != "fused"
+                                      or runs == 2 * k - from_iter)
+                    r[tag] = {"bitwise": bool(bitwise), "from": from_iter,
+                              "n_iter": res.n_iter,
+                              "seconds": res.train_seconds, **counts}
+                    if not ok:
+                        self.fail("resume", f"{name} {tag}: {r}")
+                self.rec["resume"][name] = r
+                log(f"[resume] {name}: {json.dumps(r)}")
+
+    # ------------------------------------------------------------ phase 7
+    def libsvm(self) -> None:
+        """The first LIBSVM_ROWS planted training rows (784 wide) written
+        as a libsvm file and as a CSV, both loaded with ``load_dataset``:
+        the same arrays, and the fused pair trained on each for
+        PREFIX_ITERS iterations lands on the same alpha, b's and n_iter,
+        bitwise."""
+        from dpsvm_tpu_torch import SVMConfig, train
+        from dpsvm_tpu_torch.data.loader import load_dataset
+        xtr, ytr, _, _ = self.planted()
+        xtr, ytr = xtr[:LIBSVM_ROWS], ytr[:LIBSVM_ROWS]
+        r = {"rows": int(len(ytr)), "d": D}
+        with tempfile.TemporaryDirectory() as tmp:
+            lib, csv = (os.path.join(tmp, f"train.{e}")
+                        for e in ("libsvm", "csv"))
+            t = time.perf_counter()
+            keys = [f"{j + 1}:" for j in range(D)]
+            with open(lib, "w") as fl, open(csv, "w") as fc:
+                for row, lab in zip(xtr.tolist(), ytr.tolist()):
+                    vals = list(map(repr, row))
+                    fl.write(f"{lab} " + " ".join(map(str.__add__, keys,
+                                                      vals)) + "\n")
+                    fc.write(f"{lab}," + ",".join(vals) + "\n")
+            r["write_seconds"] = time.perf_counter() - t
+            loaded = {}
+            for fmt, path in (("libsvm", lib), ("csv", csv)):
+                t = time.perf_counter()
+                loaded[fmt] = load_dataset(path)
+                r[f"{fmt}_load_seconds"] = time.perf_counter() - t
+                r[f"{fmt}_bytes"] = os.path.getsize(path)
+        (lx, ly), (cx, cy) = loaded["libsvm"], loaded["csv"]
+        cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
+                        max_iter=PREFIX_ITERS)
+        runs = [self.counted(lambda: train(x, y, cfg))
+                for x, y in ((lx, ly), (cx, cy))]
+        (a, ca), (b, _) = runs
+        same_rows = (np.array_equal(lx, cx) and np.array_equal(ly, cy)
+                     and np.array_equal(lx, xtr))
+        same_run = (np.array_equal(a.alpha, b.alpha)
+                    and (a.n_iter, a.b_lo, a.b_hi)
+                    == (b.n_iter, b.b_lo, b.b_hi) == (PREFIX_ITERS, a.b_lo,
+                                                      a.b_hi))
+        r.update(same_rows=bool(same_rows), same_run=bool(same_run),
+                 n_iter=a.n_iter, **ca)
+        if not (same_rows and same_run and ca["A_runs"] == PREFIX_ITERS):
+            self.fail("libsvm", f"{r}")
+        self.rec["libsvm"] = r
+        log(f"[libsvm] {json.dumps(r)}")
+
+    # ------------------------------------------------------------ phase 8
     def timing(self) -> None:
         """Kernel A as the main path runs it: a training run's carry at its
         start, advanced by chunks of TIMED_ITERS iterations through
@@ -1417,7 +1742,8 @@ def main(argv=None) -> int:
     phases = [("build", s.build), ("kernel", s.check_kernels)]
     if not args.quick:
         phases += [("main", s.main_path), ("convergence", s.convergence),
-                   ("timing", s.timing)]
+                   ("shrinking", s.shrinking), ("resume", s.resume),
+                   ("libsvm", s.libsvm), ("timing", s.timing)]
     for name, fn in phases:
         t = time.perf_counter()
         try:

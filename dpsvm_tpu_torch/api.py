@@ -12,7 +12,12 @@ and ``warm_start`` for the exact solver on one device.
   (``solver/smo.py``);
 * what no path covers raises ``NotImplementedError`` naming it.
 
-All of them run on the card unless the caller passes ``device="cpu"``.
+Before the path choice, ``train`` resolves the "auto" sentinels
+(``SVMConfig.resolved``) and sends ``shrinking=True`` to the active-set
+manager (``solver/shrink.py``), which wraps the general pair or the
+decomposition, as ``dpsvm_tpu/api.py:117-124`` does. scipy.sparse input
+is densified first. All of them run on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from dpsvm_tpu_torch.config import SVMConfig, TrainResult
 from dpsvm_tpu_torch.device import resolve_device
 from dpsvm_tpu_torch.models.svm import SVMModel
+from dpsvm_tpu_torch.utils import densify
 
 Device = Optional[Union[str, torch.device]]
 
@@ -35,7 +41,7 @@ Device = Optional[Union[str, torch.device]]
 def _check_xy(x, y):
     """The cheap shape/label validation of the JAX ``_check_xy`` (train
     and warm_start run it before any kernel work)."""
-    x = np.asarray(x, np.float32)
+    x = np.asarray(densify(x), np.float32)
     y = np.asarray(y)
     if x.ndim != 2:
         raise ValueError(f"x must be (n, d), got shape {x.shape}")
@@ -67,14 +73,17 @@ def train(x: np.ndarray, y: np.ndarray,
     config = config or SVMConfig()
     config.validate()
     x, y = _check_xy(x, y)
-    if config.working_set == 0:
-        # The JAX auto plan resolves to the classic pair at every shape.
-        config = dataclasses.replace(config, working_set=2)
+    config = config.resolved(x.shape[0], x.shape[1])
     if config.kernel == "precomputed" and x.shape[0] != x.shape[1]:
         raise ValueError("precomputed kernel training needs the square "
                          f"(n, n) kernel matrix as x, got {x.shape}")
     if config.polish:
         return _polish(x, y, config, device, f_init, alpha_init, guard_eta)
+    if config.shrinking:
+        dev = resolve_device(device)
+        from dpsvm_tpu_torch.solver.shrink import train_shrinking
+        return train_shrinking(x, y, config, dev, f_init=f_init,
+                               alpha_init=alpha_init, guard_eta=guard_eta)
     if config.working_set > 2:
         why = config.decomp_incompatibility()
         if why is not None:
@@ -147,6 +156,7 @@ def _polish(x, y, config: SVMConfig, device, f_init, alpha_init,
 def fit(x: np.ndarray, y: np.ndarray, config: Optional[SVMConfig] = None,
         device: Device = None) -> Tuple[SVMModel, TrainResult]:
     """train + SV compaction in one call."""
+    x = densify(x)      # from_train_result consumes x too
     result = train(x, y, config, device=device)
     return SVMModel.from_train_result(x, y, result), result
 
@@ -172,6 +182,11 @@ def warm_start(x: np.ndarray, y: np.ndarray, alpha: np.ndarray,
                          "is built from — call it with "
                          "matmul_precision='highest' instead of "
                          "polish=True")
+    if config.resume_from:
+        raise ValueError("config.resume_from would override the given "
+                         "alpha (checkpoint resume takes precedence in "
+                         "the solvers) — clear it, or resume the "
+                         "checkpoint via train() instead")
     x, y = _check_xy(x, y)
     yf = np.asarray(y, np.float32)
     alpha = np.asarray(alpha, np.float32)

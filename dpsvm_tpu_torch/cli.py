@@ -7,9 +7,15 @@ report, plus ``--device {cuda,cpu}`` (default cuda).
         --working-set 12288 --inner-iters 128      # the decomposition
     python -m dpsvm_tpu_torch train -f train.csv -m model.svm -c 10 \
         -t poly -d 3 -r 1 --selection second-order # the general pair
+    python -m dpsvm_tpu_torch train -f train.libsvm -m model.svm -c 10 \
+        --shrinking --selection second-order       # LIBSVM's -h 1, WSS2
+    python -m dpsvm_tpu_torch train -f train.csv -m model.svm -c 10 \
+        --checkpoint state.npz --checkpoint-every 20000
+    python -m dpsvm_tpu_torch train -f train.csv -m model.svm -c 10 \
+        --resume state.npz                         # after a kill
     python -m dpsvm_tpu_torch.cli test  -f test.csv  -m model.svm
 
-With ``-t precomputed`` (LIBSVM -t 4) the training CSV holds the (n, n)
+``-f`` takes a dense CSV or a libsvm file (sniffed). With ``-t precomputed`` (LIBSVM -t 4) the training CSV holds the (n, n)
 kernel matrix as its rows (``label,K_i1,...,K_in``) and the test CSV the
 rows of K(test, train).
 """
@@ -18,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 import time
 from typing import List, Optional
@@ -50,9 +57,33 @@ def _kernel_name(v: str) -> str:
     return name
 
 
+def _shrinking_value(v: str):
+    """LIBSVM-style -h values plus the shape-resolved sentinel:
+    0/off/false, 1/on/true, auto."""
+    lv = v.strip().lower()
+    if lv in ("0", "off", "false"):
+        return False
+    if lv in ("1", "on", "true"):
+        return True
+    if lv == "auto":
+        return "auto"
+    raise argparse.ArgumentTypeError(
+        f"--shrinking takes 0, 1 or auto, got {v!r}")
+
+
+def _existing_checkpoint(v: str) -> str:
+    """--resume paths are checked at parse time, before the dataset
+    load, so a mistyped path is a one-line error."""
+    if not os.path.isfile(v):
+        raise argparse.ArgumentTypeError(
+            f"no such checkpoint file: {v}")
+    return v
+
+
 def _add_common(p: argparse.ArgumentParser, model_help: str) -> None:
     p.add_argument("-f", "--input", required=True,
-                   help="dataset: dense CSV 'label,f1,...,fd'")
+                   help="dataset: dense CSV 'label,f1,...,fd' or libsvm "
+                        "'label idx:val ...' (sniffed)")
     p.add_argument("-m", "--model", required=True, help=model_help)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run (default cuda; cpu runs the plain "
@@ -117,6 +148,26 @@ def build_parser() -> argparse.ArgumentParser:
                     help="adaptive decomposition: grow Q when the SV "
                          "count approaches it; start with a modest "
                          "--working-set")
+    tr.add_argument("--shrinking", nargs="?", const=True, default=False,
+                    type=_shrinking_value, metavar="{0,1,auto}",
+                    help="LIBSVM -h analog: active-set training — "
+                         "periodically drop rows that are provably "
+                         "stuck at their bound, validate on the full "
+                         "problem at the end. Bare flag = on; "
+                         "'--shrinking 0' forces off")
+    tr.add_argument("--checkpoint", default=None,
+                    help="solver-state .npz path for periodic checkpoints")
+    tr.add_argument("--checkpoint-every", type=int, default=0,
+                    help="iterations between checkpoints (0 = off)")
+    tr.add_argument("--checkpoint-keep", type=int, default=2,
+                    metavar="N",
+                    help="rotation slots kept (state.npz, state.1.npz, "
+                         "...): a corrupt newest file still leaves an "
+                         "intact older state to resume; 1 = no rotation")
+    tr.add_argument("--resume", default=None, type=_existing_checkpoint,
+                    help="resume training from a checkpoint file "
+                         "(checked at parse time; a corrupt file falls "
+                         "back to its newest intact rotation slot)")
     tr.add_argument("-q", "--quiet", action="store_true")
 
     te = sub.add_parser("test", help="evaluate a saved model on a dataset")
@@ -144,6 +195,11 @@ def cmd_train(args: argparse.Namespace) -> int:
                        weight_neg=args.weight_neg,
                        clip=args.clip,
                        matmul_precision=args.precision,
+                       shrinking=args.shrinking,
+                       checkpoint_path=args.checkpoint,
+                       checkpoint_every=args.checkpoint_every,
+                       checkpoint_keep=args.checkpoint_keep,
+                       resume_from=args.resume,
                        verbose=not args.quiet)
     model, result = fit(x, y, config, device=args.device)
     n_sv = save_model(model, args.model)

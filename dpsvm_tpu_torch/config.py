@@ -18,6 +18,10 @@ Three solver paths are ported, each with the envelope a method names:
   class weights.
 
 ``api.train`` raises with that method's message for any other config.
+``shrinking`` (``solver/shrink.py``) wraps the general pair or the
+decomposition; ``checkpoint_*`` and ``resume_from`` apply to all three
+paths. ``resolved`` turns the "auto" sentinels into concrete values
+through the JAX package's shape table, copied here (``_PLAN_TABLE``).
 """
 
 from __future__ import annotations
@@ -63,6 +67,15 @@ class SVMConfig:
                                         # least 32)
     grow_working_set: bool = False      # adaptive decomposition: grow q
                                         # when the SV count approaches it
+    shrinking: object = False           # LIBSVM -h: active-set training
+                                        # (solver/shrink.py): compact the
+                                        # problem to the rows that can
+                                        # still move, validate on the full
+                                        # problem at the end. True | False
+                                        # | "auto" (shape-resolved by
+                                        # resolved()). Off by default (the
+                                        # reference has no shrinking; the
+                                        # unshrunk path is the parity path)
     clip: str = "independent"           # "independent" (the reference's)
                                         # or "pairwise" (textbook/LIBSVM)
     select_impl: str = "argminmax"      # first-order selection: "argminmax"
@@ -93,6 +106,19 @@ class SVMConfig:
     log_every: int = 0                  # 0 = no per-chunk logging
     wall_budget_s: float = 0.0          # stop dispatching chunks after this
                                         # much wall-clock (0 = no budget)
+
+    # --- persistence (the reference has none) ---
+    checkpoint_path: Optional[str] = None   # .npz solver-state file
+    checkpoint_every: int = 0               # iterations between saves (0=off)
+    checkpoint_keep: int = 2                # rotation slots kept (state.npz,
+                                            # state.1.npz, ...): the newest
+                                            # write can never destroy the
+                                            # only intact state; 1 = no
+                                            # rotation
+    resume_from: Optional[str] = None       # checkpoint to resume from
+                                            # (a corrupt file falls back to
+                                            # the newest intact rotation
+                                            # slot)
 
     def fused_incompatibility(self) -> Optional[str]:
         """Why the fused iteration cannot run this config (None if it can).
@@ -158,6 +184,19 @@ class SVMConfig:
                           coef0=float(self.coef0),
                           degree=int(self.degree))
 
+    def resolved(self, n: int, d: int) -> "SVMConfig":
+        """Concretize the auto solver-path sentinels for an (n, d)
+        problem: ``shrinking="auto"`` and ``working_set=0`` become
+        shape-chosen values (``_auto_solver_plan``), so everything
+        downstream of ``api.train`` sees concrete configs. No-op when
+        nothing is "auto"."""
+        if self.shrinking != "auto" and self.working_set != 0:
+            return self
+        cfg = dataclasses.replace(
+            self, **_auto_solver_plan(int(n), int(d), self))
+        cfg.validate()
+        return cfg
+
     def validate(self) -> None:
         if self.c <= 0:
             raise ValueError(f"cost must be > 0, got {self.c}")
@@ -172,6 +211,14 @@ class SVMConfig:
         if self.chunk_iters <= 0:
             raise ValueError(
                 f"chunk_iters must be > 0, got {self.chunk_iters}")
+        if self.checkpoint_every < 0:
+            raise ValueError(
+                f"checkpoint_every must be >= 0, got {self.checkpoint_every}")
+        if self.checkpoint_every and not self.checkpoint_path:
+            raise ValueError("checkpoint_every set without checkpoint_path")
+        if self.checkpoint_keep < 1:
+            raise ValueError(
+                f"checkpoint_keep must be >= 1, got {self.checkpoint_keep}")
         if self.wall_budget_s < 0:
             raise ValueError(
                 f"wall_budget_s must be >= 0, got {self.wall_budget_s}")
@@ -189,6 +236,11 @@ class SVMConfig:
                              f"'sigmoid' or 'precomputed', got "
                              f"{self.kernel!r}")
         if self.kernel == "precomputed":
+            if self.shrinking is True:
+                raise ValueError(
+                    "precomputed kernel does not support shrinking: the "
+                    "unshrink f reconstruction evaluates kernels between "
+                    "row subsets, which a gathered K cannot provide")
             if self.cache_size > 0:
                 raise ValueError(
                     "precomputed kernel has nothing to cache: the row "
@@ -223,6 +275,12 @@ class SVMConfig:
                 raise ValueError("select_impl applies to first-order "
                                  "selection only (WSS2's argmax-over-"
                                  "objective has no packed lowering)")
+        # Identity checks, not equality: 1 == True and np.True_ == True
+        # would pass a membership test yet skip every 'is True' guard.
+        if not (self.shrinking is True or self.shrinking is False
+                or self.shrinking == "auto"):
+            raise ValueError("shrinking must be True, False or 'auto', "
+                             f"got {self.shrinking!r}")
         if self.working_set == 0:
             # The sentinel may resolve to either 2 or q > 2; knobs whose
             # meaning depends on which must be pinned by an explicit
@@ -273,6 +331,28 @@ class SVMConfig:
                     raise ValueError(
                         f"grow_working_set does not support {field}: "
                         f"{what}")
+        if self.shrinking is True:
+            # The JAX table, row for row, for the fields the port has
+            # ("auto" is exempt: the plan never picks shrinking when one
+            # of them is set).
+            for field, bad, what in (
+                    ("cache_size", self.cache_size > 0,
+                     "cached row indices would dangle across "
+                     "compactions"),
+                    ("use_pallas",
+                     self.use_pallas == "on" and self.working_set == 2,
+                     "the 2-violator fused kernel hard-codes the "
+                     "full-problem init (the decomposition's inner "
+                     "kernel composes fine)"),
+                    ("checkpoint_path", bool(self.checkpoint_path),
+                     "checkpoint/resume does not capture active-set "
+                     "state"),
+                    ("resume_from", bool(self.resume_from),
+                     "checkpoint/resume does not capture active-set "
+                     "state")):
+                if bad:
+                    raise ValueError(
+                        f"shrinking does not support {field}: {what}")
         if self.inner_iters < 0:
             raise ValueError(
                 f"inner_iters must be >= 0, got {self.inner_iters}")
@@ -289,6 +369,56 @@ class SVMConfig:
         if self.matmul_precision not in _PRECISIONS:
             raise ValueError(f"matmul_precision must be one of "
                              f"{_PRECISIONS}, got {self.matmul_precision!r}")
+
+
+def _shape_class(n: int, d: int) -> str:
+    """Problem-shape class of the auto plan (the JAX package's
+    boundaries)."""
+    if n >= 200_000:
+        return "hbm"        # covtype/epsilon-like
+    if d >= 512:
+        return "highd"      # mnist-like
+    if d <= 32:
+        return "lowd"       # ijcnn1-like
+    return "mid"            # adult-like
+
+
+# (want_shrink, want_q, want_cap) per shape class: the JAX package's
+# table. It resolves to the unshrunk classic pair at every class, which
+# are the explicit defaults; a slot changes only on measured evidence.
+_PLAN_TABLE = {
+    "highd": (False, 2, 0),
+    "lowd": (False, 2, 0),
+    "mid": (False, 2, 0),
+    "hbm": (False, 2, 0),
+}
+
+
+def _auto_solver_plan(n: int, d: int, config: SVMConfig) -> dict:
+    """The shape-based choice for the "auto" sentinels: ``_PLAN_TABLE``
+    applied without ever choosing a path that a conflicting explicit
+    field rules out (auto declines the path instead)."""
+    want_shrink, want_q, want_cap = _PLAN_TABLE[_shape_class(n, d)]
+    plan = {}
+    if config.shrinking == "auto":
+        shrink_supported = (config.kernel != "precomputed"
+                            and config.cache_size == 0
+                            and not config.checkpoint_path
+                            and not config.resume_from
+                            and not (config.use_pallas == "on"
+                                     and config.working_set == 2))
+        plan["shrinking"] = bool(want_shrink and shrink_supported)
+    if config.working_set == 0:
+        decomp_supported = (config.selection == "first-order"
+                            and config.cache_size == 0
+                            and config.select_impl == "argminmax")
+        if want_q > 2 and decomp_supported:
+            plan["working_set"] = want_q
+            if want_cap and config.inner_iters == 0:
+                plan["inner_iters"] = want_cap
+        else:
+            plan["working_set"] = 2
+    return plan
 
 
 @dataclasses.dataclass

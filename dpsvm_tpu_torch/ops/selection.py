@@ -47,12 +47,41 @@ def iup_ilow_masks(alpha: torch.Tensor, y: torch.Tensor, c
     return alpha != up_side, alpha != low_side
 
 
+def iup_ilow_masks_np(alpha, y, c):
+    """NumPy twin of ``iup_ilow_masks`` for the host: the shrinking
+    manager's shrink rule and its full-problem check at unshrink. ``c``
+    is C or the per-example (n,) box."""
+    import numpy as np
+
+    at0 = alpha == 0.0
+    atc = alpha == c
+    interior = ~at0 & ~atc
+    pos = np.asarray(y) > 0
+    in_up = interior | (at0 & pos) | (atc & ~pos)
+    in_low = interior | (at0 & ~pos) | (atc & pos)
+    return in_up, in_low
+
+
+def valid_rows(n: int, n_valid, device) -> torch.Tensor:
+    """The (n,) mask of rows below ``n_valid`` (an int or a 0-d device
+    tensor, which a captured graph reads at each replay): the shrinking
+    manager's padded capacities keep their padding rows out of every
+    index set with it."""
+    return torch.arange(n, dtype=torch.int32, device=device) < n_valid
+
+
 def sided_scores(alpha: torch.Tensor, f: torch.Tensor,
-                 up_side: torch.Tensor, low_side: torch.Tensor):
+                 up_side: torch.Tensor, low_side: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None):
     """(f_up, f_low, in_low) from ``box_sides``, made once for a loop
-    whose y and C never change: four elementwise operations."""
+    whose y and C never change: four elementwise operations, two more
+    with a ``valid`` mask (rows where it is False are in neither set)."""
     in_low = alpha != low_side
-    f_up = torch.where(alpha != up_side, f, SENTINEL)
+    in_up = alpha != up_side
+    if valid is not None:
+        in_up = in_up & valid
+        in_low = in_low & valid
+    f_up = torch.where(in_up, f, SENTINEL)
     return f_up, torch.where(in_low, f, -SENTINEL), in_low
 
 

@@ -33,8 +33,14 @@ Nothing is read back to the host inside a round. The round loop reads one
 packed-stats tensor per round (its condition needs the gap and n_iter);
 the last read of a chunk is the driver's poll. The four parts of a round
 run inside ``torch.profiler`` ranges named ``decomp.select``,
-``decomp.k_ww``, ``decomp.subsolve`` and ``decomp.rank_q``. Checkpoints and resume,
-shrinking and the distributed decomposition are not ported.
+``decomp.k_ww``, ``decomp.subsolve`` and ``decomp.rank_q``.
+
+The ``valid`` mask (the shrinking manager's padded capacities, as in the
+general pair): rows where it is False never enter selection, and a
+padding row drawn into W as top-k filler reaches the subsolve as a masked
+slot. A run resumes from a checkpoint with the saved (alpha, f, b_hi,
+b_lo, n_iter); its ``rounds`` count restarts at 0 (telemetry, not solver
+state). The distributed decomposition is not ported.
 """
 
 from __future__ import annotations
@@ -52,10 +58,11 @@ from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
 from dpsvm_tpu_torch.ops.kernels import (KernelSpec, dots_f32, exact_f32,
                                          host_row_stats, rows_from_dots)
 from dpsvm_tpu_torch.ops.selection import (masked_scores_and_masks,
-                                           top_k_first, unique_padded)
+                                           top_k_first, unique_padded,
+                                           valid_rows)
 from dpsvm_tpu_torch.solver.driver import (ChunkStats, device_sv_count,
                                            host_training_loop, pack_stats,
-                                           read_stats)
+                                           read_stats, resume_state)
 
 # Elements of one (q, columns) block of the rank-q pass: 1 GiB in float32.
 # Two such blocks are alive at once (the dots and the kernel block).
@@ -142,18 +149,21 @@ def rank_q_update(f: torch.Tensor, coef: torch.Tensor, rows: torch.Tensor,
 def decomp_step(carry: DecompCarry, prob: DecompProblem, *, q: int,
                 inner_cap: int, epsilon: float, step_cap: int,
                 pairwise_clip: bool = False,
-                subsolve: Callable = sk.launch_inner_subsolve) -> DecompCarry:
+                subsolve: Callable = sk.launch_inner_subsolve,
+                valid: Optional[torch.Tensor] = None) -> DecompCarry:
     """One outer round (select q -> K_WW -> subsolve -> rank-q update).
     ``step_cap`` caps the round's inner steps (``min(inner_cap, limit -
     n_iter)``, from the last poll). ``subsolve`` has the contract of
     ``launch_inner_subsolve``; the plain path passes
-    ``inner_subsolve_plain``. alpha and f are updated in place."""
+    ``inner_subsolve_plain``. Rows where ``valid`` is False are in
+    neither index set. alpha and f are updated in place."""
     alpha, f, y = carry.alpha, carry.f, prob.y
     span = torch.profiler.record_function
 
     with span("decomp.select"):
         # Top q/2 violators per side.
-        f_up, f_low, _, _ = masked_scores_and_masks(alpha, y, f, prob.c_box)
+        f_up, f_low, _, _ = masked_scores_and_masks(alpha, y, f, prob.c_box,
+                                                    valid)
         up_idx = top_k_first(-f_up, q // 2)      # ascending f: worst first
         low_idx = top_k_first(f_low, q // 2)     # descending f
         b_hi = f_up[up_idx[0]]
@@ -165,6 +175,10 @@ def decomp_step(carry: DecompCarry, prob: DecompProblem, *, q: int,
         w_idx = unique_padded(torch.cat([up_idx, low_idx]), q)
         active = w_idx >= 0
         wi = torch.where(active, w_idx, 0)
+        if valid is not None:
+            # capacity padding picked as top-k filler when the real
+            # violators run out: a masked slot, frozen in the subsolve
+            active = active & valid[wi]
         y_w = y[wi]
         a_w0 = alpha[wi]
         f_w0 = f[wi]
@@ -230,19 +244,24 @@ def _stats(carry: DecompCarry, ws: DecompWorkspace) -> torch.Tensor:
 
 
 def make_runner(prob: DecompProblem, config: SVMConfig, q: int,
-                ws: DecompWorkspace, plain: bool = False):
+                ws: DecompWorkspace, plain: bool = False,
+                n_valid: Optional[int] = None):
     """The chunk runner at working-set size q (``_build_decomp_runner``):
     ``run(carry, limit) -> (carry, ChunkStats)`` runs rounds while the gap
     is open and ``n_iter < limit``. The inner cap is ``inner_iters``, or
     ``max(32, q // 4)`` when that is 0. ``plain`` runs the subsolve's
     plain version on any device (the reference the kernel path is held
-    against on the card)."""
+    against on the card). ``n_valid`` masks the rows at or past it out of
+    selection (the ``masked=True`` runner of the JAX package)."""
     cap = int(config.inner_iters) or max(32, q // 4)
     two_eps = sk.two_eps_f32(config.epsilon)
     subsolve = (sk.inner_subsolve_plain if plain else
                 functools.partial(sk.launch_inner_subsolve, runs=ws.runs))
+    valid = (None if n_valid is None else
+             valid_rows(prob.y.shape[0], n_valid, prob.y.device))
     kw = dict(q=q, inner_cap=cap, epsilon=float(config.epsilon),
-              pairwise_clip=config.clip == "pairwise", subsolve=subsolve)
+              pairwise_clip=config.clip == "pairwise", subsolve=subsolve,
+              valid=valid)
 
     def read(carry):
         st = read_stats(_stats(carry, ws))
@@ -329,25 +348,40 @@ def train_single_device_decomp(x: np.ndarray, y: np.ndarray,
     kernel on the card, its plain version on the CPU (or anywhere, with
     ``plain``). q = 2 min(q/2, n): a problem smaller than the block
     degrades to a smaller one. ``f_init`` / ``alpha_init`` override
-    f = -y, alpha = 0 (``api.warm_start``)."""
+    f = -y, alpha = 0 (``api.warm_start``); a checkpoint
+    (``config.resume_from``) takes precedence."""
     config.validate()
     n = x.shape[0]
     q = 2 * min(int(config.working_set) // 2, n)
     prob = DecompProblem.build(x, y, config, device)
     ws = DecompWorkspace(device)
     carry = init_carry(prob.y)
-    if f_init is not None:
-        carry = carry._replace(f=torch.from_numpy(
-            np.asarray(f_init, np.float32).copy()).to(device))
-    if alpha_init is not None:
-        carry = carry._replace(alpha=torch.from_numpy(
-            np.asarray(alpha_init, np.float32).copy()).to(device))
+
+    def vec(v):
+        return torch.from_numpy(np.asarray(v, np.float32).copy()).to(device)
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    ckpt = resume_state(config, n, x.shape[1], prob.gamma)
+    if ckpt is not None:
+        carry = carry._replace(
+            alpha=vec(ckpt.alpha), f=vec(ckpt.f),
+            b_hi=scalar(float(np.float32(ckpt.b_hi)), torch.float32),
+            b_lo=scalar(float(np.float32(ckpt.b_lo)), torch.float32),
+            n_iter=scalar(int(ckpt.n_iter), torch.int32))
+    else:
+        if f_init is not None:
+            carry = carry._replace(f=vec(f_init))
+        if alpha_init is not None:
+            carry = carry._replace(alpha=vec(alpha_init))
 
     def build(q_now: int):
         return make_runner(prob, config, q_now, ws, plain)
 
     hook = (_make_growth_hook(config, n, q, build)
             if config.grow_working_set else None)
-    return host_training_loop(config, prob.gamma, carry, build(q),
-                              lambda cr: cr.alpha.cpu().numpy(),
-                              poll_hook=hook)
+    return host_training_loop(
+        config, prob.gamma, carry, build(q),
+        lambda cr: (cr.alpha.cpu().numpy(), cr.f.cpu().numpy()),
+        poll_hook=hook, it0=int(carry.n_iter), dims=x.shape)

@@ -4,31 +4,51 @@ The solver hands this loop a chunk runner that advances the carry by up
 to ``chunk_iters`` iterations on the device with no host synchronisation
 inside the chunk. The loop polls once per chunk: one packed-stats tensor,
 one device-to-host read, with the floats carried as bit patterns so every
-field is exact. Checkpoints, tracing, watch rules, health monitoring and
-fault injection of the JAX driver are not ported yet.
+field is exact. Tracing, watch rules, health monitoring and fault
+injection of the JAX driver are not ported yet.
+
+Checkpoints: with ``checkpoint_every > 0`` a poll that crosses an
+every-N boundary reads (alpha, f) once and saves them with the polled
+scalars (``utils/checkpoint.py``); no other poll reads more than the
+packed stats. ``resume_state`` loads the checkpoint a run resumes from,
+falling back past corrupt rotation slots.
 
 ``poll_hook`` follows the JAX contract: called at each poll of a run that
 is not done, ``poll_hook(n_iter, carry, stats) -> Optional[new_step]``, a
 non-None return replacing the chunk runner. The JAX loop dispatches the
-next chunk before it polls (pipelined dispatch), so its replacement first
-runs one chunk after the poll that chose it. This loop keeps that
-schedule, so that a run whose hook swaps runners (the decomposition's
-working-set growth) walks the JAX run's trajectory.
+next chunk before it polls (pipelined dispatch), so there a replacement
+first runs one chunk after the poll that chose it; while checkpoints are
+on it dispatches strictly in sequence, and a replacement runs from the
+next chunk. This loop keeps both schedules, so that a run whose hook
+swaps runners (the decomposition's working-set growth) walks the JAX
+run's trajectory either way.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import sys
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dpsvm_tpu_torch.config import SVMConfig, TrainResult
+from dpsvm_tpu_torch.utils.checkpoint import (CheckpointCorruptError,
+                                              CheckpointError,
+                                              SolverCheckpoint,
+                                              checkpoint_candidates,
+                                              load_checkpoint,
+                                              maybe_checkpoint)
 
 _logger = logging.getLogger("dpsvm_tpu_torch")
+
+# Ever, in this process: checkpoint saves, the (alpha, f) reads they made,
+# and the seconds the host spent in them (read, write, rename).
+CHECKPOINTS = {"saves": 0, "pulls": 0, "seconds": 0.0}
+
 
 class ChunkStats(NamedTuple):
     n_iter: int
@@ -64,6 +84,39 @@ def read_stats(stats: torch.Tensor) -> ChunkStats:
                       int(s[4]), tuple(int(v) for v in s[5:]))
 
 
+def resume_state(config: SVMConfig, n: int, d: int,
+                 gamma: float) -> Optional[SolverCheckpoint]:
+    """Load and check the checkpoint ``config.resume_from`` names, or None.
+
+    A corrupt file (truncated, bit-flipped: what ``load_checkpoint``
+    rejects) falls back to the newest intact rotation slot (``state.1.npz``,
+    ...), saying what was skipped; only when every slot is unreadable does
+    the error propagate. An intact checkpoint of another problem or
+    config always raises ``CheckpointMismatchError``."""
+    if not config.resume_from:
+        return None
+    skipped = []
+    last_err: Optional[CheckpointError] = None
+    for path in checkpoint_candidates(config.resume_from):
+        try:
+            ckpt = load_checkpoint(path)
+        except CheckpointCorruptError as e:
+            print(f"WARNING: {e}; trying older rotation slot",
+                  file=sys.stderr, flush=True)
+            skipped.append(path)
+            last_err = e
+            continue
+        ckpt.validate_against(n, d, config, gamma, shards=1)
+        if skipped:
+            print(f"WARNING: resuming from rotation slot {path} "
+                  f"(skipped corrupt: {skipped})",
+                  file=sys.stderr, flush=True)
+        return ckpt
+    raise CheckpointError(
+        f"no intact checkpoint to resume: {config.resume_from} and "
+        f"every rotation slot failed ({skipped})") from last_err
+
+
 def _finite_converged(b_lo: float, b_hi: float, eps: float) -> bool:
     """The driver's convergence verdict: gap closed AND finite."""
     return (math.isfinite(b_lo) and math.isfinite(b_hi)
@@ -89,19 +142,38 @@ def log_progress(config: SVMConfig, n_iter: int, b_lo: float, b_hi: float,
 def host_training_loop(config: SVMConfig, gamma: float, carry,
                        step_chunk: Callable, carry_to_host: Callable,
                        poll_hook: Optional[Callable] = None,
-                       it0: int = 0) -> TrainResult:
+                       it0: int = 0,
+                       dims: Optional[Tuple[int, int]] = None
+                       ) -> TrainResult:
     """Run chunks until convergence, ``max_iter`` or the wall budget.
 
     ``step_chunk(carry, limit) -> (carry, ChunkStats)`` advances the carry
     to at most ``limit`` iterations (plus the trailing do-while body on
     convergence) and performs the poll's single read.
-    ``carry_to_host(carry)`` returns alpha as a numpy array.
+    ``carry_to_host(carry)`` returns (alpha, f) as numpy arrays.
     ``poll_hook``: see the module docstring. ``it0`` is the carry's
-    n_iter at the start (a run continued mid-way)."""
+    n_iter at the start (a run continued mid-way). ``dims`` is the
+    problem's (n, d), which a checkpoint records."""
     eps = float(config.epsilon)
+    pipeline = config.checkpoint_every == 0
     t0 = time.perf_counter()
-    n_iter = prev = int(it0)
+    n_iter = prev = last_saved = int(it0)
     pending = None
+
+    def snapshot() -> SolverCheckpoint:
+        # the carry as the last poll left it: the loop dispatches in
+        # sequence while checkpoints are on
+        alpha, f = carry_to_host(carry)
+        CHECKPOINTS["pulls"] += 1
+        return SolverCheckpoint(
+            alpha=np.asarray(alpha, np.float32),
+            f=np.asarray(f, np.float32), n_iter=n_iter, b_lo=b_lo,
+            b_hi=b_hi, c=float(config.c), gamma=gamma,
+            epsilon=float(config.epsilon), n=int(dims[0]), d=int(dims[1]),
+            weight_pos=float(config.weight_pos),
+            weight_neg=float(config.weight_neg), kernel=config.kernel,
+            coef0=float(config.coef0), degree=int(config.degree))
+
     while True:
         limit = min(n_iter + config.chunk_iters, config.max_iter)
         carry, st = step_chunk(carry, limit)
@@ -121,11 +193,23 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
             done = True
         log_progress(config, n_iter, b_lo, b_hi, done, prev)
         prev = n_iter
+        if poll_hook is not None and not done:
+            replacement = poll_hook(n_iter, carry, st)
+            if replacement is not None:
+                if pipeline:
+                    pending = replacement
+                else:
+                    step_chunk = replacement
+        t_save = time.perf_counter()
+        saved = maybe_checkpoint(config, last_saved, n_iter, snapshot)
+        if saved != last_saved:
+            CHECKPOINTS["saves"] += 1
+            CHECKPOINTS["seconds"] += time.perf_counter() - t_save
+        last_saved = saved
         if done:
             break
-        if poll_hook is not None:
-            pending = poll_hook(n_iter, carry, st)
-    alpha = np.array(carry_to_host(carry), np.float32, copy=True)
+    alpha, _ = carry_to_host(carry)
+    alpha = np.array(alpha, np.float32, copy=True)
     return TrainResult(
         alpha=alpha,
         b=(b_lo + b_hi) / 2.0,            # svmTrainMain.cpp:329

@@ -30,11 +30,24 @@ the graph is captured, which is when cuBLAS's math mode is fixed.
 
 The plain version is the same ``smo_step`` in an eager loop that tests the
 condition on the host before each body: the CPU's path, and the reference
-the graph is held against on the card. Not ported yet: ``nu_selection``
-(it comes with ``models/nusvm.py``), the ``valid`` mask (it comes with
-``solver/shrink.py``) and the row cache (``ops/rowcache.py``): inside a
-captured chunk a cache hit cannot skip the product without a conditional
-graph node, so the cache is a design of its own.
+the graph is held against on the card.
+
+The ``valid`` mask: the shrinking manager (``solver/shrink.py``) pads an
+active subproblem to a power-of-two capacity, and rows at or past
+``n_valid`` never enter selection. On the card ``n_valid`` is a device
+scalar the captured graph reads, like ``limit``, so a capture depends on
+the capacity only and is reused across compactions (``GraphChunk(...,
+masked=True)``). The unmasked graph has no mask work in its bodies (the
+JAX package keeps ``masked`` a build-time flag for the same reason).
+
+A run resumes from a checkpoint (``resume_from``) with the saved (alpha,
+f, b_hi, b_lo, n_iter): the b's are the last body's, so the loop goes on
+exactly as the run that saved it would have.
+
+Not ported yet: ``nu_selection`` (it comes with ``models/nusvm.py``) and
+the row cache (``ops/rowcache.py``): inside a captured chunk a cache hit
+cannot skip the product without a conditional graph node, so the cache is
+a design of its own.
 """
 
 from __future__ import annotations
@@ -51,11 +64,11 @@ from dpsvm_tpu_torch.ops.kernels import (KernelSpec, dots_f32, exact_f32,
                                          rows_from_dots)
 from dpsvm_tpu_torch.ops.selection import (box_sides, extrema_of,
                                            packed_extrema_of, pick,
-                                           sided_scores)
+                                           sided_scores, valid_rows)
 from dpsvm_tpu_torch.ops.update import alpha_pair_step
 from dpsvm_tpu_torch.solver.driver import (ChunkStats, device_sv_count,
                                            host_training_loop, pack_stats,
-                                           read_stats)
+                                           read_stats, resume_state)
 
 # Bodies in one captured graph; a chunk replays it until its iterations
 # are covered (chunk_iters / GRAPH_BODIES replays of a full chunk).
@@ -178,8 +191,8 @@ class PairUpdate(NamedTuple):
     b_lo: torch.Tensor
 
 
-def pair_update(carry: SMOCarry, prob: SMOProblem,
-                opts: SMOOptions) -> PairUpdate:
+def pair_update(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
+                valid: Optional[torch.Tensor] = None) -> PairUpdate:
     """One modified-SMO iteration's values (``smo_step`` of the JAX
     package, branch for branch), reading the carry only.
 
@@ -187,9 +200,11 @@ def pair_update(carry: SMOCarry, prob: SMOProblem,
     (f_j - b_hi)^2 / a_j with a_j = K_ii + K_jj - 2 K(hi, j), the literal
     2 - 2 K(hi, j) for RBF; the stopping gap and the intercept still come
     from the max violator b_lo (svmTrainMain.cpp:310,329), and the alpha
-    step uses the selected violator's f."""
+    step uses the selected violator's f. Rows where ``valid`` is False are
+    in neither index set."""
     alpha, f, y = carry.alpha, carry.f, prob.y
-    f_up, f_low, in_low = sided_scores(alpha, f, prob.up_side, prob.low_side)
+    f_up, f_low, in_low = sided_scores(alpha, f, prob.up_side, prob.low_side,
+                                       valid)
     if opts.second_order:
         i_hi = torch.argmin(f_up)
         b_hi = pick(f_up, i_hi)
@@ -236,11 +251,11 @@ def pair_update(carry: SMOCarry, prob: SMOProblem,
                       b_lo)
 
 
-def smo_step(carry: SMOCarry, prob: SMOProblem,
-             opts: SMOOptions) -> SMOCarry:
+def smo_step(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
+             valid: Optional[torch.Tensor] = None) -> SMOCarry:
     """One iteration as a new carry. The write order lo, then hi, mirrors
     train_step2 (svmTrain.cu:491-492) for the i_hi == i_lo corner."""
-    u = pair_update(carry, prob, opts)
+    u = pair_update(carry, prob, opts, valid)
     alpha = carry.alpha.clone()
     alpha.index_copy_(0, u.i_lo.reshape(1), u.a_lo_n.reshape(1))
     alpha.index_copy_(0, u.i_hi.reshape(1), u.a_hi_n.reshape(1))
@@ -254,12 +269,13 @@ def live(carry: SMOCarry, two_eps: float, limit) -> torch.Tensor:
 
 
 def smo_body(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
-             two_eps: float, limit: torch.Tensor) -> None:
+             two_eps: float, limit: torch.Tensor,
+             valid: Optional[torch.Tensor] = None) -> None:
     """``smo_step`` in place, gated on ``live``: when the condition is
     false every write puts back what it read, so the carry is unchanged
     bit for bit. Reads nothing back to the host (the graph's body)."""
     go = live(carry, two_eps, limit)
-    u = pair_update(carry, prob, opts)
+    u = pair_update(carry, prob, opts, valid)
     carry.alpha.index_copy_(0, u.i_lo.reshape(1),
                             torch.where(go, u.a_lo_n, u.a_lo).reshape(1))
     carry.alpha.index_copy_(0, u.i_hi.reshape(1),
@@ -271,41 +287,57 @@ def smo_body(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
 
 
 def run_chunk_plain(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
-                    two_eps: float, limit: int) -> SMOCarry:
+                    two_eps: float, limit: int,
+                    valid: Optional[torch.Tensor] = None) -> SMOCarry:
     """The chunk as an eager loop: ``smo_step`` while the condition,
     read on the host before each body, holds."""
     while bool(live(carry, two_eps, limit)):
-        carry = smo_step(carry, prob, opts)
+        carry = smo_step(carry, prob, opts, valid)
     return carry
 
 
 class GraphChunk:
     """The chunk on the card: ``bodies`` gated bodies captured once in a
     CUDA graph over the carry's tensors, replayed ceil(iterations /
-    bodies) times after the host fills ``limit``."""
+    bodies) times after the host fills ``limit``. ``masked`` adds a
+    device scalar ``n_valid``, filled by the host like ``limit``, from
+    which the graph builds the ``valid`` mask once a replay."""
 
     def __init__(self, carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
-                 two_eps: float, bodies: int = GRAPH_BODIES):
+                 two_eps: float, bodies: int = GRAPH_BODIES,
+                 masked: bool = False):
         self.carry, self.bodies = carry, int(bodies)
-        self.limit = torch.zeros((), dtype=torch.int32,
-                                 device=carry.alpha.device)
+        dev = carry.alpha.device
+        self.limit = torch.zeros((), dtype=torch.int32, device=dev)
+        self.n_valid = (torch.zeros((), dtype=torch.int32, device=dev)
+                        if masked else None)
+        n = carry.alpha.shape[0]
+
+        def run_bodies(count):
+            valid = (None if self.n_valid is None
+                     else valid_rows(n, self.n_valid, dev))
+            for _ in range(count):
+                smo_body(carry, prob, opts, two_eps, self.limit, valid)
+
         # Warm up (cuBLAS handles and workspaces) on a side stream with
         # limit 0: the body is a no-op.
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side), exact_f32():
-            smo_body(carry, prob, opts, two_eps, self.limit)
+            run_bodies(1)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with exact_f32(), torch.cuda.graph(self.graph):
-            for _ in range(self.bodies):
-                smo_body(carry, prob, opts, two_eps, self.limit)
+            run_bodies(self.bodies)
         COUNTS["captures"] += 1
 
-    def run(self, n_iter: int, limit: int) -> int:
+    def run(self, n_iter: int, limit: int,
+            n_valid: Optional[int] = None) -> int:
         """Advance the carry from ``n_iter`` (the last poll's) towards
         ``limit``; returns the replays enqueued. Nothing is read back."""
         self.limit.fill_(int(limit))
+        if self.n_valid is not None:
+            self.n_valid.fill_(int(n_valid))
         replays = -(-(int(limit) - int(n_iter)) // self.bodies)
         for _ in range(replays):
             self.graph.replay()
@@ -321,22 +353,34 @@ def _stats(carry: SMOCarry) -> torch.Tensor:
 
 
 def make_chunk_runner(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
-                      two_eps: float, plain: bool = False):
+                      two_eps: float, plain: bool = False,
+                      n_valid: Optional[int] = None,
+                      chunk: Optional[GraphChunk] = None):
     """``step(carry, limit) -> (carry, ChunkStats)`` for
     ``host_training_loop``: the captured graph on the card, the eager loop
     on the CPU (or anywhere, with ``plain``). Each chunk ends in the
-    poll's one read."""
+    poll's one read. ``n_valid`` masks the rows at or past it out of
+    selection; ``chunk`` is a graph already captured over this carry and
+    problem (the shrinking manager's cache), masked when ``n_valid`` is
+    given."""
     state = {"n_iter": int(carry.n_iter)}
     if carry.alpha.is_cuda and not plain:
-        chunk = GraphChunk(carry, prob, opts, two_eps)
+        if chunk is None:
+            chunk = GraphChunk(carry, prob, opts, two_eps,
+                               masked=n_valid is not None)
 
         def advance(cr, limit):
-            chunk.run(state["n_iter"], limit)
+            chunk.run(state["n_iter"], limit, n_valid)
             return cr
     else:
+        valid = (None if n_valid is None else
+                 valid_rows(carry.alpha.shape[0], n_valid,
+                            carry.alpha.device))
+
         def advance(cr, limit):
             with exact_f32():
-                return run_chunk_plain(cr, prob, opts, two_eps, limit)
+                return run_chunk_plain(cr, prob, opts, two_eps, limit,
+                                       valid)
 
     def step(cr: SMOCarry, limit: int):
         cr = advance(cr, limit)
@@ -364,14 +408,22 @@ def train_single_device(x: np.ndarray, y: np.ndarray, config: SVMConfig,
     ``f_init`` / ``alpha_init`` override f = -y, alpha = 0 (the caller
     keeps them consistent: f must be the dual gradient at alpha).
     ``carry`` continues a run handed over mid-way (``convert.
-    smo_carry_from_numpy``) on the same trajectory. ``plain`` runs the
-    eager loop on any device (the reference the graph is held against)."""
+    smo_carry_from_numpy``) on the same trajectory; a checkpoint
+    (``config.resume_from``) takes precedence over both. ``plain`` runs
+    the eager loop on any device (the reference the graph is held
+    against)."""
     config.validate()
     prob = SMOProblem.build(x, y, config, device)
-    if carry is None:
+    ckpt = resume_state(config, x.shape[0], x.shape[1],
+                        float(prob.spec.gamma))
+    if ckpt is not None:
+        carry = init_carry(prob.y, ckpt.f, ckpt.alpha, b_hi=ckpt.b_hi,
+                           b_lo=ckpt.b_lo, n_iter=ckpt.n_iter)
+    elif carry is None:
         carry = init_carry(prob.y, f_init, alpha_init)
     step = make_chunk_runner(carry, prob, SMOOptions.from_config(
         config, guard_eta), two_eps_f32(config.epsilon), plain)
     return host_training_loop(
         config, float(prob.spec.gamma), carry, step,
-        lambda cr: cr.alpha.cpu().numpy(), it0=int(carry.n_iter))
+        lambda cr: (cr.alpha.cpu().numpy(), cr.f.cpu().numpy()),
+        it0=int(carry.n_iter), dims=x.shape)

@@ -41,6 +41,7 @@ from dpsvm_tpu_torch.experimental.fused import train_single_device_plain
 from dpsvm_tpu_torch.models.svm import SVMModel, evaluate
 from dpsvm_tpu_torch.ops.kernels import row_norms_sq, rows_from_dots
 from dpsvm_tpu_torch.ops.selection import masked_scores_and_masks
+from dpsvm_tpu_torch.solver import shrink
 from dpsvm_tpu_torch.solver.decomp import train_single_device_decomp
 
 pytestmark = pytest.mark.cuda
@@ -797,3 +798,190 @@ def test_decomposition_kernel_path_matches_plain_per_kind(dev, kind):
     p = train_single_device_decomp(x, y, cfg, dev, plain=True)
     assert (k.n_iter, k.rounds, k.converged) == (p.n_iter, p.rounds, True)
     assert np.array_equal(k.alpha, p.alpha)
+
+
+# ----------------------------------- shrinking, checkpoints and resume
+
+@pytest.fixture
+def fast_checks(monkeypatch):
+    """Shrink checks every 128 iterations, so that small problems
+    compact."""
+    monkeypatch.setattr(shrink, "SHRINK_CHECK_ITERS", 128)
+
+
+@pytest.mark.parametrize("branch", ["first-order", "second-order"])
+def test_masked_graph_matches_eager_bitwise(dev, branch):
+    """The shrinking manager's subproblems (``shrink._PairPath``: rows
+    gathered into one padded slot a capacity, the masked graph captured
+    over the slot once, n_valid a device scalar) against the same
+    subproblems on the eager loop with the same mask, bitwise, at
+    capacities 512 and 1024, two row sets each: the second set of each
+    capacity replays the capture of the first."""
+    x, y = _smo_problem("rbf", n=2000)
+    cfg = _smo_cfg("rbf", branch, chunk_iters=37)
+    rng = np.random.default_rng(8)
+    yf = y.astype(np.float32)
+    alpha, f = np.zeros(2000, np.float32), -yf
+    paths = [shrink._PairPath(x, y, cfg, dev, False, plain)
+             for plain in (False, True)]
+    gsmo.reset_counts()
+    for cap, sizes in ((512, (400, 300)), (1024, (700, 900))):
+        for size in sizes:
+            idx = np.sort(rng.choice(2000, size, replace=False))
+            out = []
+            for path in paths:
+                step, pull = path.make(idx, cap, alpha, f, 0, -1e9, 1e9, 0)
+                it = 0
+                while True:
+                    st = step(min(it + 37, 4000))
+                    it = st.n_iter
+                    if not (st.b_lo > st.b_hi + 2e-3) or it >= 4000:
+                        break
+                out.append((pull(), st))
+            ((ga, gf), gs), ((ea, ef), es) = out
+            assert gs.n_iter > 37 and gs[:3] == es[:3]
+            assert np.array_equal(ga, ea) and np.array_equal(gf, ef)
+    assert gsmo.COUNTS["captures"] == 2
+
+
+def test_shrinking_on_the_card_matches_its_plain_run(dev, fast_checks):
+    """train_shrinking through captured graphs against the same manager
+    with the eager loop on the card, bitwise; the run compacts, unshrinks
+    and re-shrinks into a capacity already captured, so there are fewer
+    captures than rebuilds and no more than capacities."""
+    x, y = make_planted(600, 40, 0.25, seed=2)
+    cfg = SVMConfig(c=1.0, kernel="linear", selection="second-order",
+                    epsilon=1e-3, chunk_iters=64, shrinking=True)
+    gsmo.reset_counts()
+    got = train(x, y, cfg)
+    run = dict(shrink.RUN)
+    ref = shrink.train_shrinking(x, y, cfg, dev, plain=True)
+    assert run["active_sizes"] == shrink.RUN["active_sizes"]
+    assert got.n_iter == ref.n_iter and np.array_equal(got.alpha, ref.alpha)
+    assert run["unshrinks"] >= 1 and run["compactions"] >= 2
+    assert run["captures"] == gsmo.COUNTS["captures"]
+    assert run["captures"] <= len(set(run["capacities"])) < len(
+        run["capacities"])
+
+
+@pytest.mark.parametrize("q", [16, 64])
+def test_shrinking_decomposition_kernel_matches_plain(dev, fast_checks, q):
+    """Kernel B on padded, compacted active sets against its plain
+    version, bitwise (the rest of a round is the same code); kernel B's
+    counts agree with the rounds and steps across every rebuild."""
+    x, y = make_planted(1500, 24, 0.25, seed=5)
+    cfg = SVMConfig(c=1.0, gamma=0.25, epsilon=1e-3, chunk_iters=64,
+                    shrinking=True, working_set=q, inner_iters=16)
+    sk.reset_counts()
+    got = train(x, y, cfg)
+    sizes = list(shrink.RUN["active_sizes"])
+    assert shrink.RUN["compactions"] >= 1 and min(sizes) >= q
+    assert (sk.LAUNCHES["inner_subsolve"] == sk.RUNS["inner_subsolve"]
+            == got.rounds > 0)
+    assert sk.STEPS["inner_subsolve"] == got.n_iter
+    ref = shrink.train_shrinking(x, y, cfg, dev, plain=True)
+    assert shrink.RUN["active_sizes"] == sizes
+    assert (got.n_iter, got.rounds, got.converged) == (ref.n_iter,
+                                                       ref.rounds, True)
+    assert np.array_equal(got.alpha, ref.alpha)
+
+
+@pytest.mark.parametrize("pairwise", [False, True])
+def test_subsolve_with_padding_slots_matches_plain(dev, pairwise):
+    """A working set that holds capacity padding: zero rows (K = 1 on the
+    RBF diagonal, exp(-gamma |x|^2) off it), y = +1, f = SENTINEL, masked.
+    Bitwise against the plain version, and the padding slots keep their
+    alpha."""
+    q, pad = 64, 20
+    k, y_w, c_w, active = _block(q, dev, seed=9)
+    x, _ = make_planted(q, 64, 0.05, seed=9)
+    rows = torch.from_numpy(x).to(dev)
+    rows[q - pad:] = 0.0
+    x2 = row_norms_sq(rows)
+    k = rows_from_dots(rows @ rows.T, x2, x2, 0.05).contiguous()
+    y_w[q - pad:] = 1.0
+    active = torch.arange(q, device=dev) < q - pad
+    f = -y_w.clone()
+    f[q - pad:] = 1e9
+    got = _both(k, y_w, c_w, torch.zeros(q, device=dev), f, active, 1e-3,
+                64, 64, pairwise)
+    assert int(got[4]) > 0 and (got[0][q - pad:] == 0).all()
+
+
+def test_fused_mirror_body_matches_plain(dev, tmp_path):
+    """The resume mirror (one body of kernel A from a recomputed, already
+    closed selection, keeping its b's) against the same body of the plain
+    version: the same alpha bit for bit, the same working set, b's and
+    n_iter after it; f within F_RTOL (two float32 sums of d products in
+    different orders)."""
+    from dpsvm_tpu_torch.experimental import fused as tfused
+    from dpsvm_tpu_torch.experimental.fused import init_fused_carry
+
+    from dpsvm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    x, y = make_planted(2000, 64, 0.25, seed=3)
+    pair = SVMConfig(c=10.0, gamma=0.25, epsilon=1e-3)
+    done = gsmo.train_single_device(x, y, pair, dev, plain=True)
+    # the pair's state one body before its end: the selection recomputed
+    # from it is already closed
+    ck = str(tmp_path / "pair.npz")
+    gsmo.train_single_device(x, y, dataclasses.replace(
+        pair, max_iter=done.n_iter - 1, checkpoint_path=ck,
+        checkpoint_every=1), dev, plain=True)
+    last = load_checkpoint(ck)
+    prob = gsmo.SMOProblem.build(x, y, pair, dev)
+    xd, x2, yd = prob.x, row_norms_sq(prob.x), prob.y
+    alpha = torch.from_numpy(last.alpha).to(dev)
+    f = torch.from_numpy(last.f).to(dev)
+    consts = dict(c=10.0, gamma=0.25, two_eps=float(np.float32(2e-3)),
+                  max_iter=10 ** 6)
+    out = []
+    for plain in (False, True):
+        carry = init_fused_carry(alpha.clone(), f.clone(), yd, 10.0,
+                                 last.n_iter)
+        _, _, b_hi, b_lo, _ = fs.unpack_state(carry.state)
+        assert not b_lo > b_hi + np.float32(2e-3)       # closed
+        ws = None if plain else fs.FusedWorkspace(xd, n_iter=last.n_iter)
+        fs.reset_counts()
+
+        def launch(cr, limit):
+            if plain:
+                fs.run_chunk_plain(cr, xd, x2, yd, limit=limit, **consts)
+            else:
+                fs.launch_fused_chunk(cr, xd, x2, yd, ws, limit=limit,
+                                      **consts)
+
+        tfused._mirror_body(carry, ws, last.n_iter, launch)
+        torch.cuda.synchronize()
+        assert fs.LAUNCHES["fused_update_select"] == (0 if plain else 1)
+        out.append((carry, fs.unpack_state(carry.state)))
+    (k, ks), (p, ps) = out
+    assert torch.equal(k.alpha, p.alpha) and not torch.equal(k.alpha, alpha)
+    assert ks[:2] == ps[:2] and ks[4] == ps[4] == last.n_iter + 1
+    assert (ks[2], ks[3]) == (ps[2], ps[3]) == (b_hi, b_lo)
+    fk, fp = k.f.cpu().numpy(), p.f.cpu().numpy()
+    assert np.abs(fk - fp).max() <= 1e-5 * max(1.0, np.abs(fp).max())
+
+
+@pytest.mark.parametrize("path", ["fused", "pair", "decomp"])
+def test_kill_and_resume_is_bitwise_on_the_card(dev, path, tmp_path):
+    """2K straight against K with a checkpoint, resumed from the file to
+    2K: the same alpha, b's and n_iter, bit for bit; on the fused pair
+    kernel A's device-counted runs equal the iterations the resumed run
+    made."""
+    x, y = make_planted(3000, 64, 0.25, seed=6)
+    kw = {"fused": {}, "pair": dict(selection="second-order"),
+          "decomp": dict(working_set=256, inner_iters=32)}[path]
+    k = 320
+    base = dict(c=10.0, gamma=0.25, epsilon=1e-3, chunk_iters=64, **kw)
+    straight = train(x, y, SVMConfig(max_iter=2 * k, **base))
+    ck = str(tmp_path / "state.npz")
+    train(x, y, SVMConfig(max_iter=k, checkpoint_path=ck,
+                          checkpoint_every=k, checkpoint_keep=2, **base))
+    fs.reset_counts()
+    resumed = train(x, y, SVMConfig(max_iter=2 * k, resume_from=ck, **base))
+    assert resumed.n_iter == straight.n_iter == 2 * k
+    assert np.array_equal(resumed.alpha, straight.alpha)
+    assert (resumed.b_lo, resumed.b_hi) == (straight.b_lo, straight.b_hi)
+    if path == "fused":
+        assert fs.RUNS["fused_update_select"] == 2 * k - k

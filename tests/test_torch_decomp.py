@@ -271,7 +271,8 @@ def test_growth_swaps_the_runner_one_chunk_after_the_poll():
 
     cfg = SVMConfig(max_iter=50, chunk_iters=10, working_set=8)
     res = host_training_loop(cfg, 1.0, None, runner("first"),
-                             lambda cr: np.zeros(3), poll_hook=hook)
+                             lambda cr: (np.zeros(3), np.zeros(3)),
+                             poll_hook=hook)
     assert res.n_iter == 50 and not res.converged
     assert calls == [("first", 10), ("first", 20), ("first", 30),
                      ("grown", 40), ("grown", 50)]

@@ -130,10 +130,17 @@ def test_load_csv_malformed_line_names_it(tmp_path):
 
 
 def test_libsvm_input_not_ported_yet(tmp_path):
+    """The libsvm format is ported now (``load_libsvm``, held against the
+    JAX parser in tests/test_torch_loader.py); the form still not ported,
+    a shard directory, raises naming it."""
     path = tmp_path / "d.libsvm"
     path.write_text("1 1:0.5 3:0.25\n")
-    with pytest.raises(NotImplementedError, match="libsvm"):
-        tloader.load_dataset(str(path))
+    x, y = tloader.load_dataset(str(path))
+    np.testing.assert_array_equal(x, np.array([[0.5, 0.0, 0.25]],
+                                              np.float32))
+    np.testing.assert_array_equal(y, np.array([1], np.int32))
+    with pytest.raises(NotImplementedError, match="shard directories"):
+        tloader.load_dataset(str(tmp_path))
 
 
 @pytest.mark.parametrize("seed", [0, 5])
