@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # every phase (what a release check runs)
     python3 chip_smoke.py --quick    # build + kernels against plain only
+    python3 chip_smoke.py --only multiclass,timing   # build + these phases
 
 Phases, each of which makes the script exit non-zero if it fails. Three
 solver paths run: the fused SMO pair (kernel A, ``working_set=2``), the
@@ -78,7 +79,23 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
 7. libsvm input: the first LIBSVM_ROWS planted rows written as libsvm and
    as CSV load to the same arrays, and the fused pair trains on both to
    the same prefix, bitwise;
-8. time each kernel on its path (kernel A: CUDA events over a chunk of
+8. multi-class and the batched subproblem program (``multiclass``): 10-class
+   planted data at MNIST's training shape (MC_N x 784) through
+   ``train_multiclass`` to convergence, sequentially with -b (45 pairs, each
+   through kernel A: its device-counted runs equal the pairs' iterations)
+   and batched (one captured program of 45 subproblems), held to each other
+   by the bar between paths, with save, load and evaluate; the pairwise
+   decisions of one product against the per-model loop; the -b
+   probabilities; the batched graph against its eager loop, bitwise, for
+   GRAPH_CHECK_ITERS steps. A C x gamma sweep on planted binary 60000 x 784
+   against four general-pair fits at prefixes of PREFIX_ITERS and
+   SWEEP_PREFIX steps, and ``sweep_c`` to convergence on SWEEP_SMALL_N x
+   784 against ``api.fit`` at each point; 5-fold ``cross_validate``,
+   sequential (kernel A) and batched, on CV_N x 784; the general pair with
+   the row cache (CACHE_LINES lines) bitwise against cache-off for
+   CACHE_ITERS iterations at 60000 x 784 and to convergence on 4096 x 784,
+   with the design the card took for a double hit;
+9. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
@@ -86,7 +103,9 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    events, with the cluster each used), the general pair's WSS2 iteration
    (CUDA events over a chunk of SMO_TIMED_ITERS iterations, the host's
    enqueue time, the device's busy share and top operations from
-   torch.profiler), the plain versions and a PyTorch
+   torch.profiler), a batched OvO step at full width (CUDA events over
+   OVO_TIMED_STEPS steps of its graph, and the product's share of the
+   device time by torch.profiler), the plain versions and a PyTorch
    yardstick where one exists, and print the ``{"kernels": [...]}`` line,
    the card's name and power limit, and last ``{"ok": true, "device":
    {...}}``.
@@ -99,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -151,6 +171,16 @@ RESUME_DECOMP_K = 10 * DECOMP_CAP
 # port's parser is the JAX package's pure-Python one: ~2.5 us a token on
 # the card's host, 148 s for all 60000 rows (PERF.md §4).
 LIBSVM_ROWS = 10_000
+# Multi-class at MNIST's training shape: MC_K planted classes, MC_N rows
+# to train and 10000 held out; the C x gamma grid, its prefix and the
+# smaller problem it converges on; CV; the row cache's lines (the
+# reference's default) and its prefix.
+MC_K, MC_N = 10, 60000
+SWEEP_CS, SWEEP_GS = (1.0, 10.0), (0.125, 0.25)
+SWEEP_PREFIX, SWEEP_SMALL_N = 2000, 8000
+CV_N, CV_K = 20000, 5
+CACHE_LINES, CACHE_ITERS = 10, 2000
+OVO_WARM_STEPS, OVO_TIMED_STEPS = 512, 256
 
 
 def log(msg: str) -> None:
@@ -684,17 +714,20 @@ class Smoke:
         steps, and the general pair's captures, replays and reads."""
         from dpsvm_tpu_torch.experimental import fused_step as fs
         from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        from dpsvm_tpu_torch.solver import batched_ovo as bo
         from dpsvm_tpu_torch.solver import smo as gs
         fs.reset_counts()
         sk.reset_counts()
         gs.reset_counts()
+        bo.reset_counts()
         out = fn()
         name = "inner_subsolve"
         return out, {"A_launches": fs.LAUNCHES["fused_update_select"],
                      "A_runs": fs.RUNS["fused_update_select"],
                      "B_launches": sk.LAUNCHES[name],
                      "B_runs": sk.RUNS[name], "B_steps": sk.STEPS[name],
-                     **{f"pair_{k}": v for k, v in gs.COUNTS.items()}}
+                     **{f"pair_{k}": v for k, v in gs.COUNTS.items()},
+                     **{f"ovo_{k}": v for k, v in bo.COUNTS.items()}}
 
     def _pair_counts_ok(self, res, counts) -> bool:
         """The general pair launched neither kernel, captured one graph,
@@ -1382,6 +1415,382 @@ class Smoke:
         log(f"[libsvm] {json.dumps(r)}")
 
     # ------------------------------------------------------------ phase 8
+    def multiclass(self) -> None:
+        """One-vs-one, the batched subproblem program, Platt, CV and the
+        row cache on the card (``models/multiclass.py``,
+        ``solver/batched_ovo.py``, ``models/calibration.py``,
+        ``models/cv.py``, ``ops/rowcache.py``)."""
+        self.multiclass_ovo()
+        self.multiclass_sweep()
+        self.multiclass_cv()
+        self.multiclass_cache()
+
+    def _add_a_counts(self, counts) -> None:
+        name = "fused_update_select"
+        for key, what in (("main_launches", "A_launches"),
+                          ("main_runs", "A_runs")):
+            got = self.rec.setdefault(key, {name: 0})
+            got[name] += counts[what]
+
+    def multiclass_ovo(self) -> None:
+        """10-class planted data at MNIST's training shape (MC_N x 784, C=10,
+        gamma=0.25, eps=1e-3, float32) through ``train_multiclass`` to
+        convergence: sequentially with -b (45 pairs, each through kernel
+        A, whose device-counted runs must add up to the pairs' iterations)
+        and batched (one captured program of 45 subproblems; its captures,
+        replays and stats reads counted). The two are held to the bar
+        between paths (per-pair n_sv within 2%, held-out accuracy within
+        0.5%). The sequential model goes through save, load and evaluate
+        (45200 SVs of text: ~25 s, so the batched one is evaluated as
+        trained); the pairwise decisions of one product over all SVs are
+        held against the one-model-at-a-time ``decision_function`` loop
+        (within 5e-3, the same votes); the -b probabilities are finite,
+        sum to 1 within 1e-5, are within 1e-3 of those coupled from the
+        loop's decisions, and their argmax is the vote's winner on at
+        least 99% of the rows where the vote has no tie. (Not on all of
+        them: Platt's B moves a pair's 0.5 point off dec = 0, so a winner
+        by the vote can lose a calibrated pair, and LIBSVM's coupling can
+        pick another class even where it wins every pair; the JAX CLI
+        notes ~1% of rows.) Last, the batched graph against its eager
+        loop, bitwise, for GRAPH_CHECK_ITERS steps at full width."""
+        from dpsvm_tpu_torch import SVMConfig
+        from dpsvm_tpu_torch.data.synthetic import make_planted_multiclass
+        from dpsvm_tpu_torch.models import multiclass as mc
+        from dpsvm_tpu_torch.models.svm import decision_function
+        from dpsvm_tpu_torch.solver import batched_ovo as bo
+        x, y = make_planted_multiclass(MC_N + 10000, D, GAMMA, k=MC_K,
+                                       seed=0)
+        xtr, ytr, xte, yte = x[:MC_N], y[:MC_N], x[MC_N:], y[MC_N:]
+        cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
+                        max_iter=MAIN_MAX_ITER)
+        out = {}
+        models = {}
+        for path, kw in (("sequential", dict(probability=True)),
+                         ("batched", dict(batched=True))):
+            t = time.perf_counter()
+            (model, res), counts = self.counted(
+                lambda: mc.train_multiclass(xtr, ytr, cfg, **kw))
+            wall = time.perf_counter() - t
+            loaded, io_s, same = model, None, True
+            if path == "sequential":
+                t = time.perf_counter()
+                with tempfile.TemporaryDirectory() as tmp:
+                    mc.save_multiclass(model, tmp)
+                    loaded = mc.load_multiclass(tmp)
+                io_s = time.perf_counter() - t
+                same = (np.array_equal(loaded.classes, model.classes)
+                        and loaded.pairs == model.pairs
+                        and all(np.array_equal(a.x_sv, b.x_sv)
+                                and np.array_equal(a.alpha, b.alpha)
+                                and np.array_equal(a.y_sv, b.y_sv)
+                                for a, b in zip(loaded.models,
+                                                model.models))
+                        and np.allclose(loaded.platt, model.platt,
+                                        rtol=1e-12))
+            t = time.perf_counter()
+            acc = mc.evaluate_multiclass(loaded, xte, yte)
+            eval_s = time.perf_counter() - t
+            iters = [r.n_iter for r in res]
+            r = {"wall_seconds": wall,
+                 "train_seconds": (sum(q.train_seconds for q in res)
+                                   if path == "sequential"
+                                   else res[0].train_seconds),
+                 "iterations_sum": int(sum(iters)),
+                 "iterations_max": int(max(iters)),
+                 "converged": all(q.converged for q in res),
+                 "n_sv_sum": int(sum(q.n_sv for q in res)),
+                 "heldout_accuracy": acc, "save_load_seconds": io_s,
+                 "eval_seconds": eval_s, "round_trip": bool(same),
+                 **counts}
+            if path == "sequential":
+                ok = (counts["A_runs"] == sum(iters)
+                      and counts["A_launches"] >= counts["A_runs"]
+                      and counts["B_launches"] == 0)
+                self._add_a_counts(counts)
+            else:
+                ok = (counts["ovo_captures"] == 1
+                      and counts["ovo_reads"] >= 1
+                      and counts["ovo_replays"] * bo.GRAPH_BODIES
+                      >= max(iters) and counts["A_launches"] == 0)
+                r["ms_per_step"] = 1e3 * res[0].train_seconds / max(iters)
+            ok = ok and same and r["converged"] and acc > 0.85
+            if not ok:
+                self.fail("multiclass", f"{path}: {json.dumps(r)}")
+            out[path] = r
+            models[path] = (loaded, res)
+            log(f"[multiclass] {path}: {json.dumps(r)}")
+        (m_seq, r_seq), (m_bat, r_bat) = models["sequential"], \
+            models["batched"]
+        nsv = [(a.n_sv, b.n_sv) for a, b in zip(r_seq, r_bat)]
+        worst = max(abs(a - b) / a for a, b in nsv)
+        d_acc = abs(out["sequential"]["heldout_accuracy"]
+                    - out["batched"]["heldout_accuracy"])
+        out["between_paths"] = {"worst_pair_n_sv_rel": worst,
+                                "heldout_accuracy_diff": d_acc,
+                                "pair_n_sv": nsv}
+        if not (worst <= 0.02 and d_acc <= 0.005):
+            self.fail("multiclass", f"between paths: "
+                      f"{json.dumps(out['between_paths'])}")
+        # pairwise decisions: one product over all SVs against the loop
+        t = time.perf_counter()
+        dec = mc.pairwise_decisions(m_seq, xte)
+        pair_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loop = [decision_function(m, xte) for m in m_seq.models]
+        loop_s = time.perf_counter() - t
+        dmax = max(float(np.abs(a - b).max()) for a, b in zip(dec, loop))
+        vote = mc.predict_multiclass(m_seq, xte, decisions=dec)
+        same_votes = bool(np.array_equal(
+            vote, mc.predict_multiclass(m_seq, xte, decisions=loop)))
+        proba = mc.predict_proba_multiclass(m_seq, xte, decisions=dec)
+        p_loop = mc.predict_proba_multiclass(m_seq, xte, decisions=loop)
+        votes = np.zeros((len(yte), MC_K), np.int32)
+        for (ai, bi), dv in zip(m_seq.pairs, dec):
+            votes[:, ai] += dv >= 0
+            votes[:, bi] += dv < 0
+        top = np.sort(votes, axis=1)
+        untied = top[:, -1] > top[:, -2]
+        full = top[:, -1] == MC_K - 1
+        same_top = np.argmax(proba, axis=1) == np.argmax(votes, axis=1)
+        agree = float(np.mean(same_top[untied]))
+        p_diff = float(np.abs(proba - p_loop).max())
+        out["decisions"] = {
+            "max_abs_diff": dmax, "same_votes": same_votes,
+            "one_pass_seconds": pair_s, "loop_seconds": loop_s,
+            "proba_finite": bool(np.all(np.isfinite(proba))),
+            "proba_shape": list(proba.shape),
+            "proba_row_sum_err": float(np.abs(proba.sum(1) - 1).max()),
+            "untied_rows": int(untied.sum()),
+            "argmax_agrees_on_untied": agree,
+            "full_vote_rows": int(full.sum()),
+            "argmax_agrees_on_full_vote": float(np.mean(same_top[full])),
+            "proba_vs_loop_max_diff": p_diff}
+        if not (dmax <= 5e-3 and same_votes
+                and out["decisions"]["proba_finite"]
+                and proba.shape == (len(yte), MC_K)
+                and out["decisions"]["proba_row_sum_err"] <= 1e-5
+                and p_diff <= 1e-3 and agree >= 0.99):
+            self.fail("multiclass", f"decisions: "
+                      f"{json.dumps(out['decisions'])}")
+        log(f"[multiclass] between paths and decisions: "
+            f"{json.dumps({k: out[k] for k in ('between_paths', 'decisions')})}")
+        # the batched graph against its eager loop
+        yb, valid, _ = bo.build_pair_targets(ytr, np.unique(ytr))
+        c200 = dataclasses.replace(cfg, max_iter=GRAPH_CHECK_ITERS)
+        g = bo.train_ovo_batched(xtr, yb, valid, c200)
+        e = bo.train_ovo_batched(xtr, yb, valid, c200, plain=True)
+        same = all(np.array_equal(a.alpha, b.alpha)
+                   and (a.b_lo, a.b_hi, a.n_iter) == (b.b_lo, b.b_hi,
+                                                      b.n_iter)
+                   for a, b in zip(g, e))
+        out["graph_vs_eager"] = {"steps": GRAPH_CHECK_ITERS,
+                                 "bitwise": bool(same),
+                                 "graph_seconds": g[0].train_seconds,
+                                 "eager_seconds": e[0].train_seconds}
+        if not same:
+            self.fail("multiclass", "batched graph against eager: "
+                      f"{out['graph_vs_eager']}")
+        log(f"[multiclass] batched graph against eager: "
+            f"{json.dumps(out['graph_vs_eager'])}")
+        self.rec["multiclass"] = out
+        self._ovo_timing_inputs = (xtr, yb, valid, cfg)
+
+    def multiclass_sweep(self) -> None:
+        """The C x gamma grid (SWEEP_CS x SWEEP_GS) of planted binary 60000
+        x 784 in one batched program against four general-pair fits
+        (first-order, the same carry semantics) at the same prefix, for
+        PREFIX_ITERS and for SWEEP_PREFIX steps: each n_iter equal. The
+        batched product ((8, 784) @ (784, 60000)) tiles differently from
+        the pair's (2, 784) one, so a near-tie can go the other way and the
+        trajectories part (as the kernel and plain paths of phase 4 do):
+        at PREFIX_ITERS every point is held to the float32 bars of phase 4
+        (alpha rtol 1e-4, atol 1e-5; f within 1e-4 max(1, |f|)); at
+        SWEEP_PREFIX each point's differences are recorded, with whether
+        it still meets them. Then ``sweep_c`` to convergence on planted
+        SWEEP_SMALL_N x 784, each model held to ``api.fit``'s at its (C,
+        gamma) by the LibSVM bar (n_sv within 2% or 3, held-out accuracy
+        within one example)."""
+        torch = self.torch
+        from dpsvm_tpu_torch import SVMConfig, evaluate, fit, sweep_c
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        from dpsvm_tpu_torch.solver import batched_ovo as bo
+        from dpsvm_tpu_torch.solver import smo as gs
+        xtr, ytr, _, _ = self.planted()
+        grid = [(c, g) for c in SWEEP_CS for g in SWEEP_GS]
+        cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3)
+        yb = np.tile(ytr.astype(np.float32), (len(grid), 1))
+        yd = torch.from_numpy(ytr.astype(np.float32)).to(self.dev)
+        out = {"grid": grid}
+        for steps in (PREFIX_ITERS, SWEEP_PREFIX):
+            pcfg = dataclasses.replace(cfg, max_iter=steps)
+            carry = bo.init_ovo_carry(torch.from_numpy(yb).to(self.dev))
+            t = time.perf_counter()
+            res, counts = self.counted(lambda: bo.train_ovo_batched(
+                xtr, yb, np.ones_like(yb, bool), pcfg,
+                c_values=np.array([c for c, _ in grid], np.float32),
+                gamma_values=np.array([g for _, g in grid], np.float32),
+                carry=carry))
+            r = {"sweep_seconds": time.perf_counter() - t, **counts,
+                 "points": []}
+            f_sweep = carry.f.cpu().numpy()
+            ind_s = 0.0
+            for p, (c, g) in enumerate(grid):
+                pc = gs.init_carry(yd)
+                t = time.perf_counter()
+                ri = gs.train_single_device(
+                    xtr, ytr, dataclasses.replace(pcfg, c=c, gamma=g),
+                    self.dev, carry=pc)
+                ind_s += time.perf_counter() - t
+                f_ind = pc.f.cpu().numpy()
+                f_err = float(np.max(np.abs(f_sweep[p] - f_ind)
+                                     / np.maximum(1.0, np.abs(f_ind))))
+                within = bool(np.allclose(res[p].alpha, ri.alpha,
+                                          rtol=1e-4, atol=1e-5)
+                              and f_err <= 1e-4)
+                r["points"].append({
+                    "c": c, "gamma": g, "n_iter": res[p].n_iter,
+                    "pair_n_iter": ri.n_iter,
+                    "max_alpha_diff": float(np.abs(res[p].alpha
+                                                   - ri.alpha).max()),
+                    "max_f_rel_diff": f_err, "within_f32_bars": within})
+                if res[p].n_iter != ri.n_iter or ri.n_iter != steps or (
+                        steps == PREFIX_ITERS and not within):
+                    self.fail("multiclass", f"sweep prefix {steps}: "
+                              f"{r['points'][-1]}")
+            r["individual_seconds"] = ind_s
+            if counts["ovo_captures"] != 1:
+                self.fail("multiclass", f"sweep prefix {steps}: {counts}")
+            out[f"prefix_{steps}"] = r
+        # to convergence on the smaller problem, through sweep_c
+        x, y = make_planted(SWEEP_SMALL_N + 2000, D, GAMMA, seed=3)
+        xs, ys, xe, ye = (x[:SWEEP_SMALL_N], y[:SWEEP_SMALL_N],
+                          x[SWEEP_SMALL_N:], y[SWEEP_SMALL_N:])
+        conv = dataclasses.replace(cfg, max_iter=MAIN_MAX_ITER)
+        t = time.perf_counter()
+        swept = sweep_c(xs, ys, list(SWEEP_CS), conv,
+                        gammas=list(SWEEP_GS))
+        conv_s = time.perf_counter() - t
+        out["converged"] = {"n": SWEEP_SMALL_N, "sweep_seconds": conv_s,
+                            "points": []}
+        fit_s = 0.0
+        for (c, g), (m, r) in zip(grid, swept):
+            t = time.perf_counter()
+            (mi, ri), counts = self.counted(lambda: fit(
+                xs, ys, dataclasses.replace(conv, c=c, gamma=g)))
+            fit_s += time.perf_counter() - t
+            self._add_a_counts(counts)
+            acc, acc_i = evaluate(m, xe, ye), evaluate(mi, xe, ye)
+            pt = {"c": c, "gamma": g, "n_iter": r.n_iter,
+                  "fit_n_iter": ri.n_iter, "n_sv": r.n_sv,
+                  "fit_n_sv": ri.n_sv, "heldout_accuracy": acc,
+                  "fit_heldout_accuracy": acc_i, "converged": r.converged}
+            out["converged"]["points"].append(pt)
+            if not (r.converged and ri.converged
+                    and abs(r.n_sv - ri.n_sv) <= max(0.02 * ri.n_sv, 3.0)
+                    and abs(acc - acc_i) <= 1.0 / len(ye) + 1e-9):
+                self.fail("multiclass", f"sweep converged: {pt}")
+        out["converged"]["fit_seconds"] = fit_s
+        self.rec["sweep"] = out
+        log(f"[multiclass] C x gamma sweep: {json.dumps(out)}")
+
+    def multiclass_cv(self) -> None:
+        """5-fold ``cross_validate`` on planted binary CV_N x 784, sequential
+        (each fold through kernel A) and batched (one program of 5
+        subproblems): the same folds, pooled accuracy within 0.5%."""
+        from dpsvm_tpu_torch import SVMConfig, cross_validate
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        x, y = make_planted(CV_N, D, GAMMA, seed=4)
+        cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
+                        max_iter=MAIN_MAX_ITER)
+        out = {"n": CV_N, "k": CV_K}
+        for path, batched in (("sequential", False), ("batched", True)):
+            t = time.perf_counter()
+            r, counts = self.counted(lambda: cross_validate(
+                x, y, CV_K, cfg, batched=batched))
+            out[path] = {"seconds": time.perf_counter() - t,
+                         "accuracy": r["accuracy"], **counts}
+            out[path + "_folds"] = r["folds"]
+            if not batched:
+                self._add_a_counts(counts)
+        same_folds = bool(np.array_equal(out.pop("sequential_folds"),
+                                         out.pop("batched_folds")))
+        d = abs(out["sequential"]["accuracy"] - out["batched"]["accuracy"])
+        out.update(same_folds=same_folds, accuracy_diff=d)
+        if not (same_folds and d <= 0.005
+                and out["sequential"]["A_runs"] > 0
+                and out["batched"]["ovo_captures"] == 1):
+            self.fail("multiclass", f"cv: {json.dumps(out)}")
+        self.rec["cv"] = out
+        log(f"[multiclass] cv: {json.dumps(out)}")
+
+    def multiclass_cache(self) -> None:
+        """The general pair with the row cache (CACHE_LINES lines, the
+        reference's default) at 60000 x 784: CACHE_ITERS iterations bitwise
+        equal (alpha, f, b's, n_iter) to cache-off, with hits + misses ==
+        2 x iterations; then ``api.fit`` with the cache to convergence on
+        planted 4096 x 784, bitwise the uncached general pair's run; and
+        the design the card took for a double hit."""
+        torch = self.torch
+        from dpsvm_tpu_torch import SVMConfig, fit
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        from dpsvm_tpu_torch.solver import smo as gs
+        xtr, ytr, _, _ = self.planted()
+        yd = torch.from_numpy(ytr.astype(np.float32)).to(self.dev)
+        cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
+                        max_iter=CACHE_ITERS)
+        runs = {}
+        for lines in (0, CACHE_LINES):
+            carry = gs.init_carry(yd, cache_lines=lines)
+            res, counts = self.counted(lambda: gs.train_single_device(
+                xtr, ytr, dataclasses.replace(cfg, cache_size=lines),
+                self.dev, carry=carry))
+            runs[lines] = (res, carry, counts)
+        (r0, c0, _), (r1, c1, k1) = runs[0], runs[CACHE_LINES]
+        bitwise = (np.array_equal(r0.alpha, r1.alpha)
+                   and torch.equal(c0.f, c1.f)
+                   and (r0.b_lo, r0.b_hi, r0.n_iter)
+                   == (r1.b_lo, r1.b_hi, r1.n_iter))
+        out = {"lines": CACHE_LINES, "iterations": r1.n_iter,
+               "bitwise": bool(bitwise), "hits": r1.cache_hits,
+               "misses": r1.cache_misses,
+               "hit_rate": r1.cache_hits / max(1, r1.cache_hits
+                                               + r1.cache_misses),
+               "design": "compute and select", "torch": torch.__version__,
+               "conditional_node_api": hasattr(
+                   torch.cuda.CUDAGraph, "begin_capture_to_if_node"),
+               "cond_capture_module": importlib.util.find_spec(
+                   "torch._higher_order_ops.cudagraph_conditional_nodes")
+               is not None,
+               "seconds_cache_on": r1.train_seconds,
+               "seconds_cache_off": r0.train_seconds, **k1}
+        ok = (bitwise and r1.n_iter == CACHE_ITERS
+              and r1.cache_hits + r1.cache_misses == 2 * r1.n_iter
+              and k1["pair_captures"] == 1)
+        x, y = make_planted(4096, D, GAMMA, seed=2)
+        conv = dataclasses.replace(cfg, max_iter=MAIN_MAX_ITER)
+        (m_on, on), counts = self.counted(lambda: fit(
+            x, y, dataclasses.replace(conv, cache_size=CACHE_LINES)))
+        off = gs.train_single_device(x, y, conv, self.dev)
+        out["converged"] = {
+            "n": 4096, "n_iter": on.n_iter, "converged": on.converged,
+            "bitwise_uncached": bool(np.array_equal(on.alpha, off.alpha)
+                                     and on.b == off.b
+                                     and on.n_iter == off.n_iter),
+            "hits": on.cache_hits, "misses": on.cache_misses,
+            "hit_rate": on.cache_hits / max(1, on.cache_hits
+                                            + on.cache_misses),
+            "seconds": on.train_seconds, "uncached_seconds":
+            off.train_seconds, "A_launches": counts["A_launches"]}
+        ok = ok and (on.converged and out["converged"]["bitwise_uncached"]
+                     and counts["A_launches"] == 0
+                     and on.cache_hits + on.cache_misses == 2 * on.n_iter)
+        if not ok:
+            self.fail("multiclass", f"row cache: {json.dumps(out)}")
+        self.rec["cache"] = out
+        log(f"[multiclass] row cache, the card took "
+            f"{out['design']!r}: {json.dumps(out)}")
+
+    # ------------------------------------------------------------ phase 9
     def timing(self) -> None:
         """Kernel A as the main path runs it: a training run's carry at its
         start, advanced by chunks of TIMED_ITERS iterations through
@@ -1668,6 +2077,65 @@ class Smoke:
             log(f"[timing] general pair WSS2 {key}: {json.dumps(out[key])}")
             del chunk, carry, prob
         self.rec["timing_general"] = out
+        self.timing_ovo()
+
+    def timing_ovo(self) -> None:
+        """A batched OvO step at full width (45 subproblems of the 10-class
+        problem, float32) from a real carry (OVO_WARM_STEPS steps in): CUDA
+        events over OVO_TIMED_STEPS steps of the captured graph, then the
+        device time of each operation over as many more steps by
+        torch.profiler: the share of the (90, 784) @ (784, 60000) product
+        against the selection and update around it."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from dpsvm_tpu_torch.solver import batched_ovo as bo
+        xtr, yb, valid, cfg = self._ovo_timing_inputs
+        cfg = dataclasses.replace(cfg, max_iter=10 ** 9)
+        prob = bo.build_ovo_problem(xtr, yb, valid, cfg, self.dev)
+        carry = bo.init_ovo_carry(prob.yb)
+        chunk = bo.OvoGraphChunk(carry, prob)
+        done = 0
+
+        def run(steps):
+            nonlocal done
+            chunk.run(done, done + steps)
+            done += steps
+
+        run(OVO_WARM_STEPS)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        run(OVO_TIMED_STEPS)
+        t1.record()
+        torch.cuda.synchronize()
+        ms = t0.elapsed_time(t1) / OVO_TIMED_STEPS
+        if int(carry.t) != done:
+            raise RuntimeError(f"the batched graph ran {int(carry.t)} of "
+                               f"{done} steps")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(OVO_TIMED_STEPS)
+            torch.cuda.synchronize()
+        ops = sorted(((_device_us(e) / 1e3, e.key, e.count)
+                      for e in prof.key_averages() if _device_us(e) > 0),
+                     reverse=True)
+        busy = sum(t for t, _, _ in ops)
+        gemm = sum(t for t, n, _ in ops if "gemm" in n.lower())
+        P, n = prob.yb.shape
+        flops = 2 * 2 * P * D * n
+        out = {"P": P, "n": n, "ms_per_step": ms,
+               "device_busy_ms_per_step": busy / OVO_TIMED_STEPS,
+               "product_ms_per_step": gemm / OVO_TIMED_STEPS,
+               "product_share": gemm / busy if busy else None,
+               "product_tflops": flops / (gemm / OVO_TIMED_STEPS) / 1e9
+               if gemm else None,
+               "kernels_per_step": sum(c for _, _, c in ops)
+               / OVO_TIMED_STEPS,
+               "top_ops": [{"name": nm[:80], "ms": t, "count": c}
+                           for t, nm, c in ops[:10]]}
+        self.rec["timing_ovo"] = out
+        log(f"[timing] batched OvO step: {json.dumps(out)}")
 
     def kernels_line(self) -> dict:
         t, errs = self.rec["timing"], self.rec["max_abs_err"]
@@ -1719,6 +2187,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
+    ap.add_argument("--only", default=None, metavar="PHASE[,PHASE]",
+                    help="build, then only these phases (a development "
+                         "run: no kernels line)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1743,7 +2214,11 @@ def main(argv=None) -> int:
     if not args.quick:
         phases += [("main", s.main_path), ("convergence", s.convergence),
                    ("shrinking", s.shrinking), ("resume", s.resume),
-                   ("libsvm", s.libsvm), ("timing", s.timing)]
+                   ("libsvm", s.libsvm), ("multiclass", s.multiclass),
+                   ("timing", s.timing)]
+    if args.only:
+        keep = {"build", *args.only.split(",")}
+        phases = [(n, fn) for n, fn in phases if n in keep]
     for name, fn in phases:
         t = time.perf_counter()
         try:
@@ -1760,7 +2235,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     log(f"[total] {time.perf_counter() - t0:.1f} s")
-    if not args.quick:
+    if not (args.quick or args.only):
         print(json.dumps(s.kernels_line()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

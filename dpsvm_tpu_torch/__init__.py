@@ -8,23 +8,41 @@ first-order RBF pair, one pass over X an iteration in a hand-written CUDA
 kernel (``csrc/fused_step.cu``); the general pair (``solver/smo.py``:
 WSS2, class weights, both clips, seeds), chunks of PyTorch calls captured
 in a CUDA graph; and the large-working-set decomposition, whose inner
-subsolve is a hand-written CUDA kernel (``csrc/subsolve.cu``). Kernels
-build with nvcc at first use. Entry points run on the GPU unless the
-caller passes ``device="cpu"``, which runs the plain PyTorch versions.
+subsolve is a hand-written CUDA kernel (``csrc/subsolve.cu``). The
+general pair carries the kernel-row cache (``cache_size > 0``). On top of
+the binary trainer: one-vs-one multi-class (``models/multiclass.py``,
+sequential per pair or all pairs in one batched program,
+``solver/batched_ovo.py``), Platt probabilities
+(``models/calibration.py``), k-fold cross-validation (``models/cv.py``)
+and the batched C x gamma sweep (``sweep_c``). Kernels build with nvcc at
+first use. Entry points run on the GPU unless the caller passes
+``device="cpu"``, which runs the plain PyTorch versions.
 
 Public API
 ----------
 ``train(X, y, config, device)``    -> TrainResult
 ``fit(X, y, config, device)``      -> (SVMModel, TrainResult)
 ``warm_start(X, y, alpha, config, device)`` -> TrainResult
+``sweep_c(X, y, cs, config, gammas, device)`` -> [(SVMModel, TrainResult)]
+``train_multiclass(X, y, config, ...)`` -> (MulticlassModel, [TrainResult])
+``cross_validate(X, y, k, config, ...)`` -> dict
 ``SVMConfig``                      config dataclass (reference flag parity)
 ``evaluate``                       accuracy of a model on (X, y)
 ``load_model`` / ``save_model``    reference-compatible model file I/O
+``load_multiclass`` / ``save_multiclass``  model directories (JAX format)
 """
 
-from dpsvm_tpu_torch.api import fit, train, warm_start
+from dpsvm_tpu_torch.api import fit, sweep_c, train, warm_start
 from dpsvm_tpu_torch.config import SVMConfig, TrainResult
+from dpsvm_tpu_torch.models.cv import cross_validate, cross_validate_c_sweep
 from dpsvm_tpu_torch.models.io import load_model, save_model
+from dpsvm_tpu_torch.models.multiclass import (MulticlassModel,
+                                               evaluate_multiclass,
+                                               load_multiclass,
+                                               predict_multiclass,
+                                               predict_proba_multiclass,
+                                               save_multiclass,
+                                               train_multiclass)
 from dpsvm_tpu_torch.models.svm import (SVMModel, decision_function,
                                         evaluate, predict)
 
@@ -35,6 +53,16 @@ __all__ = [
     "train",
     "fit",
     "warm_start",
+    "sweep_c",
+    "MulticlassModel",
+    "train_multiclass",
+    "predict_multiclass",
+    "predict_proba_multiclass",
+    "evaluate_multiclass",
+    "save_multiclass",
+    "load_multiclass",
+    "cross_validate",
+    "cross_validate_c_sweep",
     "decision_function",
     "predict",
     "evaluate",

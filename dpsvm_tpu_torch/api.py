@@ -1,5 +1,5 @@
-"""Library entry points (port of ``dpsvm_tpu/api.py``): ``train``, ``fit``
-and ``warm_start`` for the exact solver on one device.
+"""Library entry points (port of ``dpsvm_tpu/api.py``): ``train``, ``fit``,
+``warm_start`` and ``sweep_c`` for the exact solver on one device.
 
 ``train`` routes as the JAX package does (``api.py:125-147`` there):
 
@@ -9,15 +9,18 @@ and ``warm_start`` for the exact solver on one device.
   ``f_init``/``alpha_init`` seed and no ``guard_eta``: the fused pair
   (``experimental/fused.py``, kernel A, one launch an iteration);
 * every other ``working_set == 2`` config: the general pair
-  (``solver/smo.py``);
+  (``solver/smo.py``), which also carries the kernel-row cache;
 * what no path covers raises ``NotImplementedError`` naming it.
 
 Before the path choice, ``train`` resolves the "auto" sentinels
 (``SVMConfig.resolved``) and sends ``shrinking=True`` to the active-set
 manager (``solver/shrink.py``), which wraps the general pair or the
 decomposition, as ``dpsvm_tpu/api.py:117-124`` does. scipy.sparse input
-is densified first. All of them run on the card unless the caller passes
-``device="cpu"``.
+is densified first. ``train`` is binary; multi-class labels go to
+``models/multiclass.train_multiclass``. ``sweep_c`` fits one binary
+problem at every point of a C (x gamma) grid in one batched program
+(``solver/batched_ovo.py``). All of them run on the card unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ def _check_xy(x, y):
     if not np.all(np.isin(labels, (-1, 1))):
         raise ValueError(
             f"labels must be +/-1 for binary training, got {labels[:10]} — "
-            "multi-class training is not ported to dpsvm_tpu_torch yet")
+            "for multi-class data use models.multiclass.train_multiclass "
+            "(CLI: train --multiclass)")
     return x, y
 
 
@@ -107,8 +111,7 @@ def train(x: np.ndarray, y: np.ndarray,
     if why is not None:
         raise NotImplementedError(
             f"dpsvm_tpu_torch does not support {why} yet: the SMO pair "
-            "(working_set = 2) is ported for binary C-SVC on one device "
-            "without the kernel-row cache")
+            "(working_set = 2) is ported for binary C-SVC on one device")
     dev = resolve_device(device)
     from dpsvm_tpu_torch.solver.smo import train_single_device
     return train_single_device(x, y, config, dev, f_init=f_init,
@@ -159,6 +162,22 @@ def fit(x: np.ndarray, y: np.ndarray, config: Optional[SVMConfig] = None,
     x = densify(x)      # from_train_result consumes x too
     result = train(x, y, config, device=device)
     return SVMModel.from_train_result(x, y, result), result
+
+
+def sweep_c(x: np.ndarray, y: np.ndarray, cs,
+            config: Optional[SVMConfig] = None, gammas=None,
+            device: Device = None) -> "list[Tuple[SVMModel, TrainResult]]":
+    """Fit the same +/-1 problem at every point of a C (x gamma) grid in
+    ONE batched program (``solver/batched_ovo.train_c_sweep``: C only
+    moves the box bound, gamma only the kernel epilogue after the shared
+    dots). Returns [(model, result)] in ``cs`` order (row-major (C,
+    gamma) order with ``gammas``)."""
+    from dpsvm_tpu_torch.solver.batched_ovo import train_c_sweep
+
+    x, y = _check_xy(x, y)
+    config = config or SVMConfig()
+    results = train_c_sweep(x, y, cs, config, device=device, gammas=gammas)
+    return [(SVMModel.from_train_result(x, y, r), r) for r in results]
 
 
 def warm_start(x: np.ndarray, y: np.ndarray, alpha: np.ndarray,

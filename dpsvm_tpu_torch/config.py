@@ -10,9 +10,12 @@ Three solver paths are ported, each with the envelope a method names:
   first-order selection, the reference's independent clip, one device, no
   class weights, no row cache): the fused first-order SMO pair;
 * every other ``working_set == 2`` config within ``smo_incompatibility``
-  (one device, no row cache): the general SMO pair, ``solver/smo.py`` —
-  first- or second-order selection, both clips, class weights, every
-  kernel kind;
+  (one device): the general SMO pair, ``solver/smo.py`` — first- or
+  second-order selection, both clips, class weights, every kernel kind,
+  and the kernel-row cache (``cache_size > 0``, ``ops/rowcache.py``) on
+  its first-order branch (``validate`` rejects the cache with
+  second-order selection, precomputed, shrinking and working_set > 2,
+  as the JAX package does);
 * ``working_set > 2`` within ``decomp_incompatibility`` (one device): the
   large-working-set decomposition, every kernel kind, both clips and
   class weights.
@@ -156,8 +159,6 @@ class SVMConfig:
         of the JAX package that brings it."""
         if self.shards > 1:
             return "shards > 1 (parallel/dist_smo.py)"
-        if self.cache_size > 0:
-            return "the kernel-row cache, cache_size > 0 (ops/rowcache.py)"
         return None
 
     def box_bound(self, y):
@@ -442,6 +443,8 @@ class TrainResult:
     rounds: int = 0                     # decomposition outer rounds (the
                                         # JAX package reports them in its
                                         # run trace)
+    cache_hits: int = 0                 # row-cache lookups, two a fetch
+    cache_misses: int = 0               # (the JAX run trace's counters)
 
     @property
     def gap(self) -> float:

@@ -3,8 +3,9 @@
 Numpy only, so the same seed gives the same arrays in both packages:
 Gaussian blobs, XOR (needs the RBF kernel), and the planted generator that
 gives a gamma-calibrated, convergent problem at the reference's headline
-shape (60000 x 784). All generators return (x: (n, d) float32,
-y: (n,) int32 in {+1, -1}).
+shape (60000 x 784), and its k-class variant. The binary generators
+return (x: (n, d) float32, y: (n,) int32 in {+1, -1});
+``make_planted_multiclass`` returns labels 0..k-1.
 """
 
 from __future__ import annotations
@@ -101,6 +102,25 @@ def _planted_latent(n: int, d: int, gamma: float, n_clusters: int,
     basis, _ = np.linalg.qr(rng.normal(size=(d, latent_dim)))
     x = (z @ basis.T).astype(np.float32)
     return x, assign, rng
+
+
+def make_planted_multiclass(n: int, d: int, gamma: float, k: int = 10,
+                            seed: int = 0, noise: float = 0.02,
+                            latent_dim: int = 16,
+                            clusters_per_class: int = 4,
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """K-class variant of ``make_planted``: the same gamma-calibrated
+    latent cluster geometry, with ``clusters_per_class`` clusters per
+    class and integer labels 0..k-1. ``noise`` flips a fraction of
+    labels to a uniformly random OTHER class (the multiclass analog of
+    the binary flip — those points become bounded SVs of their pairs)."""
+    x, assign, rng = _planted_latent(n, d, gamma, k * clusters_per_class,
+                                     latent_dim, seed)
+    y = (assign // clusters_per_class).astype(np.int32)
+    flip = rng.random(n) < noise
+    shift = rng.integers(1, k, size=n)
+    y = np.where(flip, (y + shift) % k, y).astype(np.int32)
+    return x, y
 
 
 def save_csv(path: str, x: np.ndarray, y: np.ndarray) -> None:

@@ -53,9 +53,11 @@ def save_model(model: SVMModel, path: str) -> int:
             lb = "" if model.n_train_exact else "+"
             f.write(f"svidx {int(model.n_train)}{lb} {idx}\n")
         f.write(f"{model.b:.9g}\n")
-        for a, lab, row in zip(alpha[keep], y[keep], x[keep]):
-            f.write(f"{a:.9g},{int(lab)}"
-                    + "".join(f",{v:.9g}" for v in row.tolist()) + "\n")
+        # one %-format a line: the same text as f"{v:.9g}" per value
+        line = "%.9g,%d" + ",%.9g" * x.shape[1] + "\n"
+        for a, lab, row in zip(alpha[keep].tolist(), y[keep].tolist(),
+                               x[keep].tolist()):
+            f.write(line % (a, lab, *row))
     return int(keep.sum())
 
 

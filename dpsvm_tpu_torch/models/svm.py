@@ -2,7 +2,9 @@
 ``dpsvm_tpu/models/svm.py``, binary C-SVC models of every kernel kind).
 
 The whole evaluation is one (m, d) x (d, n_sv) product per batch with the
-kernel's epilogue and a reduction against alpha * y. The JAX package
+kernel's epilogue and a reduction against alpha * y;
+``pairwise_decision_values`` evaluates the P models of a one-vs-one model
+in one product over their concatenated SVs. The JAX package
 leaves that product to XLA outside any Pallas kernel; here it is
 ``torch.matmul`` in float32 with TF32 off. A precomputed-kernel model
 keeps SV indices into the training set, and its input is K(test, train):
@@ -131,6 +133,46 @@ def decision_function(model: SVMModel, x_test: np.ndarray,
             else:
                 k = kernel_rows(xb, row_norms_sq(xb), x_sv, sv2, spec)
             dual = torch.matmul(k, coef)
+            if include_b:
+                dual = dual - b
+            out[lo:hi] = dual.cpu().numpy()
+    return out
+
+
+def pairwise_decision_values(models, x_test: np.ndarray,
+                             include_b: bool = True,
+                             batch_size: int = 8192,
+                             device=None) -> np.ndarray:
+    """(m, P) decision values of P models that share one kernel (a
+    one-vs-one model's pairs) in one pass: per batch of at most
+    ``batch_size`` test rows, one (m, d) x (d, S) kernel product over the
+    concatenated SVs of all P models, then each model's sum over its own
+    contiguous range of the S columns (a product with its alpha * y),
+    minus its b. Each pair's sum is its own reduction: nothing is added
+    across pairs (no atomics, so the same order on every run, and a
+    non-finite kernel value stays in its pair's decision)."""
+    dev = resolve_device(device)
+    x_test = np.ascontiguousarray(x_test, np.float32)
+    spec = models[0].kernel_spec
+    bounds = np.cumsum([0] + [m.n_sv for m in models])
+    x_sv = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([m.x_sv for m in models]), np.float32)).to(dev)
+    coef = torch.from_numpy(np.concatenate(
+        [m.alpha * m.y_sv.astype(np.float32) for m in models]).astype(
+            np.float32)).to(dev)
+    b = torch.from_numpy(np.array([m.b for m in models], np.float32)).to(dev)
+    sv2 = row_norms_sq(x_sv)
+    m_rows, P = x_test.shape[0], len(models)
+    out = np.empty((m_rows, P), np.float32)
+    step = max(1, int(batch_size))
+    with exact_f32():
+        for lo in range(0, m_rows, step):
+            hi = min(lo + step, m_rows)
+            xb = torch.from_numpy(x_test[lo:hi]).to(dev)
+            k = kernel_rows(xb, row_norms_sq(xb), x_sv, sv2, spec)
+            dual = torch.stack([torch.matmul(k[:, s:e], coef[s:e])
+                                for s, e in zip(bounds[:-1], bounds[1:])],
+                               dim=1)
             if include_b:
                 dual = dual - b
             out[lo:hi] = dual.cpu().numpy()

@@ -112,40 +112,46 @@ def integer_pow(v: torch.Tensor, degree: int) -> torch.Tensor:
     return acc
 
 
-def _affine(v: torch.Tensor, spec: KernelSpec) -> torch.Tensor:
+def _affine(v: torch.Tensor, spec: KernelSpec,
+            gamma: "torch.Tensor | None" = None) -> torch.Tensor:
     """gamma v + coef0 rounded once, as one fused multiply-add: XLA
     contracts the JAX expression ``g * dots + coef0`` into an FMA, and
     ``addcmul`` computes it so (on the CPU and on the card) when its scale
     is 1. The constants are made on v's device by a fill, which a captured
-    CUDA graph can hold."""
-    return torch.addcmul(v.new_full((), spec.coef0), v,
-                         v.new_full((), spec.gamma))
+    CUDA graph can hold; ``gamma`` (a tensor that broadcasts against v)
+    replaces ``spec.gamma``."""
+    g = v.new_full((), spec.gamma) if gamma is None else gamma
+    return torch.addcmul(v.new_full((), spec.coef0), v, g)
 
 
 def rows_from_dots(dots: torch.Tensor, w2: torch.Tensor, x2: torch.Tensor,
-                   spec) -> torch.Tensor:
+                   spec, gamma: "torch.Tensor | None" = None
+                   ) -> torch.Tensor:
     """Kernel rows from dot products, by kind.
 
     dots: (r, n) dot products of r working rows against all points (RBF
     consumes it); w2: (r,) squared norms of the working rows (RBF only);
-    x2: (n,). ``spec`` is a KernelSpec or a bare gamma (RBF).
+    x2: (n,). ``spec`` is a KernelSpec or a bare gamma (RBF). ``gamma``,
+    an (r, 1) float32 tensor, gives each row its own gamma in place of
+    ``spec.gamma`` (the batched grid's gamma axis: the dots are
+    gamma-independent); the expressions are the same, and the scalar path
+    is unchanged.
 
     RBF is ``exp(-gamma * (x2[None, :] + w2[:, None] - 2.0 * dots))``,
     the JAX expression operation for operation, but in place: one (r, n)
     temporary is made instead of four (the decomposition's blocks are
     gigabytes)."""
     spec = KernelSpec.coerce(spec)
-    g = spec.gamma
     if spec.kind == "rbf":
         k = x2[None, :] + w2[:, None]
         k.sub_(dots.mul_(2.0))
-        return k.mul_(-g).exp_()
+        return k.mul_(-spec.gamma if gamma is None else -gamma).exp_()
     if spec.kind == "linear":
         return dots
     if spec.kind == "poly":
-        return integer_pow(_affine(dots, spec), spec.degree)
+        return integer_pow(_affine(dots, spec, gamma), spec.degree)
     if spec.kind == "sigmoid":
-        return torch.tanh(_affine(dots, spec))
+        return torch.tanh(_affine(dots, spec, gamma))
     raise ValueError(f"unknown kernel kind {spec.kind!r}")
 
 

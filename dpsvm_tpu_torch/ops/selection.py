@@ -168,6 +168,25 @@ def packed_extrema_of(f_up: torch.Tensor, f_low: torch.Tensor):
     return i_hi, pick(f_up, i_hi), i_lo, pick(f_low, i_lo)
 
 
+def rowwise_extrema(f_up: torch.Tensor, f_low: torch.Tensor):
+    """(i_hi, b_hi, i_lo, b_lo), each (P,), of (P, n) masked scores, row
+    by row: ``jnp.argmin(f_up, axis=1)`` and ``jnp.argmax(f_low, axis=1)``
+    with their values, the first index on ties and a NaN winning (the
+    first NaN), as the JAX batched program's. One min and one max over
+    64-bit (value, index) keys per row, so the answer does not depend on
+    the order a reduction visits the row in."""
+    idx = torch.arange(f_up.shape[1], dtype=torch.int64,
+                       device=f_up.device)
+    hi_up = torch.where(torch.isnan(f_up), -2**31, _ordered_bits(f_up))
+    hi_low = torch.where(torch.isnan(f_low), 2**31 - 1,
+                         _ordered_bits(f_low))
+    i_hi = torch.min((hi_up << 32) | idx, dim=1).values & 0xFFFFFFFF
+    i_lo = 0xFFFFFFFF - (torch.max((hi_low << 32) | (0xFFFFFFFF - idx),
+                                   dim=1).values & 0xFFFFFFFF)
+    return (i_hi, f_up.gather(1, i_hi[:, None])[:, 0],
+            i_lo, f_low.gather(1, i_lo[:, None])[:, 0])
+
+
 def top_k_first(scores: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest scores, largest first and the lower index
     first among equal scores: the order of ``lax.top_k``. A stable sort

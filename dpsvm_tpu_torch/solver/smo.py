@@ -44,16 +44,28 @@ A run resumes from a checkpoint (``resume_from``) with the saved (alpha,
 f, b_hi, b_lo, n_iter): the b's are the last body's, so the loop goes on
 exactly as the run that saved it would have.
 
-Not ported yet: ``nu_selection`` (it comes with ``models/nusvm.py``) and
-the row cache (``ops/rowcache.py``): inside a captured chunk a cache hit
-cannot skip the product without a conditional graph node, so the cache is
-a design of its own.
+The kernel-row cache (``cache_size > 0``, ``ops/rowcache.py``) serves the
+first-order branch: the carry holds a ``RowCache`` of dot-product rows. The
+eager loop skips the pair's ``(2, d) @ (d, n)`` product on a double hit as
+``lax.cond`` does (``cache_fetch_pair`` reads the hit flags). A captured
+body cannot read them, and the card's PyTorch (2.11) has no CUDA-graph
+conditional node to skip the product on the device, so the body computes
+the product every time and takes the cached rows on a double hit
+(compute and select). Either way the rows, the eviction, the counters and
+so the trajectory are those of the JAX package, and the cached run is
+bitwise the uncached one: a cached row is the output of the same product.
+The counters ride the poll's packed stats into ``TrainResult.cache_hits``
+/ ``cache_misses``.
+
+Not ported yet: ``nu_selection`` (it comes with ``models/nusvm.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import NamedTuple, Optional
+import gc
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -62,6 +74,9 @@ from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
 from dpsvm_tpu_torch.ops.kernels import (KernelSpec, dots_f32, exact_f32,
                                          host_row_stats, kdiag_from_norms,
                                          rows_from_dots)
+from dpsvm_tpu_torch.ops.rowcache import (RowCache, cache_fetch_pair,
+                                          cache_init, cached_pair,
+                                          commit_pair_, pair_plan)
 from dpsvm_tpu_torch.ops.selection import (box_sides, extrema_of,
                                            packed_extrema_of, pick,
                                            sided_scores, valid_rows)
@@ -90,14 +105,16 @@ class SMOCarry(NamedTuple):
     b_hi: torch.Tensor     # () f32 from the latest selection
     b_lo: torch.Tensor     # () f32
     n_iter: torch.Tensor   # () i32
+    cache: Optional[RowCache] = None    # the row cache (cache_size > 0)
 
 
 def init_carry(y: torch.Tensor, f_init=None, alpha_init=None,
                b_hi: float = -SENTINEL, b_lo: float = SENTINEL,
-               n_iter: int = 0) -> SMOCarry:
+               n_iter: int = 0, cache_lines: int = 0) -> SMOCarry:
     """alpha = 0, f = -y (svmTrain.cu:349,380), or the given seeds; the
     sentinel b's force the first body to run (the reference's do-while).
-    The carry owns its tensors: the graph updates them in place."""
+    ``cache_lines`` > 0 adds an empty row cache of that many lines. The
+    carry owns its tensors: the graph updates them in place."""
     dev = y.device
 
     def vec(v):
@@ -112,7 +129,9 @@ def init_carry(y: torch.Tensor, f_init=None, alpha_init=None,
         f=-y if f_init is None else vec(f_init),
         b_hi=scalar(float(np.float32(b_hi)), torch.float32),
         b_lo=scalar(float(np.float32(b_lo)), torch.float32),
-        n_iter=scalar(int(n_iter), torch.int32))
+        n_iter=scalar(int(n_iter), torch.int32),
+        cache=(cache_init(int(cache_lines), y.shape[0], device=dev)
+               if cache_lines > 0 else None))
 
 
 class SMOOptions(NamedTuple):
@@ -168,14 +187,20 @@ class SMOProblem:
         up, low = box_sides(yd, c_box)
         return cls(xd, yd, x2, kdiag, c_box, up, low, spec)
 
-    def rows(self, idx: torch.Tensor) -> torch.Tensor:
-        """Kernel rows (r, n) in float32 for the (r,) indices ``idx``."""
-        got = self.x.index_select(0, idx)
+    def rows(self, idx: torch.Tensor,
+             dots: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Kernel rows (r, n) in float32 for the (r,) indices ``idx``,
+        from their dot products ``dots`` when given (the row cache's)."""
         if self.spec.kind == "precomputed":
-            return got                          # the gathered K rows
-        return rows_from_dots(dots_f32(got, self.x),
-                              self.x2.index_select(0, idx), self.x2,
+            return self.x.index_select(0, idx)  # the gathered K rows
+        if dots is None:
+            dots = self.dots(idx)
+        return rows_from_dots(dots, self.x2.index_select(0, idx), self.x2,
                               self.spec)
+
+    def dots(self, idx: torch.Tensor) -> torch.Tensor:
+        """The (r, n) float32 dot products of rows ``idx`` with X."""
+        return dots_f32(self.x.index_select(0, idx), self.x)
 
 
 class PairUpdate(NamedTuple):
@@ -192,7 +217,8 @@ class PairUpdate(NamedTuple):
 
 
 def pair_update(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
-                valid: Optional[torch.Tensor] = None) -> PairUpdate:
+                valid: Optional[torch.Tensor] = None,
+                fetch: Optional[Callable] = None) -> PairUpdate:
     """One modified-SMO iteration's values (``smo_step`` of the JAX
     package, branch for branch), reading the carry only.
 
@@ -201,7 +227,8 @@ def pair_update(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
     2 - 2 K(hi, j) for RBF; the stopping gap and the intercept still come
     from the max violator b_lo (svmTrainMain.cpp:310,329), and the alpha
     step uses the selected violator's f. Rows where ``valid`` is False are
-    in neither index set."""
+    in neither index set. ``fetch(pair) -> dots`` gives the first-order
+    pair's dot products (the row cache's fetch)."""
     alpha, f, y = carry.alpha, carry.f, prob.y
     f_up, f_low, in_low = sided_scores(alpha, f, prob.up_side, prob.low_side,
                                        valid)
@@ -220,12 +247,13 @@ def pair_update(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
         i_lo = torch.argmax(obj)
         k = torch.stack([k_hi, prob.rows(i_lo.reshape(1))[0]])
         b_lo_sel = pick(f_low, i_lo)
+        pair = torch.stack([i_hi, i_lo])
     else:
         extrema = packed_extrema_of if opts.packed_select else extrema_of
         i_hi, b_hi, i_lo, b_lo = extrema(f_up, f_low)
         b_lo_sel = b_lo
-        k = prob.rows(torch.stack([i_hi, i_lo]))
-    pair = torch.stack([i_hi, i_lo])
+        pair = torch.stack([i_hi, i_lo])
+        k = prob.rows(pair, None if fetch is None else fetch(pair))
     n = k.shape[1]
     kk = k.reshape(-1).index_select(0, torch.stack([i_hi, n + i_lo, i_lo]))
     eta = kk[0] + kk[1] - 2.0 * kk[2]
@@ -254,12 +282,19 @@ def pair_update(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
 def smo_step(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
              valid: Optional[torch.Tensor] = None) -> SMOCarry:
     """One iteration as a new carry. The write order lo, then hi, mirrors
-    train_step2 (svmTrain.cu:491-492) for the i_hi == i_lo corner."""
-    u = pair_update(carry, prob, opts, valid)
+    train_step2 (svmTrain.cu:491-492) for the i_hi == i_lo corner. With a
+    row cache the pair's rows come through ``cache_fetch_pair``."""
+    fetch, cache = None, [carry.cache]
+    if carry.cache is not None:
+        def fetch(pair):
+            dots, cache[0] = cache_fetch_pair(carry.cache, pair[0], pair[1],
+                                              lambda: prob.dots(pair))
+            return dots
+    u = pair_update(carry, prob, opts, valid, fetch)
     alpha = carry.alpha.clone()
     alpha.index_copy_(0, u.i_lo.reshape(1), u.a_lo_n.reshape(1))
     alpha.index_copy_(0, u.i_hi.reshape(1), u.a_hi_n.reshape(1))
-    return SMOCarry(alpha, u.f, u.b_hi, u.b_lo, carry.n_iter + 1)
+    return SMOCarry(alpha, u.f, u.b_hi, u.b_lo, carry.n_iter + 1, cache[0])
 
 
 def live(carry: SMOCarry, two_eps: float, limit) -> torch.Tensor:
@@ -273,9 +308,21 @@ def smo_body(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
              valid: Optional[torch.Tensor] = None) -> None:
     """``smo_step`` in place, gated on ``live``: when the condition is
     false every write puts back what it read, so the carry is unchanged
-    bit for bit. Reads nothing back to the host (the graph's body)."""
+    bit for bit. Reads nothing back to the host (the graph's body). With
+    a row cache the pair's product runs every body, and a double hit
+    takes the cached rows."""
     go = live(carry, two_eps, limit)
-    u = pair_update(carry, prob, opts, valid)
+    fetch = None
+    if carry.cache is not None:
+        def fetch(pair):
+            cache = carry.cache
+            p = pair_plan(cache, pair[0], pair[1])
+            dots = torch.where(p.hit_a & p.hit_b, cached_pair(cache, p),
+                               prob.dots(pair))
+            # written before the RBF epilogue consumes dots in place
+            commit_pair_(cache, pair[0], pair[1], p, dots, go=go)
+            return dots
+    u = pair_update(carry, prob, opts, valid, fetch)
     carry.alpha.index_copy_(0, u.i_lo.reshape(1),
                             torch.where(go, u.a_lo_n, u.a_lo).reshape(1))
     carry.alpha.index_copy_(0, u.i_hi.reshape(1),
@@ -294,6 +341,24 @@ def run_chunk_plain(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
     while bool(live(carry, two_eps, limit)):
         carry = smo_step(carry, prob, opts, valid)
     return carry
+
+
+@contextlib.contextmanager
+def capture(graph: "torch.cuda.CUDAGraph"):
+    """``torch.cuda.graph(graph)`` with TF32 off, after a collection and
+    with Python's cycle collector held off until it ends: a collection
+    inside a capture can release the CUDA objects of dead cycles that
+    earlier code left, which may invalidate the capture (one capture in a
+    run of the 157 card tests was invalidated before this was added)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with exact_f32(), torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class GraphChunk:
@@ -327,7 +392,7 @@ class GraphChunk:
             run_bodies(1)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with exact_f32(), torch.cuda.graph(self.graph):
+        with capture(self.graph):
             run_bodies(self.bodies)
         COUNTS["captures"] += 1
 
@@ -346,10 +411,14 @@ class GraphChunk:
 
 
 def _stats(carry: SMOCarry) -> torch.Tensor:
+    """The poll's packed stats; with a row cache its hits and misses ride
+    in the ``runs`` slots."""
+    cache = () if carry.cache is None else (carry.cache.hits,
+                                            carry.cache.misses)
     return pack_stats(carry.n_iter, carry.b_lo.view(torch.int32),
                       carry.b_hi.view(torch.int32),
                       device_sv_count(carry.alpha),
-                      torch.zeros_like(carry.n_iter))
+                      torch.zeros_like(carry.n_iter), *cache)
 
 
 def make_chunk_runner(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
@@ -387,6 +456,7 @@ def make_chunk_runner(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
         st: ChunkStats = read_stats(_stats(cr))
         COUNTS["reads"] += 1
         state["n_iter"] = st.n_iter
+        step.last = st
         return cr, st
 
     return step
@@ -416,14 +486,23 @@ def train_single_device(x: np.ndarray, y: np.ndarray, config: SVMConfig,
     prob = SMOProblem.build(x, y, config, device)
     ckpt = resume_state(config, x.shape[0], x.shape[1],
                         float(prob.spec.gamma))
+    lines = int(config.cache_size)
     if ckpt is not None:
         carry = init_carry(prob.y, ckpt.f, ckpt.alpha, b_hi=ckpt.b_hi,
-                           b_lo=ckpt.b_lo, n_iter=ckpt.n_iter)
+                           b_lo=ckpt.b_lo, n_iter=ckpt.n_iter,
+                           cache_lines=lines)
     elif carry is None:
-        carry = init_carry(prob.y, f_init, alpha_init)
+        carry = init_carry(prob.y, f_init, alpha_init, cache_lines=lines)
+    elif lines and carry.cache is None:
+        carry = carry._replace(cache=cache_init(lines, x.shape[0],
+                                                device=device))
     step = make_chunk_runner(carry, prob, SMOOptions.from_config(
         config, guard_eta), two_eps_f32(config.epsilon), plain)
-    return host_training_loop(
+    res = host_training_loop(
         config, float(prob.spec.gamma), carry, step,
         lambda cr: (cr.alpha.cpu().numpy(), cr.f.cpu().numpy()),
         it0=int(carry.n_iter), dims=x.shape)
+    if lines:
+        hits, misses = step.last.runs
+        res = dataclasses.replace(res, cache_hits=hits, cache_misses=misses)
+    return res

@@ -720,12 +720,13 @@ def test_smo_graph_converged_bodies_change_nothing(dev):
     carry = gsmo.init_carry(prob.y, alpha_init=rng.uniform(0, 4, len(y)),
                             f_init=rng.normal(size=len(y)), b_hi=0.25,
                             b_lo=0.25, n_iter=7)
-    before = [t.clone() for t in carry]
+    assert carry.cache is None               # no row cache: 5 tensors
+    before = [t.clone() for t in carry[:5]]
     chunk = gsmo.GraphChunk(carry, prob, gsmo.SMOOptions.from_config(cfg),
                             gsmo.two_eps_f32(cfg.epsilon))
     assert chunk.run(7, 7 + 512) == 512 // gsmo.GRAPH_BODIES
     torch.cuda.synchronize()
-    for a, b in zip(carry, before):
+    for a, b in zip(carry[:5], before):
         assert torch.equal(a, b)
 
 
@@ -985,3 +986,99 @@ def test_kill_and_resume_is_bitwise_on_the_card(dev, path, tmp_path):
     assert (resumed.b_lo, resumed.b_hi) == (straight.b_lo, straight.b_hi)
     if path == "fused":
         assert fs.RUNS["fused_update_select"] == 2 * k - k
+
+
+# --- the row cache, the batched subproblem program, pairwise decisions ---
+
+def _three_class(n_per=60, d=6, seed=3):
+    rng = np.random.default_rng(seed)
+    centers = np.array([[2.0] * d, [-2.0] * d,
+                        [2.0] * (d // 2) + [-2.0] * (d - d // 2)])
+    x = np.concatenate([rng.normal(loc=c, scale=0.8, size=(n_per, d))
+                        for c in centers]).astype(np.float32)
+    y = np.repeat(np.array([0, 3, 7], np.int32), n_per)
+    perm = rng.permutation(len(y))
+    return x[perm], y[perm]
+
+
+@pytest.mark.parametrize("kw", [{}, dict(clip="pairwise"),
+                                dict(kernel="poly", gamma=0.05, coef0=1.0),
+                                dict(matmul_precision="default")])
+def test_cached_graph_matches_cache_off_and_its_eager_loop(dev, kw):
+    """The general pair with a row cache: the captured chunk is bitwise
+    its eager loop (the host-read skip of ``cache_fetch_pair``) and the
+    uncached run, with hits + misses two a fetch."""
+    from dpsvm_tpu_torch.solver import smo
+    x, y = make_planted(600, 16, 0.25, seed=2)
+    base = dict(c=10.0, gamma=0.25, epsilon=1e-3, chunk_iters=64)
+    base.update(kw)
+    on = SVMConfig(cache_size=8, **base)
+    g = smo.train_single_device(x, y, on, dev)
+    e = smo.train_single_device(x, y, on, dev, plain=True)
+    off = smo.train_single_device(x, y, SVMConfig(**base), dev)
+    for r in (e, off):
+        assert r.n_iter == g.n_iter and (r.b_lo, r.b_hi) == (g.b_lo, g.b_hi)
+        np.testing.assert_array_equal(r.alpha, g.alpha)
+    assert (g.cache_hits, g.cache_misses) == (e.cache_hits, e.cache_misses)
+    assert g.cache_hits + g.cache_misses == 2 * g.n_iter
+
+
+@pytest.mark.parametrize("kw", [{}, dict(clip="pairwise"),
+                                dict(max_iter=37),
+                                dict(kernel="sigmoid", gamma=0.02,
+                                     coef0=-0.5)])
+def test_batched_graph_matches_its_eager_loop(dev, kw):
+    """The batched program's captured chunk against its eager loop: the
+    same per-problem n_iter, alpha and b's, bit for bit, a capped budget
+    (max_iter not a multiple of the 16 bodies) included."""
+    from dpsvm_tpu_torch.solver import batched_ovo as bo
+    x, y = _three_class()
+    yb, valid, _ = bo.build_pair_targets(y, np.unique(y))
+    base = dict(c=1.0, gamma=0.25, epsilon=1e-3, max_iter=20_000,
+                chunk_iters=64)
+    base.update(kw)
+    cfg = SVMConfig(**base)
+    bo.reset_counts()
+    g = bo.train_ovo_batched(x, yb, valid, cfg, device=dev)
+    assert bo.COUNTS["captures"] == 1 and bo.COUNTS["reads"] >= 1
+    e = bo.train_ovo_batched(x, yb, valid, cfg, device=dev, plain=True)
+    for a, b in zip(g, e):
+        assert (a.n_iter, a.b_lo, a.b_hi, a.converged) == (
+            b.n_iter, b.b_lo, b.b_hi, b.converged)
+        np.testing.assert_array_equal(a.alpha, b.alpha)
+    if "max_iter" in kw:
+        assert all(r.n_iter == 37 for r in g)
+
+
+def test_batched_multiclass_on_the_card_matches_the_cpu(dev):
+    """The batched program on the card against the same program on the
+    CPU: the same models by the LibSVM bar (the products round
+    differently)."""
+    from dpsvm_tpu_torch.models.multiclass import (predict_multiclass,
+                                                   train_multiclass)
+    x, y = _three_class(n_per=80)
+    cfg = SVMConfig(c=1.0, gamma=0.25, max_iter=20_000, chunk_iters=64)
+    mg, rg = train_multiclass(x, y, cfg, batched=True, device=dev)
+    mc, rc = train_multiclass(x, y, cfg, batched=True, device="cpu")
+    for a, b in zip(rg, rc):
+        assert a.converged and abs(a.n_sv - b.n_sv) <= max(0.02 * b.n_sv, 3)
+    agree = np.mean(predict_multiclass(mg, x, device=dev)
+                    == predict_multiclass(mc, x, device="cpu"))
+    assert agree >= 1.0 - 1.0 / len(y) - 1e-9
+
+
+def test_pairwise_decisions_on_the_card_match_the_cpu(dev):
+    """All pairwise decisions of one product over the concatenated SVs on
+    the card against the one-model-at-a-time loop on the CPU: within 1e-4
+    of the summed |alpha| scale, and the same votes."""
+    from dpsvm_tpu_torch.models import multiclass as mc
+    from dpsvm_tpu_torch.models.svm import decision_function
+    x, y = _three_class(n_per=100, d=8, seed=4)
+    model, _ = mc.train_multiclass(x, y, SVMConfig(c=1.0, gamma=0.1),
+                                   device="cpu")
+    got = mc.pairwise_decisions(model, x, device=dev)
+    want = [decision_function(m, x, device="cpu") for m in model.models]
+    for g, w, m in zip(got, want, model.models):
+        np.testing.assert_allclose(g, w, atol=1e-4 * (1 + m.alpha.sum()))
+    assert np.array_equal(mc.predict_multiclass(model, x, decisions=got),
+                          mc.predict_multiclass(model, x, decisions=want))

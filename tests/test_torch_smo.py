@@ -318,8 +318,8 @@ def test_routing(cfg, kw, path):
     (dict(shards=2), "shards > 1 \\(parallel/dist_smo.py\\)"),
     (dict(shards=2, selection="second-order"), ".*dist_smo"),
     (dict(shards=2, working_set=8), "shards > 1 \\(parallel/dist_decomp"),
-    (dict(cache_size=4), ".*cache_size > 0 \\(ops/rowcache.py\\)"),
-    (dict(cache_size=4, kernel="poly"), ".*rowcache"),
+    (dict(shards=2, cache_size=4), "shards > 1 \\(parallel/dist_smo.py\\)"),
+    (dict(shards=2, cache_size=4, kernel="poly"), ".*dist_smo"),
 ])
 def test_what_no_path_covers_raises_naming_it(cfg, why):
     x, y = make_blobs(n=40, d=3, seed=0)

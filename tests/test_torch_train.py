@@ -119,15 +119,16 @@ def test_nan_in_x_raises_instead_of_spinning():
 @pytest.mark.parametrize("kw", [dict(shards=2, kernel="linear"),
                                 dict(shards=2),
                                 dict(shards=2, clip="pairwise"),
-                                dict(cache_size=4),
+                                dict(shards=2, cache_size=4),
                                 dict(shards=2, selection="second-order"),
                                 dict(working_set=8, shards=2, kernel="linear"),
-                                dict(cache_size=4, weight_pos=2.0)])
+                                dict(shards=2, cache_size=4,
+                                     weight_pos=2.0)])
 def test_paths_outside_the_slice_raise(kw):
     """What no ported path covers raises, naming the JAX module that
     brings it (every other config trains: tests/test_torch_smo.py)."""
     x, y = make_blobs(n=40, d=3, seed=0)
-    why = "dist_" if "shards" in kw else "rowcache"
+    why = "dist_"
     with pytest.raises(NotImplementedError, match=f"not support.*{why}"):
         train(x, y, SVMConfig(**kw), device="cpu")
 
