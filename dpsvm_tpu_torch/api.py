@@ -93,8 +93,8 @@ def train(x: np.ndarray, y: np.ndarray,
         if why is not None:
             raise NotImplementedError(
                 f"dpsvm_tpu_torch does not support {why} yet: the "
-                "decomposition (working_set > 2) is ported for binary "
-                "C-SVC on one device")
+                "decomposition (working_set > 2) is ported on one device "
+                "(distributed training is ROADMAP Queue 1 item 7)")
         dev = resolve_device(device)
         from dpsvm_tpu_torch.solver.decomp import train_single_device_decomp
         return train_single_device_decomp(x, y, config, dev, f_init=f_init,
@@ -111,7 +111,8 @@ def train(x: np.ndarray, y: np.ndarray,
     if why is not None:
         raise NotImplementedError(
             f"dpsvm_tpu_torch does not support {why} yet: the SMO pair "
-            "(working_set = 2) is ported for binary C-SVC on one device")
+            "(working_set = 2) is ported on one device (distributed "
+            "training is ROADMAP Queue 1 item 7)")
     dev = resolve_device(device)
     from dpsvm_tpu_torch.solver.smo import train_single_device
     return train_single_device(x, y, config, dev, f_init=f_init,

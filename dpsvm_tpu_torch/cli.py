@@ -22,6 +22,14 @@ report, plus ``--device {cuda,cpu}`` (default cuda).
     python -m dpsvm_tpu_torch train -f train.csv -c 10 -v 5 [--batched]
     python -m dpsvm_tpu_torch train -f train.csv -v 5 \
         --c-sweep 1,10,100 --gamma-sweep 0.125,0.25  # one batched grid
+    python -m dpsvm_tpu_torch train -f reg.csv -m model.svr --svr -c 10 \
+        -p 0.05 [--working-set 4096 --inner-iters 128]  # epsilon-SVR
+    python -m dpsvm_tpu_torch train -f x.csv -m model.oc --one-class --nu 0.1
+    python -m dpsvm_tpu_torch train -f train.csv -m model.svm --nu-svc \
+        --nu 0.2 [--multiclass]                    # nu-SVC (LIBSVM -s 1)
+    python -m dpsvm_tpu_torch train -f reg.csv -m model.svr --nu-svr --nu 0.5
+    python -m dpsvm_tpu_torch train -f train.csv -m model.model \
+        --model-format libsvm                      # LIBSVM .model text
     python -m dpsvm_tpu_torch.cli test  -f test.csv  -m model.svm \
         [--proba p.txt] [--predictions pred.txt] [--no-b]
     python -m dpsvm_tpu_torch test -f test.csv -m mc_dir --proba p.txt
@@ -30,8 +38,11 @@ report, plus ``--device {cuda,cpu}`` (default cuda).
 kernel matrix as its rows (``label,K_i1,...,K_in``) and the test CSV the
 rows of K(test, train). ``--multiclass`` writes a model directory
 (``index.json`` and a model file per pair), which ``test`` reads when
-``-m`` names a directory. The flag conflicts and their messages are the
-JAX CLI's.
+``-m`` names a directory. ``test`` reads every model file the train
+command writes, LIBSVM ``.model`` files included, and reports by the
+model's task: accuracy (classifiers), MSE/MAE/R^2 (regression) or the
+inlier fraction (one-class). The flag conflicts and their messages are
+the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -198,8 +209,34 @@ def build_parser() -> argparse.ArgumentParser:
                          "back to its newest intact rotation slot)")
     tr.add_argument("-v", "--cv", type=int, default=0, metavar="K",
                     help="k-fold cross-validation mode (LIBSVM -v): "
-                         "report pooled held-out accuracy instead of "
-                         "writing a model")
+                         "report pooled held-out accuracy (or MSE for "
+                         "--svr) instead of writing a model")
+    tr.add_argument("--one-class", action="store_true",
+                    help="one-class SVM / novelty detection on unlabeled "
+                         "rows (LIBSVM svm-train -s 2 analog; the label "
+                         "column is ignored)")
+    tr.add_argument("--nu", type=float, default=0.5,
+                    help="one-class outlier-fraction bound (LIBSVM -n)")
+    tr.add_argument("--nu-svc", action="store_true",
+                    help="nu-SVC (LIBSVM -s 1): --nu replaces -c; nu "
+                         "lower-bounds the SV fraction and upper-bounds "
+                         "the margin-error fraction")
+    tr.add_argument("--nu-svr", action="store_true",
+                    help="nu-SVR (LIBSVM -s 4): the epsilon tube width "
+                         "is learned; --nu bounds the outside-tube "
+                         "fraction, -c is the usual cost")
+    tr.add_argument("--svr", action="store_true",
+                    help="epsilon-SVR regression (float targets; LIBSVM "
+                         "svm-train -s 3 analog)")
+    tr.add_argument("-p", "--svr-epsilon", type=float, default=0.1,
+                    help="SVR tube half-width (LIBSVM -p, default 0.1)")
+    tr.add_argument("--model-format", default="reference",
+                    choices=["reference", "libsvm"],
+                    help="model file layout: 'reference' (the MPI "
+                         "trainer's CSV-ish format) or 'libsvm' "
+                         "(svm-train .model text, readable by LIBSVM/"
+                         "sklearn tooling); the test command "
+                         "auto-detects either format")
     tr.add_argument("--multiclass", action="store_true",
                     help="one-vs-one multi-class training (labels may be "
                          "any integers; -m becomes a model DIRECTORY)")
@@ -249,16 +286,25 @@ def build_parser() -> argparse.ArgumentParser:
 def _train_conflicts(args: argparse.Namespace):
     """(error message or None, class_weight) from the flags alone, before
     the dataset is parsed: the JAX CLI's rules and messages for the flags
-    the port has."""
+    the port has. Its rows on flags the port does not have (``--solver``,
+    ``--pallas``, ``--polish``, ``--check-kkt``, ``--trace-out``) drop
+    out."""
+    if args.model_format == "libsvm" and args.multiclass:
+        return ("--model-format libsvm applies to binary models; "
+                "--multiclass writes a directory of reference-format "
+                "per-pair files"), None
     if args.gamma_sweep is not None and args.c_sweep is None:
         return "--gamma-sweep extends --c-sweep (pass both)", None
     if args.c_sweep is not None and not args.cv:
         return ("--c-sweep requires --cv K (it selects C by "
                 "cross-validated accuracy)"), None
-    if args.c_sweep is not None and args.multiclass:
+    if args.c_sweep is not None and (args.svr or args.multiclass):
         return "--c-sweep is binary-classification-only", None
     if args.batched and not (args.multiclass or args.cv):
         return "--batched applies to --multiclass or --cv training", None
+    if args.batched and args.svr:
+        return ("batched CV is classification-only (SVR folds train on "
+                "per-fold pseudo-examples)"), None
     if args.multiclass:
         if args.model and os.path.isfile(args.model):
             return (f"-m {args.model} is an existing file; --multiclass "
@@ -290,6 +336,9 @@ def _train_conflicts(args: argparse.Namespace):
             return ("--weight needs per-pair box bounds; the batched "
                     "program shares one weight pair across all "
                     "subproblems — drop --batched"), None
+        if args.svr:
+            return ("--weight is classification-only (SVR has no "
+                    "classes)"), None
         if args.c_sweep is not None:
             return ("--weight is not supported with --c-sweep (the "
                     "batched grid program shares one weight pair)"), None
@@ -321,6 +370,7 @@ def _train_conflicts(args: argparse.Namespace):
         if args.cv < 2:
             return f"--cv needs K >= 2, got {args.cv}", None
         for flag, on, hint in (
+                ("--one-class", args.one_class, ""),
                 ("--probability-cv" if args.probability_cv
                  else "--probability",
                  args.probability or args.probability_cv, ""),
@@ -331,6 +381,40 @@ def _train_conflicts(args: argparse.Namespace):
                  bool(args.checkpoint or args.resume), "")):
             if on:
                 return f"{flag} does not apply to --cv mode{hint}", None
+    modes = [f for f, on in (("--svr", args.svr),
+                             ("--one-class", args.one_class),
+                             ("--nu-svc", args.nu_svc),
+                             ("--nu-svr", args.nu_svr)) if on]
+    if len(modes) > 1:
+        return f"{' and '.join(modes)} are mutually exclusive", None
+    if modes:
+        # One conflict table for every restricted mode.
+        mode = modes[0]
+        nu_mode = mode in ("--nu-svc", "--nu-svr")
+        # nu-SVC composes with --multiclass (LIBSVM -s 1 is OvO for >2
+        # classes) and there with --probability (sigmoid on training
+        # decisions); --probability-cv stays refused (its held-out
+        # refits are C-SVC)
+        nu_multiclass = args.multiclass and mode == "--nu-svc"
+        conflicts = [("--multiclass",
+                      args.multiclass and mode != "--nu-svc"),
+                     ("--probability-cv" if args.probability_cv
+                      else "--probability",
+                      (args.probability_cv or
+                       (args.probability and not nu_multiclass))),
+                     ("--weight-pos/--weight-neg",
+                      args.weight_pos != 1.0 or args.weight_neg != 1.0),
+                     # these modes' duals live on an equality
+                     # constraint whose VALUE is part of the model;
+                     # they force the conserving pairwise rule
+                     ("--clip independent", args.clip == "independent")]
+        if nu_mode:
+            conflicts += [("--cv", bool(args.cv)),
+                          ("--checkpoint/--resume",
+                           bool(args.checkpoint or args.resume))]
+        for flag, on in conflicts:
+            if on:
+                return f"{flag} does not apply to {mode}", None
     return None, class_weight
 
 
@@ -347,10 +431,15 @@ def cmd_train(args: argparse.Namespace) -> int:
     if err is not None:
         print(f"error: {err}", file=sys.stderr)
         return 2
-    x, y = load_dataset(args.input)
+    if args.model_format == "libsvm":
+        from dpsvm_tpu_torch.models.libsvm_io import save_libsvm_model
+        save_model = save_libsvm_model
+    x, y = load_dataset(args.input, float_labels=(
+        args.svr or args.one_class or args.nu_svr))
     config = SVMConfig(c=args.cost, gamma=args.gamma, kernel=args.kernel,
                        degree=args.degree, coef0=args.coef0,
-                       epsilon=args.epsilon, max_iter=args.max_iter,
+                       epsilon=args.epsilon, svr_epsilon=args.svr_epsilon,
+                       max_iter=args.max_iter,
                        cache_size=args.cache_size or 0,
                        selection=args.selection,
                        select_impl=args.select_impl,
@@ -376,6 +465,7 @@ def cmd_train(args: argparse.Namespace) -> int:
         mc, results = train_multiclass(x, y, config, probability=proba_mode,
                                        batched=args.batched,
                                        class_weight=class_weight,
+                                       nu=args.nu if args.nu_svc else None,
                                        device=dev)
         save_multiclass(mc, args.model)
         acc = evaluate_multiclass(mc, x, y, device=dev)
@@ -394,6 +484,8 @@ def cmd_train(args: argparse.Namespace) -> int:
         return 0
     if args.cv:
         return _train_cv(args, x, y, config, class_weight)
+    if args.nu_svc or args.nu_svr or args.one_class or args.svr:
+        return _train_task(args, x, y, config, save_model)
 
     model, result = fit(x, y, config, device=dev)
     n_sv = save_model(model, args.model)
@@ -418,6 +510,75 @@ def cmd_train(args: argparse.Namespace) -> int:
         save_platt(args.model, pa, pb)
         print(f"Platt calibration: A={pa:.6f} B={pb:.6f} "
               f"(saved {args.model}.platt.json)")
+    return 0
+
+
+def _train_task(args, x, y, config, save_model) -> int:
+    """``train --nu-svc | --nu-svr | --one-class | --svr``: fit, write the
+    model and print the JAX CLI's report for the task."""
+    import numpy as np
+
+    dev = args.device
+    if args.nu_svc:
+        from dpsvm_tpu_torch.models.nusvm import train_nusvc
+        from dpsvm_tpu_torch.models.svm import evaluate
+        model, result = train_nusvc(x, np.asarray(y, np.int32), args.nu,
+                                    config, device=dev)
+        n_sv = save_model(model, args.model)
+        print(f"Number of SVs: {n_sv}")
+        print(f"b: {result.b:.6f}")
+        print(f"Training iterations: {result.n_iter}"
+              + ("" if result.converged else " (NOT converged)"))
+        print(f"Training accuracy: {evaluate(model, x, y, device=dev):.6f} "
+              f"(nu = {args.nu})")
+        print(f"Training time: {result.train_seconds:.3f} s")
+        return 0
+    if args.nu_svr:
+        from dpsvm_tpu_torch.models.nusvm import train_nusvr
+        from dpsvm_tpu_torch.models.svr import evaluate_svr
+        model, result = train_nusvr(x, y, args.nu, config, device=dev)
+        n_sv = save_model(model, args.model)
+        m = evaluate_svr(model, x, y, device=dev)
+        print(f"Number of SVs: {n_sv}")
+        print(f"b: {result.b:.6f}")
+        print(f"epsilon: {result.learned_epsilon:.6f}")   # learned tube
+        print(f"Training iterations: {result.n_iter}"
+              + ("" if result.converged else " (NOT converged)"))
+        print(f"Training MSE: {m['mse']:.6f}  R^2: {m['r2']:.6f} "
+              f"(nu = {args.nu})")
+        print(f"Training time: {result.train_seconds:.3f} s")
+        return 0
+    if args.one_class:
+        from dpsvm_tpu_torch.models.oneclass import (predict_oneclass,
+                                                     train_oneclass)
+        model, result = train_oneclass(x, args.nu, config, device=dev)
+        n_sv = save_model(model, args.model)
+        inlier = predict_oneclass(model, x, device=dev)
+        print(f"Number of SVs: {n_sv}")
+        print(f"rho: {result.b:.6f}")
+        print(f"Training iterations: {result.n_iter}"
+              + ("" if result.converged else " (NOT converged)"))
+        print(f"Training inlier fraction: {float(np.mean(inlier > 0)):.6f} "
+              f"(nu = {args.nu})")
+        print(f"Training time: {result.train_seconds:.3f} s")
+        return 0
+    from dpsvm_tpu_torch.models.svr import evaluate_svr, train_svr
+    model, result = train_svr(x, y, config, device=dev)
+    if model.n_sv == 0:
+        print("error: the fitted tube contains every target "
+              f"(svr_epsilon={config.svr_epsilon}) — the model has no "
+              "support vectors and predicts the constant "
+              f"{-result.b:.6g}; decrease -p", file=sys.stderr)
+        return 1
+    n_sv = save_model(model, args.model)
+    m = evaluate_svr(model, x, y, device=dev)
+    print(f"Number of SVs: {n_sv}")
+    print(f"b: {result.b:.6f}")
+    print(f"Training iterations: {result.n_iter}"
+          + ("" if result.converged else " (NOT converged)"))
+    print(f"Training MSE: {m['mse']:.6f}  MAE: {m['mae']:.6f}  "
+          f"R^2: {m['r2']:.6f}")
+    print(f"Training time: {result.train_seconds:.3f} s")
     return 0
 
 
@@ -451,10 +612,16 @@ def _train_cv(args, x, y, config, class_weight) -> int:
         print(f"Best: C={r['best_c']:g} gamma={r['best_gamma']:g} "
               f"({r['best_accuracy'] * 100:.4f}%)")
         return 0
-    r = cross_validate(x, y, args.cv, config, batched=args.batched,
-                       class_weight=class_weight, device=args.device)
-    # LIBSVM's svm-train -v output shape
-    print(f"Cross Validation Accuracy = {r['accuracy'] * 100:.4f}%")
+    r = cross_validate(x, y, args.cv, config,
+                       task="svr" if args.svr else "svc",
+                       batched=args.batched, class_weight=class_weight,
+                       device=args.device)
+    if args.svr:
+        print(f"Cross Validation ({args.cv}-fold) MSE: {r['mse']:.6f}  "
+              f"MAE: {r['mae']:.6f}  R^2: {r['r2']:.6f}")
+    else:
+        # LIBSVM's svm-train -v output shape
+        print(f"Cross Validation Accuracy = {r['accuracy'] * 100:.4f}%")
     return 0
 
 
@@ -521,6 +688,71 @@ def _test_multiclass(args: argparse.Namespace) -> int:
     return 0
 
 
+def _reconcile_width(args, model, x):
+    """(model, x) at one width, or (None, x) after printing the error.
+    Both sparse formats mean "absent index == zero", so the narrower side
+    widens with zero columns: a libsvm test file may undershoot the
+    model, and a LIBSVM ``.model`` file the data when trailing columns are
+    zero in every SV. A dense CSV carries its true width, so a mismatch
+    there (or wider data against a reference-format model) is an error."""
+    import dataclasses
+
+    import numpy as np
+
+    from dpsvm_tpu_torch.data.loader import sniff_format
+    from dpsvm_tpu_torch.models.io import is_libsvm_model
+    width = model.num_attributes
+    if x.shape[1] < width and sniff_format(args.input) == "libsvm":
+        return model, np.pad(x, ((0, 0), (0, width - x.shape[1])))
+    if x.shape[1] > width and is_libsvm_model(args.model):
+        if model.kernel == "precomputed":
+            # LIBSVM stores no n_train; serials only bound it from below
+            return dataclasses.replace(model, n_train=x.shape[1],
+                                       n_train_exact=True), x
+        return dataclasses.replace(model, x_sv=np.pad(
+            model.x_sv, ((0, 0), (0, x.shape[1] - width)))), x
+    print(f"error: dataset has {x.shape[1]} attributes, model has "
+          f"{width}", file=sys.stderr)
+    return None, x
+
+
+def _test_task(args, model, x, y) -> int:
+    """``test`` on a one-class model (the inlier fraction, and accuracy
+    against +1/-1 labels) or a regression model (MSE/MAE/R^2)."""
+    import numpy as np
+
+    if args.proba:
+        print("error: --proba applies to classifiers only",
+              file=sys.stderr)
+        return 2
+    if model.task == "oneclass":
+        from dpsvm_tpu_torch.models.oneclass import predict_oneclass
+        # one-class decisions always include rho: --no-b does not apply
+        pred = predict_oneclass(model, x, device=args.device)
+        if args.predictions:
+            with open(args.predictions, "w") as f:
+                f.writelines(f"{int(v)}\n" for v in pred)
+        print(f"Number of SVs: {model.n_sv}")
+        print(f"Inlier fraction: {float(np.mean(pred > 0)):.6f}")
+        labs = np.asarray(y)
+        if set(np.unique(labs.astype(np.int64))) <= {-1, 1}:
+            acc = float(np.mean(pred == labs.astype(np.int32)))
+            print(f"Test accuracy (+1 inlier / -1 outlier labels): "
+                  f"{acc:.6f}")
+        return 0
+    from dpsvm_tpu_torch.models.svr import predict_svr, regression_metrics
+    pred = predict_svr(model, x, include_b=not args.no_b,
+                       device=args.device)
+    if args.predictions:
+        with open(args.predictions, "w") as f:
+            f.writelines(f"{float(v):.9g}\n" for v in pred)
+    m = regression_metrics(pred, y)
+    print(f"Number of SVs: {model.n_sv}")
+    print(f"Test MSE: {m['mse']:.6f}  MAE: {m['mae']:.6f}  "
+          f"R^2: {m['r2']:.6f}")
+    return 0
+
+
 def cmd_test(args: argparse.Namespace) -> int:
     import numpy as np
 
@@ -531,11 +763,13 @@ def cmd_test(args: argparse.Namespace) -> int:
     if os.path.isdir(args.model):
         return _test_multiclass(args)
     model = load_model(args.model)
-    x, y = load_dataset(args.input)
+    x, y = load_dataset(args.input, float_labels=model.task == "svr")
     if x.shape[1] != model.num_attributes:
-        print(f"error: dataset has {x.shape[1]} attributes, model has "
-              f"{model.num_attributes}", file=sys.stderr)
-        return 2
+        model, x = _reconcile_width(args, model, x)
+        if model is None:
+            return 2
+    if model.task != "svc":
+        return _test_task(args, model, x, y)
     t_eval = time.perf_counter()
     dec = decision_function(model, x, include_b=not args.no_b,
                             device=args.device)

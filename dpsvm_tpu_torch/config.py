@@ -55,6 +55,8 @@ class SVMConfig:
     degree: int = 3                     # poly degree (LIBSVM -d)
     coef0: float = 0.0                  # poly/sigmoid coef0 (LIBSVM -r)
     epsilon: float = 0.001              # convergence tolerance
+    svr_epsilon: float = 0.1            # epsilon-SVR tube half-width
+                                        # (LIBSVM -p; models/svr.py)
     max_iter: int = 150_000             # iteration cap
     cache_size: int = 0                 # kernel-row cache lines (0 = off)
     weight_pos: float = 1.0             # class-weighted costs: the box
@@ -228,6 +230,9 @@ class SVMConfig:
                 and self.weight_neg > 0):
             raise ValueError("class weights must be > 0 and finite, got "
                              f"({self.weight_pos}, {self.weight_neg})")
+        if self.svr_epsilon < 0:
+            raise ValueError(
+                f"svr_epsilon must be >= 0, got {self.svr_epsilon}")
         if self.clip not in ("independent", "pairwise"):
             raise ValueError(f"clip must be 'independent' or 'pairwise', "
                              f"got {self.clip!r}")
@@ -445,6 +450,10 @@ class TrainResult:
                                         # run trace)
     cache_hits: int = 0                 # row-cache lookups, two a fetch
     cache_misses: int = 0               # (the JAX run trace's counters)
+    learned_epsilon: Optional[float] = None     # nu-SVR only: the tube
+                                        # half-width the optimization found
+                                        # (LIBSVM -s 4 prints it as
+                                        # "epsilon = ...")
 
     @property
     def gap(self) -> float:

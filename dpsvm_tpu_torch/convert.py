@@ -3,7 +3,7 @@
 The two packages share no objects; what crosses is plain arrays:
 
 * ``model_from_numpy`` turns a model's fields (as read off a JAX
-  ``SVMModel``) into the port's ``SVMModel``;
+  ``SVMModel``, its ``task`` included) into the port's ``SVMModel``;
 * ``carry_from_numpy`` rebuilds the fused carry from solver state
   (alpha, f), the way ``init_fused_carry`` does on resume: the working set
   is a pure function of (alpha, f);
@@ -11,7 +11,9 @@ The two packages share no objects; what crosses is plain arrays:
   into the port's, so a decomposition run handed over mid-way goes on
   along the same trajectory;
 * ``smo_carry_from_numpy`` does the same for a JAX ``SMOCarry`` of the
-  general pair (``solver.smo.train_single_device(..., carry=)``).
+  general pair (``solver.smo.train_single_device(..., carry=)``), a
+  nu-selection run included: its stopping slots (0, max gap) carry over
+  as they are.
 """
 
 from __future__ import annotations
@@ -29,13 +31,16 @@ from dpsvm_tpu_torch.solver.smo import SMOCarry, init_carry
 
 def model_from_numpy(x_sv, alpha, y_sv, b, gamma, kernel: str = "rbf",
                      coef0: float = 0.0, degree: int = 3, sv_idx=None,
-                     n_train=None, n_train_exact: bool = True) -> SVMModel:
+                     n_train=None, n_train_exact: bool = True,
+                     task: str = "svc") -> SVMModel:
+    if task not in ("svc", "svr", "oneclass"):
+        raise ValueError(f"unknown task {task!r}")
     return SVMModel(x_sv=np.ascontiguousarray(x_sv, np.float32),
                     alpha=np.asarray(alpha, np.float32).reshape(-1),
                     y_sv=np.asarray(y_sv, np.int32).reshape(-1),
                     b=float(b), gamma=float(gamma), kernel=str(kernel),
                     coef0=float(coef0), degree=int(degree),
-                    sv_idx=(None if sv_idx is None
+                    task=str(task), sv_idx=(None if sv_idx is None
                             else np.asarray(sv_idx, np.int64).reshape(-1)),
                     n_train=None if n_train is None else int(n_train),
                     n_train_exact=bool(n_train_exact))

@@ -9,7 +9,7 @@ Two formats, told apart by ``sniff_format``:
   parser; its C++ fast path is not ported).
 
 Either becomes a row-major float32 matrix x (n, d) and an int32 label
-vector y. The shape comes from the file unless given; NaN/Inf features
+vector y, or with ``float_labels`` a float32 target vector (regression). The shape comes from the file unless given; NaN/Inf features
 are rejected with an error naming the row and column. Shard directories
 are not ported.
 """
@@ -40,11 +40,12 @@ def csv_shape(path: str) -> Tuple[int, int]:
 
 
 def load_csv(path: str, num_examples: Optional[int] = None,
-             num_attributes: Optional[int] = None
-             ) -> Tuple[np.ndarray, np.ndarray]:
+             num_attributes: Optional[int] = None,
+             float_labels: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     """Load a dense ``label,f1,...,fd`` CSV into (x float32, y int32).
     With explicit shape arguments (the reference's ``-x`` / ``-a``), only
-    that many rows / columns are read, and a short file is an error."""
+    that many rows / columns are read, and a short file is an error.
+    ``float_labels=True`` keeps y as float32 (regression targets)."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     if num_examples is None or num_attributes is None:
@@ -56,7 +57,7 @@ def load_csv(path: str, num_examples: Optional[int] = None,
     if n <= 0 or d <= 0:
         raise ValueError(f"empty dataset: {path!r} has shape ({n}, {d})")
     xs = np.empty((n, d), dtype=np.float32)
-    ys = np.empty((n,), dtype=np.int32)
+    ys = np.empty((n,), dtype=np.float32 if float_labels else np.int32)
     i = 0
     with open(path) as f, warnings.catch_warnings():
         # np.fromstring warns (and stops) at a malformed field; the
@@ -73,7 +74,7 @@ def load_csv(path: str, num_examples: Optional[int] = None,
                 raise ValueError(
                     f"{path}:{lineno}: expected {d + 1} numeric fields, "
                     f"got {line.count(',') + 1}")
-            ys[i] = int(vals[0])
+            ys[i] = vals[0] if float_labels else int(vals[0])
             xs[i] = vals[1:d + 1]
             i += 1
     if i < n:
@@ -95,13 +96,15 @@ def sniff_format(path: str) -> str:
 
 
 def load_libsvm(path: str, num_examples: Optional[int] = None,
-                num_attributes: Optional[int] = None
+                num_attributes: Optional[int] = None,
+                float_labels: bool = False
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """Load a libsvm/svmlight sparse file ``<label> idx:val ...``.
 
     Indices are 1-based; absent features are 0. Labels are kept as
     integers, as by the CSV loader (the binary trainer's own +/-1 check
-    still applies); a non-integer label is an error. An explicit
+    still applies); a non-integer label is an error unless
+    ``float_labels`` keeps them as float32 (regression targets). An explicit
     ``num_attributes`` fixes the width: wider pads with zeros, narrower
     drops the higher indices (as ``-a`` narrows a CSV).
     ``num_examples`` reads only that many rows and, as ``load_csv``, is an
@@ -146,7 +149,7 @@ def load_libsvm(path: str, num_examples: Optional[int] = None,
     if d <= 0:
         raise ValueError(f"{path}: no features found")
     x = np.zeros((n, d), dtype=np.float32)
-    ys = np.empty((n,), dtype=np.int32)
+    ys = np.empty((n,), dtype=np.float32 if float_labels else np.int32)
     i = 0
     with open(path, "r") as f:
         for lineno, line in enumerate(f, 1):
@@ -160,12 +163,16 @@ def load_libsvm(path: str, num_examples: Optional[int] = None,
             except ValueError as e:
                 raise ValueError(
                     f"{path}:{lineno}: bad label {parts[0]!r}") from e
-            lab = int(lab_f)
-            if lab != lab_f:
-                raise ValueError(
-                    f"{path}:{lineno}: non-integer label {parts[0]!r} "
-                    "(classification labels must be integers)")
-            ys[i] = lab
+            if float_labels:
+                ys[i] = lab_f
+            else:
+                lab = int(lab_f)
+                if lab != lab_f:
+                    raise ValueError(
+                        f"{path}:{lineno}: non-integer label {parts[0]!r} "
+                        "(classification labels must be integers; "
+                        "regression loads with float_labels=True)")
+                ys[i] = lab
             for tok in parts[1:]:
                 try:
                     idx_s, val_s = tok.split(":", 1)
@@ -188,18 +195,21 @@ def load_libsvm(path: str, num_examples: Optional[int] = None,
 
 
 def load_dataset(path: str, num_examples: Optional[int] = None,
-                 num_attributes: Optional[int] = None
+                 num_attributes: Optional[int] = None,
+                 float_labels: bool = False
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """Load a dataset file: dense CSV or libsvm (``sniff_format``), with
-    the reference's ``-x`` / ``-a`` shape overrides. Shard directories
-    are not ported yet."""
+    the reference's ``-x`` / ``-a`` shape overrides; ``float_labels``
+    keeps the targets as float32. Shard directories are not ported yet
+    (ROADMAP Queue 1 item 10)."""
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: shard directories are not ported to dpsvm_tpu_torch "
-            "yet")
+            "yet (ROADMAP Queue 1 item 10)")
     if sniff_format(path) == "libsvm":
-        return load_libsvm(path, num_examples, num_attributes)
-    return load_csv(path, num_examples, num_attributes)
+        return load_libsvm(path, num_examples, num_attributes,
+                           float_labels)
+    return load_csv(path, num_examples, num_attributes, float_labels)
 
 
 def _check_finite(x: np.ndarray, path: str) -> np.ndarray:

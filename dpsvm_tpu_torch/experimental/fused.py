@@ -40,7 +40,7 @@ from dpsvm_tpu_torch.experimental.fused_step import (
     launch_fused_chunk, pack_state, run_chunk_plain, unpack_state)
 from dpsvm_tpu_torch.ops.kernels import row_norms_sq
 from dpsvm_tpu_torch.ops.selection import masked_extrema
-from dpsvm_tpu_torch.solver.driver import (device_sv_count,
+from dpsvm_tpu_torch.solver.driver import (device_sv_count, gap_open,
                                            host_training_loop, pack_stats,
                                            read_stats, resume_state)
 
@@ -119,7 +119,7 @@ def _run(x: np.ndarray, y: np.ndarray, config: SVMConfig,
     ckpt = resume_state(config, x.shape[0], x.shape[1], gamma)
     it0 = 0
     if ckpt is not None:
-        if not (ckpt.b_lo > ckpt.b_hi + 2.0 * float(config.epsilon)):
+        if not gap_open(ckpt.b_lo, ckpt.b_hi, 2.0 * config.epsilon):
             return _finished(ckpt, gamma)
         it0 = int(ckpt.n_iter)
         alpha = torch.from_numpy(np.asarray(ckpt.alpha, np.float32)).to(

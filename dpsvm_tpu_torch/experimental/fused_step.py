@@ -51,6 +51,7 @@ import torch
 
 from dpsvm_tpu_torch.ops.selection import masked_scores
 from dpsvm_tpu_torch.ops.update import alpha_pair_step
+from dpsvm_tpu_torch.solver.driver import gap_open
 
 # Carry words, as in csrc/fused_step.cu. Words 5, 6, 8 and 9 are the
 # device's own: chunk-loop control, the blocks' ticket and the pool cursor
@@ -186,17 +187,15 @@ def run_chunk_plain(carry: FusedCarry, x, x2, y, *, c: float, gamma: float,
     ``n_iter < limit``; on convergence, one trailing body that keeps the
     converged b's, gated on progress in this chunk (or ``n_iter == 0``)
     and on ``n_iter < max_iter``."""
-    eps2 = np.float32(two_eps)
-
-    def gap_open() -> bool:
+    def still_open() -> bool:
         _, _, b_hi, b_lo, _ = unpack_state(carry.state)
-        return bool(b_lo > b_hi + eps2)
+        return gap_open(b_lo, b_hi, two_eps)
 
     entry = n_iter = unpack_state(carry.state)[4]
-    while gap_open() and n_iter < limit:
+    while still_open() and n_iter < limit:
         fused_smo_body_plain(carry, x, x2, y, c, gamma)
         n_iter += 1
-    if (not gap_open() and (n_iter > entry or n_iter == 0)
+    if (not still_open() and (n_iter > entry or n_iter == 0)
             and n_iter < max_iter):
         b = carry.state[S_BHI:S_BLO + 1].clone()
         fused_smo_body_plain(carry, x, x2, y, c, gamma)

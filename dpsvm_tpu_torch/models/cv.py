@@ -14,8 +14,8 @@ reproducible run to run; ``kfold_assignment`` is the JAX package's, so the
 same seed gives the same folds in both packages. Folds train on the card
 unless ``device="cpu"``: each through the port's ``api.fit`` (kernel A at
 the default config), or with ``batched=True`` all of them in one program
-(``solver/batched_ovo.py``). Regression (``task="svr"``) needs
-``models/svr.py``, which is not ported yet.
+(``solver/batched_ovo.py``). Regression (``task="svr"``) trains each
+fold through ``models/svr.train_svr``, sequentially, on unstratified folds.
 """
 
 from __future__ import annotations
@@ -55,13 +55,12 @@ def cross_validate(x: np.ndarray, y: np.ndarray, k: int,
                    device=None) -> dict:
     """Pooled held-out predictions over k folds.
 
-    task: "svc" (binary or multiclass by label count); "svr" needs
-    models/svr.py and raises NotImplementedError. Returns
-    {"predictions", "folds", plus task metrics}. With
+    task: "svc" (binary or multiclass by label count) or "svr".
+    Returns {"predictions", "folds", plus task metrics}. With
     ``kernel="precomputed"`` x is the (n, n) K(train, train); folds
-    slice (rows, columns) sub-kernels, on the sequential per-fold path
-    only: the batched program streams a feature matrix and rejects
-    precomputed below.
+    slice (rows, columns) sub-kernels, for both tasks, on the sequential
+    per-fold path only: the batched program streams a feature matrix and
+    rejects precomputed below.
 
     ``class_weight``: per-label costs (LIBSVM -wi; see
     models/multiclass.train_multiclass) applied to every fold's
@@ -125,11 +124,7 @@ def cross_validate(x: np.ndarray, y: np.ndarray, k: int,
             "they do not share one X the way classification folds "
             "do; run --cv without batching for SVR")
 
-    if task == "svr":
-        raise NotImplementedError(
-            "cross-validated regression needs models/svr.py, which is "
-            "not ported to dpsvm_tpu_torch yet")
-    fold = kfold_assignment(y, k, seed, stratify=True)
+    fold = kfold_assignment(y, k, seed, stratify=task == "svc")
     if batched:
         from dpsvm_tpu_torch.solver.batched_ovo import (batched_guard,
                                                         ovo_pair_shapes)
@@ -148,7 +143,7 @@ def cross_validate(x: np.ndarray, y: np.ndarray, k: int,
         pred = _cross_validate_batched(x, y, k, fold, config, device)
         return {"predictions": pred, "folds": fold, "k": k,
                 "accuracy": float(np.mean(pred == y))}
-    pred = np.empty(len(y), y.dtype)
+    pred = np.empty(len(y), np.float32 if task == "svr" else y.dtype)
     for f in range(k):
         tr = fold != f
         te = ~tr
@@ -159,7 +154,11 @@ def cross_validate(x: np.ndarray, y: np.ndarray, k: int,
                                                  tr_idx)])
         else:
             x_tr, x_te = x[tr], x[te]
-        if len(np.unique(y[tr])) > 2:
+        if task == "svr":
+            from dpsvm_tpu_torch.models.svr import predict_svr, train_svr
+            model, _ = train_svr(x_tr, y[tr], config, device=device)
+            pred[te] = predict_svr(model, x_te, device=device)
+        elif len(np.unique(y[tr])) > 2:
             from dpsvm_tpu_torch.models.multiclass import (
                 predict_multiclass, train_multiclass)
             mc, _ = train_multiclass(x_tr, y[tr], config,
@@ -190,8 +189,13 @@ def cross_validate(x: np.ndarray, y: np.ndarray, k: int,
             p = predict(model, x_te, device=device)
             pred[te] = np.where(p > 0, classes[-1], classes[0])
 
-    return {"predictions": pred, "folds": fold, "k": k,
-            "accuracy": float(np.mean(pred == y))}
+    out = {"predictions": pred, "folds": fold, "k": k}
+    if task == "svr":
+        from dpsvm_tpu_torch.models.svr import regression_metrics
+        out.update(regression_metrics(pred, y))
+    else:
+        out["accuracy"] = float(np.mean(pred == y))
+    return out
 
 
 def _cross_validate_batched(x: np.ndarray, y: np.ndarray, k: int,

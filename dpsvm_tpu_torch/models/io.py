@@ -1,5 +1,5 @@
 """Model-file serialization, reference-compatible (port of
-``dpsvm_tpu/models/io.py`` for binary C-SVC models, numpy only).
+``dpsvm_tpu/models/io.py``, numpy only).
 
 Format (the MPI trainer's, ``svmTrainMain.cpp:386-416``):
 
@@ -16,12 +16,17 @@ open with a self-describing line instead of the bare gamma,
 and a precomputed-kernel model then carries its SV indices into the
 training set (and the width K(test, train) must have; a '+' suffix marks
 a lower bound) on the line ``svidx <n_train>[+] <i> <j> ...``, before b;
-its SV lines are ``alpha,y``. RBF models keep the reference layout. Files
-written by either package load in the other to identical arrays, and
-write back byte for byte: every float is written with 9 significant
-digits, which round-trips float32 exactly. The JAX package's other
-layouts (regression and one-class ``task`` lines, LIBSVM ``.model``
-files, approx ``.npz`` models) are not ported yet and raise.
+its SV lines are ``alpha,y``. Regression and one-class models (``task`` not "svc") take the
+same header, whatever their kernel, followed by the line ``task <task>``.
+RBF classifiers keep the reference layout. Files written by either
+package load in the other to identical arrays, and write back byte for
+byte: every float is written with 9 significant digits, which round-trips
+float32 exactly.
+
+A file that opens with ``svm_type`` is LIBSVM's own ``.model`` format
+(``is_libsvm_model``); ``load_model`` hands it to ``models/libsvm_io.py``.
+Approx ``.npz`` models (ROADMAP Queue 1 item 9) are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -43,11 +48,13 @@ def save_model(model: SVMModel, path: str) -> int:
     # skipped.
     keep = np.ones_like(alpha, bool) if precomputed else alpha > 0
     with open(path, "w") as f:
-        if model.kernel == "rbf":
+        if model.kernel == "rbf" and model.task == "svc":
             f.write(f"{model.gamma:.9g}\n")
         else:
             f.write(f"kernel {model.kernel} {model.gamma:.9g} "
                     f"{model.coef0:.9g} {int(model.degree)}\n")
+            if model.task != "svc":
+                f.write(f"task {model.task}\n")
         if precomputed:
             idx = " ".join(str(int(i)) for i in model.sv_idx)
             lb = "" if model.n_train_exact else "+"
@@ -61,24 +68,38 @@ def save_model(model: SVMModel, path: str) -> int:
     return int(keep.sum())
 
 
-def load_model(path: str) -> SVMModel:
-    """Read a model file: the reference layout (with or without b), or
-    the ``kernel ...`` header of the other kernels."""
+def is_libsvm_model(path: str) -> bool:
+    """True when the file is LIBSVM ``.model`` format (svm-train's
+    output), which opens with an ``svm_type`` header line no reference-
+    format file can start with (its line 1 is a bare gamma float or the
+    ``kernel ...`` header)."""
+    with open(path) as f:
+        for ln in f:
+            ln = ln.strip()
+            if ln:
+                return ln.startswith("svm_type")
+    return False
+
+
+def load_model(path: str, n_features=None) -> SVMModel:
+    """Read a model file: the reference layout (with or without b), the
+    ``kernel ...`` header of the other kernels and tasks, or a LIBSVM
+    ``.model`` file (``n_features`` widens its sparse SV matrix; the other
+    layouts carry their width and ignore it)."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     with open(path, "rb") as f:
         if f.read(4) == b"PK\x03\x04":
             raise NotImplementedError(
                 f"{path}: approx (.npz) models are not ported to "
-                "dpsvm_tpu_torch yet")
+                "dpsvm_tpu_torch yet (ROADMAP Queue 1 item 9)")
+    if is_libsvm_model(path):
+        from dpsvm_tpu_torch.models.libsvm_io import load_libsvm_model
+        return load_libsvm_model(path, n_features=n_features)
     with open(path) as f:
         lines = [ln.strip() for ln in f if ln.strip()]
     if len(lines) < 2:
         raise ValueError(f"{path}: not a model file (needs gamma + SVs)")
-    if lines[0].startswith("svm_type"):
-        raise NotImplementedError(
-            f"{path}: LIBSVM .model files are not ported to "
-            "dpsvm_tpu_torch yet")
     kernel, coef0, degree = "rbf", 0.0, 3
     if lines[0].startswith("kernel "):
         parts = lines[0].split()
@@ -89,12 +110,14 @@ def load_model(path: str) -> SVMModel:
                                         float(parts[3]), int(parts[4]))
     else:
         gamma = float(lines[0])
-    if lines[1].startswith("task "):
-        raise NotImplementedError(
-            f"{path}: {lines[1].split()[-1]!r} models are not ported to "
-            "dpsvm_tpu_torch yet (binary C-SVC only)")
+    task = "svc"
+    if len(lines) > 1 and lines[1].startswith("task "):
+        task = lines[1].split()[1]
+        if task not in ("svc", "svr", "oneclass"):
+            raise ValueError(f"{path}: unknown task {task!r}")
+        lines = [lines[0]] + lines[2:]
     sv_idx, n_train, n_train_exact = None, None, True
-    if lines[1].startswith("svidx "):
+    if len(lines) > 1 and lines[1].startswith("svidx "):
         if kernel != "precomputed":
             raise ValueError(f"{path}: svidx line is precomputed-kernel "
                              "only")
@@ -128,6 +151,6 @@ def load_model(path: str) -> SVMModel:
         raise ValueError(f"{path}: svidx lists {len(sv_idx)} indices "
                          f"but there are {n_sv} SV lines")
     return SVMModel(x_sv=x, alpha=alpha, y_sv=y, b=b, gamma=gamma,
-                    kernel=kernel, coef0=coef0, degree=degree,
+                    kernel=kernel, coef0=coef0, degree=degree, task=task,
                     sv_idx=sv_idx, n_train=n_train,
                     n_train_exact=n_train_exact)

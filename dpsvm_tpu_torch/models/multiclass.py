@@ -15,11 +15,11 @@ predicts the same in the other.
 
 Training runs on the card unless ``device="cpu"``: sequentially, each
 pair through the port's ``api.fit`` (at the default config the fused pair,
-kernel A; with ``working_set > 2`` the decomposition, kernel B), or with
-``batched=True`` all pairs in one program (``solver/batched_ovo.py``). The
-P pairwise decisions come from one kernel product over the concatenated
-SVs (``models/svm.pairwise_decision_values``). nu-SVC pairs come with
-``models/nusvm.py``, which is not ported yet.
+kernel A; with ``working_set > 2`` the decomposition, kernel B; with
+``nu=`` each pair through ``models/nusvm.train_nusvc``, the general pair
+with ``nu_selection``), or with ``batched=True`` all pairs in one program
+(``solver/batched_ovo.py``). The P pairwise decisions come from one kernel
+product over the concatenated SVs (``models/svm.pairwise_decision_values``).
 """
 
 from __future__ import annotations
@@ -101,10 +101,11 @@ def train_multiclass(x: np.ndarray, y: np.ndarray,
                      ) -> Tuple[MulticlassModel, List[TrainResult]]:
     """Train OvO; y may hold any integer labels (2 classes work too).
 
-    ``nu``: nu-SVC pairs (LIBSVM ``-s 1``) need ``models/nusvm.py``,
-    which the port does not have yet: raises NotImplementedError.
-    ``device`` None means the GPU; ``"cpu"`` runs the plain PyTorch
-    paths.
+    ``nu``: train each pair as a nu-SVC (LIBSVM ``-s 1`` with >2
+    classes; ``models/nusvm.train_nusvc``), sequentially, without class
+    weights; ``probability=True`` (sigmoid on the training decisions)
+    composes, ``"cv"`` does not. ``device`` None means the GPU; ``"cpu"``
+    runs the plain PyTorch paths.
 
     ``class_weight``: LIBSVM's ``-wi`` generalized to any label set
     (sklearn's ``class_weight`` dict): maps original label -> cost
@@ -129,10 +130,6 @@ def train_multiclass(x: np.ndarray, y: np.ndarray,
     from dpsvm_tpu_torch.api import fit
     from dpsvm_tpu_torch.utils import densify
 
-    if nu is not None:
-        raise NotImplementedError(
-            "nu-SVC multi-class training needs models/nusvm.py, which is "
-            "not ported to dpsvm_tpu_torch yet")
     x = densify(x)
     config = config or SVMConfig()
     precomp = config.kernel == "precomputed"
@@ -154,6 +151,13 @@ def train_multiclass(x: np.ndarray, y: np.ndarray,
             raise ValueError(
                 f"y has {len(np.asarray(y))} labels for a "
                 f"{x.shape[0]}-row kernel matrix")
+        if nu is not None:
+            # reject the GLOBAL incompatibility here, not as a
+            # misleading per-pair error from the first pair's trainer
+            raise ValueError(
+                "nu-SVC does not support the precomputed kernel: use "
+                "a vector kernel (or C-SVC, which supports "
+                "precomputed)")
         if batched:
             raise ValueError(
                 "the batched program streams a feature matrix; "
@@ -175,6 +179,22 @@ def train_multiclass(x: np.ndarray, y: np.ndarray,
     classes = np.unique(y)
     if len(classes) < 2:
         raise ValueError(f"need at least 2 classes, got {classes}")
+    if nu is not None:
+        if batched:
+            raise ValueError(
+                "nu-SVC multiclass runs the sequential per-pair path "
+                "(the batched program solves the C-SVC iteration); "
+                "train with batched=False")
+        if class_weight is not None:
+            raise ValueError("class weights do not apply to nu-SVC "
+                             "(the nu constraint fixes each class's "
+                             "alpha mass)")
+        if probability == "cv":
+            raise ValueError(
+                "probability='cv' refits held-out C-SVC models, which "
+                "would calibrate a different model class than the "
+                "nu-SVC pairs; use probability=True (sigmoid on "
+                "training decisions)")
     if class_weight is not None:
         if batched:
             raise ValueError(
@@ -243,7 +263,20 @@ def train_multiclass(x: np.ndarray, y: np.ndarray,
                 xs = np.ascontiguousarray(x[sel])
             ys = np.where(y[sel] == classes[ai], 1, -1).astype(np.int32)
             cfg = pair_config(ai, bi)
-            model, result = fit(xs, ys, cfg, device=dev)
+            if nu is not None:
+                from dpsvm_tpu_torch.models.nusvm import train_nusvc
+                try:
+                    model, result = train_nusvc(xs, ys, nu, cfg,
+                                                device=dev)
+                except (ValueError, RuntimeError) as e:
+                    # name the failing pair: an infeasible nu raises
+                    # ValueError, a degenerate solution RuntimeError;
+                    # both re-raise as ValueError (the CLI's exit 2)
+                    raise ValueError(
+                        f"pair ({classes[ai]}, {classes[bi]}): {e}"
+                    ) from e
+            else:
+                model, result = fit(xs, ys, cfg, device=dev)
             if precomp:
                 # remap the pair-local SV indices to the full training
                 # set and widen n_train, so this model evaluates

@@ -1,5 +1,7 @@
 """Trained-model representation and batched inference (port of
-``dpsvm_tpu/models/svm.py``, binary C-SVC models of every kernel kind).
+``dpsvm_tpu/models/svm.py``): the models of every kernel kind, for
+classification, regression and one-class (``task``), all evaluated by the
+same decision function.
 
 The whole evaluation is one (m, d) x (d, n_sv) product per batch with the
 kernel's epilogue and a reduction against alpha * y;
@@ -42,6 +44,9 @@ class SVMModel:
     kernel: str = "rbf"   # LIBSVM -t family; "rbf" = the reference's
     coef0: float = 0.0
     degree: int = 3
+    task: str = "svc"     # "svc" (classification), "svr" (regression:
+                          # alpha, y_sv encode delta = a - a*) or
+                          # "oneclass" (y_sv all +1, b = rho)
     sv_idx: Optional[np.ndarray] = None   # precomputed only: SV indices
                           # into the training set (LIBSVM's "0:serial")
     n_train: Optional[int] = None         # precomputed only: the width

@@ -49,6 +49,7 @@ from dpsvm_tpu_torch.ops.kernels import (dots_f32, exact_f32,
 from dpsvm_tpu_torch.ops.selection import (box_sides, rowwise_extrema,
                                            sided_scores)
 from dpsvm_tpu_torch.ops.update import alpha_pair_step
+from dpsvm_tpu_torch.solver.driver import gap_open
 from dpsvm_tpu_torch.solver.smo import capture
 
 GRAPH_BODIES = 16
@@ -404,7 +405,7 @@ def train_ovo_batched(x: np.ndarray, yb: np.ndarray, valid: np.ndarray,
     carry = advance(carry, 0, limit)
     while True:
         n_iter, b_lo, b_hi = _read_stats(carry)
-        done = ~(b_lo > b_hi + 2.0 * eps)
+        done = ~gap_open(b_lo, b_hi, 2.0 * eps)
         capped = n_iter >= budget
         limit_next = min(limit + chunk, budget)
         if np.all(done | capped) or limit_next == limit:
@@ -415,7 +416,7 @@ def train_ovo_batched(x: np.ndarray, yb: np.ndarray, valid: np.ndarray,
             # trips and returns that chunk's carry: run it, and report it
             carry = advance(carry, limit, limit_next)
             n_iter, b_lo, b_hi = _read_stats(carry)
-            done = ~(b_lo > b_hi + 2.0 * eps)
+            done = ~gap_open(b_lo, b_hi, 2.0 * eps)
             break
         carry = advance(carry, limit, limit_next)
         limit = limit_next

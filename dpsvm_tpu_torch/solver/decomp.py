@@ -61,8 +61,9 @@ from dpsvm_tpu_torch.ops.selection import (masked_scores_and_masks,
                                            top_k_first, unique_padded,
                                            valid_rows)
 from dpsvm_tpu_torch.solver.driver import (ChunkStats, device_sv_count,
-                                           host_training_loop, pack_stats,
-                                           read_stats, resume_state)
+                                           gap_open, host_training_loop,
+                                           pack_stats, read_stats,
+                                           resume_state)
 
 # Elements of one (q, columns) block of the rank-q pass: 1 GiB in float32.
 # Two such blocks are alive at once (the dots and the kernel block).
@@ -275,8 +276,7 @@ def make_runner(prob: DecompProblem, config: SVMConfig, q: int,
 
     def run(carry: DecompCarry, limit: int):
         st = ws.last if ws.last is not None else read(carry)
-        while (np.float32(st.b_lo) > np.float32(st.b_hi) + two_eps
-               and st.n_iter < limit):
+        while gap_open(st.b_lo, st.b_hi, two_eps) and st.n_iter < limit:
             carry = decomp_step(carry, prob, step_cap=min(cap, limit
                                                           - st.n_iter),
                                 **kw)

@@ -117,10 +117,25 @@ def resume_state(config: SVMConfig, n: int, d: int,
         f"every rotation slot failed ({skipped})") from last_err
 
 
+def gap_open(b_lo, b_hi, two_eps: float):
+    """The do-while condition's gap test on the host, in the device's
+    arithmetic: b_lo > b_hi + 2 eps with the sum rounded to float32, as
+    ``smo.live``, both kernels and the batched program compute it. Tested
+    in float64, a gap can stay open on the host after the device has
+    closed it (b_hi + 2 eps rounding up to b_lo; one-class at 60000 rows
+    has |f| ~ 834, where a float32 ulp is 6e-5), and the loop would then
+    poll a device that never steps again. Every host loop tests its gap
+    here. Scalars give a bool, arrays (one b per problem) a bool array;
+    NaN is closed, as on the device."""
+    out = (np.asarray(b_lo, np.float32)
+           > np.asarray(b_hi, np.float32) + np.float32(two_eps))
+    return bool(out) if out.ndim == 0 else out
+
+
 def _finite_converged(b_lo: float, b_hi: float, eps: float) -> bool:
     """The driver's convergence verdict: gap closed AND finite."""
     return (math.isfinite(b_lo) and math.isfinite(b_hi)
-            and not (b_lo > b_hi + 2.0 * eps))
+            and not gap_open(b_lo, b_hi, 2.0 * eps))
 
 
 def log_progress(config: SVMConfig, n_iter: int, b_lo: float, b_hi: float,

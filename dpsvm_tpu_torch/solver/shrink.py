@@ -65,7 +65,8 @@ from dpsvm_tpu_torch.ops.selection import box_sides, iup_ilow_masks_np
 from dpsvm_tpu_torch.solver import smo
 from dpsvm_tpu_torch.solver.decomp import (DecompCarry, DecompProblem,
                                            DecompWorkspace, make_runner)
-from dpsvm_tpu_torch.solver.driver import DivergenceError, log_progress
+from dpsvm_tpu_torch.solver.driver import (DivergenceError, gap_open,
+                                           log_progress)
 
 # Ceiling on iterations between shrink-rule checks (each pulls alpha and
 # f); the cadence is min(n, this) a run. LIBSVM's is min(n, 1000).
@@ -313,7 +314,8 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
         raise NotImplementedError(
             "dpsvm_tpu_torch does not support shards > 1 "
             "(parallel/dist_smo.py, parallel/dist_decomp.py) yet: "
-            "shrinking is ported on one device")
+            "shrinking is ported on one device (distributed training is "
+            "ROADMAP Queue 1 item 7)")
     reset_run()
     captures0 = smo.COUNTS["captures"]
     t0 = time.perf_counter()
@@ -374,7 +376,7 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
             raise DivergenceError(
                 f"non-finite optimality gap at iter {it} (b_lo={b_lo}, "
                 f"b_hi={b_hi}): a NaN/Inf in the data or the solver state")
-        sub_converged = not (b_lo > b_hi + 2.0 * eps)
+        sub_converged = not gap_open(b_lo, b_hi, 2.0 * eps)
         capped = it >= config.max_iter
         if (not capped and config.wall_budget_s
                 and time.perf_counter() - t0 > config.wall_budget_s):
@@ -401,7 +403,7 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
             RUN["active_sizes"].append(n)
             RUN["active_since"].append(int(it))
             b_hi, b_lo = _host_extrema(alpha, y_np, f, c_box)
-            converged = not (b_lo > b_hi + 2.0 * eps)
+            converged = not gap_open(b_lo, b_hi, 2.0 * eps)
             if converged or capped:
                 break
             # Not there yet: go on with the full problem (and shrink again

@@ -12,7 +12,15 @@ fused kernel's envelope:
   precomputed kernel (X is K);
 * class weights (a per-example box), both clips (``alpha_pair_step``) and
   ``guard_eta`` (eta clamped to LIBSVM's TAU on the first-order path);
-* ``f_init`` / ``alpha_init`` seeds (``api.warm_start`` and ``polish``).
+* ``f_init`` / ``alpha_init`` seeds (``api.warm_start``, ``polish`` and
+  the task families: ``models/svr.py``, ``models/oneclass.py``);
+* ``nu_selection``, LIBSVM's Solver_NU choice for the nu family's two
+  equality constraints (``models/nusvm.py``): the violating pair within
+  each class (one row-wise min and one row-wise max over the (2, n)
+  class-masked scores, 64-bit (value, index) keys: the first index on
+  ties and a NaN winning, as ``jnp.argmin``/``jnp.argmax``), and the class
+  with the larger gap, the + class on a tie. The carry's stopping slots
+  hold (0, max gap), so the do-while condition is unchanged.
 
 The JAX package runs its chunk as a ``lax.while_loop`` inside one XLA
 program. Here, on the card, a chunk is a captured CUDA graph of
@@ -56,8 +64,6 @@ so the trajectory are those of the JAX package, and the cached run is
 bitwise the uncached one: a cached row is the output of the same product.
 The counters ride the poll's packed stats into ``TrainResult.cache_hits``
 / ``cache_misses``.
-
-Not ported yet: ``nu_selection`` (it comes with ``models/nusvm.py``).
 """
 
 from __future__ import annotations
@@ -79,7 +85,8 @@ from dpsvm_tpu_torch.ops.rowcache import (RowCache, cache_fetch_pair,
                                           commit_pair_, pair_plan)
 from dpsvm_tpu_torch.ops.selection import (box_sides, extrema_of,
                                            packed_extrema_of, pick,
-                                           sided_scores, valid_rows)
+                                           rowwise_extrema, sided_scores,
+                                           valid_rows)
 from dpsvm_tpu_torch.ops.update import alpha_pair_step
 from dpsvm_tpu_torch.solver.driver import (ChunkStats, device_sv_count,
                                            host_training_loop, pack_stats,
@@ -140,14 +147,16 @@ class SMOOptions(NamedTuple):
     packed_select: bool = False
     pairwise_clip: bool = False
     guard_eta: bool = False
+    nu_selection: bool = False
 
     @classmethod
-    def from_config(cls, config: SVMConfig,
-                    guard_eta: bool = False) -> "SMOOptions":
+    def from_config(cls, config: SVMConfig, guard_eta: bool = False,
+                    nu_selection: bool = False) -> "SMOOptions":
         return cls(second_order=config.selection == "second-order",
                    packed_select=config.select_impl == "packed",
                    pairwise_clip=config.clip == "pairwise",
-                   guard_eta=bool(guard_eta))
+                   guard_eta=bool(guard_eta),
+                   nu_selection=bool(nu_selection))
 
 
 @dataclasses.dataclass
@@ -232,7 +241,25 @@ def pair_update(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
     alpha, f, y = carry.alpha, carry.f, prob.y
     f_up, f_low, in_low = sided_scores(alpha, f, prob.up_side, prob.low_side,
                                        valid)
-    if opts.second_order:
+    if opts.nu_selection:
+        # Solver_NU: the pair shares its label. Row 0 is the + class,
+        # row 1 the - class; the step uses the winning class's extrema,
+        # and the stopping slots carry (0, max gap).
+        pos = y > 0
+        cls = torch.stack([pos, ~pos])
+        ih, bh, il, bl = rowwise_extrema(
+            torch.where(cls, f_up, SENTINEL), torch.where(cls, f_low,
+                                                          -SENTINEL))
+        gap = bl - bh
+        use_p = gap[0] >= gap[1]
+        i_hi = torch.where(use_p, ih[0], ih[1])
+        i_lo = torch.where(use_p, il[0], il[1])
+        b_hi = torch.where(use_p, bh[0], bh[1])
+        b_lo_sel = torch.where(use_p, bl[0], bl[1])
+        b_lo = torch.maximum(gap[0], gap[1])
+        pair = torch.stack([i_hi, i_lo])
+        k = prob.rows(pair)
+    elif opts.second_order:
         i_hi = torch.argmin(f_up)
         b_hi = pick(f_up, i_hi)
         b_lo = torch.max(f_low)                       # stopping gap only
@@ -257,7 +284,7 @@ def pair_update(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
     n = k.shape[1]
     kk = k.reshape(-1).index_select(0, torch.stack([i_hi, n + i_lo, i_lo]))
     eta = kk[0] + kk[1] - 2.0 * kk[2]
-    if opts.second_order or opts.guard_eta:
+    if opts.second_order or opts.guard_eta or opts.nu_selection:
         # WSS2 divides by the clamped a_j, so the update does too (LIBSVM's
         # TAU); guard_eta applies the clamp to first-order. The plain
         # classification path keeps the reference's raw division.
@@ -275,6 +302,8 @@ def pair_update(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
     # kernel's trajectory leaves the oracle's within a few iterations).
     f_new = (f + ((a_hi_n - a_hi) * y_hi) * k[0]
              + ((a_lo_n - a_lo) * y_lo) * k[1])
+    if opts.nu_selection:
+        b_hi = torch.zeros_like(b_hi)       # the stopping slots
     return PairUpdate(i_hi, i_lo, a_hi, a_lo, a_hi_n, a_lo_n, f_new, b_hi,
                       b_lo)
 
@@ -472,11 +501,15 @@ def train_single_device(x: np.ndarray, y: np.ndarray, config: SVMConfig,
                         f_init: Optional[np.ndarray] = None,
                         alpha_init: Optional[np.ndarray] = None,
                         guard_eta: bool = False, plain: bool = False,
-                        carry: Optional[SMOCarry] = None) -> TrainResult:
+                        carry: Optional[SMOCarry] = None,
+                        nu_selection: bool = False) -> TrainResult:
     """Train on one device through the general pair.
 
     ``f_init`` / ``alpha_init`` override f = -y, alpha = 0 (the caller
     keeps them consistent: f must be the dual gradient at alpha).
+    ``nu_selection`` takes Solver_NU's per-class pair (the nu family's
+    wrappers, ``models/nusvm.py``, call it so and derive b from the final
+    state, not from the carry's stopping slots).
     ``carry`` continues a run handed over mid-way (``convert.
     smo_carry_from_numpy``) on the same trajectory; a checkpoint
     (``config.resume_from``) takes precedence over both. ``plain`` runs
@@ -497,7 +530,7 @@ def train_single_device(x: np.ndarray, y: np.ndarray, config: SVMConfig,
         carry = carry._replace(cache=cache_init(lines, x.shape[0],
                                                 device=device))
     step = make_chunk_runner(carry, prob, SMOOptions.from_config(
-        config, guard_eta), two_eps_f32(config.epsilon), plain)
+        config, guard_eta, nu_selection), two_eps_f32(config.epsilon), plain)
     res = host_training_loop(
         config, float(prob.spec.gamma), carry, step,
         lambda cr: (cr.alpha.cpu().numpy(), cr.f.cpu().numpy()),

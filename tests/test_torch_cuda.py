@@ -1082,3 +1082,148 @@ def test_pairwise_decisions_on_the_card_match_the_cpu(dev):
         np.testing.assert_allclose(g, w, atol=1e-4 * (1 + m.alpha.sum()))
     assert np.array_equal(mc.predict_multiclass(model, x, decisions=got),
                           mc.predict_multiclass(model, x, decisions=want))
+
+
+# ------------------------------------------------------- the task families
+
+def _svr_twin_block(q, dev, p=0.1, seed=3):
+    """An epsilon-SVR K_WW whose W holds q/2 rows and their stacked twins:
+    the RBF block of the rows tiled 2 x 2 (a twin pair's eta is exactly
+    0), labels [+1; -1], f = [p - t; -p - t] for smooth targets t, alpha
+    0, C 1. Twin pair (5, q/2 + 5) gets f = (-5, 5), so WSS2 takes it
+    first: its eta clamps to TAU and both alphas land on the box."""
+    h = q // 2
+    x, _ = make_planted(max(q, 64), 64, 0.05, seed=seed)
+    rows = torch.from_numpy(x[:h]).to(dev)
+    x2 = row_norms_sq(rows)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = rows_from_dots(rows @ rows.T, x2, x2, 0.05).repeat(2, 2).contiguous()
+    t = torch.sin(3.0 * rows[:, 0])
+    y_w = torch.cat([torch.ones(h, device=dev), -torch.ones(h, device=dev)])
+    f = torch.cat([p - t, -p - t])
+    f[5], f[h + 5] = -5.0, 5.0
+    return (k, y_w, torch.ones(q, device=dev), torch.zeros(q, device=dev),
+            f.contiguous(), torch.ones(q, dtype=torch.bool, device=dev))
+
+
+@pytest.mark.parametrize("pairwise", [False, True])
+@pytest.mark.parametrize("q", [64, 1030, 4096])
+def test_subsolve_on_an_svr_twin_block_matches_plain(dev, q, pairwise):
+    k, y_w, c_w, a0, f0, active = _svr_twin_block(q, dev)
+    got = _both(k, y_w, c_w, a0, f0, active, 1e-3, 128, 128, pairwise)
+    assert int(got[4]) > 0
+    assert float(got[0][5]) == float(got[0][q // 2 + 5]) == 1.0
+
+
+def test_subsolve_on_a_oneclass_first_round_matches_plain(dev):
+    """One-class's first decomposition round: floor(nu n) alphas start at
+    the box (C = 1) and f = K alpha0; the subsolve's inputs, captured from
+    ``decomp_step``, held kernel against plain, bitwise."""
+    from dpsvm_tpu_torch.models.oneclass import oneclass_seed
+    from dpsvm_tpu_torch.ops.diagnostics import _stream_kv
+    from dpsvm_tpu_torch.solver import decomp as sd
+    x, _ = make_planted(4096, 64, 0.05, seed=2)
+    n, q = len(x), 1024
+    a0 = oneclass_seed(n, 0.1)
+    cfg = SVMConfig(c=1.0, gamma=0.05, clip="pairwise", working_set=q,
+                    inner_iters=128)
+    f0 = _stream_kv(x, a0, cfg.kernel_spec(64), block=4096, device=dev)
+    prob = sd.DecompProblem.build(x, np.ones(n, np.float32), cfg, dev)
+    carry = sd.init_carry(prob.y)._replace(
+        alpha=torch.from_numpy(a0).to(dev), f=torch.from_numpy(f0).to(dev))
+    seen = []
+
+    def capture(*args, **kw):
+        seen[:] = [args, kw]
+        return sk.launch_inner_subsolve(*args, **kw)
+
+    sd.decomp_step(carry, prob, q=q, inner_cap=128, epsilon=1e-3,
+                   step_cap=128, pairwise_clip=True, subsolve=capture)
+    args, kw = seen
+    assert float(args[3].max()) == 1.0           # alphas at the box in W
+    got = _both(*args[:6], args[6], args[7], kw["max_cap"], kw["pairwise"])
+    assert int(got[4]) > 0
+
+
+def _nu_problem(task, n=600, d=24, device=torch.device("cpu")):
+    """(x, labels, alpha0, f0) of a nu-SVC or (stacked) nu-SVR problem,
+    seeded as ``models/nusvm.py`` seeds it (nu-SVC's f0 = K (alpha0 y)
+    streamed on ``device``)."""
+    from dpsvm_tpu_torch.models.nusvm import _nu_head_seed
+    from dpsvm_tpu_torch.ops.diagnostics import _stream_kv
+    x, y = make_planted(n, d, 0.25, seed=5)
+    if task == "nusvc":
+        a0 = np.zeros(n, np.float32)
+        for cls in (y > 0, y < 0):
+            idx = np.flatnonzero(cls)
+            a0[idx] = _nu_head_seed(0.3 * n / 2, 1.0, len(idx))
+        yf = y.astype(np.float32)
+        f0 = _stream_kv(x, a0 * yf, SVMConfig(gamma=0.25).kernel_spec(d),
+                        block=4096, device=device)
+        return x, yf, a0, f0
+    z = np.sin(x[:, 0] * 3).astype(np.float32)
+    seed = _nu_head_seed(0.5 * n / 2, 1.0, n)
+    return (np.vstack([x, x]), np.concatenate([np.ones(n), -np.ones(n)])
+            .astype(np.float32), np.concatenate([seed, seed]),
+            np.concatenate([-z, -z]))
+
+
+@pytest.mark.parametrize("task", ["nusvc", "nusvr"])
+def test_nu_selection_graph_matches_eager_bitwise(dev, task):
+    """nu_selection in the captured chunk against the eager loop, to
+    convergence, with chunks that end mid-graph: one capture, no kernel
+    launched, one stats read a chunk."""
+    x, y, a0, f0 = _nu_problem(task)
+    cfg = SVMConfig(c=1.0, gamma=0.25, clip="pairwise", chunk_iters=37,
+                    max_iter=50_000)
+    fs.reset_counts()
+    sk.reset_counts()
+    g, e, counts = _graph_and_eager(dev, x, y, cfg, f_init=f0, alpha_init=a0,
+                                    guard_eta=True, nu_selection=True)
+    assert g.converged and g.b_hi == 0.0
+    _same_run(g, e)
+    assert counts["captures"] == 1
+    assert counts["reads"] == -(-g.n_iter // 37)
+    assert sk.LAUNCHES["inner_subsolve"] == 0
+    assert fs.LAUNCHES["fused_update_select"] == 0
+
+
+@pytest.mark.parametrize("task", ["nusvc", "nusvr"])
+def test_nu_selection_graph_matches_eager_at_full_width(dev, task):
+    """As chip_smoke.py's phase 2: 512 iterations of nu selection at
+    60000 x 784 (nu-SVR: the 120000 stacked rows), the captured chunk
+    against the eager loop, bit for bit."""
+    x, y, a0, f0 = _nu_problem(task, n=60000, d=784, device=dev)
+    cfg = SVMConfig(c=1.0, gamma=0.25, clip="pairwise", max_iter=512)
+    g, e, counts = _graph_and_eager(dev, x, y, cfg, f_init=f0, alpha_init=a0,
+                                    guard_eta=True, nu_selection=True)
+    assert g.n_iter == 512 and g.b_hi == 0.0
+    _same_run(g, e)
+    assert counts["captures"] == 1 and counts["reads"] == 1
+
+
+def test_task_families_on_the_card_match_the_cpu(dev):
+    """The wrappers on the card against the same wrappers on the CPU: the
+    LibSVM bar (n_sv within 2% or 3, decisions within 5e-3), with the
+    decomposition for epsilon-SVR and one-class. nu-SVC converges to 5e-5
+    (as tests/test_torch_nusvm.py's sklearn bars do): its decisions are
+    the dual's scaled by 1/r, which magnifies a 1e-3 gap past 5e-3."""
+    from dpsvm_tpu_torch.models import nusvm, oneclass, svr
+    from dpsvm_tpu_torch.models.svm import decision_function
+    x, y = make_planted(500, 16, 0.25, seed=6)
+    t = np.sin(2 * x[:, 0]).astype(np.float32)
+    runs = [(lambda d: svr.train_svr(x, t, SVMConfig(c=1.0, working_set=64),
+                                     device=d)),
+            (lambda d: oneclass.train_oneclass(
+                x, 0.1, SVMConfig(working_set=64), device=d)),
+            (lambda d: nusvm.train_nusvc(x, y, 0.3, SVMConfig(epsilon=5e-5),
+                                         device=d)),
+            (lambda d: nusvm.train_nusvr(x, t, 0.5, device=d))]
+    for run in runs:
+        mg, rg = run(dev)
+        mc, rc = run("cpu")
+        assert rg.converged and abs(mg.n_sv - mc.n_sv) <= max(
+            0.02 * mc.n_sv, 3)
+        dg = decision_function(mg, x, device=dev)
+        assert np.abs(dg - decision_function(mc, x, device="cpu")).max() \
+            <= 5e-3

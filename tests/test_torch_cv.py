@@ -11,8 +11,8 @@ Bars, and why:
   (ROADMAP Queue 3);
 * the CV C (x gamma) sweep: each grid point's accuracy within one example
   a fold of JAX's and of the port's own per-point ``cross_validate``;
-* guards and messages: JAX's, word for word; ``task="svr"`` raises
-  NotImplementedError naming ``models/svr.py``.
+* guards and messages: JAX's, word for word; ``task="svr"`` against the
+  JAX package's regression CV (predictions within 5e-3).
 """
 
 import numpy as np
@@ -141,10 +141,17 @@ def test_cv_grid_sweep_matches_jax():
 
 
 def test_svr_is_not_ported_yet():
+    """``task="svr"`` is ported now (``models/svr.py``; the fuller checks
+    are in tests/test_torch_svr.py): the same unstratified folds and
+    pooled metrics as the JAX package on this input."""
     x, y = make_blobs(n=60, d=3, seed=0)
-    with pytest.raises(NotImplementedError, match="models/svr.py"):
-        tcv.cross_validate(x, y.astype(np.float32), 3, SVMConfig(**KW),
-                           task="svr", device="cpu")
+    y = y.astype(np.float32)
+    rj = jcv.cross_validate(x, y, 3, JConfig(**KW), task="svr")
+    rt = tcv.cross_validate(x, y, 3, SVMConfig(**KW), task="svr",
+                            device="cpu")
+    np.testing.assert_array_equal(rt["folds"], rj["folds"])
+    assert np.abs(rt["predictions"] - rj["predictions"]).max() <= 5e-3
+    assert abs(rt["mse"] - rj["mse"]) <= 1e-3
 
 
 GUARDS = {

@@ -105,8 +105,7 @@ BAD = {
 }
 # the port's message ends early where the JAX one names an option the
 # port does not have
-TAIL = {"non-integer-label": " (classification labels must be integers",
-        "nan": " — rejected at load", "inf": " — rejected at load"}
+TAIL = {"nan": " — rejected at load", "inf": " — rejected at load"}
 
 
 @pytest.mark.parametrize("case", sorted(BAD))
@@ -212,3 +211,24 @@ def test_sparse_input_trains_as_jax(fmt):
                                 device="cpu").alpha, dense.alpha)
     assert warm_start(xs, y, dense.alpha, SVMConfig(**cfg),
                       device="cpu").converged
+
+
+@pytest.mark.parametrize("fmt", ["csv", "libsvm"])
+def test_float_labels_match_jax(tmp_path, fmt):
+    """Regression targets: ``float_labels=True`` keeps them as float32, as
+    the JAX parser does, through ``load_dataset`` for both formats."""
+    rng = np.random.default_rng(4)
+    x = np.round(rng.normal(size=(9, 4)), 3).astype(np.float32)
+    y = rng.normal(size=9).astype(np.float32)
+    path = str(tmp_path / f"reg.{fmt}")
+    with open(path, "w") as fh:
+        for xi, yi in zip(x, y):
+            feats = (",".join(f"{v}" for v in xi) if fmt == "csv" else
+                     " ".join(f"{j + 1}:{v}" for j, v in enumerate(xi)))
+            fh.write(f"{float(yi)!r}{',' if fmt == 'csv' else ' '}{feats}\n")
+    xt, yt = tloader.load_dataset(path, float_labels=True)
+    xj, yj = jloader.load_dataset(path, float_labels=True)
+    assert yt.dtype == yj.dtype == np.float32
+    np.testing.assert_array_equal(yt, yj)
+    np.testing.assert_array_equal(xt, xj)
+    np.testing.assert_array_equal(yt, y)

@@ -87,15 +87,26 @@ def test_model_file_without_b_line(tmp_path):
 
 
 def test_extended_model_files_are_refused(tmp_path):
-    """Layouts of model kinds the port does not train yet raise (the
-    kernel header of C-SVC models loads: tests/test_torch_kernel_family)."""
+    """The one layout of a model kind the port does not train yet, the
+    approx ``.npz``, raises naming its queue item. The ``task`` line and
+    LIBSVM ``.model`` files load now, as in the JAX package (fuller checks
+    in tests/test_torch_svr.py and tests/test_torch_libsvm_io.py)."""
     path = tmp_path / "svr.svm"
     path.write_text("kernel linear 1 0 3\ntask svr\n0.1\n0.5,1,1.0\n")
-    with pytest.raises(NotImplementedError, match="svr"):
-        tio.load_model(str(path))
+    got, want = tio.load_model(str(path)), jio.load_model(str(path))
+    assert got.task == want.task == "svr"
+    _same_model(got, want)
     path = tmp_path / "lib.model"
     path.write_text("svm_type c_svc\nkernel_type rbf\n")
-    with pytest.raises(NotImplementedError, match="LIBSVM"):
+    msgs = []
+    for mod in (tio, jio):
+        with pytest.raises(ValueError) as e:
+            mod.load_model(str(path))
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "no 'SV' section" in msgs[0]
+    path = tmp_path / "approx.npz"
+    np.savez(path, w=np.zeros(3))
+    with pytest.raises(NotImplementedError, match="item 9"):
         tio.load_model(str(path))
 
 

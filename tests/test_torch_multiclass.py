@@ -342,8 +342,14 @@ def test_load_multiclass_rejections_match_jax(tmp_path):
 
 def test_scope_guards():
     x, y = _data("three")
-    with pytest.raises(NotImplementedError, match="models/nusvm.py"):
-        tmc.train_multiclass(x, y, SVMConfig(**KW), nu=0.5, device="cpu")
+    # nu-SVC pairs are ported (tests/test_torch_nusvm.py); nu= keeps the
+    # JAX package's scope guards
+    msgs = []
+    for mod, C in ((jmc, JConfig), (tmc, SVMConfig)):
+        with pytest.raises(ValueError) as e:
+            mod.train_multiclass(x, y, C(**KW), nu=0.5, batched=True)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "batched=False" in msgs[0]
     msgs = []
     for mod, C in ((jmc, JConfig), (tmc, SVMConfig)):
         for kw in (dict(checkpoint_path="s.npz"), dict(resume_from="s.npz"),
