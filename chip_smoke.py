@@ -4,6 +4,7 @@
     python3 chip_smoke.py --quick    # build + kernels against plain only
     python3 chip_smoke.py --only multiclass,timing   # build + these phases
     python3 chip_smoke.py --only tasks          # build + the task families
+    python3 chip_smoke.py --only distributed    # build + distributed training
 
 Phases, each of which makes the script exit non-zero if it fails. Three
 solver paths run: the fused SMO pair (kernel A, ``working_set=2``), the
@@ -120,7 +121,26 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    against C-SVC one-vs-one; the epsilon-SVR, one-class and nu-SVC models
    through LIBSVM ``.model`` files and reference files, their decisions
    bit for bit;
-10. time each kernel on its path (kernel A: CUDA events over a chunk of
+10. distributed training (``distributed``, ``parallel/``): (a) the pair
+   through ``train_distributed`` in an NCCL group of one rank on cuda:0 at
+   60000 x 784 to convergence, held to the fused model by the bar between
+   paths, with its seconds, microseconds an iteration, kernels an
+   iteration and the device's busy share (torch.profiler over a chunk);
+   a DIST_PREFIX_ITERS prefix bitwise the general pair's (alpha, f, b's),
+   or the iteration where they part; its captured chunk (NCCL inside the
+   graph) bitwise its eager loop for DIST_GRAPH_ITERS iterations. (b) The
+   decomposition through ``train_distributed_decomp`` at world size 1:
+   DIST_DECOMP_ROUNDS rounds at 60000 x 784 (q = DECOMP_Q) bitwise the
+   single-device rounds, kernel B's first distributed round bitwise its
+   plain version, its counts; converged on planted 8000 x 784 (q = 4096)
+   against the single-device decomposition by the JAX package's
+   ``tests/test_dist_decomp.py::_check`` bar (float64 KKT gap, b, box,
+   n_sv). (c) Two gloo ranks started by ``launch_local`` with their shards
+   on cuda:0, GLOO_N x 784: the pair against world size 1 (the same
+   n_iter, alpha within 1e-4), the decomposition (q = GLOO_Q) by the
+   _check bar; gloo stages CUDA tensors through the host, so these times
+   are not performance;
+11. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
@@ -223,6 +243,13 @@ NUSVR_PREFIX, NUSVR_SMALL_N = 2000, 8000
 NU_MC_N = 10000
 NU_GRAPH_ITERS = 512
 TASK_MAX_ITER = 2_000_000
+# Distributed training (phase 10): the pair's prefix held bitwise to the
+# general pair's and its graph to its eager loop; the decomposition's
+# rounds held to the single-device rounds; two gloo ranks sharing the
+# card on GLOO_N rows, the decomposition at q = GLOO_Q.
+DIST_PREFIX_ITERS, DIST_GRAPH_ITERS = 2000, 512
+DIST_DECOMP_ROUNDS = 10
+GLOO_N, GLOO_Q = 4000, 1024
 
 
 def log(msg: str) -> None:
@@ -256,6 +283,27 @@ def _device_us(evt) -> float:
         if v:
             return float(v)
     return 0.0
+
+
+def _gloo_card_rank(rank: int, x, y, kws) -> dict:
+    """One of phase 10's two gloo ranks: the pair and the decomposition
+    with this rank's shard on cuda:0, in the world group ``launch_local``
+    made (passed explicitly: gloo with CUDA tensors)."""
+    import torch.distributed as dist
+    from dpsvm_tpu_torch import SVMConfig
+    from dpsvm_tpu_torch.parallel.dist_decomp import train_distributed_decomp
+    from dpsvm_tpu_torch.parallel.dist_smo import train_distributed
+    out = {}
+    for name, kw in kws.items():
+        fn = (train_distributed_decomp if name == "decomp"
+              else train_distributed)
+        res = fn(x, y, SVMConfig(**kw), group=dist.group.WORLD,
+                 device="cuda:0")
+        out[name] = {"n_iter": res.n_iter, "rounds": res.rounds,
+                     "alpha": res.alpha, "b": res.b,
+                     "converged": res.converged,
+                     "seconds": res.train_seconds}
+    return out
 
 
 class Smoke:
@@ -928,12 +976,14 @@ class Smoke:
         steps, and the general pair's captures, replays and reads."""
         from dpsvm_tpu_torch.experimental import fused_step as fs
         from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        from dpsvm_tpu_torch.parallel import dist_smo as ds
         from dpsvm_tpu_torch.solver import batched_ovo as bo
         from dpsvm_tpu_torch.solver import smo as gs
         fs.reset_counts()
         sk.reset_counts()
         gs.reset_counts()
         bo.reset_counts()
+        ds.reset_counts()
         out = fn()
         name = "inner_subsolve"
         return out, {"A_launches": fs.LAUNCHES["fused_update_select"],
@@ -941,7 +991,8 @@ class Smoke:
                      "B_launches": sk.LAUNCHES[name],
                      "B_runs": sk.RUNS[name], "B_steps": sk.STEPS[name],
                      **{f"pair_{k}": v for k, v in gs.COUNTS.items()},
-                     **{f"ovo_{k}": v for k, v in bo.COUNTS.items()}}
+                     **{f"ovo_{k}": v for k, v in bo.COUNTS.items()},
+                     **{f"dist_{k}": v for k, v in ds.COUNTS.items()}}
 
     def _pair_counts_ok(self, res, counts) -> bool:
         """The general pair launched neither kernel, captured one graph,
@@ -2309,6 +2360,359 @@ class Smoke:
                 log(f"[tasks] {tag} model files: {json.dumps(r)}")
         self.rec["tasks"]["files"] = out
 
+    # ------------------------------------------------------------ phase 10
+    def distributed(self) -> None:
+        """Distributed training (``parallel/``) on the card: (a) the pair
+        and (b) the decomposition in an NCCL group of one rank on cuda:0,
+        at full width, and (c) two gloo ranks started by ``launch_local``
+        whose shards share cuda:0."""
+        import torch.distributed as dist
+        from dpsvm_tpu_torch.parallel import multihost
+        if not multihost.is_initialized():
+            store = dist.FileStore(os.path.join(tempfile.mkdtemp(),
+                                                "store"), 1)
+            multihost.initialize(num_processes=1, process_id=0, store=store,
+                                 device="cuda:0")
+        self.group = dist.group.WORLD
+        self.rec["distributed"] = {}
+        try:
+            self.dist_pair()
+            self.dist_decomp()
+            self.dist_gloo()
+        finally:
+            dist.destroy_process_group()
+
+    def _fused_reference(self):
+        """Phase 3's f32 fused model (n_sv, held-out accuracy), trained here
+        when phase 3 did not run."""
+        ref = self.rec.get("main", {}).get("highest")
+        if ref is None:
+            from dpsvm_tpu_torch import SVMConfig, fit
+            from dpsvm_tpu_torch.models.svm import evaluate
+            xtr, ytr, xte, yte = self.planted()
+            model, res = fit(xtr, ytr, SVMConfig(
+                c=C, gamma=GAMMA, epsilon=1e-3, max_iter=MAIN_MAX_ITER))
+            ref = {"n_sv": res.n_sv, "heldout_accuracy": evaluate(
+                model, xte, yte), "n_iter": res.n_iter,
+                "train_seconds": res.train_seconds}
+        return ref
+
+    def dist_pair(self) -> None:
+        """(a) ``train_distributed`` at world size 1 over NCCL on planted
+        60000 x 784 to convergence, held to the fused pair by the bar
+        between paths (n_sv within 2%, accuracy within 0.5%); its counts
+        (no kernel launched; one capture, a read a chunk); a
+        DIST_PREFIX_ITERS prefix against the general pair's (alpha, f,
+        b_hi, b_lo), bitwise, and where they part, the iteration and what
+        differs; the captured chunk against its eager loop for
+        DIST_GRAPH_ITERS iterations, bitwise; and over one chunk from the
+        prefix's carry, CUDA events and torch.profiler: microseconds an
+        iteration, kernels an iteration, the device's busy share."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from dpsvm_tpu_torch import SVMConfig
+        from dpsvm_tpu_torch.models.svm import SVMModel, evaluate
+        from dpsvm_tpu_torch.parallel import dist_smo as ds
+        from dpsvm_tpu_torch.parallel.mesh import make_data_mesh
+        from dpsvm_tpu_torch.solver import smo as gs
+        xtr, ytr, xte, yte = self.planted()
+        cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
+                        max_iter=MAIN_MAX_ITER)
+        res, counts = self.counted(lambda: ds.train_distributed(
+            xtr, ytr, cfg, group=self.group))
+        acc = evaluate(SVMModel.from_train_result(xtr, ytr, res), xte, yte)
+        ref = self._fused_reference()
+        r = {"n_iter": res.n_iter, "converged": res.converged,
+             "seconds": res.train_seconds,
+             "us_per_iteration_wall": 1e6 * res.train_seconds / res.n_iter,
+             "n_sv": res.n_sv, "heldout_accuracy": acc, "b": res.b,
+             "fused": {k: ref[k] for k in ("n_sv", "heldout_accuracy",
+                                           "n_iter", "train_seconds")},
+             "counts": counts}
+        ok = (res.converged and np.all(np.isfinite(res.alpha))
+              and abs(res.n_sv - ref["n_sv"]) <= 0.02 * ref["n_sv"]
+              and abs(acc - ref["heldout_accuracy"]) <= 0.005
+              and counts["A_launches"] == counts["B_launches"] == 0
+              and counts["dist_captures"] == 1 and counts["dist_reads"] >= 1
+              and counts["dist_replays"] * gs.GRAPH_BODIES >= res.n_iter)
+        if not ok:
+            self.fail("distributed", f"pair at world size 1: {r}")
+
+        # the prefix against the general pair, and the graph against its
+        # eager loop
+        mesh = make_data_mesh(1, self.group)
+        opts = gs.SMOOptions.from_config(cfg)
+        two_eps = gs.two_eps_f32(cfg.epsilon)
+        di = ds.prepare_distributed_inputs(xtr, ytr, cfg, mesh, None, None,
+                                           None)
+        carry = ds.init_carry(di.prob, di.init)
+        step = ds.make_dist_runner(carry, di.prob, opts, two_eps)
+        carry, _ = step(carry, DIST_PREFIX_ITERS)
+        prob = gs.SMOProblem.build(xtr, ytr, cfg, self.dev)
+        gcarry = gs.init_carry(prob.y)
+        gcarry, _ = gs.make_chunk_runner(gcarry, prob, opts, two_eps)(
+            gcarry, DIST_PREFIX_ITERS)
+        same = {k: bool(torch.equal(getattr(carry, k), getattr(gcarry, k)))
+                for k in ("alpha", "f", "b_hi", "b_lo", "n_iter")}
+        r["prefix"] = {"iterations": DIST_PREFIX_ITERS, "bitwise": same}
+        if not all(same.values()):
+            r["prefix"]["parted"] = self._first_parting(di, prob, opts,
+                                                        two_eps)
+            self.fail("distributed", f"prefix against the general pair: "
+                      f"{r['prefix']}")
+        runs = []
+        for plain in (False, True):
+            c = ds.init_carry(di.prob, di.init)
+            c, _ = ds.make_dist_runner(c, di.prob, opts, two_eps, plain)(
+                c, DIST_GRAPH_ITERS)
+            runs.append(c)
+        graph_same = all(torch.equal(getattr(runs[0], k), getattr(runs[1], k))
+                         for k in ("alpha", "f", "b_hi", "b_lo", "n_iter"))
+        r["graph_vs_eager"] = {"iterations": DIST_GRAPH_ITERS,
+                               "bitwise": graph_same}
+        if not graph_same:
+            self.fail("distributed", "the captured chunk parted from its "
+                      f"eager loop within {DIST_GRAPH_ITERS} iterations")
+
+        # timing over one chunk from the prefix's carry
+        done = DIST_PREFIX_ITERS
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        carry, _ = step(carry, done + SMO_TIMED_ITERS)
+        t1.record()
+        torch.cuda.synchronize()
+        done += SMO_TIMED_ITERS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            p0, p1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            p0.record()
+            carry, _ = step(carry, done + SMO_TIMED_ITERS)
+            p1.record()
+            torch.cuda.synchronize()
+        ops = sorted(((_device_us(e) / 1e3, e.key, e.count)
+                      for e in prof.key_averages() if _device_us(e) > 0),
+                     reverse=True)
+        busy_ms, span_ms = sum(t for t, _, _ in ops), p0.elapsed_time(p1)
+        if not busy_ms > 0:
+            raise RuntimeError("torch.profiler gave no device time for the "
+                               "distributed pair")
+        r["timing"] = {
+            "us_per_iteration": 1e3 * t0.elapsed_time(t1) / SMO_TIMED_ITERS,
+            "kernels_per_iteration": sum(c for _, _, c in ops)
+            / SMO_TIMED_ITERS,
+            "busy_share": busy_ms / span_ms, "profiled_span_ms": span_ms,
+            "nccl_ms": sum(t for t, n, _ in ops if "nccl" in n.lower()),
+            "top_ops": [{"name": n[:80], "ms": t, "count": c}
+                        for t, n, c in ops[:8]]}
+        self.rec["distributed"]["pair"] = r
+        log(f"[distributed] pair at world size 1: {json.dumps(r)}")
+
+    def _first_parting(self, di, prob, opts, two_eps) -> dict:
+        """The first iteration where the distributed pair's eager step and
+        the general pair's part, and which of (alpha, f, b_hi, b_lo)."""
+        torch = self.torch
+        from dpsvm_tpu_torch.parallel import dist_smo as ds
+        from dpsvm_tpu_torch.solver import smo as gs
+        a, g = ds.init_carry(di.prob, di.init), gs.init_carry(prob.y)
+        for it in range(DIST_PREFIX_ITERS):
+            a = ds.dist_step(a, di.prob, opts)
+            g = gs.smo_step(g, prob, opts)
+            diff = [k for k in ("alpha", "f", "b_hi", "b_lo")
+                    if not torch.equal(getattr(a, k), getattr(g, k))]
+            if diff:
+                return {"iteration": it + 1, "differs": diff,
+                        "max_abs": {k: float((getattr(a, k) - getattr(
+                            g, k)).abs().max()) for k in diff}}
+        return {"iteration": None,
+                "differs": "the eager steps agree: the graphs part"}
+
+    def dist_decomp(self) -> None:
+        """(b) ``train_distributed_decomp`` at world size 1 over NCCL:
+        DIST_DECOMP_ROUNDS rounds at 60000 x 784 (q = DECOMP_Q, cap
+        DECOMP_CAP, f32) against the single-device decomposition's, each
+        round's subsolve inputs and outputs on the active slots and the
+        final alpha bitwise (the same W and updates: a world of one adds
+        nothing in its collectives); kernel B's first distributed round
+        against ``inner_subsolve_plain`` on the same inputs, bitwise; its
+        counts (launches, runs and rounds equal, steps adding up to
+        n_iter); and to convergence on planted 8000 x 784 (q = 4096)
+        against the single-device decomposition by
+        ``tests/test_dist_decomp.py::_check``'s bar: the float64 KKT gap
+        of the final alpha within 2 eps + 5e-4, |db| <= 1e-3, alpha in its
+        box, n_sv within max(3, 5%)."""
+        torch = self.torch
+        from dpsvm_tpu_torch import SVMConfig
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
+        from dpsvm_tpu_torch.parallel import dist_decomp as dd
+        from dpsvm_tpu_torch.solver.decomp import train_single_device_decomp
+        xtr, ytr, _, _ = self.planted()
+        cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3, working_set=DECOMP_Q,
+                        inner_iters=DECOMP_CAP,
+                        max_iter=DIST_DECOMP_ROUNDS * DECOMP_CAP)
+        orig = sk.launch_inner_subsolve
+        rounds = {"dist": [], "single": []}
+        first = []
+
+        def spy(into):
+            def call(k_ww, y_w, c_w, a_w0, f_w0, active, *args, **kw):
+                if into == "dist" and not first:
+                    first.append(([t.clone() for t in (k_ww, y_w, c_w, a_w0,
+                                                       f_w0, active)],
+                                  args, dict(kw)))
+                out = orig(k_ww, y_w, c_w, a_w0, f_w0, active, *args, **kw)
+                rounds[into].append([t[active].clone() for t in (
+                    y_w, a_w0, f_w0, out[0])] + [active.clone(),
+                                                out[4].clone()])
+                return out
+            return call
+
+        try:
+            sk.launch_inner_subsolve = spy("dist")
+            rd, counts = self.counted(lambda: dd.train_distributed_decomp(
+                xtr, ytr, cfg, group=self.group))
+            sk.launch_inner_subsolve = spy("single")
+            rs = train_single_device_decomp(xtr, ytr, cfg, self.dev)
+        finally:
+            sk.launch_inner_subsolve = orig
+        self._add_b_counts(counts)
+        same_rounds = (len(rounds["dist"]) == len(rounds["single"])
+                       == rd.rounds and all(
+                           torch.equal(a, b) for ra, rb in zip(
+                               rounds["dist"], rounds["single"])
+                           for a, b in zip(ra, rb)))
+        r = {"rounds": [rd.rounds, rs.rounds], "n_iter": [rd.n_iter,
+                                                          rs.n_iter],
+             "rounds_bitwise": same_rounds,
+             "alpha_bitwise": bool(np.array_equal(rd.alpha, rs.alpha)),
+             "max_alpha_diff": float(np.abs(rd.alpha - rs.alpha).max()),
+             "seconds": [rd.train_seconds, rs.train_seconds],
+             "ms_per_round": 1e3 * rd.train_seconds / max(rd.rounds, 1),
+             "counts": counts}
+        if not (same_rounds and r["alpha_bitwise"]
+                and rd.rounds == DIST_DECOMP_ROUNDS):
+            self.fail("distributed", f"decomposition rounds: {r}")
+        if not (counts["B_launches"] == counts["B_runs"] == rd.rounds
+                and counts["B_steps"] == rd.n_iter):
+            self.fail("distributed", f"kernel B's counts: {counts}")
+        (inputs, args, kw) = first[0]
+        kw.pop("runs", None)
+        got = orig(*inputs, *args, **kw)
+        want = sk.inner_subsolve_plain(*inputs, *args, **kw)
+        bad = [i for i, (g, w) in enumerate(zip(got, want))
+               if not torch.equal(g, w)]
+        r["kernel_b_first_round_bitwise"] = not bad
+        errs = self.rec.setdefault("max_abs_err", {})
+        errs["inner_subsolve"] = max(errs.get("inner_subsolve", 0.0), float(
+            (got[0] - want[0]).abs().max()))
+        if bad:
+            self.fail("distributed", f"kernel B's first distributed round "
+                      f"parts from its plain version in outputs {bad}")
+        del first[:], inputs, got, want
+
+        x8, y8 = make_planted(8000, D, GAMMA, seed=0)
+        cfg8 = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3, working_set=4096,
+                         inner_iters=DECOMP_CAP, max_iter=200_000)
+        (d8, counts8) = self.counted(lambda: dd.train_distributed_decomp(
+            x8, y8, cfg8, group=self.group))
+        self._add_b_counts(counts8)
+        s8 = train_single_device_decomp(x8, y8, cfg8, self.dev)
+        r["converged_8000"] = self._check_bar(x8, y8, d8, s8, cfg8)
+        self.rec["distributed"]["decomp"] = r
+        log(f"[distributed] decomposition at world size 1: {json.dumps(r)}")
+
+    def _kkt_f64(self, x, y, alpha, c: float, gamma: float):
+        """(gap, b) of alpha from scratch in float64 on the card
+        (``tests/test_decomp.py::true_gap_and_b``)."""
+        torch = self.torch
+        xt = torch.from_numpy(np.asarray(x, np.float64)).to(self.dev)
+        yt = torch.from_numpy(np.asarray(y, np.float64)).to(self.dev)
+        a = torch.from_numpy(np.asarray(alpha, np.float64)).to(self.dev)
+        d2 = (xt * xt).sum(1)
+        f = torch.empty_like(yt)
+        for s in range(0, len(yt), 2048):
+            k = torch.exp(-gamma * (d2[s:s + 2048, None] + d2[None]
+                                    - 2.0 * xt[s:s + 2048] @ xt.T))
+            f[s:s + 2048] = k @ (a * yt)
+        f -= yt
+        at0, atc, pos = a <= 1e-9, a >= c - 1e-6, yt > 0
+        interior = ~at0 & ~atc
+        in_up = interior | (at0 & pos) | (atc & ~pos)
+        in_low = interior | (at0 & ~pos) | (atc & pos)
+        hi, lo = float(f[in_up].min()), float(f[in_low].max())
+        return lo - hi, (lo + hi) / 2.0
+
+    def _check_bar(self, x, y, dist_res, ref_res, cfg) -> dict:
+        gap, b = self._kkt_f64(x, y, dist_res.alpha, cfg.c, cfg.gamma)
+        nsv_r, nsv_d = ref_res.n_sv, dist_res.n_sv
+        out = {"n": len(y), "gap_f64": gap, "b_f64": b, "b": dist_res.b,
+               "n_sv": [nsv_d, nsv_r], "n_iter": [dist_res.n_iter,
+                                                   ref_res.n_iter],
+               "rounds": [dist_res.rounds, ref_res.rounds],
+               "converged": [dist_res.converged, ref_res.converged],
+               "seconds": [dist_res.train_seconds, ref_res.train_seconds]}
+        ok = (dist_res.converged and ref_res.converged
+              and gap <= 2.0 * cfg.epsilon + 5e-4
+              and abs(b - dist_res.b) <= 1e-3
+              and np.all(dist_res.alpha >= 0)
+              and np.all(dist_res.alpha <= cfg.c + 1e-6)
+              and abs(nsv_d - nsv_r) <= max(3, 0.05 * nsv_r))
+        if not ok:
+            self.fail("distributed", f"the _check bar: {out}")
+        return out
+
+    def dist_gloo(self) -> None:
+        """(c) two gloo ranks, started by ``launch_local``, with their
+        shards on cuda:0 (an explicit group: gloo stages CUDA tensors
+        through the host, so these times are not performance), on planted
+        GLOO_N x 784: the pair to convergence against world size 1 over
+        NCCL (the same n_iter, alpha within 1e-4), and the decomposition
+        (q = GLOO_Q) by the _check bar."""
+        from dpsvm_tpu_torch import SVMConfig
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        from dpsvm_tpu_torch.parallel import dist_decomp as dd
+        from dpsvm_tpu_torch.parallel import dist_smo as ds
+        from dpsvm_tpu_torch.parallel.multihost import launch_local
+        x, y = make_planted(GLOO_N, D, GAMMA, seed=6)
+        kws = {"pair": dict(c=C, gamma=GAMMA, epsilon=1e-3),
+               "decomp": dict(c=C, gamma=GAMMA, epsilon=1e-3,
+                              working_set=GLOO_Q, inner_iters=DECOMP_CAP)}
+        t = time.perf_counter()
+        ranks = launch_local(2, _gloo_card_rank, (x, y, kws), device="cpu",
+                             run_timeout_s=600)
+        wall = time.perf_counter() - t
+        one = {"pair": ds.train_distributed(
+            x, y, SVMConfig(**kws["pair"]), group=self.group),
+            "decomp": dd.train_distributed_decomp(
+                x, y, SVMConfig(**kws["decomp"]), group=self.group)}
+        r = {"n": GLOO_N, "launch_wall_seconds": wall}
+        got = ranks[0]
+        agree = all(np.array_equal(o[k]["alpha"], got[k]["alpha"])
+                    for o in ranks for k in got)
+        p = got["pair"]
+        r["pair"] = {"n_iter": [p["n_iter"], one["pair"].n_iter],
+                     "seconds": [p["seconds"], one["pair"].train_seconds],
+                     "max_alpha_diff": float(np.abs(
+                         p["alpha"] - one["pair"].alpha).max())}
+        if not (agree and p["converged"]
+                and p["n_iter"] == one["pair"].n_iter
+                and np.allclose(p["alpha"], one["pair"].alpha, rtol=0,
+                                atol=1e-4)):
+            self.fail("distributed", f"two gloo ranks, the pair: {r}")
+
+        class _Res:                      # the rank's result for _check_bar
+            def __init__(self, d):
+                self.__dict__.update(d)
+                self.n_sv = int((d["alpha"] > 0).sum())
+                self.train_seconds = d["seconds"]
+
+        r["decomp"] = self._check_bar(x, y, _Res(got["decomp"]),
+                                      one["decomp"],
+                                      SVMConfig(**kws["decomp"]))
+        self.rec["distributed"]["gloo"] = r
+        log(f"[distributed] two gloo ranks on cuda:0: {json.dumps(r)}")
+
     def timing(self) -> None:
         """Kernel A as the main path runs it: a training run's carry at its
         start, advanced by chunks of TIMED_ITERS iterations through
@@ -2733,7 +3137,8 @@ def main(argv=None) -> int:
         phases += [("main", s.main_path), ("convergence", s.convergence),
                    ("shrinking", s.shrinking), ("resume", s.resume),
                    ("libsvm", s.libsvm), ("multiclass", s.multiclass),
-                   ("tasks", s.tasks), ("timing", s.timing)]
+                   ("tasks", s.tasks), ("distributed", s.distributed),
+                   ("timing", s.timing)]
     if args.only:
         keep = {"build", *args.only.split(",")}
         phases = [(n, fn) for n, fn in phases if n in keep]

@@ -21,7 +21,11 @@ pair or the decomposition (kernel B), nu-SVC and nu-SVR
 (``models/nusvm.py``) on the general pair with LIBSVM's two-constraint
 selection; LIBSVM ``.model`` files load and save (``models/libsvm_io.py``),
 and ``DPSVMClassifier`` / ``DPSVMRegressor`` wrap it all in the sklearn
-protocol. Kernels build with nvcc at
+protocol. ``SVMConfig(shards=P)`` trains over the P ranks of a
+``torch.distributed`` group, one process a device (``parallel/``: the
+sharded pair and the sharded decomposition, NCCL between CUDA ranks, gloo
+between CPU ranks; ``parallel.multihost.launch_local`` starts local
+ranks). Kernels build with nvcc at
 first use. Entry points run on the GPU unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions.
 

@@ -33,6 +33,12 @@ report, plus ``--device {cuda,cpu}`` (default cuda).
     python -m dpsvm_tpu_torch.cli test  -f test.csv  -m model.svm \
         [--proba p.txt] [--predictions pred.txt] [--no-b]
     python -m dpsvm_tpu_torch test -f test.csv -m mc_dir --proba p.txt
+    python -m dpsvm_tpu_torch train -f train.csv -m model.svm -c 10 \
+        --shards 4 [--replicate-x]                 # 4 local ranks, a GPU each
+    python -m dpsvm_tpu_torch train ... --shards 4 --device cpu  # gloo ranks
+    python -m dpsvm_tpu_torch train ... --shards 8 --coordinator host0:29500 \
+        --num-hosts 8 --host-id $RANK              # one command a rank
+    torchrun --nproc-per-node 4 -m dpsvm_tpu_torch train ... --shards 4
 
 ``-f`` takes a dense CSV or a libsvm file (sniffed). With ``-t precomputed`` (LIBSVM -t 4) the training CSV holds the (n, n)
 kernel matrix as its rows (``label,K_i1,...,K_in``) and the test CSV the
@@ -43,6 +49,16 @@ command writes, LIBSVM ``.model`` files included, and reports by the
 model's task: accuracy (classifiers), MSE/MAE/R^2 (regression) or the
 inlier fraction (one-class). The flag conflicts and their messages are
 the JAX CLI's.
+
+Distributed training (``--shards P``, the reference's ``mpirun -np P``):
+without ``--coordinator`` and outside ``torchrun`` the command starts P
+ranks on this host (``parallel.multihost.launch_local``), a GPU each
+under NCCL, or gloo ranks with ``--device cpu``; more NCCL ranks than
+GPUs are refused. With ``--coordinator/--num-hosts/--host-id`` (the JAX
+CLI's checks and messages) this process is one rank of a group across
+hosts; under ``torchrun`` the group comes from its environment. Every
+rank reads the dataset and trains; rank 0 alone writes the model file and
+prints the report.
 """
 
 from __future__ import annotations
@@ -194,6 +210,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "stuck at their bound, validate on the full "
                          "problem at the end. Bare flag = on; "
                          "'--shrinking 0' forces off")
+    tr.add_argument("--shards", type=int, default=1,
+                    help="ranks along the data axis, one process a device "
+                         "(replaces mpirun -np)")
+    tr.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="multi-host training: join a process group "
+                         "through this coordinator (tcp://) — one "
+                         "command per rank, same flags plus "
+                         "--num-hosts/--host-id")
+    tr.add_argument("--num-hosts", type=int, default=None, metavar="N",
+                    help="process count of the multi-host group "
+                         "(requires --coordinator)")
+    tr.add_argument("--host-id", type=int, default=None, metavar="K",
+                    help="this process's rank, 0..N-1 (requires "
+                         "--coordinator)")
+    tr.add_argument("--replicate-x", action="store_true",
+                    help="replicate X on every shard (reference layout)")
     tr.add_argument("--checkpoint", default=None,
                     help="solver-state .npz path for periodic checkpoints")
     tr.add_argument("--checkpoint-every", type=int, default=0,
@@ -455,6 +487,7 @@ def cmd_train(args: argparse.Namespace) -> int:
                        checkpoint_every=args.checkpoint_every,
                        checkpoint_keep=args.checkpoint_keep,
                        resume_from=args.resume,
+                       shards=args.shards, shard_x=not args.replicate_x,
                        verbose=not args.quiet)
     dev = args.device
     if args.multiclass:
@@ -807,8 +840,70 @@ def cmd_test(args: argparse.Namespace) -> int:
     return 0
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def _host_flag_error(args) -> Optional[str]:
+    """The JAX CLI's checks of the multi-host flags."""
+    coord = args.coordinator
+    if not coord and (args.num_hosts is not None
+                      or args.host_id is not None):
+        return ("--num-hosts/--host-id require --coordinator "
+                "(docs/DISTRIBUTED.md 'Multi-host')")
+    if coord:
+        nh, hid = args.num_hosts, args.host_id
+        if (nh is None) != (hid is None):
+            return "--num-hosts and --host-id must be given together"
+        if nh is not None and not 0 <= hid < nh:
+            return f"--host-id {hid} out of range for --num-hosts {nh}"
+    return None
+
+
+def _as_rank(args, rank: int, scratch: str) -> None:
+    """Rank 0 alone writes the model file and prints the report: every
+    other rank writes into a scratch directory and prints nothing."""
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+        if args.model:
+            args.model = os.path.join(scratch,
+                                      os.path.basename(args.model) or "m")
+
+
+def _train_rank(rank: int, argv: List[str]) -> int:
+    """One rank of ``train --shards P`` started by ``launch_local``."""
+    import tempfile
     args = build_parser().parse_args(argv)
+    with tempfile.TemporaryDirectory() as scratch:
+        _as_rank(args, rank, scratch)
+        return _run(args)
+
+
+def _train_distributed(args, argv: List[str]) -> Optional[int]:
+    """Join or start the process group of ``train --shards P``; returns
+    the exit code when this process only launched the ranks, else None
+    (this process is a rank: train here)."""
+    from dpsvm_tpu_torch.parallel import multihost
+    err = _host_flag_error(args)
+    if err:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
+    if args.coordinator:
+        if args.num_hosts is None:
+            host, _, port = args.coordinator.rpartition(":")
+            os.environ.setdefault("MASTER_ADDR", host or "127.0.0.1")
+            os.environ.setdefault("MASTER_PORT", port)
+            multihost.initialize(device=args.device)
+        else:
+            multihost.initialize(args.coordinator, args.num_hosts,
+                                 args.host_id, device=args.device)
+    elif args.shards > 1 and not multihost.is_initialized():
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            multihost.initialize(device=args.device)      # torchrun
+        else:
+            rcs = multihost.launch_local(args.shards, _train_rank, (argv,),
+                                         device=args.device)
+            return max(rcs)
+    return None
+
+
+def _run(args) -> int:
     from dpsvm_tpu_torch.solver.driver import DivergenceError
     try:
         if args.command == "train":
@@ -823,6 +918,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     except (ValueError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    if args.command == "train" and (args.shards > 1 or args.coordinator
+                                    or args.num_hosts is not None
+                                    or args.host_id is not None):
+        try:
+            rc = _train_distributed(args, argv)
+        except (ValueError, RuntimeError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if rc is not None:
+            return rc
+        from dpsvm_tpu_torch.parallel import multihost
+        import tempfile
+        with tempfile.TemporaryDirectory() as scratch:
+            _as_rank(args, multihost.host_id(), scratch)
+            return _run(args)
+    return _run(args)
 
 
 if __name__ == "__main__":

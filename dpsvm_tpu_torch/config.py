@@ -9,18 +9,20 @@ Three solver paths are ported, each with the envelope a method names:
 * ``working_set == 2`` within ``fused_incompatibility`` (binary RBF C-SVC,
   first-order selection, the reference's independent clip, one device, no
   class weights, no row cache): the fused first-order SMO pair;
-* every other ``working_set == 2`` config within ``smo_incompatibility``
-  (one device): the general SMO pair, ``solver/smo.py`` — first- or
+* every other ``working_set == 2`` config: the general SMO pair,
+  ``solver/smo.py`` on one device, ``parallel/dist_smo.py`` over
+  ``shards`` ranks — first- or
   second-order selection, both clips, class weights, every kernel kind,
   and the kernel-row cache (``cache_size > 0``, ``ops/rowcache.py``) on
   its first-order branch (``validate`` rejects the cache with
   second-order selection, precomputed, shrinking and working_set > 2,
   as the JAX package does);
-* ``working_set > 2`` within ``decomp_incompatibility`` (one device): the
-  large-working-set decomposition, every kernel kind, both clips and
-  class weights.
+* ``working_set > 2``: the large-working-set decomposition
+  (``solver/decomp.py``, or ``parallel/dist_decomp.py`` over ``shards``
+  ranks), every kernel kind, both clips and class weights.
 
-``api.train`` raises with that method's message for any other config.
+``shards > 1`` runs in a process group of that many ranks (``api.train``
+raises without one, naming the ways to start it).
 ``shrinking`` (``solver/shrink.py``) wraps the general pair or the
 decomposition; ``checkpoint_*`` and ``resume_from`` apply to all three
 paths. ``resolved`` turns the "auto" sentinels into concrete values
@@ -94,7 +96,12 @@ class SVMConfig:
                                         # epsilon (api.train)
 
     # --- execution ---
-    shards: int = 1                     # devices along the data axis
+    shards: int = 1                     # ranks along the data axis, one
+                                        # process a device (parallel/)
+    shard_x: bool = True                # shard X rows over the ranks;
+                                        # False replicates X (reference
+                                        # parity: every rank holds full X,
+                                        # svmTrainMain.cpp:180)
     chunk_iters: int = 512              # host polls convergence every chunk
     use_pallas: str = "auto"            # accepted and validated as in the
                                         # JAX package, where it picks the
@@ -142,25 +149,6 @@ class SVMConfig:
             return "working_set > 2 (decomposition)"
         if self.weight_pos != 1.0 or self.weight_neg != 1.0:
             return "class-weighted costs"
-        return None
-
-    def decomp_incompatibility(self) -> Optional[str]:
-        """Why the port's decomposition cannot run this config (None if it
-        can). What the JAX guard tables reject with ``working_set > 2`` or
-        ``grow_working_set`` (second-order selection, the row cache,
-        ``use_pallas="on"`` past q = 2048 or with growth) ``validate``
-        rejects with the same messages; this names what the port has not
-        ported beyond them."""
-        if self.shards > 1:
-            return "shards > 1 (parallel/dist_decomp.py)"
-        return None
-
-    def smo_incompatibility(self) -> Optional[str]:
-        """Why the port's general SMO pair (``solver/smo.py``) cannot run
-        this config (None if it can): what it still lacks, with the module
-        of the JAX package that brings it."""
-        if self.shards > 1:
-            return "shards > 1 (parallel/dist_smo.py)"
         return None
 
     def box_bound(self, y):

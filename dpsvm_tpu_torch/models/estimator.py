@@ -13,7 +13,9 @@ than two classes dispatch to the one-vs-one trainer. The hyperparameters
 are the JAX estimators', plus ``device`` (None means the GPU, ``"cpu"``
 the plain PyTorch paths). ``solver`` other than "exact" (the approx
 solvers, ROADMAP Queue 1 item 9) raises NotImplementedError at fit;
-``shards > 1`` raises in ``api.train``, as it does there.
+``shards`` passes through to ``api.train``: ``shards > 1`` trains over the
+ranks of an initialized process group (every rank fitting the same data),
+and raises without one.
 """
 
 from __future__ import annotations

@@ -13,6 +13,17 @@ scalars (``utils/checkpoint.py``); no other poll reads more than the
 packed stats. ``resume_state`` loads the checkpoint a run resumes from,
 falling back past corrupt rotation slots.
 
+Distributed runs (``parallel/``) pass their ``mesh``: every decision the
+loop takes is then one every rank takes alike. The polled scalars are
+replicated by construction; the poll also carries every rank's own view
+of them (the probe tail, ``parallel.mesh.shard_probe``), and rows that
+disagree raise ``MeshDesyncError``. The wall budget's verdict is the
+largest over the ranks (ranks whose clocks disagree would otherwise stop
+at different polls and leave the others waiting in a collective). A
+checkpoint's (alpha, f) are gathered on every rank and written by rank 0
+alone. The rollback, heartbeats and fault injection of the JAX package's
+elastic layer are not ported.
+
 ``poll_hook`` follows the JAX contract: called at each poll of a run that
 is not done, ``poll_hook(n_iter, carry, stats) -> Optional[new_step]``, a
 non-None return replacing the chunk runner. The JAX loop dispatches the
@@ -36,10 +47,12 @@ import numpy as np
 import torch
 
 from dpsvm_tpu_torch.config import SVMConfig, TrainResult
+from dpsvm_tpu_torch.parallel.mesh import all_max
 from dpsvm_tpu_torch.utils.checkpoint import (CheckpointCorruptError,
                                               CheckpointError,
                                               SolverCheckpoint,
                                               checkpoint_candidates,
+                                              dist_checkpoint,
                                               load_checkpoint,
                                               maybe_checkpoint)
 
@@ -57,10 +70,16 @@ class ChunkStats(NamedTuple):
     n_sv: int
     rounds: int         # decomposition outer rounds (0 on other paths)
     runs: tuple         # per kernel, launches whose body ran, ever
+    probe: tuple = ()   # distributed: every rank's (n_iter, b_lo bits,
+                        # b_hi bits), one row a rank
 
 
 class DivergenceError(RuntimeError):
     """The poll saw a non-finite optimality gap: the run cannot converge."""
+
+
+class MeshDesyncError(RuntimeError):
+    """The ranks' own views of the polled scalars disagree."""
 
 
 def device_sv_count(alpha: torch.Tensor) -> torch.Tensor:
@@ -76,23 +95,41 @@ def pack_stats(n_iter, b_lo, b_hi, n_sv, rounds, *runs) -> torch.Tensor:
     return torch.stack([n_iter, b_lo, b_hi, n_sv, rounds, *runs])
 
 
-def read_stats(stats: torch.Tensor) -> ChunkStats:
-    """The poll's one device-to-host read, unpacked."""
+def read_stats(stats: torch.Tensor, shards: int = 0) -> ChunkStats:
+    """The poll's one device-to-host read, unpacked. ``shards`` > 0: the
+    last 3 x shards words are the distributed runs' probe tail."""
     s = stats.cpu().numpy()
     b = s[1:3].view(np.float32)
+    tail = len(s) - 3 * int(shards)
+    probe = tuple(tuple(int(v) for v in row)
+                  for row in s[tail:].reshape(-1, 3)) if shards else ()
     return ChunkStats(int(s[0]), float(b[0]), float(b[1]), int(s[3]),
-                      int(s[4]), tuple(int(v) for v in s[5:]))
+                      int(s[4]), tuple(int(v) for v in s[5:tail]), probe)
 
 
-def resume_state(config: SVMConfig, n: int, d: int,
-                 gamma: float) -> Optional[SolverCheckpoint]:
+def check_probe(st: ChunkStats) -> None:
+    """Raise ``MeshDesyncError`` when the ranks' rows of the probe tail
+    disagree (they are equal by construction on a healthy mesh)."""
+    if st.probe and any(row != st.probe[0] for row in st.probe):
+        raise MeshDesyncError(
+            "ranks disagree on the polled state (n_iter, b_lo bits, b_hi "
+            f"bits) by rank: {list(st.probe)}")
+
+
+def resume_state(config: SVMConfig, n: int, d: int, gamma: float,
+                 shards: int = 1) -> Optional[SolverCheckpoint]:
     """Load and check the checkpoint ``config.resume_from`` names, or None.
 
     A corrupt file (truncated, bit-flipped: what ``load_checkpoint``
     rejects) falls back to the newest intact rotation slot (``state.1.npz``,
     ...), saying what was skipped; only when every slot is unreadable does
     the error propagate. An intact checkpoint of another problem or
-    config always raises ``CheckpointMismatchError``."""
+    config always raises ``CheckpointMismatchError``.
+
+    ``shards`` is this run's mesh size. A checkpoint saved on another
+    mesh is not a mismatch: the state is the global unpadded (alpha, f),
+    which the distributed trainers re-slice for this mesh, and a
+    ``RESHARD:`` line on stderr names both meshes."""
     if not config.resume_from:
         return None
     skipped = []
@@ -106,10 +143,15 @@ def resume_state(config: SVMConfig, n: int, d: int,
             skipped.append(path)
             last_err = e
             continue
-        ckpt.validate_against(n, d, config, gamma, shards=1)
+        ckpt.validate_against(n, d, config, gamma, shards=shards)
         if skipped:
             print(f"WARNING: resuming from rotation slot {path} "
                   f"(skipped corrupt: {skipped})",
+                  file=sys.stderr, flush=True)
+        if ckpt.needs_reshard(shards):
+            print(f"RESHARD: checkpoint {path} was saved on a "
+                  f"{ckpt.mesh_desc()}; resuming on {shards} — "
+                  f"re-slicing the global state onto the new mesh",
                   file=sys.stderr, flush=True)
         return ckpt
     raise CheckpointError(
@@ -158,8 +200,8 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
                        step_chunk: Callable, carry_to_host: Callable,
                        poll_hook: Optional[Callable] = None,
                        it0: int = 0,
-                       dims: Optional[Tuple[int, int]] = None
-                       ) -> TrainResult:
+                       dims: Optional[Tuple[int, int]] = None,
+                       mesh=None) -> TrainResult:
     """Run chunks until convergence, ``max_iter`` or the wall budget.
 
     ``step_chunk(carry, limit) -> (carry, ChunkStats)`` advances the carry
@@ -168,8 +210,11 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
     ``carry_to_host(carry)`` returns (alpha, f) as numpy arrays.
     ``poll_hook``: see the module docstring. ``it0`` is the carry's
     n_iter at the start (a run continued mid-way). ``dims`` is the
-    problem's (n, d), which a checkpoint records."""
+    problem's (n, d), which a checkpoint records. ``mesh`` (a
+    ``parallel.mesh.DataMesh``): a distributed run; see the module
+    docstring."""
     eps = float(config.epsilon)
+    shards = 1 if mesh is None else mesh.size
     pipeline = config.checkpoint_every == 0
     t0 = time.perf_counter()
     n_iter = prev = last_saved = int(it0)
@@ -187,7 +232,8 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
             epsilon=float(config.epsilon), n=int(dims[0]), d=int(dims[1]),
             weight_pos=float(config.weight_pos),
             weight_neg=float(config.weight_neg), kernel=config.kernel,
-            coef0=float(config.coef0), degree=int(config.degree))
+            coef0=float(config.coef0), degree=int(config.degree),
+            shards=shards, host_count=shards, host_id=0)
 
     while True:
         limit = min(n_iter + config.chunk_iters, config.max_iter)
@@ -203,9 +249,12 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
             raise DivergenceError(
                 f"non-finite optimality gap at iter {n_iter} (b_lo={b_lo}, "
                 f"b_hi={b_hi}): a NaN/Inf in the data or the solver state")
-        if (not done and config.wall_budget_s
-                and time.perf_counter() - t0 > config.wall_budget_s):
-            done = True
+        check_probe(st)
+        if not done and config.wall_budget_s:
+            over = time.perf_counter() - t0 > config.wall_budget_s
+            if mesh is not None:
+                over = all_max(mesh, float(over)) > 0
+            done = over
         log_progress(config, n_iter, b_lo, b_hi, done, prev)
         prev = n_iter
         if poll_hook is not None and not done:
@@ -216,7 +265,11 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
                 else:
                     step_chunk = replacement
         t_save = time.perf_counter()
-        saved = maybe_checkpoint(config, last_saved, n_iter, snapshot)
+        if mesh is None:
+            saved = maybe_checkpoint(config, last_saved, n_iter, snapshot)
+        else:
+            saved = dist_checkpoint(config, last_saved, n_iter, snapshot,
+                                    mesh.rank == 0)
         if saved != last_saved:
             CHECKPOINTS["saves"] += 1
             CHECKPOINTS["seconds"] += time.perf_counter() - t_save

@@ -38,6 +38,16 @@ its padding slots reach kernel B as masked slots. ``n_iter``, ``b_hi``,
 ``b_lo`` (and the decomposition's rounds) carry across every rebuild, so
 the ``max_iter`` budget is never granted again.
 
+Over the ranks (``shards > 1``, as ``dpsvm_tpu/solver/shrink.py:189-350``
+does it): every rank runs this manager on the same host state, and each
+active subproblem goes through the distributed pad-and-shard protocol
+(``parallel/dist_smo.prepare_distributed_inputs(capacity=)``) at the same
+power-of-two capacities, so the pair keeps one SPMD problem, carry and
+captured graph a capacity there too. The pulls are all-gathers, every
+decision is taken on replicated values (the wall budget's as the largest
+verdict over the ranks), and the unshrink's f rebuild is split across the
+ranks and gathered. An active set never drops below P rows.
+
 ``RUN`` records the last run: the size of the active set at the start
 and after every compaction and unshrink (the JAX package's trace events
 carry the same sequence) and the iteration each took effect at, the
@@ -62,11 +72,16 @@ from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
 from dpsvm_tpu_torch.ops.diagnostics import _stream_kv_against
 from dpsvm_tpu_torch.ops.kernels import KernelSpec, kdiag_from_norms
 from dpsvm_tpu_torch.ops.selection import box_sides, iup_ilow_masks_np
+from dpsvm_tpu_torch.parallel import dist_decomp as dd
+from dpsvm_tpu_torch.parallel import dist_smo as ds
+from dpsvm_tpu_torch.parallel.mesh import (all_max, gather_rows,
+                                           make_data_mesh, split_rows,
+                                           to_host)
 from dpsvm_tpu_torch.solver import smo
 from dpsvm_tpu_torch.solver.decomp import (DecompCarry, DecompProblem,
                                            DecompWorkspace, make_runner)
-from dpsvm_tpu_torch.solver.driver import (DivergenceError, gap_open,
-                                           log_progress)
+from dpsvm_tpu_torch.solver.driver import (DivergenceError, check_probe,
+                                           gap_open, log_progress)
 
 # Ceiling on iterations between shrink-rule checks (each pulls alpha and
 # f); the cadence is min(n, this) a run. LIBSVM's is min(n, 1000).
@@ -110,8 +125,8 @@ def _shrinkable(alpha, y, f, c_box, b_hi, b_lo):
 
 def _reconstruct_inactive_f(x, y, alpha, f, alpha0, f0, active_mask,
                             spec: KernelSpec, block: int = 8192,
-                            device: Optional[torch.device] = None
-                            ) -> np.ndarray:
+                            device: Optional[torch.device] = None,
+                            mesh=None) -> np.ndarray:
     """Exact f for the inactive rows (one streamed kernel pass); the
     active rows keep their maintained values (LIBSVM's
     reconstruct_gradient split).
@@ -120,17 +135,24 @@ def _reconstruct_inactive_f(x, y, alpha, f, alpha0, f0, active_mask,
     f_i = f0_i + sum_j (alpha_j - alpha0_j) y_j K_ij: for plain
     classification (f0 = -y, alpha0 = 0) the textbook K(alpha y) - y, and
     right for seeded runs too (warm_start), where the absolute formula
-    would rebuild the wrong gradient."""
+    would rebuild the wrong gradient. With a ``mesh`` each rank rebuilds
+    its share of the rows and the shares are gathered on every rank."""
     inactive = ~active_mask
     if not inactive.any():
         return f
     coef = ((alpha - alpha0) * y).astype(np.float32)
     sv = coef != 0.0
-    if not sv.any():
-        kv = np.zeros(int(inactive.sum()), np.float32)
+    rows = np.flatnonzero(inactive)
+    if mesh is not None:
+        lo, hi, per = split_rows(len(rows), mesh)
+        rows = rows[lo:hi]
+    if not sv.any() or not len(rows):
+        kv = np.zeros(len(rows), np.float32)
     else:
-        kv = _stream_kv_against(x[inactive], x[sv], coef[sv], spec, block,
+        kv = _stream_kv_against(x[rows], x[sv], coef[sv], spec, block,
                                 device or torch.device("cpu"))
+    if mesh is not None:
+        kv = gather_rows(mesh, kv, per, int(inactive.sum()))
     f = f.copy()
     f[inactive] = f0[inactive] + kv
     return f
@@ -242,6 +264,68 @@ class _PairPath:
         return _step_and_pull(run, carry, n_act)
 
 
+def _refill(dst, src) -> None:
+    """Copy every tensor field of ``src`` into ``dst``'s, in place."""
+    for name, v in vars(src).items():
+        if isinstance(v, torch.Tensor):
+            getattr(dst, name).copy_(v)
+
+
+class _DistPath:
+    """The pair or the decomposition over the ranks on an active
+    subproblem, through the distributed pad-and-shard protocol at the
+    manager's capacity. The pair keeps one slot a capacity (problem,
+    carry, and on an NCCL rank the captured graph), refilled in place;
+    the decomposition builds its runner anew and keeps one workspace."""
+
+    def __init__(self, x, y, config: SVMConfig, mesh, q: int,
+                 guard_eta: bool, plain: bool):
+        self.x, self.y, self.config, self.mesh = x, y, config, mesh
+        self.q, self.plain = q, plain
+        self.opts = smo.SMOOptions.from_config(config, guard_eta)
+        self.two_eps = smo.two_eps_f32(config.epsilon)
+        self.ws = DecompWorkspace(mesh.device) if q else None
+        self.slots = {}
+
+    def make(self, idx: np.ndarray, cap: int, alpha, f, n_iter: int,
+             b_hi: float, b_lo: float, rounds: int):
+        n_act, mesh = len(idx), self.mesh
+        di = ds.prepare_distributed_inputs(
+            self.x[idx], self.y[idx], self.config, mesh, None, f[idx],
+            alpha[idx], capacity=cap, decomp=bool(self.q))
+        init = (di.init[0], di.init[1], b_hi, b_lo, n_iter)
+        if self.q:
+            carry = dd.init_decomp_carry(di.prob, init, rounds)
+            self.ws.last = None
+            run = dd.make_dist_decomp_runner(
+                di.prob, self.config, self.q, self.ws, n_act, self.plain)
+        else:
+            carry = ds.init_carry(di.prob, init)
+            if cap in self.slots:
+                prob, slot_carry, chunk = self.slots[cap]
+                _refill(prob, di.prob)
+                for dst, src in zip(slot_carry, carry):
+                    if dst is not None:
+                        dst.copy_(src)
+                carry = slot_carry
+            else:
+                prob, chunk = di.prob, None
+            run = ds.make_dist_runner(carry, prob, self.opts, self.two_eps,
+                                      self.plain, chunk=chunk)
+            self.slots[cap] = (prob, carry, run.chunk)
+        state = [carry]
+
+        def step(limit: int):
+            state[0], st = run(state[0], limit)
+            return st
+
+        def pull():
+            return (to_host(mesh, state[0].alpha, n_act),
+                    to_host(mesh, state[0].f, n_act))
+
+        return step, pull
+
+
 class _DecompPath:
     """The decomposition on an active subproblem: a padded
     ``DecompProblem`` gathered from the full one at each rebuild, and one
@@ -304,20 +388,21 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
                     f_init: Optional[np.ndarray] = None,
                     alpha_init: Optional[np.ndarray] = None,
                     guard_eta: bool = False,
-                    plain: bool = False) -> TrainResult:
-    """Active-set training on one device: the general pair for
-    ``working_set == 2``, the decomposition for ``working_set > 2``. The
-    same NumPy-in, NumPy-out contract as the other solvers; ``plain``
-    runs the eager loop / kernel B's plain version on any device."""
+                    plain: bool = False, group=None) -> TrainResult:
+    """Active-set training: the general pair for ``working_set == 2``,
+    the decomposition for ``working_set > 2``, on one device or over the
+    ranks (``config.shards > 1``, or ``group``; every rank calls it with
+    the same full (x, y)). The same NumPy-in, NumPy-out contract as the
+    other solvers; ``plain`` runs the eager loop / kernel B's plain
+    version on any device."""
     config.validate()
-    if config.shards > 1:
-        raise NotImplementedError(
-            "dpsvm_tpu_torch does not support shards > 1 "
-            "(parallel/dist_smo.py, parallel/dist_decomp.py) yet: "
-            "shrinking is ported on one device (distributed training is "
-            "ROADMAP Queue 1 item 7)")
+    mesh = None
+    if config.shards > 1 or group is not None:
+        mesh = make_data_mesh(config.shards, group, device)
+        device = mesh.device
+    counts = smo.COUNTS if mesh is None else ds.COUNTS
     reset_run()
-    captures0 = smo.COUNTS["captures"]
+    captures0 = counts["captures"]
     t0 = time.perf_counter()
     n, d = x.shape
     gamma = float(config.resolve_gamma(d))
@@ -342,6 +427,12 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
         # the decomposition's top-k needs q/2 <= the active rows: never
         # compact below the block size
         min_active = q
+    else:
+        q = 0
+    if mesh is not None:
+        min_active = max(min_active, mesh.size)
+        path = _DistPath(x, y_np, config, mesh, q, guard_eta, plain)
+    elif q:
         path = _DecompPath(x, y, config, device, q, plain)
     else:
         path = _PairPath(x, y, config, device, guard_eta, plain)
@@ -371,6 +462,7 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
         limit = min(it + chunk, config.max_iter)
         prev_polled = it
         st = step(limit)
+        check_probe(st)
         it, b_lo, b_hi = st.n_iter, st.b_lo, st.b_hi
         if not (math.isfinite(b_lo) and math.isfinite(b_hi)):
             raise DivergenceError(
@@ -378,9 +470,11 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
                 f"b_hi={b_hi}): a NaN/Inf in the data or the solver state")
         sub_converged = not gap_open(b_lo, b_hi, 2.0 * eps)
         capped = it >= config.max_iter
-        if (not capped and config.wall_budget_s
-                and time.perf_counter() - t0 > config.wall_budget_s):
-            capped = True       # the same exit as the iteration cap
+        if not capped and config.wall_budget_s:
+            # the same exit as the iteration cap, taken alike by every rank
+            over = time.perf_counter() - t0 > config.wall_budget_s
+            capped = (over if mesh is None
+                      else all_max(mesh, float(over)) > 0)
         if not capped:          # the final line after the loop reports
             log_progress(config, it, b_lo, b_hi, False, prev_polled)
 
@@ -395,7 +489,7 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
             mask = np.zeros(n, bool)
             mask[active] = True
             f = _reconstruct_inactive_f(x, y_np, alpha, f, alpha0, f0, mask,
-                                        kspec, device=device)
+                                        kspec, device=device, mesh=mesh)
             RUN["rebuilt"] = (np.flatnonzero(~mask), f[~mask].copy(),
                               alpha.copy())
             RUN["seconds"]["reconstruct"] += time.perf_counter() - t
@@ -433,7 +527,7 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
             step, pull = make_active(active, it, b_hi, b_lo, st.rounds)
 
     log_progress(config, it, b_lo, b_hi, True, it)
-    RUN["captures"] = smo.COUNTS["captures"] - captures0
+    RUN["captures"] = counts["captures"] - captures0
     return TrainResult(
         alpha=alpha, b=(b_lo + b_hi) / 2.0, n_iter=it, converged=converged,
         b_lo=b_lo, b_hi=b_hi, train_seconds=time.perf_counter() - t0,

@@ -24,10 +24,14 @@ checkpoint of another problem shape or config raises
 
 The shard-aware manifest (format 2: the mesh the state was saved on and a
 CRC32 a shard region) and the host group (format 3) are written and read
-as the JAX package does. This port saves from one process on one device,
-so it writes ``shards=1``, ``host_count=1``, ``host_id=0``; files of other
-meshes load as well, since the state is the global unpadded (alpha, f).
-Pre-elastic files (no mesh fields) load as single-shard records.
+as the JAX package does. A run on one device writes ``shards=1``,
+``host_count=1``, ``host_id=0``; a distributed run (``parallel/``) gathers
+the global (alpha, f) on every rank and rank 0 writes them with
+``shards=P``, ``host_count=P`` (one process a rank) and ``host_id=0``,
+and a CRC32 for each of the P shard regions (``shard_slices``). A file of
+any mesh resumes on any other, since the state is the global unpadded
+(alpha, f). Pre-elastic files (no mesh fields) load as single-shard
+records.
 """
 
 from __future__ import annotations
@@ -393,3 +397,28 @@ def maybe_checkpoint(config, last_saved_iter: int, n_iter: int,
             return last_saved_iter
         return n_iter
     return last_saved_iter
+
+
+def dist_checkpoint(config, last_saved_iter: int, n_iter: int,
+                    make: Callable[[], SolverCheckpoint],
+                    write: bool) -> int:
+    """``maybe_checkpoint`` for the ranks of a distributed run: when an
+    every-N boundary is crossed every rank calls ``make`` (it gathers the
+    state, a collective) and only the rank with ``write`` saves. Every
+    rank records the boundary as taken, a failed save included (a warning
+    on the writer), so that no rank ever gathers alone."""
+    every = config.checkpoint_every
+    if not every or not config.checkpoint_path:
+        return last_saved_iter
+    if n_iter // every <= last_saved_iter // every:
+        return last_saved_iter
+    ckpt = make()
+    if write:
+        try:
+            save_checkpoint(config.checkpoint_path, ckpt,
+                            keep=config.checkpoint_keep)
+        except (OSError, CheckpointError) as e:
+            print(f"WARNING: checkpoint save failed at iter {n_iter} "
+                  f"({e}); training continues, previous checkpoint kept",
+                  file=sys.stderr, flush=True)
+    return n_iter

@@ -1227,3 +1227,129 @@ def test_task_families_on_the_card_match_the_cpu(dev):
         dg = decision_function(mg, x, device=dev)
         assert np.abs(dg - decision_function(mc, x, device="cpu")).max() \
             <= 5e-3
+
+
+# ------------------------------------------------- distributed (parallel/)
+
+@pytest.fixture(scope="module")
+def nccl_world(tmp_path_factory):
+    """An NCCL group of one rank on cuda:0, in this process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from dpsvm_tpu_torch.parallel import multihost
+    store = dist.FileStore(str(tmp_path_factory.mktemp("nccl") / "s"), 1)
+    multihost.initialize(num_processes=1, process_id=0, store=store,
+                         device="cuda:0")
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+DIST_BRANCHES = {
+    "first-order": {},
+    "second-order": dict(selection="second-order"),
+    "cache": dict(cache_size=4),
+    "weighted-pairwise": dict(weight_pos=2.0, clip="pairwise"),
+    "replicated": dict(shard_x=False),
+    "poly": dict(kernel="poly", gamma=1 / 96, coef0=1.0),
+}
+
+
+def _dist_pair(x, y, cfg, group):
+    from dpsvm_tpu_torch.parallel import dist_smo as ds
+    from dpsvm_tpu_torch.parallel.mesh import make_data_mesh
+    from dpsvm_tpu_torch.solver import smo as gs
+    mesh = make_data_mesh(1, group)
+    di = ds.prepare_distributed_inputs(x, y, cfg, mesh, None, None, None)
+    opts = gs.SMOOptions.from_config(cfg)
+    return di, opts, gs.two_eps_f32(cfg.epsilon)
+
+
+@pytest.mark.parametrize("branch", sorted(DIST_BRANCHES))
+def test_dist_graph_chunk_matches_its_eager_loop_bitwise(dev, nccl_world,
+                                                         branch):
+    """A world of one over NCCL: the captured chunk (collectives inside the
+    graph) against the eager loop of the same bodies."""
+    from dpsvm_tpu_torch.parallel import dist_smo as ds
+    x, y = make_planted(3000, 96, 0.25, seed=4)
+    cfg = SVMConfig(**{"c": 10.0, "gamma": 0.25, **DIST_BRANCHES[branch]})
+    di, opts, two_eps = _dist_pair(x, y, cfg, nccl_world)
+    lines = cfg.cache_size
+    out = []
+    for plain in (False, True):
+        carry = ds.init_carry(di.prob, di.init, cache_lines=lines)
+        step = ds.make_dist_runner(carry, di.prob, opts, two_eps, plain)
+        carry, st = step(carry, 300)
+        out.append((carry, st))
+    (g, sg), (e, se) = out
+    assert sg.n_iter == se.n_iter == 300
+    for a, b in ((g.alpha, e.alpha), (g.f, e.f), (g.b_hi, e.b_hi),
+                 (g.b_lo, e.b_lo)):
+        assert torch.equal(a, b)
+    assert sg.probe == se.probe and len(sg.probe) == 1
+
+
+@pytest.mark.parametrize("branch", sorted(DIST_BRANCHES))
+def test_dist_prefix_is_the_general_pair_bitwise(dev, nccl_world, branch):
+    from dpsvm_tpu_torch.parallel.dist_smo import train_distributed
+    from dpsvm_tpu_torch.solver.smo import train_single_device
+    x, y = make_planted(3000, 96, 0.25, seed=4)
+    kw = {"c": 10.0, "gamma": 0.25, "max_iter": 500,
+          **DIST_BRANCHES[branch]}
+    d = train_distributed(x, y, SVMConfig(**kw), group=nccl_world)
+    kw.pop("shard_x", None)
+    s = train_single_device(x, y, SVMConfig(**kw), dev)
+    assert d.n_iter == s.n_iter == 500
+    np.testing.assert_array_equal(d.alpha, s.alpha)
+    assert (d.b_lo, d.b_hi) == (s.b_lo, s.b_hi)
+
+
+def test_dist_decomp_kernel_b_matches_plain_round(dev, nccl_world):
+    """Kernel B inside the distributed decomposition: the first round's
+    launch against the plain subsolve on the same inputs, bitwise; and
+    whole rounds of the kernel path against the plain path."""
+    from dpsvm_tpu_torch.parallel import dist_decomp as dd
+    x, y = make_planted(3000, 96, 0.25, seed=4)
+    cfg = SVMConfig(c=10.0, gamma=0.25, working_set=512, inner_iters=64,
+                    max_iter=64)
+    seen = []
+    orig = sk.launch_inner_subsolve
+
+    def spy(*args, **kw):
+        seen.append((args, dict(kw)))
+        return orig(*args, **kw)
+
+    sk.launch_inner_subsolve = spy
+    try:
+        dd.train_distributed_decomp(x, y, cfg, group=nccl_world)
+    finally:
+        sk.launch_inner_subsolve = orig
+    assert len(seen) == 1
+    args, kw = seen[0]
+    kw.pop("runs", None)
+    got = orig(*args, **kw)
+    want = sk.inner_subsolve_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    cfg = dataclasses.replace(cfg, max_iter=6 * 64)
+    k = dd.train_distributed_decomp(x, y, cfg, group=nccl_world)
+    p = dd.train_distributed_decomp(x, y, cfg, group=nccl_world, plain=True)
+    assert (k.n_iter, k.rounds) == (p.n_iter, p.rounds)
+    np.testing.assert_array_equal(k.alpha, p.alpha)
+
+
+def test_two_gloo_ranks_share_the_card(dev, nccl_world):
+    """Two gloo ranks (launch_local) with their shards on cuda:0 (an
+    explicit group: gloo stages CUDA tensors through the host), against the
+    world of one over NCCL: the same n_iter, alpha within 1e-4."""
+    from torch_dist_scenarios import launch
+    from dpsvm_tpu_torch.parallel.dist_smo import train_distributed
+    x, y = make_planted(1500, 64, 0.25, seed=5)
+    cfg = dict(c=10.0, gamma=0.25)
+    one = train_distributed(x, y, SVMConfig(**cfg), group=nccl_world)
+    r = launch(2, [dict(name="gloo-cuda", x=x, y=y, cfg=cfg, group=True,
+                        device="cuda:0")])["gloo-cuda"]
+    assert "exception" not in r, r.get("exception")
+    assert r["ranks_agree"] and r["converged"]
+    assert r["n_iter"] == one.n_iter
+    np.testing.assert_allclose(r["alpha"], one.alpha, rtol=1e-4, atol=1e-4)

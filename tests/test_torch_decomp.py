@@ -305,9 +305,9 @@ def test_config_accepts_and_rejects_what_jax_does(ws):
 
 def test_decomposition_scope_and_dispatch():
     x, y = make_blobs(n=40, d=3, seed=0)
-    for kw, why in ((dict(shards=2, kernel="linear"), "dist_decomp"),
-                    (dict(shards=2), "shards > 1")):
-        with pytest.raises(NotImplementedError, match=why):
+    # shards > 1 routes to parallel/dist_decomp.py, which needs a group
+    for kw in (dict(shards=2, kernel="linear"), dict(shards=2)):
+        with pytest.raises(RuntimeError, match="launch_local"):
             train(x, y, SVMConfig(working_set=8, **kw), device="cpu")
     sk.reset_counts()
     res = train(x, y, SVMConfig(working_set=8), device="cpu")

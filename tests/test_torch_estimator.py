@@ -176,7 +176,7 @@ def test_refusals():
     for est in (test_.DPSVMClassifier, test_.DPSVMRegressor):
         with pytest.raises(NotImplementedError, match="item 9"):
             est(solver="approx-rff", **CPU).fit(x, y)
-        with pytest.raises(NotImplementedError, match="shards > 1"):
+        with pytest.raises(RuntimeError, match="launch_local"):
             est(shards=2, **CPU).fit(x, y)
     with pytest.raises(ValueError, match="at least 2 classes"):
         test_.DPSVMClassifier(**CPU).fit(x, np.ones_like(y))

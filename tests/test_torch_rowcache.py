@@ -239,7 +239,7 @@ def test_cache_rejections_match_jax():
             msgs.append(str(e.value))
         assert msgs[0] == msgs[1], msgs
     cfg = SVMConfig(cache_size=4)
-    assert cfg.smo_incompatibility() is None
+    cfg.validate()          # within the general pair's envelope
     assert "cache" in cfg.fused_incompatibility()
 
 

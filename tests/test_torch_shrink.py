@@ -455,8 +455,8 @@ def test_run_record_counts_its_work(fast_checks):
 
 def test_shards_and_precomputed_refused():
     x, y = make_blobs(n=60, d=4, seed=1)
-    with pytest.raises(NotImplementedError,
-                       match="shards > 1 \\(parallel/dist_smo.py"):
+    # shards > 1 shrinks over the ranks of a group, which must exist
+    with pytest.raises(RuntimeError, match="launch_local"):
         train(x, y, SVMConfig(shrinking=True, shards=2), device="cpu")
     k = (x @ x.T).astype(np.float32)
     msgs = []

@@ -315,16 +315,17 @@ def test_routing(cfg, kw, path):
 
 
 @pytest.mark.parametrize("cfg,why", [
-    (dict(shards=2), "shards > 1 \\(parallel/dist_smo.py\\)"),
-    (dict(shards=2, selection="second-order"), ".*dist_smo"),
-    (dict(shards=2, working_set=8), "shards > 1 \\(parallel/dist_decomp"),
-    (dict(shards=2, cache_size=4), "shards > 1 \\(parallel/dist_smo.py\\)"),
-    (dict(shards=2, cache_size=4, kernel="poly"), ".*dist_smo"),
+    (dict(shards=2), "shards=2 needs an initialized process group"),
+    (dict(shards=2, selection="second-order"), ".*launch_local"),
+    (dict(shards=2, working_set=8), ".*torchrun"),
+    (dict(shards=2, cache_size=4), ".*--shards 2"),
+    (dict(shards=2, cache_size=4, kernel="poly"), ".*multihost.initialize"),
 ])
 def test_what_no_path_covers_raises_naming_it(cfg, why):
+    """shards > 1 routes to parallel/: without a process group it raises,
+    naming the ways to start one."""
     x, y = make_blobs(n=40, d=3, seed=0)
-    with pytest.raises(NotImplementedError,
-                       match=f"dpsvm_tpu_torch does not support {why}"):
+    with pytest.raises(RuntimeError, match=why):
         train(x, y, SVMConfig(**cfg), device="cpu")
 
 

@@ -125,11 +125,11 @@ def test_nan_in_x_raises_instead_of_spinning():
                                 dict(shards=2, cache_size=4,
                                      weight_pos=2.0)])
 def test_paths_outside_the_slice_raise(kw):
-    """What no ported path covers raises, naming the JAX module that
-    brings it (every other config trains: tests/test_torch_smo.py)."""
+    """shards > 1 runs in a process group of that many ranks: without one
+    it raises, naming the ways to start it (tests/test_torch_dist_smo.py
+    trains these configs over gloo ranks)."""
     x, y = make_blobs(n=40, d=3, seed=0)
-    why = "dist_"
-    with pytest.raises(NotImplementedError, match=f"not support.*{why}"):
+    with pytest.raises(RuntimeError, match="needs an initialized process"):
         train(x, y, SVMConfig(**kw), device="cpu")
 
 
