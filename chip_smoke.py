@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only multiclass,timing   # build + these phases
     python3 chip_smoke.py --only tasks          # build + the task families
     python3 chip_smoke.py --only distributed    # build + distributed training
+    python3 chip_smoke.py --only approx         # build + approx and cascade
 
 Phases, each of which makes the script exit non-zero if it fails. Three
 solver paths run: the fused SMO pair (kernel A, ``working_set=2``), the
@@ -140,7 +141,21 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    n_iter, alpha within 1e-4), the decomposition (q = GLOO_Q) by the
    _check bar; gloo stages CUDA tensors through the host, so these times
    are not performance;
-11. time each kernel on its path (kernel A: CUDA events over a chunk of
+11. the approx solvers and the cascade (``approx``, ``approx/``,
+   ``solver/cascade.py``) through ``api.fit``, f32, D = APPROX_D: (a)
+   approx-rff on the planted 60000 x 784 rows, held-out accuracy within 1%
+   of the fused pair's (phase 3), its seconds, steps, ms a step, kernels a
+   step and busy share; (b) approx-rff on APPROX_BIG_N x 784 planted rows,
+   converged, phi kept on the card, ms a step beside its bytes bound, the
+   peak device memory; (c) approx-nystrom as (a); (d) the cascade at the
+   default dual knobs on CASC_N x 784 (kernel A in its calibration probe,
+   its launches counted), zero violators, held to ``api.fit`` by the bar
+   between paths; (e) the cascade with the decomposition (q = CASC_Q,
+   kernel B in the probe and the polish) on the same CASC_N rows, held to
+   the same ``api.fit`` model; (f) the resume drills, bitwise: (a) cut at APPROX_CUT steps and
+   resumed to APPROX_END, the cascade killed after each of stages 1-3 on
+   CASC_RESUME_N rows;
+12. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
@@ -250,6 +265,19 @@ TASK_MAX_ITER = 2_000_000
 DIST_PREFIX_ITERS, DIST_GRAPH_ITERS = 2000, 512
 DIST_DECOMP_ROUNDS = 10
 GLOO_N, GLOO_Q = 4000, 1024
+# The approx solvers and the cascade (phase 11): D = APPROX_D features;
+# the million-row path on APPROX_BIG_N rows (at most APPROX_BIG_MAX
+# steps); the cascade with the default dual knobs on CASC_N rows (+
+# CASC_HELD held out, the shape of the JAX package's CPU reference run)
+# and with the decomposition at q = CASC_Q on the same rows; the approx
+# resume drill cut at APPROX_CUT steps and run to APPROX_END; the
+# cascade's kill points on CASC_RESUME_N rows; the profiled steps.
+APPROX_D = 1024
+APPROX_BIG_N, APPROX_BIG_MAX = 1_000_000, 10_000
+CASC_N, CASC_HELD, CASC_Q = 20000, 5000, 4096
+APPROX_CUT, APPROX_END = 300, 600
+CASC_RESUME_N = 8000
+APPROX_PROFILE_STEPS = 256
 
 
 def log(msg: str) -> None:
@@ -2713,6 +2741,328 @@ class Smoke:
         self.rec["distributed"]["gloo"] = r
         log(f"[distributed] two gloo ranks on cuda:0: {json.dumps(r)}")
 
+    # ----------------------------------------------------------- phase 11
+    def approx(self) -> None:
+        """The approx solvers and the cascade (``approx/``,
+        ``solver/cascade.py``) through ``api.fit`` on planted rows, f32,
+        gamma = 0.25, eps = 1e-3: (a) approx-rff, D = APPROX_D, on the
+        60000 x 784 rows; (c) approx-nystrom on them; (d) the cascade at
+        the default dual knobs on CASC_N rows (kernel A in its probe);
+        (e) the cascade with the decomposition (q = CASC_Q, kernel B) on
+        (d)'s rows; (f) the resume drills; (b) approx-rff on
+        APPROX_BIG_N rows, last, after the others' memory is freed."""
+        self.rec["approx"] = {}
+        self.approx_fit("a", "rff")
+        self.approx_fit("c", "nystrom")
+        self.approx_cascade_default()
+        self.approx_cascade_decomp()
+        self.approx_resume()
+        self.approx_million()
+
+    def _fused_ref(self):
+        """Phase 3's float32 fused-pair model: (n_sv, held-out accuracy),
+        or None (and a log line) when phase 3 did not run."""
+        main = self.rec.get("main", {}).get("highest")
+        if main is None:
+            log("[approx] phase 3 did not run, so this run is not held to "
+                "the fused pair's model (run --only main,approx for that "
+                "bar)")
+            return None
+        return main["n_sv"], main["heldout_accuracy"]
+
+    def _approx_record(self, res, counts, seconds, acc):
+        from dpsvm_tpu_torch.approx import primal
+        run = primal.RUN
+        return {"n_iter": res.n_iter, "converged": res.converged,
+                "metric": res.b_lo, "seconds": seconds,
+                "train_seconds": res.train_seconds,
+                "featurize_seconds": run["featurize_seconds"],
+                "ms_per_step": run["graph_ms"] / max(run["graph_bodies"], 1),
+                "graph_bodies": run["graph_bodies"],
+                "phi_device": run["phi_device"],
+                "phi_shape": list(run["phi_shape"]),
+                "big_l": run["big_l"], "heldout_accuracy": acc,
+                "captures": primal.COUNTS["captures"],
+                "reads": primal.COUNTS["reads"],
+                "A_launches": counts["A_launches"],
+                "B_launches": counts["B_launches"]}
+
+    def _approx_counts_ok(self, r) -> bool:
+        """One graph capture, a stats read a chunk, phi on the card, no
+        dual kernel launched."""
+        return (r["captures"] == 1 and r["reads"] >= 1
+                and r["phi_device"].startswith("cuda")
+                and r["A_launches"] == r["B_launches"] == 0)
+
+    def approx_fit(self, tag: str, kind: str) -> None:
+        """(a) / (c): approx-{kind} (D = APPROX_D, C = 10) on the planted
+        60000 x 784 rows through ``api.fit``: converged, held-out accuracy
+        within 1% of the fused pair's (phase 3); its seconds, steps, ms a
+        step (CUDA events around the graph replays); for (a) also, from
+        torch.profiler over APPROX_PROFILE_STEPS steps of a fresh
+        problem's graph, kernels a step and the device's busy share."""
+        torch = self.torch
+        from dpsvm_tpu_torch import SVMConfig, evaluate, fit
+        from dpsvm_tpu_torch.approx import primal
+        xtr, ytr, xte, yte = self.planted()
+        cfg = SVMConfig(solver=f"approx-{kind}", approx_dim=APPROX_D, c=C,
+                        gamma=GAMMA, epsilon=1e-3)
+        primal.reset_counts()
+        (model, res), counts, sec = self._timed(lambda: fit(xtr, ytr, cfg))
+        acc = evaluate(model, xte, yte)
+        r = self._approx_record(res, counts, sec, acc)
+        ref = self._fused_ref()
+        r["fused_heldout_accuracy"] = None if ref is None else ref[1]
+        if tag == "a":
+            r.update(self._approx_profile(xtr, ytr, cfg))
+        ok = (res.converged and self._approx_counts_ok(r)
+              and np.all(np.isfinite(model.w))
+              and (ref is None or abs(acc - ref[1]) <= 0.01))
+        if not ok:
+            self.fail("approx", f"({tag}) approx-{kind}: {json.dumps(r)}")
+        self.rec["approx"][tag] = r
+        log(f"[approx] ({tag}) approx-{kind} 60000x784: {json.dumps(r)}")
+
+    def _approx_profile(self, x, y, cfg) -> dict:
+        """Kernels a step and the busy share of the approx graph: a fresh
+        problem and carry (metric at the sentinel, so every body steps),
+        one warm-up chunk, then torch.profiler over APPROX_PROFILE_STEPS
+        steps (the device time of its kernels over the span between two
+        CUDA events)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from dpsvm_tpu_torch.approx import primal
+        from dpsvm_tpu_torch.approx.features import build_feature_map
+        fmap = build_feature_map("rff", x, cfg.approx_dim, cfg.approx_seed,
+                                 cfg.kernel_spec(x.shape[1]))
+        prob = primal.build_problem(x, np.asarray(y, np.float32), cfg,
+                                    "svc", fmap, self.dev)
+        carry = primal.carry_to_device(primal.init_carry(fmap.dim + 1),
+                                       self.dev)
+        chunk = primal.GraphChunk(carry, prob)
+        chunk.run(0, 64)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            p0 = torch.cuda.Event(enable_timing=True)
+            p1 = torch.cuda.Event(enable_timing=True)
+            p0.record()
+            chunk.run(64, 64 + APPROX_PROFILE_STEPS)
+            p1.record()
+            torch.cuda.synchronize()
+        span_ms = p0.elapsed_time(p1)
+        if int(carry.n_iter) != 64 + APPROX_PROFILE_STEPS:
+            raise RuntimeError(f"the profiled chunk ran {int(carry.n_iter)}"
+                               f" of {64 + APPROX_PROFILE_STEPS} steps")
+        ops = sorted(((_device_us(e) / 1e3, e.key, e.count)
+                      for e in prof.key_averages() if _device_us(e) > 0),
+                     reverse=True)
+        busy_ms = sum(t for t, _, _ in ops)
+        if not busy_ms > 0:
+            raise RuntimeError("torch.profiler gave no device time for the "
+                               "approx graph")
+        steps = APPROX_PROFILE_STEPS
+        return {"profiled_ms_per_step": span_ms / steps,
+                "kernels_per_step": sum(c for _, _, c in ops) / steps,
+                "busy_share": busy_ms / span_ms,
+                "step_bytes_bound_ms": 2e3 * prob.phi.numel() * 4
+                / HBM_BYTES_PER_S,
+                "top_ops": [{"name": n[:80], "ms": t, "count": c}
+                            for t, n, c in ops[:6]]}
+
+    def _cascade_record(self, res, counts, seconds, acc):
+        from dpsvm_tpu_torch.solver import cascade as cs
+        return {"n_total": res.n_total, "n_band": res.n_band,
+                "n_kept": res.n_kept, "kept_share": res.n_kept / res.n_total,
+                "rounds": res.readmit_rounds,
+                "n_readmitted": res.n_readmitted,
+                "violators": res.kkt_violators, "converged": res.converged,
+                "approx_iters": res.approx_iters,
+                "probe_rows": cs.RUN.get("probe_rows"),
+                "probe_iters": cs.RUN.get("probe_iters"),
+                "scale": cs.RUN.get("scale"),
+                "polish_iters": res.polish_iters, "n_sv": res.n_sv,
+                "seconds": seconds,
+                "stage_seconds": res.stage_seconds,
+                "heldout_accuracy": acc, **counts}
+
+    def approx_cascade_default(self) -> None:
+        """(d) the cascade (D = APPROX_D, C = 10, the default dual knobs)
+        on planted CASC_N x 784 rows (+ CASC_HELD held out): zero
+        violators, converged; its calibration probe runs ``api.fit`` on
+        4096 rows, the fused pair, so kernel A's launches move and its
+        device-counted runs equal the probe's iterations; the polish is
+        the general pair. Held to ``api.fit`` on the same rows by the bar
+        between paths (n_sv within 2%, held-out accuracy within 0.5%)."""
+        from dpsvm_tpu_torch import SVMConfig, evaluate, fit
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        x, y = make_planted(CASC_N + CASC_HELD, D, GAMMA, seed=0)
+        xtr, ytr, xte, yte = x[:CASC_N], y[:CASC_N], x[CASC_N:], y[CASC_N:]
+        self._casc_rows = xtr, ytr, xte, yte
+        cfg = SVMConfig(solver="cascade", approx_dim=APPROX_D, c=C,
+                        gamma=GAMMA, epsilon=1e-3, max_iter=MAIN_MAX_ITER)
+        (model, res), counts, sec = self._timed(lambda: fit(xtr, ytr, cfg))
+        acc = evaluate(model, xte, yte)
+        r = self._cascade_record(res, counts, sec, acc)
+        self._add_a_counts(counts)
+        (mref, rref), _, sref = self._timed(lambda: fit(xtr, ytr, SVMConfig(
+            c=C, gamma=GAMMA, epsilon=1e-3, max_iter=MAIN_MAX_ITER)))
+        acc_ref = evaluate(mref, xte, yte)
+        self._casc_ref = mref.n_sv, acc_ref
+        r.update(ref_n_sv=mref.n_sv, ref_heldout_accuracy=acc_ref,
+                 ref_seconds=sref, ref_n_iter=rref.n_iter)
+        ok = (res.kkt_violators == 0 and res.converged
+              and counts["A_launches"] > 0
+              and counts["A_runs"] == r["probe_iters"]
+              and counts["B_launches"] == 0
+              and abs(model.n_sv - mref.n_sv) <= max(3, 0.02 * mref.n_sv)
+              and abs(acc - acc_ref) <= 0.005)
+        if not ok:
+            self.fail("approx", f"(d) cascade: {json.dumps(r)}")
+        self.rec["approx"]["d"] = r
+        log(f"[approx] (d) cascade {CASC_N}x784: {json.dumps(r)}")
+
+    def approx_cascade_decomp(self) -> None:
+        """(e) the cascade with working_set = CASC_Q, inner_iters =
+        DECOMP_CAP on (d)'s CASC_N rows: the probe and the polish go
+        through the decomposition, so kernel B's launches move (launches =
+        device-counted runs), kernel A's do not; zero violators; held to
+        (d)'s ``api.fit`` model by the bar between paths. At the planted
+        60000 rows this cascade ran into the re-admission bound (one
+        violator left after MAX_READMIT_ROUNDS rounds; PERF.md §6), so
+        it runs on the 20000."""
+        from dpsvm_tpu_torch import SVMConfig, evaluate, fit
+        xtr, ytr, xte, yte = self._casc_rows
+        cfg = SVMConfig(solver="cascade", approx_dim=APPROX_D, c=C,
+                        gamma=GAMMA, epsilon=1e-3, max_iter=DECOMP_MAX_ITER,
+                        working_set=CASC_Q, inner_iters=DECOMP_CAP)
+        (model, res), counts, sec = self._timed(lambda: fit(xtr, ytr, cfg))
+        acc = evaluate(model, xte, yte)
+        r = self._cascade_record(res, counts, sec, acc)
+        self._add_b_counts(counts)
+        ref = self._casc_ref
+        r["ref_n_sv"], r["ref_heldout_accuracy"] = ref
+        ok = (res.kkt_violators == 0 and res.converged
+              and counts["B_launches"] == counts["B_runs"] > 0
+              and counts["A_launches"] == 0
+              and abs(model.n_sv - ref[0]) <= max(3, 0.02 * ref[0])
+              and abs(acc - ref[1]) <= 0.005)
+        if not ok:
+            self.fail("approx", f"(e) cascade, decomposition: "
+                      f"{json.dumps(r)}")
+        self.rec["approx"]["e"] = r
+        log(f"[approx] (e) cascade q={CASC_Q} {CASC_N}x784: "
+            f"{json.dumps(r)}")
+
+    def approx_resume(self) -> None:
+        """(f) the resume drills, bitwise against the runs that were not
+        cut: (a)'s approx-rff fit cut at APPROX_CUT steps (checkpoints
+        every 100) and resumed from the file to APPROX_END (epsilon 1e-9,
+        so every step runs); the cascade killed after each of stages 1-3
+        (``faultinject``) on planted CASC_RESUME_N x 784 rows and run
+        again from its stage files."""
+        from dpsvm_tpu_torch import SVMConfig, fit
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        from dpsvm_tpu_torch.resilience import faultinject
+        from dpsvm_tpu_torch.solver.cascade import CascadeInterrupted
+        xtr, ytr, _, _ = self.planted()
+        out = {}
+        cfg = SVMConfig(solver="approx-rff", approx_dim=APPROX_D, c=C,
+                        gamma=GAMMA, epsilon=1e-9, max_iter=APPROX_END)
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "approx.npz")
+            full, rf = fit(xtr, ytr, cfg)
+            _, rc = fit(xtr, ytr, dataclasses.replace(
+                cfg, max_iter=APPROX_CUT, checkpoint_path=ck,
+                checkpoint_every=100))
+            res, rr = fit(xtr, ytr, dataclasses.replace(cfg, resume_from=ck))
+        same = (np.array_equal(full.w, res.w) and full.b == res.b
+                and rf.n_iter == rr.n_iter == APPROX_END
+                and rc.n_iter == APPROX_CUT)
+        out["approx"] = {"cut": rc.n_iter, "resumed_to": rr.n_iter,
+                         "bitwise": bool(same)}
+        if not same:
+            self.fail("approx", f"(f) approx resume: {out['approx']}, "
+                      f"max |dw| {float(np.max(np.abs(full.w - res.w)))}")
+        x, y = make_planted(CASC_RESUME_N, D, GAMMA, seed=3)
+        ccfg = SVMConfig(solver="cascade", approx_dim=APPROX_D, c=C,
+                         gamma=GAMMA, epsilon=1e-3, max_iter=MAIN_MAX_ITER)
+        ref, rref = fit(x, y, ccfg)
+        out["cascade"] = {"n_kept": rref.n_kept,
+                          "rounds": rref.readmit_rounds}
+        prior = faultinject.current()
+        try:
+            for stage in (1, 2, 3):
+                with tempfile.TemporaryDirectory() as tmp:
+                    kcfg = dataclasses.replace(
+                        ccfg, checkpoint_path=os.path.join(tmp, "st.npz"))
+                    faultinject.install(faultinject.FaultPlan(
+                        cascade_stop_stage=stage))
+                    fired = False
+                    try:
+                        fit(x, y, kcfg)
+                    except CascadeInterrupted:
+                        fired = True
+                    faultinject.install(None)
+                    got, _ = fit(x, y, kcfg)
+                same = (fired and np.array_equal(ref.alpha, got.alpha)
+                        and np.array_equal(ref.x_sv, got.x_sv)
+                        and ref.b == got.b)
+                out["cascade"][f"stage{stage}"] = bool(same)
+                if not same:
+                    self.fail("approx", f"(f) cascade killed after stage "
+                              f"{stage} (fired {fired}) did not resume "
+                              "bitwise")
+        finally:
+            faultinject.install(prior)
+        self.rec["approx"]["f"] = out
+        log(f"[approx] (f) resume drills: {json.dumps(out)}")
+
+    def approx_million(self) -> None:
+        """(b) approx-rff (D = APPROX_D, C = 10) on planted APPROX_BIG_N x
+        784 rows (+ 10000 held out) through ``api.fit``, the path the
+        approx solvers exist for: converged, phi (APPROX_BIG_N x
+        (APPROX_D + 1) float32) built and kept on the card, never on the
+        host; seconds, steps, ms a step (CUDA events around the graph
+        replays) beside the step's bytes bound (two reads of phi at the
+        data sheet's HBM rate: a spec, not a measurement), and the peak of
+        ``torch.cuda.max_memory_allocated``."""
+        torch = self.torch
+        from dpsvm_tpu_torch import SVMConfig, evaluate, fit
+        from dpsvm_tpu_torch.approx import primal
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        t = time.perf_counter()
+        x, y = make_planted(APPROX_BIG_N + 10000, D, GAMMA, seed=1)
+        gen_s = time.perf_counter() - t
+        xtr, ytr = x[:APPROX_BIG_N], y[:APPROX_BIG_N]
+        xte, yte = x[APPROX_BIG_N:], y[APPROX_BIG_N:]
+        cfg = SVMConfig(solver="approx-rff", approx_dim=APPROX_D, c=C,
+                        gamma=GAMMA, epsilon=1e-3, max_iter=APPROX_BIG_MAX)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        primal.reset_counts()
+        (model, res), counts, sec = self._timed(lambda: fit(xtr, ytr, cfg))
+        peak = torch.cuda.max_memory_allocated()
+        acc = evaluate(model, xte, yte)
+        r = self._approx_record(res, counts, sec, acc)
+        phi_bytes = primal.RUN["phi_bytes"]
+        r.update(data_seconds=gen_s, phi_bytes=phi_bytes,
+                 peak_bytes=int(peak),
+                 step_bytes_bound_ms=2e3 * phi_bytes / HBM_BYTES_PER_S,
+                 lmax=primal.RUN["lmax"])
+        r["bound_share"] = r["step_bytes_bound_ms"] / r["ms_per_step"]
+        ok = (res.converged and self._approx_counts_ok(r)
+              and np.all(np.isfinite(model.w)) and acc > 0.9)
+        if not ok:
+            self.fail("approx", f"(b) approx-rff {APPROX_BIG_N} rows: "
+                      f"{json.dumps(r)}")
+        self.rec["approx"]["b"] = r
+        log(f"[approx] (b) approx-rff {APPROX_BIG_N}x784: {json.dumps(r)}")
+        log(f"[approx] (b) {r['ms_per_step']:.3f} ms a step against a "
+            f"bytes bound of {r['step_bytes_bound_ms']:.3f} ms (spec: two "
+            f"reads of phi, {phi_bytes / 1e9:.2f} GB each, at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
     def timing(self) -> None:
         """Kernel A as the main path runs it: a training run's carry at its
         start, advanced by chunks of TIMED_ITERS iterations through
@@ -3138,7 +3488,7 @@ def main(argv=None) -> int:
                    ("shrinking", s.shrinking), ("resume", s.resume),
                    ("libsvm", s.libsvm), ("multiclass", s.multiclass),
                    ("tasks", s.tasks), ("distributed", s.distributed),
-                   ("timing", s.timing)]
+                   ("approx", s.approx), ("timing", s.timing)]
     if args.only:
         keep = {"build", *args.only.split(",")}
         phases = [(n, fn) for n, fn in phases if n in keep]

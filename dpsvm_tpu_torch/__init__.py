@@ -25,14 +25,18 @@ protocol. ``SVMConfig(shards=P)`` trains over the P ranks of a
 ``torch.distributed`` group, one process a device (``parallel/``: the
 sharded pair and the sharded decomposition, NCCL between CUDA ranks, gloo
 between CPU ranks; ``parallel.multihost.launch_local`` starts local
-ranks). Kernels build with nvcc at
-first use. Entry points run on the GPU unless the caller passes
+ranks). ``SVMConfig(solver="approx-rff" | "approx-nystrom")`` trains a
+primal linear model over an explicit feature map kept on the GPU
+(``approx/``: the million-row path), and ``solver="cascade"`` screens
+with it and polishes the kept rows exactly (``solver/cascade.py``).
+Kernels build with nvcc at first use. Entry points run on the GPU unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions.
 
 Public API
 ----------
 ``train(X, y, config, device)``    -> TrainResult
-``fit(X, y, config, device)``      -> (SVMModel, TrainResult)
+``fit(X, y, config, device)``      -> (SVMModel, TrainResult); an
+                                   ``ApproxSVMModel`` for the approx solvers
 ``warm_start(X, y, alpha, config, device)`` -> TrainResult
 ``sweep_c(X, y, cs, config, gammas, device)`` -> [(SVMModel, TrainResult)]
 ``train_multiclass(X, y, config, ...)`` -> (MulticlassModel, [TrainResult])

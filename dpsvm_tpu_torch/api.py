@@ -1,6 +1,9 @@
 """Library entry points (port of ``dpsvm_tpu/api.py``): ``train``, ``fit``,
 ``warm_start`` and ``sweep_c`` for the exact solver, on one device or over
-the ranks of a process group.
+the ranks of a process group. ``fit`` also dispatches on
+``config.solver``: the approx solvers (``approx/primal.py``) and the
+cascade (``solver/cascade.py``); the other three refuse them, with the
+JAX package's messages.
 
 ``train`` routes as the JAX package does (``api.py:114-147`` there):
 
@@ -88,6 +91,12 @@ def train(x: np.ndarray, y: np.ndarray,
     rank defaults to its CUDA device under NCCL."""
     config = config or SVMConfig()
     config.validate()
+    if config.solver != "exact":
+        raise ValueError(
+            "approx solvers have no dual alpha vector to return, and "
+            "the cascade is a multi-stage schedule — train through "
+            "api.fit (which returns the right model kind), or "
+            "approx.fit_approx / solver.cascade.fit_cascade directly")
     x, y = _check_xy(x, y)
     config = config.resolved(x.shape[0], x.shape[1])
     if config.kernel == "precomputed" and x.shape[0] != x.shape[1]:
@@ -172,7 +181,21 @@ def _polish(x, y, config: SVMConfig, device, f_init, alpha_init,
 
 def fit(x: np.ndarray, y: np.ndarray, config: Optional[SVMConfig] = None,
         device: Device = None) -> Tuple[SVMModel, TrainResult]:
-    """train + SV compaction in one call."""
+    """train + SV compaction in one call.
+
+    ``config.solver = "approx-rff" | "approx-nystrom"`` dispatches to the
+    kernel-approximation path (``approx/primal.fit_approx``) and returns
+    an ``ApproxSVMModel``, which every consumer (``decision_function``,
+    ``models/io``, CV, multi-class) dispatches on; ``"cascade"`` to the
+    three-stage schedule (``solver/cascade.fit_cascade``), which returns
+    an ordinary ``SVMModel``."""
+    config = config or SVMConfig()
+    if config.solver == "cascade":
+        from dpsvm_tpu_torch.solver.cascade import fit_cascade
+        return fit_cascade(x, y, config, device=device)
+    if config.solver != "exact":
+        from dpsvm_tpu_torch.approx.primal import fit_approx
+        return fit_approx(x, y, config, device=device)
     x = densify(x)      # from_train_result consumes x too
     result = train(x, y, config, device=device)
     return SVMModel.from_train_result(x, y, result), result
@@ -190,6 +213,11 @@ def sweep_c(x: np.ndarray, y: np.ndarray, cs,
 
     x, y = _check_xy(x, y)
     config = config or SVMConfig()
+    if config.solver != "exact":
+        raise ValueError("the batched C/gamma sweep is a dual-solver "
+                         "program; approx solvers sweep by refitting "
+                         "(the feature map is shared work, see "
+                         "docs/APPROX.md)")
     results = train_c_sweep(x, y, cs, config, device=device, gammas=gammas)
     return [(SVMModel.from_train_result(x, y, r), r) for r in results]
 
@@ -210,6 +238,12 @@ def warm_start(x: np.ndarray, y: np.ndarray, alpha: np.ndarray,
 
     config = config or SVMConfig()
     config.validate()
+    if config.solver != "exact":
+        raise ValueError("warm_start continues a DUAL trajectory from "
+                         "alpha; approx solvers have no dual, and the "
+                         "cascade CALLS warm_start for its polish stage "
+                         "— pass solver='exact' (resume a primal run "
+                         "via checkpoint_path/resume_from instead)")
     if config.polish:
         raise ValueError("warm_start IS the refinement mechanism polish "
                          "is built from — call it with "

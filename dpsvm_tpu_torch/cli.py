@@ -30,6 +30,10 @@ report, plus ``--device {cuda,cpu}`` (default cuda).
     python -m dpsvm_tpu_torch train -f reg.csv -m model.svr --nu-svr --nu 0.5
     python -m dpsvm_tpu_torch train -f train.csv -m model.model \
         --model-format libsvm                      # LIBSVM .model text
+    python -m dpsvm_tpu_torch train -f train.csv -m model.npz -c 10 \
+        --solver approx-rff --approx-dim 1024      # (or approx-nystrom)
+    python -m dpsvm_tpu_torch train -f train.csv -m model.svm -c 10 \
+        --solver cascade [--screen-margin 0.35 --screen-cap N]
     python -m dpsvm_tpu_torch.cli test  -f test.csv  -m model.svm \
         [--proba p.txt] [--predictions pred.txt] [--no-b]
     python -m dpsvm_tpu_torch test -f test.csv -m mc_dir --proba p.txt
@@ -48,7 +52,8 @@ rows of K(test, train). ``--multiclass`` writes a model directory
 command writes, LIBSVM ``.model`` files included, and reports by the
 model's task: accuracy (classifiers), MSE/MAE/R^2 (regression) or the
 inlier fraction (one-class). The flag conflicts and their messages are
-the JAX CLI's.
+the JAX CLI's. ``--solver approx-*`` writes an approx ``.npz`` model (no
+SV set), which ``test`` reads like any other.
 
 Distributed training (``--shards P``, the reference's ``mpirun -np P``):
 without ``--coordinator`` and outside ``torchrun`` the command starts P
@@ -134,6 +139,8 @@ def _add_common(p: argparse.ArgumentParser, model_help: str,
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from dpsvm_tpu_torch.config import SCREEN_MARGIN_DEFAULT
+
     root = argparse.ArgumentParser(prog="dpsvm_tpu_torch")
     sub = root.add_subparsers(dest="command", required=True)
 
@@ -181,6 +188,38 @@ def build_parser() -> argparse.ArgumentParser:
                          "(repeatable; LIBSVM -wi for any label set): "
                          "each OvO pair trains with C*W on that label's "
                          "examples; unlisted labels weigh 1")
+    tr.add_argument("--solver", default="exact",
+                    choices=["exact", "approx-rff", "approx-nystrom",
+                             "cascade"],
+                    help="'exact' = the dual SMO/decomposition paths "
+                         "(reference parity). 'approx-rff'/'approx-"
+                         "nystrom' = explicit feature map + primal "
+                         "linear solver: O(n*D) matmul work instead of "
+                         "O(n^2) kernel work — the million-row path; "
+                         "the model file is a .npz with no support "
+                         "vectors. 'cascade' = approx warm-start -> "
+                         "margin-band SV screening -> exact dual polish "
+                         "on the screened subproblem with KKT "
+                         "re-admission repair; writes an ordinary SV "
+                         "model")
+    tr.add_argument("--screen-margin", type=float,
+                    default=SCREEN_MARGIN_DEFAULT, metavar="DELTA",
+                    help="cascade stage 2: margin-band safety delta — "
+                         "a row survives screening when its approx "
+                         "margin y*f(x) <= 1 + DELTA (bigger = safer "
+                         "band, bigger exact subproblem; the KKT "
+                         "repair loop re-admits anything the band "
+                         "missed)")
+    tr.add_argument("--screen-cap", type=int, default=0, metavar="N",
+                    help="cascade stage 2: hard cap on the screened "
+                         "subproblem's rows (0 = uncapped); over-cap "
+                         "rows drop best-margin-first")
+    tr.add_argument("--approx-dim", type=int, default=1024, metavar="D",
+                    help="approx solvers: feature-map dimension "
+                         "(accuracy-vs-cost knob; RFF needs it even)")
+    tr.add_argument("--approx-seed", type=int, default=0,
+                    help="approx solvers: deterministic feature-map "
+                         "seed (persisted with the model)")
     tr.add_argument("--selection", default="first-order",
                     choices=["first-order", "second-order"],
                     help="working-set rule: 'first-order' = reference "
@@ -318,15 +357,31 @@ def build_parser() -> argparse.ArgumentParser:
 def _train_conflicts(args: argparse.Namespace):
     """(error message or None, class_weight) from the flags alone, before
     the dataset is parsed: the JAX CLI's rules and messages for the flags
-    the port has. Its rows on flags the port does not have (``--solver``,
-    ``--pallas``, ``--polish``, ``--check-kkt``, ``--trace-out``) drop
-    out."""
+    the port has. Its rows on flags the port does not have (``--pallas``,
+    ``--polish``, ``--check-kkt``, ``--trace-out``) drop out."""
     if args.model_format == "libsvm" and args.multiclass:
         return ("--model-format libsvm applies to binary models; "
                 "--multiclass writes a directory of reference-format "
                 "per-pair files"), None
     if args.gamma_sweep is not None and args.c_sweep is None:
         return "--gamma-sweep extends --c-sweep (pass both)", None
+    if args.solver != "exact":
+        # The cascade's outputs are ordinary SV models, so --model-format
+        # libsvm stays valid there; the batched programs stay
+        # dual-solver-only.
+        approx = args.solver.startswith("approx")
+        for flag, on, hint in (
+                ("--c-sweep", args.c_sweep is not None,
+                 " (the batched sweep is a dual-solver program)"),
+                ("--batched", args.batched,
+                 " (the batched program solves the dual iteration)"),
+                ("--model-format libsvm",
+                 approx and args.model_format == "libsvm",
+                 " (approx models persist as .npz — no SV lines to "
+                 "write; --solver cascade writes ordinary SV models)")):
+            if on:
+                return (f"{flag} does not apply to --solver "
+                        f"{args.solver}{hint}"), None
     if args.c_sweep is not None and not args.cv:
         return ("--c-sweep requires --cv K (it selects C by "
                 "cross-validated accuracy)"), None
@@ -430,6 +485,11 @@ def _train_conflicts(args: argparse.Namespace):
         nu_multiclass = args.multiclass and mode == "--nu-svc"
         conflicts = [("--multiclass",
                       args.multiclass and mode != "--nu-svc"),
+                     # approx SVC/SVR are the supported primal tasks (the
+                     # cascade's band is a classification-margin rule)
+                     (f"--solver {args.solver}",
+                      args.solver != "exact"
+                      and (mode != "--svr" or args.solver == "cascade")),
                      ("--probability-cv" if args.probability_cv
                       else "--probability",
                       (args.probability_cv or
@@ -488,6 +548,10 @@ def cmd_train(args: argparse.Namespace) -> int:
                        checkpoint_keep=args.checkpoint_keep,
                        resume_from=args.resume,
                        shards=args.shards, shard_x=not args.replicate_x,
+                       solver=args.solver, approx_dim=args.approx_dim,
+                       approx_seed=args.approx_seed,
+                       screen_margin=args.screen_margin,
+                       screen_cap=args.screen_cap,
                        verbose=not args.quiet)
     dev = args.device
     if args.multiclass:
@@ -524,7 +588,16 @@ def cmd_train(args: argparse.Namespace) -> int:
     n_sv = save_model(model, args.model)
     acc = evaluate(model, x, y, device=dev)
     # Same closing report the reference prints (svmTrainMain.cpp:313-336).
-    print(f"Number of SVs: {n_sv}")
+    if getattr(model, "is_approx", False):
+        print(f"Approx model: {model.model_kind} dim={model.fmap.dim} "
+              "(no SV set)")
+    else:
+        print(f"Number of SVs: {n_sv}")
+    if hasattr(result, "n_kept"):
+        print(f"Cascade: screened {result.n_total} -> {result.n_kept} "
+              f"rows ({result.readmit_rounds} polish round(s), "
+              f"{result.n_readmitted} re-admitted, "
+              f"{result.kkt_violators} KKT violator(s))")
     print(f"b: {result.b:.6f}")
     print(f"Training iterations: {result.n_iter}"
           + ("" if result.converged else " (max-iter reached, NOT converged)"))
@@ -597,7 +670,8 @@ def _train_task(args, x, y, config, save_model) -> int:
         return 0
     from dpsvm_tpu_torch.models.svr import evaluate_svr, train_svr
     model, result = train_svr(x, y, config, device=dev)
-    if model.n_sv == 0:
+    approx = getattr(model, "is_approx", False)
+    if model.n_sv == 0 and not approx:
         print("error: the fitted tube contains every target "
               f"(svr_epsilon={config.svr_epsilon}) — the model has no "
               "support vectors and predicts the constant "
@@ -605,7 +679,11 @@ def _train_task(args, x, y, config, save_model) -> int:
         return 1
     n_sv = save_model(model, args.model)
     m = evaluate_svr(model, x, y, device=dev)
-    print(f"Number of SVs: {n_sv}")
+    if approx:
+        print(f"Approx model: {model.model_kind} dim={model.fmap.dim} "
+              "(no SV set)")
+    else:
+        print(f"Number of SVs: {n_sv}")
     print(f"b: {result.b:.6f}")
     print(f"Training iterations: {result.n_iter}"
           + ("" if result.converged else " (NOT converged)"))
@@ -737,7 +815,8 @@ def _reconcile_width(args, model, x):
     width = model.num_attributes
     if x.shape[1] < width and sniff_format(args.input) == "libsvm":
         return model, np.pad(x, ((0, 0), (0, width - x.shape[1])))
-    if x.shape[1] > width and is_libsvm_model(args.model):
+    if (x.shape[1] > width and not getattr(model, "is_approx", False)
+            and is_libsvm_model(args.model)):
         if model.kernel == "precomputed":
             # LIBSVM stores no n_train; serials only bound it from below
             return dataclasses.replace(model, n_train=x.shape[1],

@@ -21,6 +21,10 @@ Three solver paths are ported, each with the envelope a method names:
   (``solver/decomp.py``, or ``parallel/dist_decomp.py`` over ``shards``
   ranks), every kernel kind, both clips and class weights.
 
+``solver`` picks the family: "exact" (the three paths above),
+"approx-rff" / "approx-nystrom" (``approx/``) or "cascade"
+(``solver/cascade.py``), with the JAX package's per-solver knob table
+(``_KNOB_TABLE``: a knob another family owns is refused, naming it).
 ``shards > 1`` runs in a process group of that many ranks (``api.train``
 raises without one, naming the ways to start it).
 ``shrinking`` (``solver/shrink.py``) wraps the general pair or the
@@ -40,6 +44,50 @@ from typing import Optional
 SENTINEL = 1.0e9
 
 _PRECISIONS = ("highest", "high", "default")
+
+_SOLVERS = ("exact", "approx-rff", "approx-nystrom", "cascade")
+
+# Default cascade screening band (SVMConfig.screen_margin): one name so the
+# field default, the capability table's "is the knob set" test and the
+# cascade's stage sub-config resets cannot drift apart.
+SCREEN_MARGIN_DEFAULT = 0.35
+
+# Per-solver knob capability table, the JAX package's row for row (its row
+# on a field the port does not have, backend, drops out): (field label,
+# is-set predicate, solvers that accept it, why the others reject it). A
+# rejection names the solver(s) that would accept the knob. The cascade
+# accepts both families' knobs: its stage 1 is an approx primal train, its
+# stage 3 an exact dual polish.
+_DUAL = ("exact", "cascade")
+_CASCADE = ("cascade",)
+_KNOB_TABLE = (
+    ("selection", lambda c: c.selection != "first-order", _DUAL,
+     "there is no working-set selection in the primal solver"),
+    ("select_impl", lambda c: c.select_impl != "argminmax", _DUAL,
+     "there is no extrema selection to lower"),
+    ("working_set", lambda c: c.working_set not in (0, 2), _DUAL,
+     "there is no dual working set; the minibatch size is chosen by "
+     "the primal solver"),
+    ("inner_iters", lambda c: bool(c.inner_iters), _DUAL,
+     "there is no decomposition subsolve"),
+    ("grow_working_set", lambda c: c.grow_working_set, _DUAL,
+     "there is no working set to grow"),
+    ("shrinking", lambda c: c.shrinking is True, _DUAL,
+     "there is no active set; every row rides the feature matmul"),
+    ("cache_size", lambda c: c.cache_size > 0, _DUAL,
+     "there are no kernel rows to cache"),
+    ("use_pallas", lambda c: c.use_pallas == "on", _DUAL,
+     "the Pallas kernels implement the dual iteration"),
+    ("polish", lambda c: c.polish, ("exact",),
+     "the two-phase precision schedule refines a dual trajectory — "
+     "and the cascade is itself a screen-and-polish schedule; set "
+     "matmul_precision directly"),
+    ("screen_margin",
+     lambda c: c.screen_margin != SCREEN_MARGIN_DEFAULT, _CASCADE,
+     "margin-band SV screening is the cascade's stage-2 knob"),
+    ("screen_cap", lambda c: c.screen_cap != 0, _CASCADE,
+     "the screened-subproblem row cap is the cascade's stage-2 knob"),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +142,32 @@ class SVMConfig:
                                         # configured path at bf16 X, then an
                                         # exact-f32 warm start to the same
                                         # epsilon (api.train)
+    solver: str = "exact"               # "exact" = the dual paths above;
+                                        # "approx-rff" / "approx-nystrom" =
+                                        # explicit feature map + primal
+                                        # linear solver (approx/): api.fit
+                                        # returns an ApproxSVMModel;
+                                        # "cascade" = approx warm-start ->
+                                        # margin-band SV screening -> exact
+                                        # dual polish with KKT re-admission
+                                        # (solver/cascade.py): api.fit
+                                        # returns an ordinary SVMModel
+    approx_dim: int = 1024              # feature-map dimension D: RFF uses
+                                        # D/2 cos/sin pairs (D even);
+                                        # Nystrom up to D landmarks
+                                        # (capped by n, rank-truncated)
+    approx_seed: int = 0                # feature-map seed (RFF frequencies,
+                                        # Nystrom landmarks, the primal
+                                        # shuffle), persisted with the model
+    screen_margin: float = SCREEN_MARGIN_DEFAULT
+                                        # cascade stage 2: a row survives
+                                        # screening when its calibrated
+                                        # approx margin y f(x) <= 1 +
+                                        # screen_margin
+    screen_cap: int = 0                 # cascade stage 2: hard cap on the
+                                        # screened subproblem's rows (0 =
+                                        # uncapped); over-cap rows drop
+                                        # largest-margin first
 
     # --- execution ---
     shards: int = 1                     # ranks along the data axis, one
@@ -246,6 +320,61 @@ class SVMConfig:
                     "gather path")
         if self.kernel == "poly" and self.degree < 1:
             raise ValueError(f"poly degree must be >= 1, got {self.degree}")
+        if self.solver not in _SOLVERS:
+            raise ValueError(f"solver must be one of {_SOLVERS}, got "
+                             f"{self.solver!r}")
+        if self.approx_dim < 2:
+            raise ValueError(
+                f"approx_dim must be >= 2, got {self.approx_dim}")
+        for field, is_set, accepted, what in _KNOB_TABLE:
+            if self.solver not in accepted and is_set(self):
+                raise ValueError(
+                    f"solver={self.solver!r} does not support {field}: "
+                    f"{what} (accepted by solver "
+                    f"{', '.join(repr(s) for s in accepted)})")
+        if self.solver != "exact":
+            if self.solver == "approx-rff" and self.kernel != "rbf":
+                raise ValueError(
+                    "approx-rff is the RBF spectral feature map "
+                    "(Rahimi-Recht); for other kernels use "
+                    "approx-nystrom or the exact solver")
+            if (self.approx_dim % 2
+                    and (self.solver == "approx-rff"
+                         or (self.solver == "cascade"
+                             and self.kernel == "rbf"))):
+                raise ValueError(
+                    "approx-rff pairs cos/sin features, so "
+                    f"approx_dim must be even, got {self.approx_dim}"
+                    + (" (the cascade's RBF warm-start stage is "
+                       "approx-rff)" if self.solver == "cascade" else ""))
+            if self.kernel == "precomputed":
+                raise ValueError(
+                    "approx solvers evaluate kernels between new rows "
+                    "and landmarks/frequencies; a precomputed K has no "
+                    "row vectors to featurize"
+                    + (" (the cascade's warm-start stage is an approx "
+                       "train)" if self.solver == "cascade" else ""))
+        if self.solver == "cascade":
+            if not (math.isfinite(self.screen_margin)
+                    and self.screen_margin > 0):
+                raise ValueError("screen_margin must be finite and > 0, "
+                                 f"got {self.screen_margin}")
+            if self.screen_cap < 0:
+                raise ValueError(
+                    f"screen_cap must be >= 0, got {self.screen_cap}")
+            # Stage state lives under checkpoint_path (stage-boundary
+            # files, auto-resumed: solver/cascade.py).
+            if self.resume_from:
+                raise ValueError(
+                    "cascade does not support resume_from: it "
+                    "auto-resumes from its stage-boundary state files "
+                    "under checkpoint_path (delete them to restart)")
+            if self.checkpoint_every:
+                raise ValueError(
+                    "cascade does not support checkpoint_every: stage "
+                    "boundaries are its checkpoint cadence — set "
+                    "checkpoint_path alone to name where stage state "
+                    "lives")
         if self.selection not in ("first-order", "second-order"):
             raise ValueError(f"selection must be 'first-order' or "
                              f"'second-order', got {self.selection!r}")

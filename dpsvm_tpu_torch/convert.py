@@ -4,6 +4,9 @@ The two packages share no objects; what crosses is plain arrays:
 
 * ``model_from_numpy`` turns a model's fields (as read off a JAX
   ``SVMModel``, its ``task`` included) into the port's ``SVMModel``;
+* ``approx_model_from_numpy`` does the same for a JAX ``ApproxSVMModel``:
+  the feature map's arrays (omega, or landmarks and proj) and scalars, w
+  and b;
 * ``carry_from_numpy`` rebuilds the fused carry from solver state
   (alpha, f), the way ``init_fused_carry`` does on resume: the working set
   is a pure function of (alpha, f);
@@ -44,6 +47,47 @@ def model_from_numpy(x_sv, alpha, y_sv, b, gamma, kernel: str = "rbf",
                             else np.asarray(sv_idx, np.int64).reshape(-1)),
                     n_train=None if n_train is None else int(n_train),
                     n_train_exact=bool(n_train_exact))
+
+
+def approx_model_from_numpy(kind: str, d: int, dim: int, seed: int,
+                            gamma: float, w, b, task: str = "svc",
+                            kernel: str = "rbf", coef0: float = 0.0,
+                            degree: int = 3, omega=None, landmarks=None,
+                            proj=None):
+    """The port's ``ApproxSVMModel`` from a JAX one's fields (``fmap.kind``,
+    ``fmap.d``, ``fmap.dim``, ``fmap.seed``, ``fmap.gamma``, ``w``, ``b``,
+    ``task``, and the map's arrays). An RFF map without ``omega`` draws it
+    again from the seed (``rff_omega``: the same bits)."""
+    from dpsvm_tpu_torch.approx.features import FeatureMap, rff_omega
+    from dpsvm_tpu_torch.approx.model import ApproxSVMModel
+    if task not in ("svc", "svr"):
+        raise ValueError(f"unknown approx task {task!r}")
+    if kind == "rff":
+        om = (rff_omega(int(d), int(dim), float(gamma), int(seed))
+              if omega is None else np.asarray(omega, np.float32))
+        if om.shape != (int(d), int(dim) // 2):
+            raise ValueError(f"omega must be ({d}, {int(dim) // 2}), got "
+                             f"{om.shape}")
+        fmap = FeatureMap(kind="rff", d=int(d), dim=int(dim),
+                          seed=int(seed), gamma=float(gamma),
+                          omega=np.ascontiguousarray(om))
+    elif kind == "nystrom":
+        lm = np.ascontiguousarray(landmarks, np.float32)
+        pj = np.ascontiguousarray(proj, np.float32)
+        if lm.ndim != 2 or lm.shape[1] != int(d) or pj.shape != (
+                lm.shape[0], int(dim)):
+            raise ValueError(f"landmarks {lm.shape} / proj {pj.shape} do "
+                             f"not fit d={d}, dim={dim}")
+        fmap = FeatureMap(kind="nystrom", d=int(d), dim=int(dim),
+                          seed=int(seed), gamma=float(gamma),
+                          kernel=str(kernel), coef0=float(coef0),
+                          degree=int(degree), landmarks=lm, proj=pj)
+    else:
+        raise ValueError(f"unknown feature map kind {kind!r}")
+    w = np.asarray(w, np.float32).reshape(-1)
+    if w.shape != (int(dim),):
+        raise ValueError(f"w must be ({dim},), got {w.shape}")
+    return ApproxSVMModel(fmap=fmap, w=w.copy(), b=float(b), task=str(task))
 
 
 def carry_from_numpy(alpha, f, y, c: float, n_iter: int = 0,

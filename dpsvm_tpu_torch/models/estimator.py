@@ -11,9 +11,10 @@ Labels may be ANY two values (sklearn-style), not just +/-1: classes_ is
 the sorted unique pair, mapped internally onto the solver's -1/+1. More
 than two classes dispatch to the one-vs-one trainer. The hyperparameters
 are the JAX estimators', plus ``device`` (None means the GPU, ``"cpu"``
-the plain PyTorch paths). ``solver`` other than "exact" (the approx
-solvers, ROADMAP Queue 1 item 9) raises NotImplementedError at fit;
-``shards`` passes through to ``api.train``: ``shards > 1`` trains over the
+the plain PyTorch paths). ``solver="approx-rff" | "approx-nystrom"``
+fits a primal linear model over an explicit feature map (``approx/``; no
+SV set, so ``n_support_`` is None after a binary fit), and ``"cascade"``
+the three-stage schedule (``solver/cascade.py``); ``shards`` passes through to ``api.train``: ``shards > 1`` trains over the
 ranks of an initialized process group (every rank fitting the same data),
 and raises without one.
 """
@@ -65,19 +66,15 @@ class _ParamsMixin:
                                "fitted yet; call fit(X, y) first")
 
     def _common_config_kwargs(self) -> Dict[str, Any]:
-        """The SVMConfig fields shared by both estimators. The approx
-        solvers are not ported: any other ``solver`` raises."""
-        if self.solver != "exact":
-            raise NotImplementedError(
-                f"solver {self.solver!r}: the approx solvers are not "
-                "ported to dpsvm_tpu_torch yet (ROADMAP Queue 1 item 9); "
-                "use solver='exact'")
+        """The SVMConfig fields shared by both estimators."""
         return dict(c=self.C, kernel=self.kernel, degree=self.degree,
                     gamma=self.gamma, coef0=self.coef0, epsilon=self.tol,
                     max_iter=self.max_iter, selection=self.selection,
                     shards=self.shards, working_set=self.working_set,
                     shrinking=self.shrinking,
-                    matmul_precision=self.matmul_precision)
+                    matmul_precision=self.matmul_precision,
+                    solver=self.solver, approx_dim=self.approx_dim,
+                    approx_seed=self.approx_seed)
 
 
 def _dense(X) -> np.ndarray:
@@ -177,8 +174,9 @@ class DPSVMClassifier(_ParamsMixin, *_CLF_BASES):
                 n_iter_=result.n_iter,
                 converged_=result.converged,
                 intercept_=np.array([-result.b]),
-                n_support_=np.array([int(np.sum(model.y_sv < 0)),
-                                     int(np.sum(model.y_sv > 0))]))
+                n_support_=(None if getattr(model, "is_approx", False)
+                            else np.array([int(np.sum(model.y_sv < 0)),
+                                           int(np.sum(model.y_sv > 0))])))
             if self.probability:
                 from dpsvm_tpu_torch.models.calibration import (
                     fit_platt, fit_platt_cv)

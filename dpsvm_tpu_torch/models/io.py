@@ -25,8 +25,8 @@ float32 exactly.
 
 A file that opens with ``svm_type`` is LIBSVM's own ``.model`` format
 (``is_libsvm_model``); ``load_model`` hands it to ``models/libsvm_io.py``.
-Approx ``.npz`` models (ROADMAP Queue 1 item 9) are not ported yet and
-raise.
+Approx models (``approx/model.py``) are one ``.npz`` file: ``save_model``
+and ``load_model`` dispatch on the model kind and on the zip magic.
 """
 
 from __future__ import annotations
@@ -39,7 +39,12 @@ from dpsvm_tpu_torch.models.svm import SVMModel
 
 
 def save_model(model: SVMModel, path: str) -> int:
-    """Write the model file; returns the number of SV lines written."""
+    """Write the model file; returns the number of SV lines written (0
+    for an approx model, which has none: its ``.npz`` holds the feature
+    map and the primal weights)."""
+    if getattr(model, "is_approx", False):
+        from dpsvm_tpu_torch.approx.model import save_approx_model
+        return save_approx_model(model, path)
     alpha = np.ascontiguousarray(model.alpha, np.float32)
     y = np.ascontiguousarray(model.y_sv, np.int32)
     x = np.ascontiguousarray(model.x_sv, np.float32)
@@ -83,16 +88,15 @@ def is_libsvm_model(path: str) -> bool:
 
 def load_model(path: str, n_features=None) -> SVMModel:
     """Read a model file: the reference layout (with or without b), the
-    ``kernel ...`` header of the other kernels and tasks, or a LIBSVM
-    ``.model`` file (``n_features`` widens its sparse SV matrix; the other
+    ``kernel ...`` header of the other kernels and tasks, an approx
+    ``.npz`` (an ``ApproxSVMModel``), or a LIBSVM ``.model`` file (``n_features`` widens its sparse SV matrix; the other
     layouts carry their width and ignore it)."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    with open(path, "rb") as f:
-        if f.read(4) == b"PK\x03\x04":
-            raise NotImplementedError(
-                f"{path}: approx (.npz) models are not ported to "
-                "dpsvm_tpu_torch yet (ROADMAP Queue 1 item 9)")
+    from dpsvm_tpu_torch.approx.model import (is_approx_model_file,
+                                              load_approx_model)
+    if is_approx_model_file(path):
+        return load_approx_model(path)
     if is_libsvm_model(path):
         from dpsvm_tpu_torch.models.libsvm_io import load_libsvm_model
         return load_libsvm_model(path, n_features=n_features)

@@ -220,6 +220,11 @@ def train_multiclass(x: np.ndarray, y: np.ndarray,
             class_weight.get(classes[bi], 1.0))
 
     if batched:
+        if config.solver != "exact":
+            raise ValueError(
+                "the batched OvO program solves the dual iteration; "
+                "approx pairs train sequentially (each is one primal "
+                "solve) — train with batched=False")
         from dpsvm_tpu_torch.solver.batched_ovo import (batched_guard,
                                                         ovo_pair_shapes)
         batched_guard(config, "OvO",
@@ -319,7 +324,10 @@ def pairwise_decisions(model: MulticlassModel, x: np.ndarray,
     ms = model.models
     specs = {(m.kernel, float(m.gamma), float(m.coef0), int(m.degree))
              for m in ms}
-    if len(specs) == 1 and ms[0].kernel != "precomputed" and len(ms) > 1:
+    if (len(specs) == 1 and ms[0].kernel != "precomputed" and len(ms) > 1
+            # approx pairs have no SV rows to concatenate; their decision
+            # is already one product
+            and not any(getattr(m, "is_approx", False) for m in ms)):
         out = pairwise_decision_values(ms, x, include_b=include_b,
                                        device=device)
         return [out[:, p] for p in range(len(ms))]

@@ -105,7 +105,12 @@ def decision_function(model: SVMModel, x_test: np.ndarray,
     ``batch_size`` test rows so device memory stays bounded (one batch
     holds (batch_size, n_sv) kernel values). For a precomputed kernel
     ``x_test`` is K(test, train) and the batch's kernel values are its SV
-    columns."""
+    columns. Approx models (``approx/``) dispatch to their own decision
+    (featurize, then one product with the weights)."""
+    if getattr(model, "is_approx", False):
+        from dpsvm_tpu_torch.approx.model import decision_function as _approx
+        return _approx(model, x_test, include_b=include_b,
+                       batch_size=batch_size, device=device)
     dev = resolve_device(device)
     x_test = np.ascontiguousarray(x_test, np.float32)
     width = model.num_attributes

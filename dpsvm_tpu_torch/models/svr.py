@@ -27,9 +27,9 @@ coefficients encode delta_i = a_i - a*_i as (alpha=|delta|,
 y=sign(delta)): the batched decision function then computes the
 regression prediction  y(x) = sum_i delta_i K(x_i, x) - b  unchanged.
 
-The JAX package's approx SVR (``config.solver != "exact"``) is not ported
-(ROADMAP Queue 1 item 9): the port's config has no ``solver`` field, so
-there is nothing to dispatch here.
+With ``config.solver`` an approx solver, ``train_svr`` solves the
+epsilon-insensitive loss in the primal instead (``approx/primal.py``, no
+2n dual stacking) and returns an ``ApproxSVMModel`` with task="svr".
 """
 
 from __future__ import annotations
@@ -58,6 +58,9 @@ def train_svr(x: np.ndarray, y: np.ndarray,
 
     x = densify(x)
     config = config or SVMConfig()
+    if config.solver != "exact":
+        from dpsvm_tpu_torch.approx.primal import fit_approx
+        return fit_approx(x, y, config, task="svr", device=device)
     precomp = config.kernel == "precomputed"
     config.validate()
     if config.weight_pos != 1.0 or config.weight_neg != 1.0:

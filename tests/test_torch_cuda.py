@@ -1353,3 +1353,108 @@ def test_two_gloo_ranks_share_the_card(dev, nccl_world):
     assert r["ranks_agree"] and r["converged"]
     assert r["n_iter"] == one.n_iter
     np.testing.assert_allclose(r["alpha"], one.alpha, rtol=1e-4, atol=1e-4)
+
+
+# --- the approx solvers and the cascade ---------------------------------
+
+def _approx_problem(n, d=16, kind="rff", task="svc", seed=3):
+    x, y = make_blobs(n=n, d=d, seed=seed)
+    if task == "svr":
+        y = np.sin(x[:, 0]).astype(np.float32)
+    cfg = SVMConfig(solver=f"approx-{kind}", approx_dim=256, c=5.0,
+                    gamma=1.0 / d, epsilon=1e-3, max_iter=20_000)
+    return x, y, cfg
+
+
+@pytest.mark.parametrize("n,kind,task", [(800, "rff", "svc"),
+                                         (1500, "rff", "svc"),
+                                         (3000, "nystrom", "svc"),
+                                         (3000, "rff", "svr")])
+def test_approx_graph_chunk_matches_its_eager_loop(dev, n, kind, task):
+    """The captured chunk (gated bodies) against the eager loop of
+    ``primal_step`` on the card: the whole fit, bitwise (full-batch,
+    minibatch at 1500 rows, Nystrom and SVR)."""
+    from dpsvm_tpu_torch.approx import primal
+    x, y, cfg = _approx_problem(n, kind=kind, task=task)
+    primal.reset_counts()
+    mg, rg = primal.fit_approx(x, y, cfg, task=task, device=dev)
+    assert primal.COUNTS["captures"] == 1
+    assert primal.RUN["phi_device"].startswith("cuda")
+    mp, rp = primal.fit_approx(x, y, cfg, task=task, device=dev,
+                               plain=True)
+    assert rg.n_iter == rp.n_iter and rg.converged
+    np.testing.assert_array_equal(mg.w, mp.w)
+    assert mg.b == mp.b
+
+
+@pytest.mark.parametrize("n,kind,task", [(800, "rff", "svc"),
+                                         (1500, "nystrom", "svc"),
+                                         (3000, "rff", "svr")])
+def test_approx_card_fit_matches_the_cpu(dev, n, kind, task):
+    """The card's fit against the plain CPU fit: float32 rounding apart,
+    the same step count within 5% and decisions within 5e-3."""
+    from dpsvm_tpu_torch.approx import primal
+    from dpsvm_tpu_torch.models.svm import decision_function
+    x, y, cfg = _approx_problem(n, kind=kind, task=task)
+    mg, rg = primal.fit_approx(x, y, cfg, task=task, device=dev)
+    mc, rc = primal.fit_approx(x, y, cfg, task=task, device="cpu")
+    assert rg.converged and rc.converged
+    assert abs(rg.n_iter - rc.n_iter) <= max(2, 0.05 * rc.n_iter)
+    dg = decision_function(mg, x, device=dev)
+    dc = decision_function(mc, x, device="cpu")
+    assert float(np.max(np.abs(dg - dc))) < 5e-3
+
+
+def test_approx_resume_is_bitwise_on_the_card(dev, tmp_path):
+    """A fit cut at 300 steps and resumed to 600 lands on the weights of
+    the uncut 600-step fit, bit for bit."""
+    from dpsvm_tpu_torch.approx import primal
+    x, y, cfg = _approx_problem(3000)
+    cfg = dataclasses.replace(cfg, epsilon=1e-9, max_iter=600,
+                              chunk_iters=256)
+    full, _ = primal.fit_approx(x, y, cfg, device=dev)
+    ck = str(tmp_path / "ck.npz")
+    primal.fit_approx(x, y, dataclasses.replace(
+        cfg, max_iter=300, checkpoint_path=ck, checkpoint_every=100),
+        device=dev)
+    res, r = primal.fit_approx(x, y, dataclasses.replace(
+        cfg, resume_from=ck), device=dev)
+    assert r.n_iter == 600
+    np.testing.assert_array_equal(full.w, res.w)
+    assert full.b == res.b
+
+
+@pytest.mark.parametrize("kw,kernel", [({}, "A"),
+                                       (dict(working_set=1024,
+                                             inner_iters=64), "B")])
+def test_cascade_probe_and_polish_run_the_kernels(dev, kw, kernel):
+    """A cascade big enough for the calibration probe (>= 12288 rows):
+    at the default dual knobs the probe's api.fit is the fused pair, so
+    kernel A's counter moves; with working_set > 2 the probe and the
+    polish go through the decomposition, so kernel B's moves. Zero
+    violators either way."""
+    from dpsvm_tpu_torch.solver import cascade as cs
+    x, y = make_planted(13000, 32, 0.25, seed=1)
+    cfg = SVMConfig(solver="cascade", approx_dim=256, c=1.0, gamma=0.25,
+                    epsilon=1e-3, **kw)
+    fs.reset_counts()
+    sk.reset_counts()
+    _, r = cs.fit_cascade(x, y, cfg, device=dev)
+    assert r.kkt_violators == 0 and r.converged
+    assert cs.RUN["probe_rows"] == cs._PROBE_ROWS
+    if kernel == "A":
+        assert fs.LAUNCHES["fused_update_select"] > 0
+        assert sk.LAUNCHES["inner_subsolve"] == 0
+    else:
+        assert sk.LAUNCHES["inner_subsolve"] > 0
+        assert fs.LAUNCHES["fused_update_select"] == 0
+
+
+def test_approx_default_device_without_cuda_raises(monkeypatch):
+    """``fit_approx(device=None)`` means the card: without CUDA it raises,
+    it never moves to the CPU (the CUDA check is stubbed off here)."""
+    from dpsvm_tpu_torch.approx import primal
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x, y, cfg = _approx_problem(200)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        primal.fit_approx(x, y, cfg)

@@ -10,8 +10,9 @@ Bars, and why:
   5e-3 (the bar between converged fits of the two packages), accuracy and
   R^2 within one example / 1e-3, probabilities within 1e-3;
 * sklearn's ``clone`` and ``cross_val_score`` accept the estimators;
-* refusals: ``solver`` other than "exact" raises NotImplementedError
-  naming the approx solvers' queue item, ``shards > 1`` raises as
+* refusals: an unknown ``solver`` raises the config's ValueError (the
+  approx solvers themselves are held in tests/test_torch_approx.py),
+  ``shards > 1`` raises as
   ``api.train`` does.
 """
 
@@ -174,8 +175,8 @@ def test_solver_knobs_and_sparse_input():
 def test_refusals():
     x, y = make_blobs(n=60, d=3, seed=0)
     for est in (test_.DPSVMClassifier, test_.DPSVMRegressor):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            est(solver="approx-rff", **CPU).fit(x, y)
+        with pytest.raises(ValueError, match="solver must be one of"):
+            est(solver="approx-rbf", **CPU).fit(x, y)
         with pytest.raises(RuntimeError, match="launch_local"):
             est(shards=2, **CPU).fit(x, y)
     with pytest.raises(ValueError, match="at least 2 classes"):

@@ -87,9 +87,10 @@ def test_model_file_without_b_line(tmp_path):
 
 
 def test_extended_model_files_are_refused(tmp_path):
-    """The one layout of a model kind the port does not train yet, the
-    approx ``.npz``, raises naming its queue item. The ``task`` line and
-    LIBSVM ``.model`` files load now, as in the JAX package (fuller checks
+    """A zip file that is not an approx model (no format marker) is
+    refused with the JAX package's ValueError; approx ``.npz`` models
+    themselves load now (tests/test_torch_approx.py). The ``task`` line
+    and LIBSVM ``.model`` files load, as in the JAX package (fuller checks
     in tests/test_torch_svr.py and tests/test_torch_libsvm_io.py)."""
     path = tmp_path / "svr.svm"
     path.write_text("kernel linear 1 0 3\ntask svr\n0.1\n0.5,1,1.0\n")
@@ -106,8 +107,12 @@ def test_extended_model_files_are_refused(tmp_path):
     assert msgs[0] == msgs[1] and "no 'SV' section" in msgs[0]
     path = tmp_path / "approx.npz"
     np.savez(path, w=np.zeros(3))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tio.load_model(str(path))
+    msgs = []
+    for mod in (tio, jio):
+        with pytest.raises(ValueError) as e:
+            mod.load_model(str(path))
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "format marker" in msgs[0]
 
 
 def test_load_csv_matches_jax(tmp_path):
