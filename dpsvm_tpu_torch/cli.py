@@ -43,8 +43,22 @@ report, plus ``--device {cuda,cpu}`` (default cuda).
     python -m dpsvm_tpu_torch train ... --shards 8 --coordinator host0:29500 \
         --num-hosts 8 --host-id $RANK              # one command a rank
     torchrun --nproc-per-node 4 -m dpsvm_tpu_torch train ... --shards 4
+    python -m dpsvm_tpu_torch convert shards train.csv shard_dir \
+        [--rows-per-shard 4096]                    # resumable, CRC manifest
+    python -m dpsvm_tpu_torch convert libsvm a9a.libsvm a9a.csv
+    python -m dpsvm_tpu_torch scale train.csv scaled.csv -s train.range
+    python -m dpsvm_tpu_torch train -f shard_dir -m model.npz -c 10 \
+        --solver approx-rff [--mem-budget-mb 512 --on-bad-shard quarantine]
+    python -m dpsvm_tpu_torch train -f shard_dir -m model.svm -c 10 \
+        --solver cascade                           # out of core, exact model
+    python -m dpsvm_tpu_torch test -f shard_dir -m model.svm
 
-``-f`` takes a dense CSV or a libsvm file (sniffed). With ``-t precomputed`` (LIBSVM -t 4) the training CSV holds the (n, n)
+``-f`` takes a dense CSV, a libsvm file (sniffed) or a shard directory
+from ``convert shards``: ``train --solver approx-*`` streams it
+(``approx.primal.fit_approx_stream``), ``--solver cascade`` runs the
+out-of-core cascade (``solver.cascade.fit_cascade_stream``), and every
+other mode, and ``test``, materialize it through its integrity-checked
+reads, under ``--mem-budget-mb``. With ``-t precomputed`` (LIBSVM -t 4) the training CSV holds the (n, n)
 kernel matrix as its rows (``label,K_i1,...,K_in``) and the test CSV the
 rows of K(test, train). ``--multiclass`` writes a model directory
 (``index.json`` and a model file per pair), which ``test`` reads when
@@ -129,8 +143,22 @@ def _existing_checkpoint(v: str) -> str:
 def _add_common(p: argparse.ArgumentParser, model_help: str,
                 model_required: bool = True) -> None:
     p.add_argument("-f", "--input", required=True,
-                   help="dataset: dense CSV 'label,f1,...,fd' or libsvm "
-                        "'label idx:val ...' (sniffed)")
+                   help="dataset: dense CSV 'label,f1,...,fd', libsvm "
+                        "'label idx:val ...' (sniffed), or a shard "
+                        "directory from `convert shards` (integrity-"
+                        "checked reads)")
+    p.add_argument("--mem-budget-mb", type=float, default=None,
+                   metavar="MB",
+                   help="host-memory admission guard: refuse (up front, "
+                        "with the shard-count math) any load whose "
+                        "materialized arrays exceed this many MiB; for "
+                        "shard directories the streaming train path "
+                        "bounds its per-shard working set by the same "
+                        "budget")
+    p.add_argument("--allow-nonfinite", action="store_true",
+                   help="escape hatch: load rows containing NaN/Inf "
+                        "features instead of rejecting the file (the "
+                        "solver will NOT converge on them)")
     p.add_argument("-m", "--model", required=model_required,
                    default=None, help=model_help)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -335,6 +363,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="like -b, but fit the sigmoid on 5-fold "
                          "held-out decision values (LIBSVM's -b 1 "
                          "procedure; 5 extra trainings)")
+    tr.add_argument("--on-bad-shard", default="raise",
+                    choices=["raise", "quarantine"],
+                    help="streaming-ingest policy when a shard fails its "
+                         "manifest CRC or finiteness check (shard-"
+                         "directory inputs): 'quarantine' drops the "
+                         "shard, bounded by the bad-fraction abort")
     tr.add_argument("-q", "--quiet", action="store_true")
 
     te = sub.add_parser("test", help="evaluate a saved model on a dataset")
@@ -351,6 +385,54 @@ def build_parser() -> argparse.ArgumentParser:
                          "dir: per-class probabilities (pairwise "
                          "coupling) + log-loss, predicting by the coupled "
                          "argmax. Both need train --probability")
+
+    cv = sub.add_parser(
+        "convert", help="dataset converters (the reference's scripts/ and "
+                        "the out-of-core shard format)")
+    cv.add_argument("format", choices=["libsvm", "mnist-odd-even",
+                                       "shards"],
+                    help="libsvm: sparse 'label idx:val ...' -> dense CSV "
+                         "(scripts/convert_adult.py); mnist-odd-even: "
+                         "'digit,p1,...' -> +/-1 even/odd with /255 pixels "
+                         "(scripts/convert_mnist_to_odd_even.py); shards: "
+                         "any loader-supported file -> a directory of "
+                         "fixed-shape .npz shards + a CRC-carrying "
+                         "manifest, streamed row by row and resumable")
+    cv.add_argument("src", help="input file")
+    cv.add_argument("dst", help="output CSV (or, for shards, the output "
+                                "directory)")
+    cv.add_argument("-a", "--num-att", type=int, default=None,
+                    help="libsvm/shards: force the dense width (default: "
+                         "max feature index seen)")
+    cv.add_argument("--rows-per-shard", type=int, default=4096,
+                    metavar="R",
+                    help="shards: rows per fixed-shape shard (the "
+                         "streaming path's block and per-shard memory "
+                         "peak; default 4096)")
+    cv.add_argument("--float-labels", action="store_true",
+                    help="shards: store float32 labels (regression "
+                         "targets); default int32 labels, non-integer "
+                         "labels rejected")
+    cv.add_argument("--allow-nonfinite", action="store_true",
+                    help="shards: shard rows containing NaN/Inf instead of "
+                         "rejecting the conversion")
+    cv.add_argument("--no-resume", dest="resume", action="store_false",
+                    default=True,
+                    help="shards: ignore a previous conversion's cursor "
+                         "and restart from row 0")
+
+    sc = sub.add_parser(
+        "scale", help="feature scaling (svm-scale analog; LIBSVM-"
+                      "compatible .range parameter files)")
+    sc.add_argument("src", help="input dataset (CSV or libsvm)")
+    sc.add_argument("dst", help="output CSV (scaled)")
+    sc.add_argument("-l", "--lower", type=float, default=-1.0)
+    sc.add_argument("-u", "--upper", type=float, default=1.0)
+    sc.add_argument("-s", "--save-range", default=None, metavar="PATH",
+                    help="write fitted scaling params (svm-scale -s)")
+    sc.add_argument("-r", "--restore-range", default=None, metavar="PATH",
+                    help="apply previously saved params (svm-scale -r; "
+                         "use for test files)")
     return root
 
 
@@ -526,8 +608,29 @@ def cmd_train(args: argparse.Namespace) -> int:
     if args.model_format == "libsvm":
         from dpsvm_tpu_torch.models.libsvm_io import save_libsvm_model
         save_model = save_libsvm_model
-    x, y = load_dataset(args.input, float_labels=(
-        args.svr or args.one_class or args.nu_svr))
+    # A shard directory: a plain approx or cascade train streams it (the
+    # data never materializes); every other mode reads it through
+    # load_dataset's integrity path under the same budget as files.
+    from dpsvm_tpu_torch.data import stream as streamlib
+    stream_train = False
+    if streamlib.is_shard_dir(args.input):
+        restricted = (args.cv or args.multiclass or args.one_class
+                      or args.nu_svc or args.nu_svr)
+        if args.solver != "exact" and not restricted:
+            stream_train = True
+        elif args.solver != "exact":
+            print("note: this mode materializes the shard directory "
+                  "(streaming covers plain --solver approx-* "
+                  "training); reads stay integrity-checked and "
+                  "budget-guarded", file=sys.stderr)
+    if stream_train:
+        x = y = None
+    else:
+        x, y = load_dataset(args.input, float_labels=(
+            args.svr or args.one_class or args.nu_svr),
+            allow_nonfinite=args.allow_nonfinite,
+            mem_budget_mb=args.mem_budget_mb,
+            on_bad_shard=args.on_bad_shard)
     config = SVMConfig(c=args.cost, gamma=args.gamma, kernel=args.kernel,
                        degree=args.degree, coef0=args.coef0,
                        epsilon=args.epsilon, svr_epsilon=args.svr_epsilon,
@@ -552,8 +655,12 @@ def cmd_train(args: argparse.Namespace) -> int:
                        approx_seed=args.approx_seed,
                        screen_margin=args.screen_margin,
                        screen_cap=args.screen_cap,
+                       mem_budget_mb=args.mem_budget_mb,
+                       on_bad_shard=args.on_bad_shard,
                        verbose=not args.quiet)
     dev = args.device
+    if stream_train:
+        return _train_streaming(args, config)
     if args.multiclass:
         from dpsvm_tpu_torch.models.multiclass import (evaluate_multiclass,
                                                        save_multiclass,
@@ -616,6 +723,82 @@ def cmd_train(args: argparse.Namespace) -> int:
         save_platt(args.model, pa, pb)
         print(f"Platt calibration: A={pa:.6f} B={pb:.6f} "
               f"(saved {args.model}.platt.json)")
+    return 0
+
+
+def _train_streaming(args, config) -> int:
+    """Plain train on a shard directory: the out-of-core approx path, or
+    the out-of-core cascade. The data never materializes; the training
+    metrics come from a second streamed pass through the same
+    integrity-checked reader (a quarantined shard stays out of them as it
+    stayed out of the gradient)."""
+    import numpy as np
+
+    from dpsvm_tpu_torch.approx.primal import fit_approx_stream
+    from dpsvm_tpu_torch.data.stream import ShardedDataset
+    from dpsvm_tpu_torch.models.io import save_model
+    from dpsvm_tpu_torch.models.svm import decision_function
+
+    if args.probability_cv:
+        print("error: --probability-cv refits on held-out folds, "
+              "which needs the materialized dataset; use "
+              "--probability (streamed decisions) or materialize",
+              file=sys.stderr)
+        return 2
+    ds = ShardedDataset.open(args.input)
+    task = "svr" if args.svr else "svc"
+    dev = args.device
+    if config.solver == "cascade":
+        from dpsvm_tpu_torch.solver.cascade import fit_cascade_stream
+        model, result = fit_cascade_stream(
+            ds, config, allow_nonfinite=args.allow_nonfinite, device=dev)
+        n_sv = save_model(model, args.model)
+        print(f"Number of SVs: {n_sv}")
+        print(f"Cascade: screened {result.n_total} -> {result.n_kept} "
+              f"rows ({result.readmit_rounds} polish round(s), "
+              f"{result.n_readmitted} re-admitted, "
+              f"{result.kkt_violators} KKT violator(s); streamed from "
+              f"{ds.n_shards} shard(s)"
+              + (f", {len(ds.quarantined)} quarantined"
+                 if ds.quarantined else "") + ")")
+    else:
+        model, result = fit_approx_stream(
+            ds, config, task=task, allow_nonfinite=args.allow_nonfinite,
+            device=dev)
+        save_model(model, args.model)
+        print(f"Approx model: {model.model_kind} dim={model.fmap.dim} "
+              f"(no SV set; streamed from {ds.n_shards} shard(s)"
+              + (f", {len(ds.quarantined)} quarantined"
+                 if ds.quarantined else "") + ")")
+    print(f"b: {result.b:.6f}")
+    print(f"Training iterations: {result.n_iter}"
+          + ("" if result.converged
+             else " (max-iter reached, NOT converged)"))
+    decs, labs = [], []
+    for _k, xk, yk in ds.iter_shards(on_bad_shard=config.on_bad_shard,
+                                     allow_nonfinite=args.allow_nonfinite):
+        decs.append(np.asarray(decision_function(model, xk, device=dev)))
+        labs.append(np.asarray(yk))
+    dec = np.concatenate(decs)
+    lab = np.concatenate(labs)
+    if task == "svc":
+        pred = np.where(dec < 0, -1, 1)
+        print(f"Training accuracy: "
+              f"{float(np.mean(pred == lab.astype(np.int32))):.6f} "
+              f"(streamed, {len(lab)} rows)")
+    else:
+        err = dec - lab.astype(np.float64)
+        print(f"Training MSE: {float(np.mean(err ** 2)):.6f}  "
+              f"MAE: {float(np.mean(np.abs(err))):.6f} "
+              f"(streamed, {len(lab)} rows)")
+    print(f"Training time: {result.train_seconds:.3f} s")
+    if args.probability and task == "svc":
+        from dpsvm_tpu_torch.models.calibration import fit_platt, save_platt
+        pa, pb = fit_platt(dec, lab)
+        save_platt(args.model, pa, pb)
+        print(f"Platt calibration: A={pa:.6f} B={pb:.6f} "
+              f"(saved {args.model}.platt.json; fit on streamed "
+              "decisions)")
     return 0
 
 
@@ -754,7 +937,8 @@ def _test_multiclass(args: argparse.Namespace) -> int:
               file=sys.stderr)
         return 2
     d_model = mc.models[0].num_attributes
-    x, y = load_dataset(args.input)
+    x, y = load_dataset(args.input, allow_nonfinite=args.allow_nonfinite,
+                        mem_budget_mb=args.mem_budget_mb)
     if x.shape[1] != d_model:
         print(f"error: dataset has {x.shape[1]} attributes, model has "
               f"{d_model}", file=sys.stderr)
@@ -813,7 +997,8 @@ def _reconcile_width(args, model, x):
     from dpsvm_tpu_torch.data.loader import sniff_format
     from dpsvm_tpu_torch.models.io import is_libsvm_model
     width = model.num_attributes
-    if x.shape[1] < width and sniff_format(args.input) == "libsvm":
+    if (x.shape[1] < width and not os.path.isdir(args.input)
+            and sniff_format(args.input) == "libsvm"):
         return model, np.pad(x, ((0, 0), (0, width - x.shape[1])))
     if (x.shape[1] > width and not getattr(model, "is_approx", False)
             and is_libsvm_model(args.model)):
@@ -875,7 +1060,9 @@ def cmd_test(args: argparse.Namespace) -> int:
     if os.path.isdir(args.model):
         return _test_multiclass(args)
     model = load_model(args.model)
-    x, y = load_dataset(args.input, float_labels=model.task == "svr")
+    x, y = load_dataset(args.input, float_labels=model.task == "svr",
+                        allow_nonfinite=args.allow_nonfinite,
+                        mem_budget_mb=args.mem_budget_mb)
     if x.shape[1] != model.num_attributes:
         model, x = _reconcile_width(args, model, x)
         if model is None:
@@ -916,6 +1103,42 @@ def cmd_test(args: argparse.Namespace) -> int:
         logloss = float(-np.mean(t * np.log(pc) + (1 - t) * np.log(1 - pc)))
         print(f"Brier score: {brier:.6f}")
         print(f"Log-loss: {logloss:.6f}")
+    return 0
+
+
+def cmd_scale(args: argparse.Namespace) -> int:
+    from dpsvm_tpu_torch.data.scale import scale_file
+
+    n, d = scale_file(args.src, args.dst, lower=args.lower,
+                      upper=args.upper, save_params=args.save_range,
+                      restore_params=args.restore_range)
+    print(f"Scaled {n} rows x {d} features to {args.dst}")
+    if args.save_range:
+        print(f"Range file: {args.save_range}")
+    return 0
+
+
+def cmd_convert(args: argparse.Namespace) -> int:
+    from dpsvm_tpu_torch.data.convert import (libsvm_to_dense_csv,
+                                              mnist_to_odd_even_csv)
+
+    if args.format == "shards":
+        from dpsvm_tpu_torch.data.stream import convert_to_shards
+        manifest = convert_to_shards(
+            args.src, args.dst, rows_per_shard=args.rows_per_shard,
+            num_attributes=args.num_att, float_labels=args.float_labels,
+            allow_nonfinite=args.allow_nonfinite, resume=args.resume)
+        print(f"Wrote {manifest['n']} rows x {manifest['d']} features "
+              f"as {len(manifest['shards'])} shard(s) of "
+              f"{manifest['rows_per_shard']} rows to {args.dst} "
+              "(manifest.json carries per-shard CRC32s + scaling "
+              "stats)")
+        return 0
+    if args.format == "libsvm":
+        rows = libsvm_to_dense_csv(args.src, args.dst, args.num_att)
+    else:
+        rows = mnist_to_odd_even_csv(args.src, args.dst)
+    print(f"Wrote {rows} rows to {args.dst}")
     return 0
 
 
@@ -983,11 +1206,21 @@ def _train_distributed(args, argv: List[str]) -> Optional[int]:
 
 
 def _run(args) -> int:
+    from dpsvm_tpu_torch.data.stream import StreamError
     from dpsvm_tpu_torch.solver.driver import DivergenceError
     try:
         if args.command == "train":
             return cmd_train(args)
+        if args.command == "convert":
+            return cmd_convert(args)
+        if args.command == "scale":
+            return cmd_scale(args)
         return cmd_test(args)
+    except StreamError as e:
+        # shard corruption under on_bad_shard='raise', the bad-fraction
+        # abort, a budget refusal: one-line operator errors
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     except DivergenceError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

@@ -169,6 +169,26 @@ class SVMConfig:
                                         # uncapped); over-cap rows drop
                                         # largest-margin first
 
+    # --- the data layer ---
+    mem_budget_mb: Optional[float] = None   # host-memory admission guard
+                                        # (data/stream.py): a load or
+                                        # streaming block that would
+                                        # exceed this many MiB refuses up
+                                        # front with the shard-count math
+                                        # (CLI --mem-budget-mb; None = no
+                                        # guard); it also caps the
+                                        # cascade's screened subproblem
+    on_bad_shard: str = "raise"         # streaming-ingest policy when a
+                                        # shard fails its manifest CRC or
+                                        # finiteness check: "raise" fails
+                                        # fast; "quarantine" drops the
+                                        # shard, bounded by the
+                                        # bad-fraction abort
+    live: bool = False                  # a shard directory as a LIVE
+                                        # append log: accepted as a field;
+                                        # True raises (ROADMAP item 10c;
+                                        # the CLI has no --live yet)
+
     # --- execution ---
     shards: int = 1                     # ranks along the data axis, one
                                         # process a device (parallel/)
@@ -287,6 +307,25 @@ class SVMConfig:
         if self.wall_budget_s < 0:
             raise ValueError(
                 f"wall_budget_s must be >= 0, got {self.wall_budget_s}")
+        if self.mem_budget_mb is not None and self.mem_budget_mb <= 0:
+            raise ValueError(
+                f"mem_budget_mb must be > 0, got {self.mem_budget_mb}")
+        if self.on_bad_shard not in ("raise", "quarantine"):
+            raise ValueError("on_bad_shard must be 'raise' or "
+                             f"'quarantine', got {self.on_bad_shard!r}")
+        if self.live and self.solver not in ("approx-rff",
+                                             "approx-nystrom"):
+            raise ValueError(
+                "live=True is the streaming approx path's knob "
+                "(fit_approx_stream admits appended shards at sweep "
+                f"boundaries); solver {self.solver!r} trains a frozen "
+                "view — docs/DATA.md 'Live shard logs'")
+        if self.live:
+            raise NotImplementedError(
+                "live=True (a shard directory as a live append log, "
+                "data/live.py) is not ported to dpsvm_tpu_torch yet "
+                "(ROADMAP Queue 1 item 10c); train the directory's "
+                "current view with live=False")
         if not (math.isfinite(self.weight_pos) and self.weight_pos > 0
                 and math.isfinite(self.weight_neg)
                 and self.weight_neg > 0):

@@ -1,26 +1,40 @@
 """Dataset loaders (port of ``dpsvm_tpu/data/loader.py``, numpy only).
 
-Two formats, told apart by ``sniff_format``:
+Three forms, told apart by ``load_dataset``:
 
 * dense CSV, lines ``label,f1,...,fd`` (the reference's ``populate_data``,
   ``parse.cpp:10-43``);
 * libsvm / svmlight, lines ``label idx:val ...`` with 1-based indices and
-  absent features 0 (``load_libsvm``, the JAX package's pure-Python
-  parser; its C++ fast path is not ported).
+  absent features 0 (``sniff_format`` tells the two apart);
+* a shard directory written by ``convert shards`` (``data/stream.py``),
+  read through its manifest-CRC integrity path.
 
-Either becomes a row-major float32 matrix x (n, d) and an int32 label
-vector y, or with ``float_labels`` a float32 target vector (regression). The shape comes from the file unless given; NaN/Inf features
-are rejected with an error naming the row and column. Shard directories
-are not ported.
+Either file format becomes a row-major float32 matrix x (n, d) and an
+int32 label vector y, or with ``float_labels`` a float32 target vector
+(regression). The hot parse of both file formats runs in the native C++
+helper (``native/csv_loader.cpp``), as in the JAX package; the pure-Python
+parsers are the fallback (no compiler) and the source of line-numbered
+error messages, and the CSV parse of ``float_labels`` stays in Python, as
+there (the native path emits int labels). ``native.last_path()`` says
+which path the latest load took. The shape comes from the file unless
+given; NaN/Inf features are rejected with an error naming the row and
+column unless ``allow_nonfinite``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
-import warnings
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
+
+from dpsvm_tpu_torch.native import load_native_lib, note_path
+
+
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 
 
 def csv_shape(path: str) -> Tuple[int, int]:
@@ -28,6 +42,12 @@ def csv_shape(path: str) -> Tuple[int, int]:
     not an attribute."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
+    lib = load_native_lib()
+    if lib is not None:
+        rows, cols = ctypes.c_long(), ctypes.c_long()
+        if lib.dpsvm_csv_shape(path.encode(), ctypes.byref(rows),
+                               ctypes.byref(cols)) == 0:
+            return int(rows.value), max(0, int(cols.value) - 1)
     n = d = 0
     with open(path) as f:
         for line in f:
@@ -41,11 +61,14 @@ def csv_shape(path: str) -> Tuple[int, int]:
 
 def load_csv(path: str, num_examples: Optional[int] = None,
              num_attributes: Optional[int] = None,
-             float_labels: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+             float_labels: bool = False, allow_nonfinite: bool = False
+             ) -> Tuple[np.ndarray, np.ndarray]:
     """Load a dense ``label,f1,...,fd`` CSV into (x float32, y int32).
     With explicit shape arguments (the reference's ``-x`` / ``-a``), only
     that many rows / columns are read, and a short file is an error.
-    ``float_labels=True`` keeps y as float32 (regression targets)."""
+    ``float_labels=True`` keeps y as float32 (regression targets; the
+    Python parse, as in the JAX package). ``allow_nonfinite`` loads NaN /
+    Inf features with a warning instead of refusing the file."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     if num_examples is None or num_attributes is None:
@@ -56,30 +79,79 @@ def load_csv(path: str, num_examples: Optional[int] = None,
         n, d = num_examples, num_attributes
     if n <= 0 or d <= 0:
         raise ValueError(f"empty dataset: {path!r} has shape ({n}, {d})")
+    lib = None if float_labels else load_native_lib()
+    if lib is not None:
+        x = np.empty((n, d), dtype=np.float32)
+        y = np.empty((n,), dtype=np.int32)
+        got = lib.dpsvm_parse_csv(
+            path.encode(), _f32p(x),
+            y.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), n, d)
+        if got == n:
+            note_path("native")
+            return _check_finite(x, path, allow_nonfinite), y
+        # A malformed or short file: the Python parse names the line.
+    note_path("python")
     xs = np.empty((n, d), dtype=np.float32)
     ys = np.empty((n,), dtype=np.float32 if float_labels else np.int32)
     i = 0
-    with open(path) as f, warnings.catch_warnings():
-        # np.fromstring warns (and stops) at a malformed field; the
-        # length check below turns that into a line-numbered error.
-        warnings.simplefilter("ignore", DeprecationWarning)
+    with open(path) as f:
         for lineno, line in enumerate(f, 1):
             if i >= n:
                 break
             line = line.strip()
             if not line:
                 continue
-            vals = np.fromstring(line, dtype=np.float64, sep=",")
-            if vals.shape[0] < d + 1 or vals.shape[0] != line.count(",") + 1:
+            parts = line.split(",")
+            if len(parts) < d + 1:
                 raise ValueError(
-                    f"{path}:{lineno}: expected {d + 1} numeric fields, "
-                    f"got {line.count(',') + 1}")
-            ys[i] = vals[0] if float_labels else int(vals[0])
-            xs[i] = vals[1:d + 1]
+                    f"{path}:{lineno}: expected {d + 1} fields, got "
+                    f"{len(parts)}")
+            try:
+                lab = float(parts[0])
+                xs[i] = np.asarray(parts[1:d + 1], dtype=np.float32)
+            except ValueError as e:
+                raise ValueError(f"{path}:{lineno}: {e}") from e
+            ys[i] = lab if float_labels else int(lab)
             i += 1
     if i < n:
         raise ValueError(f"{path}: expected {n} rows, found {i}")
-    return _check_finite(xs, path), ys
+    return _check_finite(xs, path, allow_nonfinite), ys
+
+
+def _load_libsvm_native(lib, path, num_examples, num_attributes,
+                        float_labels, allow_nonfinite=False):
+    """The C++ fast path of ``load_libsvm``; None falls back to Python
+    (hard parse errors, so that the message names the line, and the
+    label checks the scalar return code cannot carry)."""
+    if num_examples is not None and num_attributes is not None:
+        # Both shapes known: the fill pass's row count covers short files.
+        n, d = num_examples, num_attributes
+    else:
+        max_idx = ctypes.c_long(0)
+        n_found = lib.dpsvm_libsvm_stats(path.encode(),
+                                         int(num_examples or 0),
+                                         ctypes.byref(max_idx))
+        if n_found <= 0:
+            return None
+        n = num_examples if num_examples is not None else int(n_found)
+        if n_found < n:
+            return None
+        d = (num_attributes if num_attributes is not None
+             else int(max_idx.value))
+    if d <= 0:
+        return None
+    x = np.zeros((n, d), dtype=np.float32)
+    y = np.empty((n,), dtype=np.float32)
+    if lib.dpsvm_parse_libsvm(path.encode(), _f32p(x), _f32p(y), n, d) != n:
+        return None
+    if np.any(np.abs(y) >= 2 ** 24):
+        return None                     # float32 labels stop being exact
+    if not float_labels:
+        yi = y.astype(np.int32)
+        if not np.array_equal(yi.astype(np.float32), y):
+            return None                 # non-integer labels: Python error
+        y = yi
+    return _check_finite(x, path, allow_nonfinite), y
 
 
 def sniff_format(path: str) -> str:
@@ -97,7 +169,7 @@ def sniff_format(path: str) -> str:
 
 def load_libsvm(path: str, num_examples: Optional[int] = None,
                 num_attributes: Optional[int] = None,
-                float_labels: bool = False
+                float_labels: bool = False, allow_nonfinite: bool = False
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """Load a libsvm/svmlight sparse file ``<label> idx:val ...``.
 
@@ -108,13 +180,22 @@ def load_libsvm(path: str, num_examples: Optional[int] = None,
     ``num_attributes`` fixes the width: wider pads with zeros, narrower
     drops the higher indices (as ``-a`` narrows a CSV).
     ``num_examples`` reads only that many rows and, as ``load_csv``, is an
-    error for a shorter file. Errors name the line. A first, text-only
-    pass finds the shape; the second fills the float32 matrix."""
+    error for a shorter file. Errors name the line. The native parse runs
+    first; the Python one (a text-only pass for the shape, then the fill
+    of the float32 matrix) is the fallback and owns the error messages."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     if num_examples is not None and num_examples <= 0:
         raise ValueError(f"empty dataset: {path!r} "
                          f"(num_examples={num_examples})")
+    lib = load_native_lib()
+    if lib is not None:
+        out = _load_libsvm_native(lib, path, num_examples, num_attributes,
+                                  float_labels, allow_nonfinite)
+        if out is not None:
+            note_path("native")
+            return out
+    note_path("python")
     n_rows = 0
     max_idx = 0
     if num_examples is None or num_attributes is None:
@@ -191,34 +272,80 @@ def load_libsvm(path: str, num_examples: Optional[int] = None,
         raise ValueError(f"empty dataset: {path!r}")
     if i < n:
         raise ValueError(f"{path}: expected {n} rows, found {i}")
-    return _check_finite(x, path), ys
+    return _check_finite(x, path, allow_nonfinite), ys
 
 
 def load_dataset(path: str, num_examples: Optional[int] = None,
                  num_attributes: Optional[int] = None,
-                 float_labels: bool = False
+                 float_labels: bool = False, allow_nonfinite: bool = False,
+                 mem_budget_mb: Optional[float] = None,
+                 on_bad_shard: str = "raise"
                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """Load a dataset file: dense CSV or libsvm (``sniff_format``), with
-    the reference's ``-x`` / ``-a`` shape overrides; ``float_labels``
-    keeps the targets as float32. Shard directories are not ported yet
-    (ROADMAP Queue 1 item 10)."""
+    """Load a dataset in any supported form: the one source API train,
+    test and CV read through.
+
+    ``path`` is a dense CSV, a libsvm file (sniffed) or a shard directory
+    (``convert shards``): its reads go through the manifest-CRC integrity
+    path with bounded retry and the ``on_bad_shard`` policy. Files honour
+    the reference's ``-x`` / ``-a`` shape overrides (short files error);
+    a shard directory takes ``-x`` as a row prefix and refuses a ``-a``
+    that differs from its width. ``mem_budget_mb`` refuses, up front and
+    naming the shard-count math (``stream.MemBudgetError``), a load whose
+    arrays would not fit; training on data that must not materialize is
+    ``approx.primal.fit_approx_stream`` over the directory itself."""
+    from dpsvm_tpu_torch.data import stream as streamlib
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: shard directories are not ported to dpsvm_tpu_torch "
-            "yet (ROADMAP Queue 1 item 10)")
+        ds = streamlib.ShardedDataset.open(path)
+        if num_attributes is not None and num_attributes != ds.d:
+            raise ValueError(
+                f"{path}: shard dataset is {ds.d} wide; -a "
+                f"{num_attributes} cannot re-shape fixed shards "
+                "(re-convert the source instead)")
+        x, y = ds.materialize(mem_budget_mb=mem_budget_mb,
+                              on_bad_shard=on_bad_shard,
+                              allow_nonfinite=allow_nonfinite)
+        if num_examples is not None:
+            if num_examples > len(y):
+                raise ValueError(f"{path}: expected {num_examples} "
+                                 f"rows, found {len(y)}")
+            x, y = x[:num_examples], y[:num_examples]
+        if float_labels:
+            y = np.asarray(y, np.float32)
+        return x, y
+    if mem_budget_mb:
+        n_est, d_est, _fmt = streamlib.source_shape(path)
+        streamlib.check_materialize_budget(
+            mem_budget_mb,
+            n=num_examples if num_examples is not None else n_est,
+            d=num_attributes if num_attributes is not None else d_est,
+            what=path)
     if sniff_format(path) == "libsvm":
         return load_libsvm(path, num_examples, num_attributes,
-                           float_labels)
-    return load_csv(path, num_examples, num_attributes, float_labels)
+                           float_labels, allow_nonfinite)
+    return load_csv(path, num_examples, num_attributes, float_labels,
+                    allow_nonfinite)
 
 
-def _check_finite(x: np.ndarray, path: str) -> np.ndarray:
+def _check_finite(x: np.ndarray, path: str,
+                  allow: bool = False) -> np.ndarray:
     """NaN/Inf features would poison f and never converge; fail at load
-    time, naming the first offending cell."""
+    time, naming the first offending cell. ``allow`` (the
+    ``--allow-nonfinite`` escape hatch) turns the refusal into a warning.
+    The clean path is two reductions (NaN survives min, inf max), so it
+    allocates nothing; the mask is built only to name the cell."""
     if x.size and np.isfinite(x.min()) and np.isfinite(x.max()):
         return x
-    bad = np.argwhere(~np.isfinite(x))[0]
-    raise ValueError(
-        f"{path}: non-finite feature value at row {int(bad[0])}, column "
-        f"{int(bad[1])} (x[{int(bad[0])},{int(bad[1])}] = "
-        f"{x[bad[0], bad[1]]}) — rejected at load")
+    if not np.isfinite(x).all():
+        bad = np.argwhere(~np.isfinite(x))[0]
+        msg = (f"{path}: non-finite feature value at row {int(bad[0])}, "
+               f"column {int(bad[1])} (x[{int(bad[0])},{int(bad[1])}] = "
+               f"{x[bad[0], bad[1]]})")
+        if not allow:
+            raise ValueError(
+                msg + " — rejected at load; pass --allow-nonfinite / "
+                "allow_nonfinite=True to load anyway")
+        n_bad = int((~np.isfinite(x)).sum())
+        print(f"WARNING: {msg}; loading anyway with {n_bad} "
+              "non-finite value(s) (--allow-nonfinite)",
+              file=sys.stderr, flush=True)
+    return x

@@ -1,3 +1,3 @@
-"""Resilience layer of the port: only the cascade's kill point
-(``faultinject``) so far; the rest of ``dpsvm_tpu/resilience`` is ROADMAP
-Queue 1 item 13."""
+"""Resilience layer of the port: only fault injection (``faultinject``:
+the cascade's kill point and the shard reader's I/O knobs) so far; the rest
+of ``dpsvm_tpu/resilience`` is ROADMAP Queue 1 item 13."""

@@ -1,5 +1,6 @@
-"""The cascade's deterministic kill point (the part of
-``dpsvm_tpu/resilience/faultinject.py`` that ``solver/cascade.py`` reads).
+"""Deterministic fault injection: the parts of
+``dpsvm_tpu/resilience/faultinject.py`` that the port's cascade
+(``solver/cascade.py``) and shard reader (``data/stream.py``) read.
 
 ``DPSVM_FAULT_CASCADE_STOP_STAGE=k`` (or ``BENCH_FAULT_CASCADE_STOP_STAGE``)
 makes the cascade raise ``CascadeInterrupted`` right after its stage-k
@@ -7,8 +8,22 @@ boundary state is durable on disk (1 = approx warm-start, 2 = screening,
 3 = the first polish round): the kill->resume drill's kill point, after
 which re-running the same command must land a bitwise-identical model.
 ``install(FaultPlan(cascade_stop_stage=k))`` is the same from Python.
+
+Data-pipeline knobs (``DPSVM_FAULT_IO_*``, consumed by the shard reader;
+shard numbers are 1-based):
+
+* ``DPSVM_FAULT_IO_READ_FAIL_ONCE=k``: the k-th shard read in this process
+  raises a transient ``OSError`` exactly once (the bounded retry recovers
+  it);
+* ``DPSVM_FAULT_IO_CORRUPT_SHARD=k``: shard #k reads with a flipped
+  payload byte on every read (a rotted file stays rotted), so the manifest
+  CRC check fails and the ``on_bad_shard`` policy fires;
+* ``DPSVM_FAULT_IO_TRUNCATE_SHARD=k``: shard #k reads as a file cut to
+  half its bytes on every read (an unreadable npz);
+* ``DPSVM_FAULT_IO_SLOW_READ_MS=t``: every shard read sleeps t ms first.
+
 The rest of the JAX module's fault knobs (checkpoint writes, NaN
-injection, preemption, serving, distributed, I/O) are not ported.
+injection, preemption, serving, distributed, live logs) are not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +31,8 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import threading
+import time
 from typing import Optional
 
 
@@ -23,14 +40,63 @@ def _log(msg: str) -> None:
     print(f"FAULTINJECT: {msg}", file=sys.stderr, flush=True)
 
 
+_IO_LOCK = threading.Lock()
+
+
+class InjectedFaultError(OSError):
+    """The transient read failure the I/O knobs inject (an OSError, like
+    the real failures it stands in for)."""
+
+
 @dataclasses.dataclass
 class FaultPlan:
+    # data-pipeline knobs (module docstring): shard numbers 1-based
+    io_read_fail_once: int = 0       # the k-th shard read fails once
+    io_corrupt_shard: int = 0        # shard #k payload bit-flipped, every
+                                     # read
+    io_truncate_shard: int = 0       # shard #k reads half its bytes
+    io_slow_read_ms: int = 0         # every shard read sleeps this
     cascade_stop_stage: int = 0      # kill the cascade right after the
                                      # stage-k boundary state (0 = off)
     _cascade_fired: bool = False
+    _io_reads: int = 0
+    _io_fail_fired: bool = False
 
     def any(self) -> bool:
-        return bool(self.cascade_stop_stage)
+        return bool(self.io_read_fail_once or self.io_corrupt_shard
+                    or self.io_truncate_shard or self.io_slow_read_ms
+                    or self.cascade_stop_stage)
+
+    def io_read_begin(self, shard_idx: int) -> None:
+        """Called as a shard read starts: applies the slow-read latency
+        and raises the one transient read failure. Reads may start on
+        several threads (the streaming fit reads ahead), so the count is
+        taken under a lock: the k-th read to start fails."""
+        if self.io_slow_read_ms:
+            time.sleep(self.io_slow_read_ms / 1000.0)
+        with _IO_LOCK:
+            self._io_reads += 1
+            nth = self._io_reads
+            fire = (self.io_read_fail_once and not self._io_fail_fired
+                    and nth >= self.io_read_fail_once)
+            if fire:
+                self._io_fail_fired = True
+        if fire:
+            _log(f"failing shard read #{nth} (shard {shard_idx}) once")
+            raise InjectedFaultError(
+                f"injected transient read failure at shard read #{nth}")
+
+    def io_corrupt_now(self, shard_idx: int) -> bool:
+        """True when shard #(idx+1) reads with a flipped payload byte:
+        every read, unlike the fire-once transient knob."""
+        return bool(self.io_corrupt_shard
+                    and shard_idx + 1 == self.io_corrupt_shard)
+
+    def io_truncate_now(self, shard_idx: int) -> bool:
+        """True when shard #(idx+1) reads as a half-length file (every
+        read, like corruption)."""
+        return bool(self.io_truncate_shard
+                    and shard_idx + 1 == self.io_truncate_shard)
 
     def cascade_stop_now(self, stage: int) -> bool:
         """True exactly once, when the cascade has made the stage-k
@@ -59,7 +125,12 @@ def _env_int(name: str) -> int:
 
 
 def plan_from_env() -> Optional[FaultPlan]:
-    p = FaultPlan(cascade_stop_stage=_env_int("CASCADE_STOP_STAGE"))
+    p = FaultPlan(
+        io_read_fail_once=_env_int("IO_READ_FAIL_ONCE"),
+        io_corrupt_shard=_env_int("IO_CORRUPT_SHARD"),
+        io_truncate_shard=_env_int("IO_TRUNCATE_SHARD"),
+        io_slow_read_ms=_env_int("IO_SLOW_READ_MS"),
+        cascade_stop_stage=_env_int("CASCADE_STOP_STAGE"))
     return p if p.any() else None
 
 

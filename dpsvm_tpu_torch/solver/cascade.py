@@ -28,9 +28,15 @@ the same command resumes at the last completed boundary, bitwise.
 ``DPSVM_FAULT_CASCADE_STOP_STAGE=k`` (``resilience/faultinject.py``) is
 the kill point the drills use. Stage files are removed on success.
 
-Not ported: the out-of-core cascade over shard directories
-(``fit_cascade_stream``, ``_ShardSource``, the ``mem_budget_mb`` cap: ROADMAP
-Queue 1 item 10), ``shards > 1``, and the cascade's run trace (item 13).
+Out of core: ``fit_cascade_stream`` runs the same three stages over a
+shard directory (``data/stream.ShardedDataset``, through ``_ShardSource``):
+the approx stage is ``fit_approx_stream``, screening and the KKT verify
+sweep shard by shard through the integrity-checked reader, and only the
+screened subproblem materializes, under ``mem_budget_mb``, which also caps
+it (``_screen_cap``). The probe and the polish are the in-memory cascade's
+``api.fit`` and ``api.warm_start``, so the kernels are picked alike.
+
+Not ported: ``shards > 1`` and the cascade's run trace (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -184,6 +190,103 @@ class _ArraySource:
     def gather(self, idx: np.ndarray):
         return (np.ascontiguousarray(self.x[idx]),
                 np.asarray(self.y)[idx])
+
+
+class _ShardSource:
+    """A ``data.stream.ShardedDataset``: blocks are shards, read through
+    the integrity-checked policy path, so screening works on datasets that
+    never fit in memory and a quarantined shard drops out of every pass as
+    it does in streaming training."""
+
+    def __init__(self, ds, config: SVMConfig, allow_nonfinite: bool,
+                 device):
+        self.ds = ds
+        self.n, self.d = ds.n, ds.d
+        self.policy = config.on_bad_shard
+        self.allow_nonfinite = allow_nonfinite
+        self.device = device
+
+    def _read(self, k: int):
+        return self.ds.read_shard_checked(
+            k, on_bad_shard=self.policy,
+            allow_nonfinite=self.allow_nonfinite)
+
+    def fit_approx(self, cfg: SVMConfig, init_w=None):
+        from dpsvm_tpu_torch.approx.primal import fit_approx_stream
+        return fit_approx_stream(self.ds, cfg, task="svc",
+                                 allow_nonfinite=self.allow_nonfinite,
+                                 init_w=init_w, device=self.device)
+
+    decisions = _ArraySource.decisions
+
+    def blocks(self, model):
+        for k in range(self.ds.n_shards):
+            got = self._read(k)
+            if got is None:
+                continue
+            xk, yk = got
+            yield self.ds.row_offset(k), xk, yk, self.decisions(model, xk)
+
+    def iter_out(self, model, kept_idx: np.ndarray,
+                 window_idx: Optional[np.ndarray] = None):
+        """Screened-out rows shard by shard (decisions over the whole
+        shard, subset on the host); with ``window_idx``, shards holding no
+        window rows are not read."""
+        for k in range(self.ds.n_shards):
+            base = self.ds.row_offset(k)
+            rows_k = self.ds.shard_rows(k)
+            if window_idx is not None:
+                wlo = np.searchsorted(window_idx, base)
+                whi = np.searchsorted(window_idx, base + rows_k)
+                if wlo == whi:
+                    continue
+            got = self._read(k)
+            if got is None:
+                continue
+            xk, yk = got
+            if window_idx is not None:
+                mask = np.zeros(len(yk), bool)
+                mask[window_idx[wlo:whi] - base] = True
+            else:
+                mask = np.ones(len(yk), bool)
+            lo = np.searchsorted(kept_idx, base)
+            hi = np.searchsorted(kept_idx, base + rows_k)
+            mask[kept_idx[lo:hi] - base] = False
+            if not mask.any():
+                continue
+            dec = self.decisions(model, xk)
+            yield (base + np.flatnonzero(mask), xk[mask],
+                   np.asarray(yk)[mask], dec[mask])
+
+    def gather(self, idx: np.ndarray):
+        """Rows at sorted global ``idx``, one sweep over the shards that
+        hold them."""
+        idx = np.asarray(idx, np.int64)
+        out_x = np.empty((len(idx), self.d), np.float32)
+        out_y = None
+        rps = self.ds.rows_per_shard
+        for k in range(self.ds.n_shards):
+            base = self.ds.row_offset(k)
+            lo = np.searchsorted(idx, base)
+            hi = np.searchsorted(idx, base + rps)
+            if lo == hi:
+                continue
+            got = self._read(k)
+            if got is None:
+                raise CascadeError(
+                    f"shard {k} holds {hi - lo} screened-in row(s) but "
+                    "is unreadable/quarantined — the kept subproblem "
+                    "cannot be assembled (re-screen after repairing "
+                    "the shard)")
+            xk, yk = got
+            local = idx[lo:hi] - base
+            out_x[lo:hi] = xk[local]
+            if out_y is None:
+                out_y = np.empty((len(idx),), np.asarray(yk).dtype)
+            out_y[lo:hi] = np.asarray(yk)[local]
+        if out_y is None:
+            raise CascadeError("no kept rows could be gathered")
+        return out_x, out_y
 
 
 class _StageState:
@@ -366,6 +469,18 @@ def _calibrate(source, config: SVMConfig, model_a) -> float:
     return scale
 
 
+def _screen_cap(config: SVMConfig, d: int) -> int:
+    """The effective stage-2 row cap: the explicit ``screen_cap``,
+    tightened by what ``mem_budget_mb`` admits (the screened subproblem
+    must materialize)."""
+    cap = int(config.screen_cap)
+    if config.mem_budget_mb:
+        from dpsvm_tpu_torch.data.stream import budget_admit_rows
+        admits = budget_admit_rows(config.mem_budget_mb, d)
+        cap = min(cap, admits) if cap else admits
+    return cap
+
+
 def fit_cascade(x: np.ndarray, y: np.ndarray,
                 config: Optional[SVMConfig] = None, *,
                 approx_init_w=None, device=None
@@ -393,6 +508,28 @@ def fit_cascade(x: np.ndarray, y: np.ndarray,
     full[result._kept_idx] = result.alpha
     result.alpha = full
     return model, result
+
+
+def fit_cascade_stream(ds, config: Optional[SVMConfig] = None,
+                       allow_nonfinite: bool = False, *,
+                       approx_init_w=None, device=None
+                       ) -> Tuple[SVMModel, CascadeResult]:
+    """Out-of-core cascade over a ``data.stream.ShardedDataset``: the
+    approx stage trains through ``fit_approx_stream``, screening and the
+    KKT verify sweep shard by shard, and only the screened subproblem
+    materializes (budget-guarded). ``result.alpha`` is kept-length: the
+    full vector has nowhere to live. ``device`` None means the GPU."""
+    config = config or SVMConfig()
+    config.validate()
+    if config.solver != "cascade":
+        raise ValueError("fit_cascade_stream needs solver='cascade'")
+    if config.shards != 1:
+        raise ValueError("the streaming cascade is single-process "
+                         "(config.shards must be 1), like "
+                         "fit_approx_stream")
+    return _run_cascade(
+        _ShardSource(ds, config, allow_nonfinite, resolve_device(device)),
+        config, approx_init_w=approx_init_w)
 
 
 def _run_cascade(source, config: SVMConfig, *, approx_init_w=None
@@ -472,13 +609,21 @@ def _run_cascade(source, config: SVMConfig, *, approx_init_w=None
             band_yf = np.concatenate([band_yf, extra_yf[mask]])
             order = np.argsort(band_idx, kind="stable")
             band_idx, band_yf = band_idx[order], band_yf[order]
-        # the explicit cap (the JAX package also tightens it by
-        # mem_budget_mb, which is not ported)
-        cap = int(config.screen_cap)
+        cap = _screen_cap(config, d)
         kept_idx, capped = screening.apply_cap(band_idx, band_yf, cap)
-        _log(f"screen: kept {len(kept_idx):,}/{n:,} rows "
-             f"(band {n_band:,} at margin <= {scale:g}*(1+{margin:g})"
-             + (f", capped to {cap:,}" if capped else "") + ")")
+        from dpsvm_tpu_torch.data.stream import (_fmt_mb,
+                                                 check_materialize_budget,
+                                                 materialize_bytes)
+        check_materialize_budget(config.mem_budget_mb, n=len(kept_idx),
+                                 d=d, what="cascade screened subproblem")
+        msg = (f"screen: kept {len(kept_idx):,}/{n:,} rows "
+               f"(band {n_band:,} at margin <= {scale:g}*(1+{margin:g})"
+               + (f", capped to {cap:,}" if capped else "") + ")")
+        if config.mem_budget_mb:
+            msg += (f" — screened subproblem "
+                    f"{_fmt_mb(materialize_bytes(len(kept_idx), d))} fits "
+                    f"--mem-budget-mb {config.mem_budget_mb:g}")
+        _log(msg)
         x_kept, y_kept = source.gather(kept_idx)
         # The polish enters from zero duals (the JAX package measured and
         # rejected a margin-implied start); repair rounds warm-start.

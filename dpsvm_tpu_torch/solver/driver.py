@@ -24,6 +24,13 @@ checkpoint's (alpha, f) are gathered on every rank and written by rank 0
 alone. The rollback, heartbeats and fault injection of the JAX package's
 elastic layer are not ported.
 
+Events: subsystems with no handle on the run (the shard reader's
+``quarantine``, the streaming fit's ``ingest_resume``) call
+``queue_trace_event``; the loop drains the queue when it starts and at
+every poll, as the JAX driver drains it into the run trace. The port has
+no run trace yet (ROADMAP item 13), so the drained events of the run in
+progress, or of the last one, are kept in ``EVENTS``.
+
 ``poll_hook`` follows the JAX contract: called at each poll of a run that
 is not done, ``poll_hook(n_iter, carry, stats) -> Optional[new_step]``, a
 non-None return replacing the chunk runner. The JAX loop dispatches the
@@ -61,6 +68,22 @@ _logger = logging.getLogger("dpsvm_tpu_torch")
 # Ever, in this process: checkpoint saves, the (alpha, f) reads they made,
 # and the seconds the host spent in them (read, write, rename).
 CHECKPOINTS = {"saves": 0, "pulls": 0, "seconds": 0.0}
+
+
+# Lifecycle facts queued by subsystems with no handle on the run, and the
+# ones the latest run drained: (event, extra) pairs.
+_PENDING_TRACE_EVENTS: list = []
+EVENTS: list = []
+
+
+def queue_trace_event(event: str, **extra) -> None:
+    _PENDING_TRACE_EVENTS.append((event, extra))
+
+
+def drain_queued_events() -> list:
+    """Take every queued event (the loop's drain at each poll)."""
+    pending, _PENDING_TRACE_EVENTS[:] = _PENDING_TRACE_EVENTS[:], []
+    return pending
 
 
 class ChunkStats(NamedTuple):
@@ -219,6 +242,7 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
     t0 = time.perf_counter()
     n_iter = prev = last_saved = int(it0)
     pending = None
+    EVENTS[:] = drain_queued_events()
 
     def snapshot() -> SolverCheckpoint:
         # the carry as the last poll left it: the loop dispatches in
@@ -238,6 +262,7 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
     while True:
         limit = min(n_iter + config.chunk_iters, config.max_iter)
         carry, st = step_chunk(carry, limit)
+        EVENTS.extend(drain_queued_events())
         if pending is not None:     # chosen one poll ago: runs from here
             step_chunk, pending = pending, None
         n_iter, b_lo, b_hi = st.n_iter, st.b_lo, st.b_hi

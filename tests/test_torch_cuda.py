@@ -1458,3 +1458,152 @@ def test_approx_default_device_without_cuda_raises(monkeypatch):
     x, y, cfg = _approx_problem(200)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         primal.fit_approx(x, y, cfg)
+
+
+def _stream_dir(tmp_path, n, d=16, rows=512, task="svc", seed=3):
+    """A shard directory of ``n`` blob rows (float targets for svr)."""
+    from dpsvm_tpu_torch.data import stream as st
+    from dpsvm_tpu_torch.data.synthetic import save_csv
+    x, y = make_blobs(n=n, d=d, seed=seed)
+    if task == "svr":
+        y = np.sin(x[:, 0]).astype(np.float32)
+    src = str(tmp_path / "src.csv")
+    save_csv(src, x, y)
+    sdir = str(tmp_path / "shards")
+    st.convert_to_shards(src, sdir, rows_per_shard=rows,
+                         float_labels=task == "svr")
+    return x, y, sdir
+
+
+@pytest.mark.parametrize("kind,task", [("rff", "svc"), ("nystrom", "svr")])
+def test_stream_fit_on_the_card_matches_the_cpu(dev, tmp_path, kind, task):
+    """``fit_approx_stream`` on the card against the CPU on the same
+    directory: the same step count within 5%, decisions within 5e-3; the
+    host booked its reads, one stats read a chunk."""
+    from dpsvm_tpu_torch.approx import primal
+    from dpsvm_tpu_torch.data import stream as st
+    from dpsvm_tpu_torch.models.svm import decision_function
+    x, _, sdir = _stream_dir(tmp_path, 2304, task=task)
+    cfg = SVMConfig(solver=f"approx-{kind}", approx_dim=256, c=5.0,
+                    gamma=1.0 / 16, epsilon=1e-3, max_iter=20_000,
+                    chunk_iters=64)
+    primal.reset_counts()
+    mg, rg = primal.fit_approx_stream(st.ShardedDataset.open(sdir), cfg,
+                                      task=task, device=dev)
+    run = dict(primal.RUN)
+    assert primal.COUNTS["reads"] == -(-rg.n_iter // 64)
+    assert run["read_seconds"] > 0 and run["steps"] >= rg.n_iter
+    assert run["phi_device"].startswith("cuda")
+    mc, rc = primal.fit_approx_stream(st.ShardedDataset.open(sdir), cfg,
+                                      task=task, device="cpu")
+    assert rg.converged and rc.converged
+    assert abs(rg.n_iter - rc.n_iter) <= max(2, 0.05 * rc.n_iter)
+    dg = decision_function(mg, x, device=dev)
+    dc = decision_function(mc, x, device="cpu")
+    assert float(np.max(np.abs(dg - dc))) < 5e-3
+
+
+def test_stream_steps_on_the_card_are_the_in_memory_steps(dev, tmp_path):
+    """64 streamed steps against the captured in-memory full-batch chunk
+    over the same rows with the same step size (the stream's, held to the
+    in-memory trace bound): w within 1e-5 of its largest entry (float32
+    sums in shard order against one product over shuffled rows)."""
+    from dpsvm_tpu_torch.approx import primal
+    from dpsvm_tpu_torch.approx.features import build_feature_map
+    from dpsvm_tpu_torch.data import stream as st
+    x, y, sdir = _stream_dir(tmp_path, 2304, rows=500)
+    cfg = SVMConfig(solver="approx-rff", approx_dim=256, c=5.0,
+                    gamma=1.0 / 16, epsilon=1e-9, max_iter=64,
+                    chunk_iters=64)
+    ms, rs = primal.fit_approx_stream(st.ShardedDataset.open(sdir), cfg,
+                                      device=dev)
+    lr = primal.RUN["lr"]
+    fmap = build_feature_map("rff", x[:1], 256, 0, cfg.kernel_spec(16))
+    prob = primal.build_problem(x, np.asarray(y, np.float32), cfg, "svc",
+                                fmap, dev)
+    # the stream's step size is the trace bound over the same rows
+    big_l = 1.0 / (cfg.c * len(y)) + 2.0 * primal.RUN["msq"]
+    assert prob.n_batches == 1 and abs(float(lr) * big_l - 1.0) <= 1e-6
+    prob = dataclasses.replace(prob, lr=torch.tensor(np.float32(lr),
+                                                     device=dev))
+    carry = primal.carry_to_device(primal.init_carry(257), dev)
+    step = primal.make_chunk_runner(carry, prob)
+    _, st_ = step(carry, 64)
+    w = primal.carry_to_host(step.carry).w
+    assert rs.n_iter == st_.n_iter == 64
+    scale = max(1.0, float(np.max(np.abs(ms.w))))
+    assert float(np.max(np.abs(w[:-1] - ms.w))) <= 1e-5 * scale
+
+
+def test_stream_resume_is_bitwise_on_the_card(dev, tmp_path):
+    """A streaming fit cut at a checkpoint (step 32) and resumed to 64
+    lands on the uncut fit's weights, bit for bit."""
+    from dpsvm_tpu_torch.approx import primal
+    from dpsvm_tpu_torch.data import stream as st
+    _, _, sdir = _stream_dir(tmp_path, 2304)
+    cfg = SVMConfig(solver="approx-rff", approx_dim=256, c=5.0,
+                    gamma=1.0 / 16, epsilon=1e-9, max_iter=64,
+                    chunk_iters=32)
+    full, _ = primal.fit_approx_stream(st.ShardedDataset.open(sdir), cfg,
+                                       device=dev)
+    ck = str(tmp_path / "ck.npz")
+    primal.fit_approx_stream(st.ShardedDataset.open(sdir),
+                             dataclasses.replace(cfg, max_iter=32,
+                                                 checkpoint_path=ck,
+                                                 checkpoint_every=32),
+                             device=dev)
+    res, r = primal.fit_approx_stream(
+        st.ShardedDataset.open(sdir),
+        dataclasses.replace(cfg, resume_from=ck), device=dev)
+    assert r.n_iter == 64
+    np.testing.assert_array_equal(full.w, res.w)
+    assert full.b == res.b
+
+
+@pytest.mark.parametrize("kw,kernel", [({}, "A"),
+                                       (dict(working_set=1024,
+                                             inner_iters=64), "B")])
+def test_stream_cascade_runs_the_kernels(dev, tmp_path, kw, kernel):
+    """The streaming cascade over a shard directory of 13000 rows (the
+    calibration probe needs >= 12288): kernel A in the probe at the
+    default knobs, kernel B in the probe and polish with working_set > 2;
+    zero violators; the same model as the in-memory cascade by the bar
+    between paths."""
+    from dpsvm_tpu_torch.data import stream as st
+    from dpsvm_tpu_torch.data.synthetic import save_csv
+    from dpsvm_tpu_torch.solver import cascade as cs
+    x, y = make_planted(13000, 32, 0.25, seed=1)
+    src = str(tmp_path / "src.csv")
+    save_csv(src, x, y)
+    sdir = str(tmp_path / "shards")
+    st.convert_to_shards(src, sdir, rows_per_shard=4096)
+    cfg = SVMConfig(solver="cascade", approx_dim=256, c=1.0, gamma=0.25,
+                    epsilon=1e-3, **kw)
+    fs.reset_counts()
+    sk.reset_counts()
+    m, r = cs.fit_cascade_stream(st.ShardedDataset.open(sdir), cfg,
+                                 device=dev)
+    assert r.kkt_violators == 0 and r.converged
+    assert cs.RUN["probe_rows"] == cs._PROBE_ROWS
+    if kernel == "A":
+        assert fs.LAUNCHES["fused_update_select"] > 0
+        assert sk.LAUNCHES["inner_subsolve"] == 0
+    else:
+        assert sk.LAUNCHES["inner_subsolve"] > 0
+        assert fs.LAUNCHES["fused_update_select"] == 0
+    mi, _ = cs.fit_cascade(x, y, cfg, device=dev)
+    assert abs(m.n_sv - mi.n_sv) <= max(3, 0.02 * mi.n_sv)
+    assert abs(evaluate(m, x, y, device=dev)
+               - evaluate(mi, x, y, device=dev)) <= 0.005
+
+
+def test_stream_default_device_without_cuda_raises(monkeypatch, tmp_path):
+    """``fit_approx_stream(device=None)`` means the card: without CUDA it
+    raises, it never moves to the CPU (the CUDA check is stubbed off)."""
+    from dpsvm_tpu_torch.approx import primal
+    from dpsvm_tpu_torch.data import stream as st
+    _, _, sdir = _stream_dir(tmp_path, 300, rows=100)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        primal.fit_approx_stream(st.ShardedDataset.open(sdir),
+                                 SVMConfig(solver="approx-rff"))

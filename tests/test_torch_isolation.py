@@ -48,6 +48,21 @@ def test_no_jax_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("rel", ["native/__init__.py", "native/build.py",
+                                 "observability/metrics.py",
+                                 "data/stream.py", "data/convert.py",
+                                 "data/scale.py", "data/__init__.py"])
+def test_the_host_layers_are_scanned_and_import_no_jax(rel):
+    """The data layer's modules are among the scanned sources, and the
+    native helper builds the port's own copy of the C++ source."""
+    path = PORT / rel
+    assert path in _sources()
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    from dpsvm_tpu_torch.native import build
+    assert build.SOURCE == PORT / "native" / "csv_loader.cpp"
+    assert build.BUILD_DIR == PORT / "_build"
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

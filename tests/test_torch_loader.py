@@ -3,10 +3,9 @@ the CPU, against the JAX package.
 
 Bars: ``load_libsvm`` returns the same arrays as the JAX package's, bit for
 bit, on generated files (the two parse each value with ``np.float32``),
-and raises ``ValueError`` with the same message on every malformed file.
-Two messages differ by their tail only: the port has no regression loader
-(``float_labels``) and no ``--allow-nonfinite``, so those hints are not
-in its messages; the rest of the message is compared. scipy.sparse input
+and raises ``ValueError`` with the same message on every malformed file
+(the non-finite cases compare the message up to its hint, which both
+packages now end alike). scipy.sparse input
 trains to the JAX package's model under the LibSVM bar (n_sv within 2% or
 3, accuracy within one example), as ``tests/conftest.py`` holds it.
 """

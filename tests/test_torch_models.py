@@ -147,15 +147,16 @@ def test_load_csv_malformed_line_names_it(tmp_path):
 
 def test_libsvm_input_not_ported_yet(tmp_path):
     """The libsvm format is ported now (``load_libsvm``, held against the
-    JAX parser in tests/test_torch_loader.py); the form still not ported,
-    a shard directory, raises naming it."""
+    JAX parser in tests/test_torch_loader.py), and so are shard
+    directories (tests/test_torch_stream.py): a directory without a
+    manifest is refused, naming what it lacks."""
     path = tmp_path / "d.libsvm"
     path.write_text("1 1:0.5 3:0.25\n")
     x, y = tloader.load_dataset(str(path))
     np.testing.assert_array_equal(x, np.array([[0.5, 0.0, 0.25]],
                                               np.float32))
     np.testing.assert_array_equal(y, np.array([1], np.int32))
-    with pytest.raises(NotImplementedError, match="shard directories"):
+    with pytest.raises(FileNotFoundError, match="not a shard dataset"):
         tloader.load_dataset(str(tmp_path))
 
 
