@@ -7,6 +7,16 @@
     python3 chip_smoke.py --only distributed    # build + distributed training
     python3 chip_smoke.py --only approx         # build + approx and cascade
     python3 chip_smoke.py --only stream         # build + the data layer
+    python3 chip_smoke.py --only live           # build + the live shard log
+    python3 chip_smoke.py --only serve          # build + serving and the fleet
+
+Host text that only checks a file format (the model files of phases 3, 5
+and 9, phase 8's one-vs-one directory) is written and read back by
+spawned processes beside the device work that follows, and checked at the
+phase's end; the models are evaluated in memory (the same arrays, which
+the round trip checks). Files that later phases reuse (phase 3's float32
+fused model file, phase 8's directory, phase 13's logs) live in a scratch
+directory removed when the script ends.
 
 Phases, each of which makes the script exit non-zero if it fails. Three
 solver paths run: the fused SMO pair (kernel A, ``working_set=2``), the
@@ -101,8 +111,9 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    probabilities; the batched graph against its eager loop, bitwise, for
    GRAPH_CHECK_ITERS steps. A C x gamma sweep on planted binary 60000 x 784
    against four general-pair fits at prefixes of PREFIX_ITERS and
-   SWEEP_PREFIX steps, and ``sweep_c`` to convergence on SWEEP_SMALL_N x
-   784 against ``api.fit`` at each point; 5-fold ``cross_validate``,
+   SWEEP_PREFIX steps (the sweep to convergence on SWEEP_SMALL_N x 784
+   against ``api.fit`` at each point is phase 14 (h)); 5-fold
+   ``cross_validate``,
    sequential (kernel A) and batched, on CV_N x 784; the general pair with
    the row cache (CACHE_LINES lines) bitwise against cache-off for
    CACHE_ITERS iterations at 60000 x 784 and to convergence on 4096 x 784,
@@ -159,8 +170,9 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    resumed to APPROX_END, the cascade killed after each of stages 1-3 on
    CASC_RESUME_N rows;
 12. the data layer (``stream``, ``data/``, ``native/``): (a) the planted
-   60000 x 784 rows written as a CSV and a libsvm file, each parsed by the
-   native helper (bitwise the rows; seconds) and, on their first
+   60000 x 784 rows written as a CSV and their first STREAM_LIBSVM_ROWS as
+   a libsvm file, each parsed by the native helper (bitwise the rows;
+   seconds) and, on their first
    STREAM_FALLBACK_ROWS rows, by the Python fallback (bitwise the native
    rows; seconds), and phase 3's float32 fused model (trained here
    without phase 3) saved and loaded (the same arrays; seconds); (b) the
@@ -188,7 +200,36 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    failure retried; a ``mem_budget_mb`` refusal naming the shard math; a
    streaming fit cut at a checkpoint resumed bitwise; a conversion stopped
    after 2 shards resumed to a byte-identical manifest;
-13. time each kernel on its path (kernel A: CUDA events over a chunk of
+13. the live shard log (``live``, ``data/live.py``): (a) a seed log of
+   LIVE_SEED_SHARDS converted shards of the planted rows (made by a
+   spawned process beside phase 12 (d)), a ``writer_main`` process
+   appending the rest of the 60000 while ``fit_approx_stream(live=True)``
+   (approx-rff, D = APPROX_D) takes LIVE_STEPS steps: every publish
+   admitted before the end, the final view 60000 rows and the divisor
+   the manifest's n, the ``ingest_grow`` rows, ms a step at the seed and
+   the full view, one stats read a chunk; (b) on a small log: live and
+   frozen fits reading the stats as often as (a), a live fit cut at a
+   checkpoint after an admission resumed bitwise (and a frozen resume of
+   its checkpoint refused), a torn publish held and repaired, a stale
+   generation refused;
+14. serving and the fleet (``serve``, ``serving/``, ``fleet/``): (a)
+   phase 3's fused model through ``PredictionEngine(max_batch=256)``, one
+   captured graph a bucket and none after SERVE_REQUESTS mixed-size
+   requests, every answer bitwise ``decision_function`` on the same
+   blocks and within SERVE_XSIZE_RTOL across sizes, µs a replay a
+   bucket, 10000 held-out rows through the engine ``test --batch 256``
+   builds against the monolithic pass; (b) phase 8's 45 pairs through one
+   ``SegmentPack``; (c) phase 11 (a)'s approx model; (d) a
+   ``MicroBatcher`` under SERVE_THREADS closed-loop clients (rows/s,
+   p50/p99, coalescing) with (e) a registry hot reload under that
+   traffic; (f) ``ShardedDecider`` over two handles of cuda:0, bitwise its
+   reference; (g) the 45 pair files as tenants of a ``ModelCache`` of
+   FLEET_BUDGET (conservation, a scan evicting nothing, packed columns
+   bitwise dedicated engines, the operand bytes against
+   ``model_bytes_est``); (h) ``train_grid`` on SWEEP_CS x SWEEP_GS over
+   SWEEP_SMALL_N planted rows with the cascade polish, against
+   ``sequential_grid_seconds`` (kernel A), the speedup;
+15. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
@@ -265,12 +306,13 @@ RESUME_DECOMP_K = 10 * DECOMP_CAP
 LIBSVM_ROWS = 10_000
 # Multi-class at MNIST's training shape: MC_K planted classes, MC_N rows
 # to train and 10000 held out; the C x gamma grid, its prefix and the
-# smaller problem it converges on; CV; the row cache's lines (the
-# reference's default) and its prefix.
+# smaller problem it converges on; CV (on 12000 rows: cut from 20000 for
+# card time, PERF.md §4); the row cache's lines (the reference's default)
+# and its prefix.
 MC_K, MC_N = 10, 60000
 SWEEP_CS, SWEEP_GS = (1.0, 10.0), (0.125, 0.25)
 SWEEP_PREFIX, SWEEP_SMALL_N = 2000, 8000
-CV_N, CV_K = 20000, 5
+CV_N, CV_K = 12000, 5
 CACHE_LINES, CACHE_ITERS = 10, 2000
 OVO_WARM_STEPS, OVO_TIMED_STEPS = 512, 256
 # The task families (phase 9), on the planted rows: epsilon-SVR at LIBSVM's
@@ -279,14 +321,15 @@ OVO_WARM_STEPS, OVO_TIMED_STEPS = 512, 256
 # Gaussian noise), and on SVR_NOISY_N rows of the same target with
 # SVR_NOISY_NOISE of noise, where most rows are SVs; one-class at OC_NU;
 # nu-SVC binary and one-vs-one at NUSVC_NU; nu-SVR at NUSVR_NU, a prefix
-# at full width and converged on NUSVR_SMALL_N rows; nu one-vs-one on
+# at full width and converged on NUSVR_SMALL_N rows (cut from 8000 for
+# card time, PERF.md §4); nu one-vs-one on
 # NU_MC_N rows of MC_K classes; the general pair's nu-selection graph
 # against its eager loop for NU_GRAPH_ITERS iterations.
 TASK_N = 60000
 SVR_C, SVR_P, SVR_ANCHORS, SVR_NOISE = 1.0, 0.1, 64, 0.05
 SVR_NOISY_N, SVR_NOISY_NOISE = 20000, 0.2
 OC_NU, NUSVC_NU, NUSVR_NU = 0.1, 0.2, 0.5
-NUSVR_PREFIX, NUSVR_SMALL_N = 2000, 8000
+NUSVR_PREFIX, NUSVR_SMALL_N = 2000, 5000
 NU_MC_N = 10000
 NU_GRAPH_ITERS = 512
 TASK_MAX_ITER = 2_000_000
@@ -310,7 +353,9 @@ CASC_N, CASC_HELD, CASC_Q = 20000, 5000, 4096
 APPROX_CUT, APPROX_END = 300, 600
 CASC_RESUME_N = 8000
 APPROX_PROFILE_STEPS = 256
-# The data layer (phase 12): the Python fallback parses the first
+# The data layer (phase 12): the libsvm text holds the first
+# STREAM_LIBSVM_ROWS planted rows (cut from 60000 for card time, PERF.md
+# §4; the CSV keeps all of them); the Python fallback parses the first
 # STREAM_FALLBACK_ROWS rows only (pure-Python libsvm at 60000 rows took
 # 148 s, PERF.md); shards of STREAM_SHARD_ROWS rows; STREAM_STEPS
 # streaming steps held to the in-memory steps, within STREAM_W_RTOL of
@@ -318,6 +363,7 @@ APPROX_PROFILE_STEPS = 256
 # 64 momentum steps); the converged streaming fit's wall budget under
 # --stream-converge; the drills' rows and shard size (8 shards, so one
 # quarantined shard stays under the 25% bad-fraction bound).
+STREAM_LIBSVM_ROWS = 30_000
 STREAM_FALLBACK_ROWS = 10_000
 STREAM_SHARD_ROWS = 4096
 STREAM_STEPS = 64
@@ -344,6 +390,35 @@ STREAM_CASC_SEED = 2
 # passes at this chunk size instead of 512 at the default; the models do
 # not depend on it.
 STREAM_CASC_CHUNK = 256
+# The live shard log (phase 13): a seed log of LIVE_SEED_SHARDS shards of
+# STREAM_SHARD_ROWS planted rows, LIVE_APPENDS more shards appended by a
+# writer process (the rest of the 60000) while LIVE_STEPS streamed steps
+# run in chunks of LIVE_CHUNK (the writer starts appending LIVE_DELAY_MS
+# after it is ready, ~10 steps of ~0.2 s at the seed view, then a shard
+# every LIVE_INTERVAL_MS: the last lands ~20 steps in); the drills' log:
+# LIVE_SMALL_SEED rows in shards of LIVE_SMALL_ROWS, appended to
+# LIVE_SMALL_N, and its resume run's steps.
+LIVE_SEED_SHARDS, LIVE_APPENDS = 8, 7
+LIVE_STEPS, LIVE_CHUNK = 48, 24
+LIVE_DELAY_MS, LIVE_INTERVAL_MS = 2000, 300
+LIVE_SMALL_N, LIVE_SMALL_SEED, LIVE_SMALL_ROWS = 4000, 2000, 500
+LIVE_SMALL_STEPS = 16
+# Serving (phase 14): the engine's top rung; SERVE_REQUESTS mixed-size
+# requests after warmup; SERVE_REPLAYS timed replays a bucket; the
+# batcher's closed-loop threads, their request sizes and seconds; the
+# fleet's budget and ladder.
+SERVE_MAX_BATCH, SERVE_REQUESTS, SERVE_REPLAYS = 256, 200, 50
+SERVE_THREADS, SERVE_MAX_REQ, SERVE_LOAD_S = 8, 64, 2.0
+FLEET_BUDGET, FLEET_MAX_BATCH = 8, 16
+# The engine's answers across request sizes: within SERVE_XSIZE_RTOL of
+# the block's largest |decision| (ROADMAP Queue 3: cuBLAS picks its
+# algorithm by the row count).
+SERVE_XSIZE_RTOL = 1e-5
+# ShardedDecider against the one-device ladder: its fold of per-device
+# partials reassociates the float32 sum over the 8310 SVs (3.75e-5 of
+# max |decision| measured on the card; ROADMAP Queue 3), where the tests'
+# sizes hold 1e-5; bitwise against its own one-device reference.
+SERVE_FOLD_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -468,11 +543,78 @@ def _stream_prep(tmp: str) -> None:
                              rows_per_shard=rows)
 
 
+def _model_file_round_trip(model, fmt: str, path: str):
+    """Phase 9's model files in a spawned process: ``model`` written as a
+    reference (``fmt`` "reference") or LIBSVM file at ``path`` and loaded
+    back; returns (SV lines written, the loaded model, seconds)."""
+    from dpsvm_tpu_torch import load_model, save_model
+    from dpsvm_tpu_torch.models.libsvm_io import save_libsvm_model
+    t = time.perf_counter()
+    wrote = (save_model if fmt == "reference" else save_libsvm_model)(
+        model, path)
+    back = load_model(path, n_features=D)
+    return wrote, back, time.perf_counter() - t
+
+
+def _mc_round_trip(model, dirpath, conn) -> None:
+    """Phase 8's sequential one-vs-one model through ``save_multiclass`` /
+    ``load_multiclass`` in a spawned process: sends back whether the loaded
+    arrays are the trained ones, and the seconds; the directory stays."""
+    from dpsvm_tpu_torch.models import multiclass as mc
+    t = time.perf_counter()
+    mc.save_multiclass(model, dirpath)
+    loaded = mc.load_multiclass(dirpath)
+    seconds = time.perf_counter() - t
+    same = (np.array_equal(loaded.classes, model.classes)
+            and loaded.pairs == model.pairs
+            and all(np.array_equal(a.x_sv, b.x_sv)
+                    and np.array_equal(a.alpha, b.alpha)
+                    and np.array_equal(a.y_sv, b.y_sv)
+                    for a, b in zip(loaded.models, model.models))
+            and np.allclose(loaded.platt, model.platt, rtol=1e-12))
+    conn.send((bool(same), seconds))
+    conn.close()
+
+
+def _live_prep(scratch: str) -> None:
+    """Phase 13's inputs, made in a spawned process: the first
+    LIVE_SEED_SHARDS x STREAM_SHARD_ROWS planted training rows as a CSV
+    converted to a shard directory (``live_log``) and the rest of the 60000
+    as ``live_rest.npz`` for the writer process; the first LIVE_SMALL_SEED
+    rows in shards of LIVE_SMALL_ROWS (``live_small_log``) and the next
+    ones up to LIVE_SMALL_N (``live_small_rest.npz``)."""
+    from dpsvm_tpu_torch.data import stream as st
+    from dpsvm_tpu_torch.data.synthetic import make_planted
+    x, y = make_planted(N + 10000, D, GAMMA, seed=0)
+    y = np.asarray(y)
+    seed = LIVE_SEED_SHARDS * STREAM_SHARD_ROWS
+    for name, n0, n1, rows in (("live", seed, N, STREAM_SHARD_ROWS),
+                               ("live_small", LIVE_SMALL_SEED, LIVE_SMALL_N,
+                                LIVE_SMALL_ROWS)):
+        csv = os.path.join(scratch, f"{name}.csv")
+        with open(csv, "w") as fh:
+            fh.write(_format_rows((x[:n0], y[:n0], True, False))[0])
+        st.convert_to_shards(csv, os.path.join(scratch, f"{name}_log"),
+                             rows_per_shard=rows)
+        os.unlink(csv)
+        np.savez(os.path.join(scratch, f"{name}_rest.npz"), x=x[n0:n1],
+                 y=y[n0:n1])
+
+
 class Smoke:
     def __init__(self):
         import torch
         self.torch = torch
         self.dev = torch.device("cuda")
+        # files later phases reuse (the fused model's file, the one-vs-one
+        # directory, the live logs), removed when the script ends
+        self.scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+        self._live_proc = None
+        self._io_pool = None              # _round_trip's spawned processes
+        self._pending_rt = []
+        self._mc = None
+        self._approx_a = None
+        self._fused_path = None
         self.failures = []
         self.rec = {}
         self._planted = None
@@ -1130,8 +1272,13 @@ class Smoke:
                     self.fail("main", f"{prec}: {name} enqueued {ln} "
                               f"launches, ran {rn}, for {res.n_iter} "
                               f"iterations")
-            same, finite, acc, io_s, eval_s = self._round_trip(model, xte,
-                                                               yte)
+            # the float32 model's file stays for phase 14's registry
+            keep = (os.path.join(self.scratch, "fused_f32.svm")
+                    if prec == "highest" else None)
+            same, finite, acc, io_s, eval_s = self._round_trip(
+                model, xte, yte, keep=keep)
+            if keep is not None:
+                self._fused_path = keep
             ok = (same and res.converged and finite and acc > 0.9
                   and np.all(np.isfinite(res.alpha)))
             if not ok:
@@ -1155,6 +1302,7 @@ class Smoke:
         self.main_general()
         self.main_kinds()
         self.main_precomputed()
+        self._settle_round_trips("main")
 
     def counted(self, fn):
         """Run ``fn()`` with every count at 0 before it; return its result
@@ -1323,29 +1471,59 @@ class Smoke:
             self.rec["precomputed"][path] = r
             log(f"[main] precomputed {path}: {json.dumps(r)}")
 
-    def _round_trip(self, model, xte, yte):
-        """save, load, evaluate on the held-out rows. Returns (same model,
-        finite decisions of the right shape, accuracy, save+load s, eval
-        s)."""
-        from dpsvm_tpu_torch import evaluate, load_model, save_model
+    def _round_trip(self, model, xte, yte, keep=None):
+        """save, load, evaluate on the held-out rows. The file's save and
+        load (host text, ~4.5 s for 8300 SVs) run in a spawned process
+        beside the phase's next trainings, and ``_settle_round_trips``
+        checks at the phase's end that the loaded arrays are the model's
+        (the phase fails if not); the model is evaluated here, which is
+        evaluating the loaded one once their arrays are equal. Returns
+        (True: checked when settled, finite decisions of the right shape,
+        accuracy, None: the save+load seconds are settled's, eval s).
+        ``keep``: the path the file is saved at and left."""
+        from dpsvm_tpu_torch import evaluate
         from dpsvm_tpu_torch.models.svm import decision_function
+        if self._io_pool is None:
+            import multiprocessing
+            from concurrent.futures import ProcessPoolExecutor
+            self._io_pool = ProcessPoolExecutor(
+                max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+        if keep is None:
+            keep = os.path.join(self.scratch,
+                                f"rt_{len(self._pending_rt)}.svm")
+        self._pending_rt.append((model, keep, self._io_pool.submit(
+            _model_file_round_trip, model, "reference", keep)))
         t = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "model.svm")
-            wrote = save_model(model, path)
-            loaded = load_model(path)
-        io_s = time.perf_counter() - t
-        same = (wrote == model.n_sv
-                and (model.sv_idx is None
-                     or np.array_equal(loaded.sv_idx, model.sv_idx))
-                and np.array_equal(loaded.x_sv, model.x_sv)
-                and np.array_equal(loaded.alpha, model.alpha)
-                and np.array_equal(loaded.y_sv, model.y_sv))
-        t = time.perf_counter()
-        dec = decision_function(loaded, xte)
+        dec = decision_function(model, xte)
         eval_s = time.perf_counter() - t
         finite = bool(np.all(np.isfinite(dec)) and dec.shape == (len(yte),))
-        return same, finite, evaluate(loaded, xte, yte), io_s, eval_s
+        return True, finite, evaluate(model, xte, yte), None, eval_s
+
+    def _settle_round_trips(self, phase: str) -> None:
+        """Wait for the phase's model-file round trips; fail the phase for
+        any whose loaded arrays are not the model's; record their
+        seconds."""
+        out = {}
+        t = time.perf_counter()
+        for i, (model, path, fut) in enumerate(self._pending_rt):
+            wrote, loaded, seconds = fut.result()
+            same = (wrote == model.n_sv
+                    and (model.sv_idx is None
+                         or np.array_equal(loaded.sv_idx, model.sv_idx))
+                    and np.array_equal(loaded.x_sv, model.x_sv)
+                    and np.array_equal(loaded.alpha, model.alpha)
+                    and np.array_equal(loaded.y_sv, model.y_sv))
+            out[f"{i}: {model.n_sv} SVs"] = {
+                "same": bool(same), "save_load_seconds": seconds}
+            if not same:
+                self.fail(phase, f"the {model.n_sv}-SV model's file round "
+                          "trip differs")
+            if path != self._fused_path:
+                os.unlink(path)
+        self._pending_rt = []
+        self.rec.setdefault("round_trips", {}).update(out)
+        log(f"[{phase}] model file round trips (spawned, "
+            f"{time.perf_counter() - t:.1f} s waited): {json.dumps(out)}")
 
     def main_decomp(self) -> None:
         """The decomposition at full width through ``api.fit``."""
@@ -1579,6 +1757,10 @@ class Smoke:
         self.shrink_general()
         self.shrink_decomp()
         self.shrink_convergence()
+        self._settle_round_trips("shrinking")
+        if self._io_pool is not None:          # its last user
+            self._io_pool.shutdown()
+            self._io_pool = None
 
     def _shrink_record(self, res, run, counts, acc, unshrunk):
         return {"n_iter": res.n_iter, "rounds": res.rounds,
@@ -1924,20 +2106,20 @@ class Smoke:
             wall = time.perf_counter() - t
             loaded, io_s, same = model, None, True
             if path == "sequential":
-                t = time.perf_counter()
-                with tempfile.TemporaryDirectory() as tmp:
-                    mc.save_multiclass(model, tmp)
-                    loaded = mc.load_multiclass(tmp)
-                io_s = time.perf_counter() - t
-                same = (np.array_equal(loaded.classes, model.classes)
-                        and loaded.pairs == model.pairs
-                        and all(np.array_equal(a.x_sv, b.x_sv)
-                                and np.array_equal(a.alpha, b.alpha)
-                                and np.array_equal(a.y_sv, b.y_sv)
-                                for a, b in zip(loaded.models,
-                                                model.models))
-                        and np.allclose(loaded.platt, model.platt,
-                                        rtol=1e-12))
+                # the 45200-SV directory's text round trip (~25 s of host)
+                # runs in a spawned process beside the batched path, which
+                # checks that the loaded arrays are the trained ones; the
+                # trained model is evaluated (the same arrays) and its
+                # directory stays for phase 14
+                import multiprocessing
+                ctx = multiprocessing.get_context("spawn")
+                mc_recv, send = ctx.Pipe(duplex=False)
+                mc_dir = os.path.join(self.scratch, "mc_dir")
+                mc_proc = ctx.Process(target=_mc_round_trip,
+                                      args=(model, mc_dir, send))
+                mc_proc.start()
+                send.close()
+                self._mc = (model, xte, yte, mc_dir)
             t = time.perf_counter()
             acc = mc.evaluate_multiclass(loaded, xte, yte)
             eval_s = time.perf_counter() - t
@@ -1970,6 +2152,22 @@ class Smoke:
             out[path] = r
             models[path] = (loaded, res)
             log(f"[multiclass] {path}: {json.dumps(r)}")
+        t = time.perf_counter()
+        try:
+            same, io_s = mc_recv.recv()
+        except EOFError:
+            same, io_s = False, None
+        mc_proc.join()
+        out["sequential"].update(round_trip=bool(same and mc_proc.exitcode
+                                                 == 0),
+                                 save_load_seconds=io_s,
+                                 round_trip_wait_seconds=(
+                                     time.perf_counter() - t))
+        if not out["sequential"]["round_trip"]:
+            self.fail("multiclass", f"sequential directory round trip: "
+                      f"{json.dumps(out['sequential'])}")
+        log(f"[multiclass] sequential directory round trip (spawned): "
+            f"{json.dumps({k: out['sequential'][k] for k in ('round_trip', 'save_load_seconds', 'round_trip_wait_seconds')})}")
         (m_seq, r_seq), (m_bat, r_bat) = models["sequential"], \
             models["batched"]
         nsv = [(a.n_sv, b.n_sv) for a, b in zip(r_seq, r_bat)]
@@ -2057,13 +2255,11 @@ class Smoke:
         at PREFIX_ITERS every point is held to the float32 bars of phase 4
         (alpha rtol 1e-4, atol 1e-5; f within 1e-4 max(1, |f|)); at
         SWEEP_PREFIX each point's differences are recorded, with whether
-        it still meets them. Then ``sweep_c`` to convergence on planted
-        SWEEP_SMALL_N x 784, each model held to ``api.fit``'s at its (C,
-        gamma) by the LibSVM bar (n_sv within 2% or 3, held-out accuracy
-        within one example)."""
+        it still meets them. (The sweep to convergence on planted
+        SWEEP_SMALL_N x 784 against ``api.fit`` at each point is phase 14
+        (h)'s grid.)"""
         torch = self.torch
-        from dpsvm_tpu_torch import SVMConfig, evaluate, fit, sweep_c
-        from dpsvm_tpu_torch.data.synthetic import make_planted
+        from dpsvm_tpu_torch import SVMConfig
         from dpsvm_tpu_torch.solver import batched_ovo as bo
         from dpsvm_tpu_torch.solver import smo as gs
         xtr, ytr, _, _ = self.planted()
@@ -2112,35 +2308,9 @@ class Smoke:
             if counts["ovo_captures"] != 1:
                 self.fail("multiclass", f"sweep prefix {steps}: {counts}")
             out[f"prefix_{steps}"] = r
-        # to convergence on the smaller problem, through sweep_c
-        x, y = make_planted(SWEEP_SMALL_N + 2000, D, GAMMA, seed=3)
-        xs, ys, xe, ye = (x[:SWEEP_SMALL_N], y[:SWEEP_SMALL_N],
-                          x[SWEEP_SMALL_N:], y[SWEEP_SMALL_N:])
-        conv = dataclasses.replace(cfg, max_iter=MAIN_MAX_ITER)
-        t = time.perf_counter()
-        swept = sweep_c(xs, ys, list(SWEEP_CS), conv,
-                        gammas=list(SWEEP_GS))
-        conv_s = time.perf_counter() - t
-        out["converged"] = {"n": SWEEP_SMALL_N, "sweep_seconds": conv_s,
-                            "points": []}
-        fit_s = 0.0
-        for (c, g), (m, r) in zip(grid, swept):
-            t = time.perf_counter()
-            (mi, ri), counts = self.counted(lambda: fit(
-                xs, ys, dataclasses.replace(conv, c=c, gamma=g)))
-            fit_s += time.perf_counter() - t
-            self._add_a_counts(counts)
-            acc, acc_i = evaluate(m, xe, ye), evaluate(mi, xe, ye)
-            pt = {"c": c, "gamma": g, "n_iter": r.n_iter,
-                  "fit_n_iter": ri.n_iter, "n_sv": r.n_sv,
-                  "fit_n_sv": ri.n_sv, "heldout_accuracy": acc,
-                  "fit_heldout_accuracy": acc_i, "converged": r.converged}
-            out["converged"]["points"].append(pt)
-            if not (r.converged and ri.converged
-                    and abs(r.n_sv - ri.n_sv) <= max(0.02 * ri.n_sv, 3.0)
-                    and abs(acc - acc_i) <= 1.0 / len(ye) + 1e-9):
-                self.fail("multiclass", f"sweep converged: {pt}")
-        out["converged"]["fit_seconds"] = fit_s
+        # The sweep to convergence on the smaller problem, each point held
+        # to api.fit's, is phase 14 (h): the grid's batched sweep against
+        # its sequential fits (one run of that work, not two).
         self.rec["sweep"] = out
         log(f"[multiclass] C x gamma sweep: {json.dumps(out)}")
 
@@ -2248,14 +2418,22 @@ class Smoke:
         the general pair, nu-SVC, nu-SVR and nu one-vs-one on the general
         pair with ``nu_selection``, and their models through LIBSVM
         ``.model`` files and reference files."""
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
         self.rec["tasks"] = {}
         models = {"epsilon-SVR": self.tasks_svr(TASK_N, SVR_NOISE),
                   "one-class": self.tasks_oneclass(),
                   "nu-SVC": self.tasks_nusvc()}
-        self.tasks_svr(SVR_NOISY_N, SVR_NOISY_NOISE)
-        self.tasks_nusvr()
-        self.tasks_nu_ovo()
-        self.tasks_files(models)
+        # the models' file round trips (host text) run in spawned processes
+        # beside the trainings below
+        with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+                max_workers=len(models),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            self._start_file_round_trips(models, tmp, pool)
+            self.tasks_svr(SVR_NOISY_N, SVR_NOISY_NOISE)
+            self.tasks_nusvr()
+            self.tasks_nu_ovo()
+            self.tasks_files(models)
 
     def _decomp_counts_ok(self, res, counts) -> bool:
         """Kernel B ran once a round and its device-counted steps add up
@@ -2510,41 +2688,52 @@ class Smoke:
         LIBSVM file writes rho with 17 digits and groups the SVs by label
         (the +1 block first), so its model is the trained one with its SVs
         in that order. Each file's largest difference to the trained
-        model's decisions is printed."""
-        from dpsvm_tpu_torch import load_model, save_model
-        from dpsvm_tpu_torch.models.libsvm_io import save_libsvm_model
+        model's decisions is printed. The files' text (~40 s in one
+        process) is written and read back by ``_start_file_round_trips``'s
+        spawned processes, started as soon as the models exist, beside the
+        phase's later trainings; here they are waited for and checked."""
         from dpsvm_tpu_torch.models.svm import decision_function
         _, _, xte, _ = self.planted()
         out = {}
-        with tempfile.TemporaryDirectory() as tmp:
-            for tag, model in models.items():
-                want = decision_function(model, xte, device=self.dev)
-                order = np.argsort(-np.asarray(model.y_sv))
-                permuted = dataclasses.replace(
-                    model, x_sv=model.x_sv[order], alpha=model.alpha[order],
-                    y_sv=model.y_sv[order])
-                nine = dataclasses.replace(model, b=float(f"{model.b:.9g}"))
-                r = {"n_sv": model.n_sv}
-                for fmt, save, stored in (("reference", save_model, nine),
-                                          ("libsvm", save_libsvm_model,
-                                           permuted)):
-                    ref = decision_function(stored, xte, device=self.dev)
-                    path = os.path.join(tmp, f"{fmt}.model")
-                    t = time.perf_counter()
-                    wrote = save(model, path)
-                    back = load_model(path, n_features=D)
-                    r[f"{fmt}_seconds"] = time.perf_counter() - t
-                    got = decision_function(back, xte, device=self.dev)
-                    same = (wrote == model.n_sv and back.task == model.task
-                            and np.array_equal(got, ref))
-                    r[f"{fmt}_bitwise"] = bool(same)
-                    r[f"{fmt}_max_diff_to_trained"] = float(
-                        np.abs(got - want).max())
-                    if not same:
-                        self.fail("tasks", f"{tag} {fmt} file: {r}")
-                out[tag] = r
-                log(f"[tasks] {tag} model files: {json.dumps(r)}")
+        fmts = ("reference", "libsvm")
+        futs, t0 = self._file_futs
+        t_wait = time.perf_counter()
+        for tag, model in models.items():
+            want = decision_function(model, xte, device=self.dev)
+            order = np.argsort(-np.asarray(model.y_sv))
+            permuted = dataclasses.replace(
+                model, x_sv=model.x_sv[order], alpha=model.alpha[order],
+                y_sv=model.y_sv[order])
+            nine = dataclasses.replace(model, b=float(f"{model.b:.9g}"))
+            r = {"n_sv": model.n_sv}
+            for fmt, stored in zip(fmts, (nine, permuted)):
+                ref = decision_function(stored, xte, device=self.dev)
+                wrote, back, r[f"{fmt}_seconds"] = futs[(tag, fmt)].result()
+                got = decision_function(back, xte, device=self.dev)
+                same = (wrote == model.n_sv and back.task == model.task
+                        and np.array_equal(got, ref))
+                r[f"{fmt}_bitwise"] = bool(same)
+                r[f"{fmt}_max_diff_to_trained"] = float(
+                    np.abs(got - want).max())
+                if not same:
+                    self.fail("tasks", f"{tag} {fmt} file: {r}")
+            out[tag] = r
+            log(f"[tasks] {tag} model files: {json.dumps(r)}")
+        out["wall_seconds"] = time.perf_counter() - t0
+        out["wait_seconds"] = time.perf_counter() - t_wait
+        log(f"[tasks] model files (spawned, beside the later trainings): "
+            f"{out['wall_seconds']:.1f} s from their start, "
+            f"{out['wait_seconds']:.1f} s waited for here")
         self.rec["tasks"]["files"] = out
+
+    def _start_file_round_trips(self, models, tmp: str, pool) -> None:
+        """Submit every model's reference and LIBSVM file round trip to
+        ``pool`` (spawned processes, files under ``tmp``)."""
+        self._file_futs = ({(tag, fmt): pool.submit(
+            _model_file_round_trip, model, fmt,
+            os.path.join(tmp, f"{tag}.{fmt}.model"))
+            for tag, model in models.items()
+            for fmt in ("reference", "libsvm")}, time.perf_counter())
 
     # ------------------------------------------------------------ phase 10
     def distributed(self) -> None:
@@ -2973,6 +3162,7 @@ class Smoke:
         r["fused_heldout_accuracy"] = None if ref is None else ref[1]
         if tag == "a":
             r.update(self._approx_profile(xtr, ytr, cfg))
+            self._approx_a = model           # phase 14 (c) serves it
         ok = (res.converged and self._approx_counts_ok(r)
               and np.all(np.isfinite(model.w))
               and (ref is None or abs(acc - ref[1]) <= 0.01))
@@ -3237,6 +3427,8 @@ class Smoke:
                 sdir = self.stream_shards(tmp)
                 self.stream_fit(sdir)
                 self._join("prep")
+                # phase 13's inputs, made beside (d)'s device-bound polish
+                self._start_live_prep()
                 self.stream_cascade(os.path.join(tmp, "casc_shards"))
                 self.stream_drills(tmp)
         finally:
@@ -3254,15 +3446,18 @@ class Smoke:
                                f"{proc.exitcode}")
 
     @staticmethod
-    def _write_text(x, y, csv=None, lib=None) -> float:
-        """(x, y) as a dense CSV and/or a libsvm file, every value in 9
-        significant digits (a float32 reads back exactly), formatted in
-        row blocks by a pool of spawned processes (the text is ~1.4 GB at
-        60000 x 784); seconds."""
+    def _write_text(x, y, csv=None, lib=None, lib_rows=None) -> float:
+        """(x, y) as a dense CSV and/or a libsvm file (of the first
+        ``lib_rows`` rows; None: all), every value in 9 significant digits
+        (a float32 reads back exactly), formatted in 2000-row blocks by a
+        pool of spawned processes (the text is ~1.4 GB at 60000 x 784);
+        seconds."""
         import multiprocessing
         t = time.perf_counter()
         y = np.asarray(y)
-        blocks = [(x[lo:lo + 2000], y[lo:lo + 2000], bool(csv), bool(lib))
+        lib_rows = len(y) if lib_rows is None else lib_rows
+        blocks = [(x[lo:lo + 2000], y[lo:lo + 2000], bool(csv),
+                   bool(lib) and lo < lib_rows)
                   for lo in range(0, len(y), 2000)]
         outs = [open(p, "w") if p else None for p in (csv, lib)]
         try:
@@ -3279,8 +3474,9 @@ class Smoke:
         return time.perf_counter() - t
 
     def stream_native(self, tmp: str, ctx) -> None:
-        """(a) the native parse of the planted 60000 x 784 CSV and libsvm
-        files against the rows, the Python fallback on their first
+        """(a) the native parse of the planted 60000 x 784 CSV and of the
+        libsvm file of its first STREAM_LIBSVM_ROWS rows against the rows,
+        the Python fallback on their first
         STREAM_FALLBACK_ROWS rows against the native parse, and the fused
         pair's model file saved and loaded (timed, the same arrays). Once
         the texts are written, the fallback parse (``_fallback_parse``),
@@ -3293,8 +3489,9 @@ class Smoke:
         xtr, ytr, _, _ = self.planted()
         csv, lib = (os.path.join(tmp, f"train.{e}") for e in ("csv",
                                                             "libsvm"))
-        r = {"rows": len(ytr), "d": D,
-             "write_seconds": self._write_text(xtr, ytr, csv, lib),
+        r = {"rows": len(ytr), "libsvm_rows": STREAM_LIBSVM_ROWS, "d": D,
+             "write_seconds": self._write_text(
+                 xtr, ytr, csv, lib, lib_rows=STREAM_LIBSVM_ROWS),
              "csv_bytes": os.path.getsize(csv),
              "libsvm_bytes": os.path.getsize(lib)}
         fb_recv, fb_send = ctx.Pipe(duplex=False)
@@ -3311,12 +3508,14 @@ class Smoke:
         send.close()
         ok = True
         native_rows = {}
-        for fmt, path in (("csv", csv), ("libsvm", lib)):
+        for fmt, path, rows in (("csv", csv, len(ytr)),
+                                ("libsvm", lib, STREAM_LIBSVM_ROWS)):
             t = time.perf_counter()
             x, y = load_dataset(path)
             r[f"{fmt}_native_seconds"] = time.perf_counter() - t
             same = (native.last_path() == "native"
-                    and np.array_equal(x, xtr) and np.array_equal(y, ytr))
+                    and np.array_equal(x, xtr[:rows])
+                    and np.array_equal(y, ytr[:rows]))
             r[f"{fmt}_native_bitwise"] = bool(same)
             ok = ok and same
             native_rows[fmt] = (x, y)
@@ -3685,6 +3884,792 @@ class Smoke:
             self.fail("stream", f"(e) drills {bad}: {json.dumps(out)}")
         self.rec["stream"]["e"] = out
         log(f"[stream] (e) drills: {json.dumps(out)}")
+
+    # ------------------------------------------------------------ phase 13
+    def live(self) -> None:
+        """The live shard log (module docstring, phase 13). Its inputs are
+        made by ``_live_prep`` in a spawned process, started beside phase
+        12's timings in a full run, here otherwise."""
+        self.rec["live"] = {}
+        self._start_live_prep()
+        proc = self._live_proc
+        proc.join()
+        if proc.exitcode != 0:
+            raise RuntimeError(f"the live prep process exited "
+                               f"{proc.exitcode}")
+        self.live_fit()
+        self.live_drills()
+
+    def _start_live_prep(self) -> None:
+        if self._live_proc is None:
+            import multiprocessing
+            ctx = multiprocessing.get_context("spawn")
+            self._live_proc = ctx.Process(target=_live_prep,
+                                          args=(self.scratch,))
+            self._live_proc.start()
+
+    def live_fit(self) -> None:
+        """(a) ``fit_approx_stream(live=True)`` (approx-rff, D = APPROX_D)
+        on the LIVE_SEED_SHARDS-shard log while a ``writer_main`` process
+        appends the rest of the 60000 planted rows (LIVE_APPENDS shards);
+        LIVE_STEPS steps, the writer's last generation admitted before the
+        end: the final view 60000 rows, the divisor the manifest's n, the
+        admissions and ``ingest_grow`` rows, ms a step (host wall) at the
+        seed view and at the full one, and the packed-stats reads (held to
+        a frozen fit's at the same budget in ``live_drills``)."""
+        from dpsvm_tpu_torch import SVMConfig
+        from dpsvm_tpu_torch.approx import primal
+        from dpsvm_tpu_torch.approx.model import decision_function
+        from dpsvm_tpu_torch.data import stream as st
+        from dpsvm_tpu_torch.data.live import read_manifest_checked
+        from dpsvm_tpu_torch.solver import driver
+        _, _, xte, yte = self.planted()
+        ldir = os.path.join(self.scratch, "live_log")
+        ds = st.ShardedDataset.open(ldir)
+        seed_n = ds.n
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS="1",
+                   CUDA_VISIBLE_DEVICES="")
+        # the writer says READY once started, then waits LIVE_DELAY_MS
+        # (the fit's prologue and first steps) and appends a shard every
+        # LIVE_INTERVAL_MS: its start-up time cannot decide the run
+        writer = subprocess.Popen(
+            [sys.executable, "-m", "dpsvm_tpu_torch.data.live", ldir,
+             "--append", str(LIVE_APPENDS), "--source",
+             os.path.join(self.scratch, "live_rest.npz"), "--ready",
+             "--delay-ms", str(LIVE_DELAY_MS), "--interval-ms",
+             str(LIVE_INTERVAL_MS)], cwd=here, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cfg = SVMConfig(solver="approx-rff", approx_dim=APPROX_D, c=C,
+                        gamma=GAMMA, epsilon=1e-9, max_iter=LIVE_STEPS,
+                        chunk_iters=LIVE_CHUNK)
+        primal.reset_counts()
+        try:
+            ready = writer.stdout.readline().strip()
+            if ready != "READY":
+                raise RuntimeError(f"the writer did not start: {ready!r}")
+            t = time.perf_counter()
+            model, res = primal.fit_approx_stream(ds, cfg, live=True)
+            wall = time.perf_counter() - t
+            out, err = writer.communicate(timeout=120)
+        finally:
+            if writer.poll() is None:
+                writer.kill()
+                writer.wait()
+        run = dict(primal.RUN)
+        walls = run["step_walls"]
+        grows = [kw for e, kw in driver.EVENTS if e == "ingest_grow"]
+        admitted = [kw for e, kw in driver.EVENTS if e == "append_admitted"]
+        manifest = read_manifest_checked(ldir)
+
+        def ms_at(k):
+            v = [s for n, s in walls if n == k]
+            return 1e3 * float(np.mean(v)) if v else None
+
+        dec = decision_function(model, xte)
+        acc = float(np.mean(np.where(dec < 0, -1, 1) == yte))
+        r = {"seed_rows": seed_n, "seed_shards": LIVE_SEED_SHARDS,
+             "writer_rc": writer.returncode,
+             "writer_publishes": out.count("APPENDED"),
+             "final_generation": ds.generation, "final_rows": ds.n,
+             "final_shards": ds.n_shards, "manifest_n": manifest["n"],
+             "divisor": run["divisor"], "admissions": run["admissions"],
+             "append_admitted": len(admitted),
+             "ingest_grow_rows": [g["n_new_rows"] for g in grows],
+             "ingest_grow_generations": [g["generation"] for g in grows],
+             "steps": res.n_iter, "seconds": wall,
+             "steps_at_seed_view": sum(1 for n, _ in walls
+                                       if n == LIVE_SEED_SHARDS),
+             "ms_a_step_seed_view": ms_at(LIVE_SEED_SHARDS),
+             "ms_a_step_full_view": ms_at(ds.n_shards),
+             "reads": primal.COUNTS["reads"],
+             "captures": primal.COUNTS["captures"],
+             "heldout_accuracy": acc,
+             "finite": bool(np.all(np.isfinite(model.w)))}
+        full = len(self.planted()[1])
+        ok = (writer.returncode == 0 and r["writer_publishes"] == LIVE_APPENDS
+              and ds.generation == LIVE_APPENDS and ds.n == full
+              and manifest["n"] == full and run["divisor"] == full
+              and sum(r["ingest_grow_rows"]) == full - seed_n
+              and len(admitted) == LIVE_APPENDS
+              and r["steps_at_seed_view"] >= 1
+              and r["ms_a_step_full_view"] is not None
+              and res.n_iter == LIVE_STEPS
+              and r["reads"] == -(-LIVE_STEPS // LIVE_CHUNK)
+              and r["captures"] == 0 and r["finite"] and acc > 0.5)
+        if not ok:
+            self.fail("live", f"(a) live fit: {json.dumps(r)} "
+                      f"writer stderr: {err[-500:]}")
+        self.rec["live"]["a"] = r
+        log(f"[live] (a) live fit, {seed_n} -> {ds.n} rows: "
+            f"{json.dumps(r)}")
+
+    def live_drills(self) -> None:
+        """(b) on ``_live_prep``'s small log (LIVE_SMALL_SEED planted rows
+        in shards of LIVE_SMALL_ROWS, its appends in hand): a live fit and
+        a frozen fit at (a)'s budget read the packed stats as often as (a)
+        did; a live fit cut at a checkpoint after an admission (a watcher
+        admitting one generation a sweep, so the view grows at four
+        boundaries) resumed bitwise, and a frozen resume of its checkpoint
+        refused naming "live"; a torn publish (``live_torn_publish``) held
+        by the watcher and repaired by the next append; a stale generation
+        (``live_stale_generation``) refused."""
+        import shutil
+        from dpsvm_tpu_torch import SVMConfig
+        from dpsvm_tpu_torch.approx import primal
+        from dpsvm_tpu_torch.data import live as lv
+        from dpsvm_tpu_torch.data import stream as st
+        from dpsvm_tpu_torch.resilience import faultinject
+        small = os.path.join(self.scratch, "live_small_log")
+        with np.load(os.path.join(self.scratch,
+                                  "live_small_rest.npz")) as npz:
+            rx, ry = npz["x"], npz["y"]
+        grown = os.path.join(self.scratch, "live_small_grown")
+        shutil.copytree(small, grown)
+        n_app = len(ry) // LIVE_SMALL_ROWS
+        for k in range(n_app):
+            lo = k * LIVE_SMALL_ROWS
+            lv.append_shard(grown, rx[lo:lo + LIVE_SMALL_ROWS],
+                            ry[lo:lo + LIVE_SMALL_ROWS])
+        out = {}
+        base = dict(solver="approx-rff", approx_dim=APPROX_D, c=C,
+                    gamma=GAMMA, epsilon=1e-9)
+        reads = {}
+        for tag, live, at in (("frozen", False, None), ("live", True, 0)):
+            primal.reset_counts()
+            primal.fit_approx_stream(
+                st.ShardedDataset.open(grown, at_generation=at),
+                SVMConfig(max_iter=LIVE_STEPS, chunk_iters=LIVE_CHUNK,
+                          **base), live=live)
+            reads[tag] = primal.COUNTS["reads"]
+        full_reads = self.rec["live"].get("a", {}).get("reads")
+        out["reads"] = {**reads, "full_width_live": full_reads,
+                        "ok": bool(reads["frozen"] == reads["live"]
+                                   and full_reads in (None,
+                                                      reads["frozen"]))}
+
+        class OneGeneration(lv.ShardLogWatcher):
+            def poll(self):
+                m = lv.read_manifest_checked(self.ds.directory)
+                if int(m.get("generation", 0)) <= self.ds.generation:
+                    return []
+                return self.ds.admit_manifest(st.pin_manifest_generation(
+                    m, self.ds.generation + 1))
+
+        steps = LIVE_SMALL_STEPS
+
+        def fit(**extra):
+            ds = st.ShardedDataset.open(grown, at_generation=0)
+            kw = dict(base, max_iter=steps, chunk_iters=steps // 4)
+            kw.update(extra)
+            m, r = primal.fit_approx_stream(ds, SVMConfig(**kw), live=True,
+                                            watcher=OneGeneration(ds))
+            return m, r, ds
+
+        ck = os.path.join(self.scratch, "live_ck.npz")
+        full, rf, _ = fit()
+        _, rc, dc = fit(max_iter=steps // 4, checkpoint_path=ck,
+                        checkpoint_every=steps // 4)
+        res, rr, dr = fit(resume_from=ck)
+        try:
+            primal.fit_approx_stream(
+                st.ShardedDataset.open(grown, at_generation=0),
+                SVMConfig(max_iter=steps, resume_from=ck, **base))
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        out["resume"] = {
+            "cut": rc.n_iter, "cut_generation": dc.generation,
+            "resumed_to": rr.n_iter, "generation": dr.generation,
+            "frozen_resume_refused": refused,
+            "ok": bool(rc.n_iter == steps // 4 and dc.generation >= 1
+                       and rr.n_iter == rf.n_iter == steps
+                       and dr.generation == n_app
+                       and np.array_equal(full.w, res.w)
+                       and full.b == res.b
+                       and refused is not None and "live" in refused)}
+        # the fault knobs on a copy of the small log
+        fdir = os.path.join(self.scratch, "live_small_faults")
+        shutil.copytree(small, fdir)
+        ds = st.ShardedDataset.open(fdir)
+        w = lv.ShardLogWatcher(ds)
+        prior = faultinject.current()
+        rows = LIVE_SMALL_ROWS
+        try:
+            faultinject.install(faultinject.FaultPlan(live_torn_publish=1))
+            try:
+                lv.append_shard(fdir, rx[:rows], ry[:rows])
+                crashed = False
+            except lv.WriterCrashError:
+                crashed = True
+            faultinject.install(prior)
+            held = w.poll() == [] and ds.generation == 0
+            lv.append_shard(fdir, rx[:rows], ry[:rows])     # repairs
+            repaired = w.poll() == [ds.n_shards - 1] and ds.generation == 1
+            out["torn"] = {"crashed": crashed, "held": held,
+                           "torn_observed": w.torn_observed,
+                           "repaired": repaired,
+                           "ok": bool(crashed and held and repaired
+                                      and w.torn_observed == 1)}
+            faultinject.install(faultinject.FaultPlan(
+                live_stale_generation=1))
+            lv.append_shard(fdir, rx[rows:2 * rows], ry[rows:2 * rows])
+            faultinject.install(prior)
+            refused = w.poll() == [] and ds.generation == 1
+            lv.append_shard(fdir, rx[2 * rows:3 * rows],
+                            ry[2 * rows:3 * rows])
+            both = len(w.poll()) == 2 and ds.generation == 2
+            out["stale"] = {"refused": refused,
+                            "stale_observed": w.stale_observed,
+                            "next_publish_admits_both": both,
+                            "ok": bool(refused and both
+                                       and w.stale_observed == 1)}
+        finally:
+            faultinject.install(prior)
+        bad = [k for k, v in out.items() if not v["ok"]]
+        if bad:
+            self.fail("live", f"(b) drills {bad}: {json.dumps(out)}")
+        self.rec["live"]["b"] = out
+        log(f"[live] (b) drills: {json.dumps(out)}")
+
+    # ------------------------------------------------------------ phase 14
+    def serve(self) -> None:
+        """Serving and the model fleet (module docstring, phase 14), on the
+        models earlier phases made (trained here when they did not run)."""
+        self.rec["serve"] = {}
+        model, path = self._serve_model()
+        engine = self.serve_engine(model)
+        self.serve_multiclass()
+        self.serve_approx()
+        self.serve_batcher(model, path, engine)
+        self.serve_sharded(model, engine)
+        self.serve_fleet()
+        self.serve_grid()
+
+    def _serve_model(self):
+        """Phase 3's float32 fused model and its file."""
+        from dpsvm_tpu_torch import SVMConfig, fit, save_model
+        model = self._fused_f32
+        if model is None:
+            xtr, ytr, _, _ = self.planted()
+            model, _ = fit(xtr, ytr, SVMConfig(c=C, gamma=GAMMA,
+                                               epsilon=1e-3,
+                                               max_iter=MAIN_MAX_ITER))
+            self._fused_f32 = model
+        if self._fused_path is None:
+            self._fused_path = os.path.join(self.scratch, "fused_f32.svm")
+            save_model(model, self._fused_path)
+        return model, self._fused_path
+
+    def _held(self, engine, block_fn, q, scale):
+        """(bitwise on every block the engine ran, the largest difference
+        to ``block_fn`` on the request's own rows, that over ``scale``:
+        the largest |decision| over the held-out rows)."""
+        out = engine.decision_values(q)
+        same = True
+        for lo, take, bucket in engine._ladder.plan(q.shape[0]):
+            block = np.zeros((bucket, q.shape[1]), np.float32)
+            block[:take] = q[lo:lo + take]
+            same &= bool(np.array_equal(
+                out[lo:lo + take].view(np.int32),
+                np.ascontiguousarray(block_fn(block)[:take]).view(
+                    np.int32)))
+        diff = float(np.max(np.abs(out - block_fn(q))))
+        return same, diff, diff / scale
+
+    def _replay_us(self, engine) -> dict:
+        """µs a replay of each bucket's graph (CUDA events around
+        SERVE_REPLAYS replays)."""
+        torch = self.torch
+        out = {}
+        for b, g in sorted(engine._ladder._graphs.items()):
+            for _ in range(3):
+                g.graph.replay()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(SERVE_REPLAYS):
+                g.graph.replay()
+            e1.record()
+            torch.cuda.synchronize()
+            out[b] = 1e3 * e0.elapsed_time(e1) / SERVE_REPLAYS
+        return out
+
+    def serve_engine(self, model):
+        """(a) ``PredictionEngine(max_batch=SERVE_MAX_BATCH)`` on the fused
+        model: one capture a bucket at warmup and none across
+        SERVE_REQUESTS mixed-size requests of held-out rows; every answer
+        bitwise ``decision_function`` on the same blocks, and within
+        SERVE_XSIZE_RTOL of it on the request's own rows (its largest
+        cross-size difference recorded); µs a replay a bucket, rows/s at
+        the top bucket and a request's wall there; 10000 held-out rows
+        through the engine ``test --batch 256`` builds against the
+        monolithic ``decision_function``: the same labels away from
+        |decision| within the bar, both times."""
+        from dpsvm_tpu_torch.models.svm import decision_function
+        from dpsvm_tpu_torch.serving import engine as E
+        _, _, xte, _ = self.planted()
+        E.reset_counts()
+        t = time.perf_counter()
+        engine = E.PredictionEngine(model, max_batch=SERVE_MAX_BATCH)
+        warm_s = time.perf_counter() - t
+        caps = E.COUNTS["captures"]
+        rng = np.random.default_rng(14)
+        sizes = list(engine.buckets) + [3, 37, 100, SERVE_MAX_BATCH + 3,
+                                        3 * SERVE_MAX_BATCH + 17]
+        sizes += [int(s) for s in rng.integers(
+            1, SERVE_MAX_BATCH + 1, SERVE_REQUESTS - len(sizes))]
+        offs = rng.integers(0, len(xte) - max(sizes), len(sizes))
+        scale = float(np.max(np.abs(decision_function(model, xte))))
+        bitwise, worst_abs, worst_rel, xsize_bits = True, 0.0, 0.0, 0
+        for s, o in zip(sizes, offs):
+            q = xte[o:o + s]
+            same, diff, rel = self._held(
+                engine, lambda b: decision_function(model, b), q, scale)
+            bitwise &= same
+            worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel, rel)
+            xsize_bits += int(diff > 0)
+        recaptures = E.COUNTS["captures"] - caps
+        replay = self._replay_us(engine)
+        top = xte[:SERVE_MAX_BATCH]
+        for _ in range(5):
+            engine.decision_values(top)
+        t = time.perf_counter()
+        for _ in range(SERVE_REPLAYS):
+            engine.decision_values(top)
+        req_us = 1e6 * (time.perf_counter() - t) / SERVE_REPLAYS
+        # test --batch 256 against the monolithic pass, 10000 rows: the
+        # engine test --batch SERVE_MAX_BATCH builds is this one (its build
+        # is warm_s)
+        t = time.perf_counter()
+        dec_b = engine.decision_values(xte)
+        batch_s = time.perf_counter() - t
+        t = time.perf_counter()
+        dec_m = decision_function(model, xte)
+        mono_s = time.perf_counter() - t
+        bar = SERVE_XSIZE_RTOL * float(np.max(np.abs(dec_m)))
+        far = np.abs(dec_m) > bar
+        label_diff = int(np.sum((dec_b[far] < 0) != (dec_m[far] < 0)))
+        r = {"n_sv": model.n_sv, "buckets": engine.buckets,
+             "warmup_captures": engine.warmup_captures,
+             "warmup_seconds": warm_s, "requests": len(sizes),
+             "captures_after_warmup": recaptures,
+             "replays": E.COUNTS["replays"],
+             "same_block_bitwise": bitwise,
+             "cross_size_max_abs": worst_abs,
+             "cross_size_max_rel": worst_rel,
+             "cross_size_requests_not_bitwise": xsize_bits,
+             "replay_us": replay,
+             "rows_per_s_top_bucket_device": (
+                 SERVE_MAX_BATCH / (1e-6 * replay[SERVE_MAX_BATCH])),
+             "request_us_top_bucket": req_us,
+             "test_batch_256_seconds": batch_s,
+             "monolithic_seconds": mono_s,
+             "test_batch_max_abs_diff": float(np.max(np.abs(dec_b
+                                                            - dec_m))),
+             "labels_differing_away_from_0": label_diff,
+             "rows_within_bar_of_0": int(np.sum(~far)),
+             "device_bytes": engine.device_bytes()}
+        ok = (engine.warmup_captures == len(engine.buckets) == caps
+              and recaptures == 0 and bitwise
+              and worst_rel <= SERVE_XSIZE_RTOL and label_diff == 0
+              and r["test_batch_max_abs_diff"] <= bar)
+        if not ok:
+            self.fail("serve", f"(a) engine: {json.dumps(r)}")
+        self.rec["serve"]["a"] = r
+        log(f"[serve] (a) engine, {model.n_sv} SVs: {json.dumps(r)}")
+        return engine
+
+    def serve_multiclass(self) -> None:
+        """(b) phase 8's 45-pair model through the engine's SegmentPack (one
+        product over the concatenated SVs a block): labels equal
+        ``predict_multiclass``'s away from pair decisions within the bar
+        of 0, the pairwise decisions bitwise ``pairwise_decision_values``
+        on a same-shaped block; ms a 256-row request against the per-pair
+        ``decision_function`` loop."""
+        from dpsvm_tpu_torch.models import multiclass as mc
+        from dpsvm_tpu_torch.models.svm import (decision_function,
+                                                pairwise_decision_values)
+        from dpsvm_tpu_torch.serving import engine as E
+        model, xte, _yte, _dir = self._mc_model()
+        caps = E.COUNTS["captures"]
+        engine = E.PredictionEngine(model, max_batch=SERVE_MAX_BATCH)
+        warm = E.COUNTS["captures"] - caps
+        dec = engine.decision_values(xte)
+        ref = np.stack(mc.pairwise_decisions(model, xte), axis=1)
+        bar = SERVE_XSIZE_RTOL * float(np.max(np.abs(ref)))
+        safe = np.all(np.abs(ref) > bar, axis=1)
+        labels = engine.predict(xte)
+        want = mc.predict_multiclass(model, xte)
+        block = xte[:SERVE_MAX_BATCH]
+        same = np.array_equal(
+            engine.decision_values(block).view(np.int32),
+            pairwise_decision_values(model.models, block).view(np.int32))
+        for _ in range(3):
+            engine.decision_values(block)
+        self.torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            engine.decision_values(block)
+        pack_ms = 1e3 * (time.perf_counter() - t) / 10
+        t = time.perf_counter()
+        for m in model.models:
+            decision_function(m, block)
+        loop_ms = 1e3 * (time.perf_counter() - t)
+        r = {"pairs": len(model.models), "n_sv": engine.n_sv,
+             "warmup_captures": warm,
+             "label_diff_away_from_0": int(np.sum(labels[safe]
+                                                  != want[safe])),
+             "rows_near_0": int(np.sum(~safe)),
+             "max_abs_diff": float(np.max(np.abs(dec - ref))),
+             "same_block_bitwise": bool(same),
+             "ms_256_row_request": pack_ms, "ms_per_pair_loop": loop_ms,
+             "device_bytes": engine.device_bytes()}
+        ok = (warm == len(engine.buckets) and same
+              and r["label_diff_away_from_0"] == 0
+              and r["max_abs_diff"] <= bar)
+        if not ok:
+            self.fail("serve", f"(b) one-vs-one: {json.dumps(r)}")
+        self.rec["serve"]["b"] = r
+        log(f"[serve] (b) one-vs-one through SegmentPack: {json.dumps(r)}")
+
+    def _mc_model(self):
+        """Phase 8's sequential one-vs-one model, its held-out rows and
+        its directory; without phase 8, the batched program's model on the
+        same data, saved here."""
+        if self._mc is None:
+            from dpsvm_tpu_torch import SVMConfig
+            from dpsvm_tpu_torch.data.synthetic import make_planted_multiclass
+            from dpsvm_tpu_torch.models import multiclass as mc
+            x, y = make_planted_multiclass(MC_N + 10000, D, GAMMA, k=MC_K,
+                                           seed=0)
+            model, _ = mc.train_multiclass(
+                x[:MC_N], y[:MC_N], SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
+                                              max_iter=MAIN_MAX_ITER),
+                batched=True)
+            mc_dir = os.path.join(self.scratch, "mc_dir")
+            mc.save_multiclass(model, mc_dir)
+            self._mc = (model, x[MC_N:], y[MC_N:], mc_dir)
+        return self._mc
+
+    def serve_approx(self) -> None:
+        """(c) phase 11 (a)'s approx-rff model through the engine: one
+        capture a bucket, bitwise ``decision_function`` on the same
+        blocks, within the bar across sizes."""
+        from dpsvm_tpu_torch import SVMConfig, fit
+        from dpsvm_tpu_torch.approx.model import decision_function
+        from dpsvm_tpu_torch.serving import engine as E
+        xtr, ytr, xte, _ = self.planted()
+        model = self._approx_a
+        if model is None:
+            model, _ = fit(xtr, ytr, SVMConfig(
+                solver="approx-rff", approx_dim=APPROX_D, c=C, gamma=GAMMA,
+                epsilon=1e-3))
+        caps = E.COUNTS["captures"]
+        engine = E.PredictionEngine(model, max_batch=SERVE_MAX_BATCH)
+        warm = E.COUNTS["captures"] - caps
+        same, worst_rel = True, 0.0
+        scale = float(np.max(np.abs(decision_function(model, xte))))
+        for s in (1, 7, 64, 200, SERVE_MAX_BATCH, 1000):
+            ok_s, _d, rel = self._held(
+                engine, lambda b: decision_function(model, b), xte[:s],
+                scale)
+            same &= ok_s
+            worst_rel = max(worst_rel, rel)
+        r = {"model_kind": engine.model_kind, "dim": int(model.fmap.dim),
+             "warmup_captures": warm, "same_block_bitwise": same,
+             "cross_size_max_rel": worst_rel,
+             "replay_us": self._replay_us(engine),
+             "device_bytes": engine.device_bytes()}
+        if not (warm == len(engine.buckets) and same
+                and worst_rel <= SERVE_XSIZE_RTOL):
+            self.fail("serve", f"(c) approx: {json.dumps(r)}")
+        self.rec["serve"]["c"] = r
+        log(f"[serve] (c) approx-rff through the engine: {json.dumps(r)}")
+
+    def serve_batcher(self, model, path, engine) -> None:
+        """(d) a ``MicroBatcher`` in front of (a)'s model (registered from
+        its file), SERVE_THREADS closed-loop threads sending 1 to
+        SERVE_MAX_REQ held-out rows for SERVE_LOAD_S s: rows/s, p50/p99,
+        the coalescing factor (requests a batch); every answer within the
+        bar of the direct engine call on its rows. (e) a registry hot
+        reload of that model under the traffic: no request failed, the
+        generation 2, no capture after the new engine's warmup."""
+        import threading
+        from dpsvm_tpu_torch.serving import engine as E
+        from dpsvm_tpu_torch.serving.batcher import MicroBatcher
+        from dpsvm_tpu_torch.serving.registry import ModelRegistry
+        _, _, xte, _ = self.planted()
+        reg = ModelRegistry()
+        reg.register("a", path, max_batch=SERVE_MAX_BATCH)
+        bat = MicroBatcher(lambda x, want: reg.engine("a").infer(x, want),
+                           max_batch=SERVE_MAX_BATCH, max_delay_ms=2.0,
+                           max_queue=1 << 16)
+        stop = threading.Event()
+        results, errors = [], []
+
+        def client(seed):
+            rng = np.random.default_rng(seed)
+            while not stop.is_set():
+                s = int(rng.integers(1, SERVE_MAX_REQ + 1))
+                o = int(rng.integers(0, len(xte) - s))
+                t = time.perf_counter()
+                try:
+                    got = bat.infer(xte[o:o + s], want=("decision",),
+                                    timeout=60.0)["decision"]
+                except Exception as e:      # noqa: BLE001 - counted
+                    errors.append(repr(e))
+                    continue
+                results.append((o, s, time.perf_counter() - t, got))
+
+        reload = {}
+
+        def reloader():
+            time.sleep(SERVE_LOAD_S / 3)
+            t = time.perf_counter()
+            try:
+                reg.reload("a")
+                reload["seconds"] = time.perf_counter() - t
+            except Exception as e:          # noqa: BLE001 - reported
+                reload["error"] = repr(e)
+
+        threads = [threading.Thread(target=client, args=(100 + i,))
+                   for i in range(SERVE_THREADS)]
+        reload_th = threading.Thread(target=reloader)
+        t0 = time.perf_counter()
+        for th in threads + [reload_th]:
+            th.start()
+        time.sleep(SERVE_LOAD_S)
+        reload_th.join(120)
+        caps = E.COUNTS["captures"]
+        time.sleep(0.5)                  # traffic on the reloaded engine
+        stop.set()
+        for th in threads:
+            th.join(120)
+        wall = time.perf_counter() - t0
+        late_caps = E.COUNTS["captures"] - caps
+        st = bat.stats()
+        bat.close()
+        lat = np.array([r[2] for r in results]) * 1e3
+        scale = float(np.max(np.abs(engine.decision_values(xte))))
+        worst, bitwise = 0.0, 0
+        for o, s, _l, got in results:
+            want = engine.decision_values(xte[o:o + s])
+            diff = float(np.max(np.abs(got - want)))
+            worst = max(worst, diff / scale)
+            bitwise += int(diff == 0.0)
+        rows = sum(r[1] for r in results)
+        r = {"threads": SERVE_THREADS, "requests": len(results),
+             "errors": len(errors), "rows": rows,
+             "rows_per_s": rows / wall, "p50_ms": float(np.percentile(lat,
+                                                                      50)),
+             "p99_ms": float(np.percentile(lat, 99)),
+             "batches": st["batches"],
+             "coalescing_factor": st["requests"] / max(st["batches"], 1),
+             "max_rel_diff_to_direct": worst,
+             "answers_bitwise_direct": bitwise,
+             "reload": reload,
+             "generation": reg.manifests()["a"]["generation"],
+             "captures_after_reload_warmup": late_caps}
+        ok = (not errors and results and worst <= SERVE_XSIZE_RTOL
+              and "seconds" in reload and r["generation"] == 2
+              and late_caps == 0)
+        if not ok:
+            self.fail("serve", f"(d)/(e) batcher and reload: "
+                      f"{json.dumps(r)} {errors[:3]}")
+        self.rec["serve"]["d"] = r
+        log(f"[serve] (d) batcher, (e) hot reload under traffic: "
+            f"{json.dumps(r)}")
+
+    def serve_sharded(self, model, engine) -> None:
+        """(f) ``ShardedDecider`` over [cuda:0, cuda:0] on (a)'s model:
+        bitwise its ``reference``, within the bar of the ladder."""
+        from dpsvm_tpu_torch.serving.sharded import (ShardedDecider,
+                                                     model_bytes_est)
+        _, _, xte, _ = self.planted()
+        sd = ShardedDecider(model, devices=[self.dev, self.dev])
+        q = xte[:SERVE_MAX_BATCH]
+        got = sd(q).cpu().numpy()
+        ref = sd.reference(q).cpu().numpy()
+        lad = engine.decision_values(q)
+        scale = float(np.max(np.abs(engine.decision_values(xte))))
+        rel = float(np.max(np.abs(got - lad))) / scale
+        r = {**sd.facts(), "bitwise_reference": bool(np.array_equal(
+            got.view(np.int32), ref.view(np.int32))),
+            "rel_diff_to_ladder": rel,
+            "device_bytes": sd.device_bytes(),
+            "model_bytes_est": model_bytes_est(model)}
+        if not (r["bitwise_reference"] and rel <= SERVE_FOLD_RTOL):
+            self.fail("serve", f"(f) sharded: {json.dumps(r)}")
+        self.rec["serve"]["f"] = r
+        log(f"[serve] (f) ShardedDecider over 2 x cuda:0: {json.dumps(r)}")
+
+    def serve_fleet(self) -> None:
+        """(g) the 45 pair files of phase 8's directory as 45 same-spec
+        tenants in a ``ModelCache`` of FLEET_BUDGET: the hot set faulted
+        and hit, no capture across steady traffic, a one-shot scan of the
+        rest all transients with no eviction, an over-budget newcomer
+        evicting the LRU; conservation; every packed column bitwise a
+        dedicated engine's on the same block; the residents' operand bytes
+        against ``model_bytes_est``."""
+        import json as _json
+        from dpsvm_tpu_torch.fleet.modelcache import ModelCache
+        from dpsvm_tpu_torch.observability.metrics import MetricsRegistry
+        from dpsvm_tpu_torch.serving import engine as E
+        from dpsvm_tpu_torch.serving.registry import ModelRegistry
+        from dpsvm_tpu_torch.serving.sharded import model_bytes_est
+        model, xte, _, mc_dir = self._mc_model()
+        with open(os.path.join(mc_dir, "index.json")) as fh:
+            index = _json.load(fh)
+        files = [os.path.join(mc_dir, p["file"]) for p in index["pairs"]]
+        names = [f"t{i:02d}" for i in range(len(files))]
+        reg = ModelRegistry()
+        for name, f in zip(names, files):
+            reg.register(name, f, lazy=True)
+        events = []
+        cache = ModelCache(reg, budget=FLEET_BUDGET,
+                           max_batch=FLEET_MAX_BATCH,
+                           metrics=MetricsRegistry(),
+                           on_event=lambda e, **kw: events.append(e))
+        q = xte[:37]
+        hot = names[:FLEET_BUDGET]
+        t = time.perf_counter()
+        for name in hot:
+            cache.infer(name, q)
+            cache.infer(name, q)
+        fill_s = time.perf_counter() - t
+        caps = E.COUNTS["captures"]
+        outs = {}
+        t = time.perf_counter()
+        for _ in range(3):
+            for name in hot:
+                outs[name] = cache.infer(name, q, want=("decision",))
+        steady_ms = 1e3 * (time.perf_counter() - t) / (3 * len(hot))
+        steady_caps = E.COUNTS["captures"] - caps
+        packed_bitwise = True
+        for name in hot:
+            # the tenant is its file (whose b carries 9 digits), so the
+            # dedicated engine loads the same file
+            ded = E.PredictionEngine.load(files[names.index(name)],
+                                          max_batch=FLEET_MAX_BATCH)
+            packed_bitwise &= bool(np.array_equal(
+                outs[name]["decision"].view(np.int32),
+                ded.decision_values(q).view(np.int32)))
+            ded.close()
+        group = cache._packer.groups()[0]
+        operand = group._pack.device_bytes()
+        est = sum(model_bytes_est(model.models[names.index(n)]) + 4
+                  for n in hot)
+        before = set(cache.resident_names())
+        t = time.perf_counter()
+        for name in names[FLEET_BUDGET:]:
+            cache.infer(name, q)
+        scan_s = time.perf_counter() - t
+        scan_kept = set(cache.resident_names()) == before
+        st_scan = cache.stats()
+        lru = cache.resident_names()[-1]
+        cache.infer(names[-1], q)              # its second touch
+        st = cache.stats()
+        r = {"tenants": len(names), "budget": FLEET_BUDGET,
+             "fill_seconds": fill_s, "steady_ms_a_request": steady_ms,
+             "steady_captures": steady_caps,
+             "packed_bitwise": packed_bitwise,
+             "operand_bytes": operand, "model_bytes_est_plus_b": est,
+             "resident_bytes": st_scan["resident_bytes"],
+             "scan_seconds": scan_s, "scan_kept_residents": scan_kept,
+             "scan_evictions": st_scan["evictions"],
+             "evicted_lru": lru not in cache.resident_names(),
+             **{k: st[k] for k in ("touches", "hits", "faults",
+                                   "transients", "evictions")},
+             "fault_events": events.count("model_fault"),
+             "evict_events": events.count("model_evict")}
+        ok = (steady_caps == 0 and packed_bitwise and operand == est
+              and scan_kept and st_scan["evictions"] == 0
+              and st_scan["transients"] == len(names) - FLEET_BUDGET
+              and r["evicted_lru"] and st["evictions"] == 1
+              and st["touches"] == st["hits"] + st["faults"]
+              + st["transients"]
+              and r["fault_events"] == st["faults"]
+              and r["evict_events"] == st["evictions"])
+        if not ok:
+            self.fail("serve", f"(g) fleet: {json.dumps(r)}")
+        self.rec["serve"]["g"] = r
+        log(f"[serve] (g) fleet of {len(names)} tenants: {json.dumps(r)}")
+
+    def serve_grid(self) -> None:
+        """(h) ``train_grid`` on SWEEP_CS x SWEEP_GS over planted
+        SWEEP_SMALL_N x 784 with the cascade polish of the winner (zero
+        violators; below 3 x 4096 rows the cascade runs no calibration
+        probe, so its polish is the general pair's) against
+        ``sequential_grid_seconds`` (one ``api.fit`` a cell: kernel A, its
+        launches counted): each cell held to its fit by the bar between
+        paths on the grid's holdout (n_sv within 2% or 3, accuracy within
+        0.5%) and by the LibSVM bar on 2000 more rows (accuracy within one
+        example: phase 8's converged sweep check, which this replaces),
+        the winner the row-major first maximum, the speedup printed."""
+        from dpsvm_tpu_torch import SVMConfig, evaluate
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        from dpsvm_tpu_torch.fleet import grid as G
+        from dpsvm_tpu_torch.solver import cascade
+        x, y = make_planted(SWEEP_SMALL_N + 2000, D, GAMMA, seed=3)
+        xs, ys, xe, ye = (x[:SWEEP_SMALL_N], y[:SWEEP_SMALL_N],
+                          x[SWEEP_SMALL_N:], y[SWEEP_SMALL_N:])
+        cfg = SVMConfig(epsilon=1e-3, max_iter=MAIN_MAX_ITER)
+        grid, counts = self.counted(lambda: G.train_grid(
+            xs, ys, cs=SWEEP_CS, gammas=SWEEP_GS, config=cfg, polish=True))
+        probe = dict(cascade.RUN)
+        (seq_s, seq), seq_counts = self.counted(
+            lambda: G.sequential_grid_seconds(xs, ys, cs=SWEEP_CS,
+                                              gammas=SWEEP_GS, config=cfg))
+        self._add_a_counts(counts)
+        self._add_a_counts(seq_counts)
+        _, ho = G.holdout_split(len(ys), 0.2, 0)
+        one_e = 1.0 / len(ye)
+        points, ok = [], True
+        for i, (cell, (c, g, m)) in enumerate(zip(grid.cells, seq)):
+            if i == grid.winner:         # polished: its sweep model is gone
+                points.append({"c": c, "gamma": g, "polished": True,
+                               "n_sv": cell.model.n_sv,
+                               "holdout_acc": cell.holdout_acc})
+                continue
+            pt = {"c": c, "gamma": g, "n_sv": cell.model.n_sv,
+                  "fit_n_sv": m.n_sv, "holdout_acc": cell.holdout_acc,
+                  "fit_holdout_acc": evaluate(m, xs[ho], ys[ho]),
+                  "more_rows_acc": evaluate(cell.model, xe, ye),
+                  "fit_more_rows_acc": evaluate(m, xe, ye),
+                  "converged": bool(cell.result.converged)}
+            pt["ok"] = bool(
+                pt["converged"]
+                and abs(pt["n_sv"] - pt["fit_n_sv"]) <= max(
+                    0.02 * pt["fit_n_sv"], 3.0)
+                and abs(pt["holdout_acc"] - pt["fit_holdout_acc"])
+                <= 0.005 + 1e-9
+                and abs(pt["more_rows_acc"] - pt["fit_more_rows_acc"])
+                <= one_e + 1e-9)
+            ok &= pt["ok"]
+            points.append(pt)
+        accs = [c.holdout_acc for c in grid.cells]
+        r = {"n": SWEEP_SMALL_N, "cells": points, "winner": grid.winner,
+             "grid_seconds": grid.train_seconds,
+             "sequential_seconds": seq_s,
+             "speedup": seq_s / grid.train_seconds,
+             "polished": grid.polished,
+             "polish_kept": int(grid.best.result.n_kept),
+             "polish_violators": int(grid.best.result.kkt_violators),
+             "probe_rows": probe.get("probe_rows"),
+             "grid_counts": counts,
+             "sequential_A_launches": seq_counts["A_launches"],
+             "sequential_A_runs": seq_counts["A_runs"]}
+        ok &= (grid.winner == accs.index(max(accs)) and grid.polished
+               and r["polish_violators"] == 0
+               and counts["ovo_captures"] == 1      # one batched sweep
+               and seq_counts["A_runs"] > 0
+               and seq_counts["A_launches"] >= seq_counts["A_runs"])
+        if not ok:
+            self.fail("serve", f"(h) grid: {json.dumps(r)}")
+        self.rec["serve"]["h"] = r
+        log(f"[serve] (h) C x gamma grid {SWEEP_SMALL_N}x784: "
+            f"{json.dumps(r)}")
 
     def timing(self) -> None:
         """Kernel A as the main path runs it: a training run's carry at its
@@ -4116,21 +5101,31 @@ def main(argv=None) -> int:
                    ("libsvm", s.libsvm), ("multiclass", s.multiclass),
                    ("tasks", s.tasks), ("distributed", s.distributed),
                    ("approx", s.approx), ("stream", s.stream),
+                   ("live", s.live), ("serve", s.serve),
                    ("timing", s.timing)]
     if args.only:
         keep = {"build", *args.only.split(",")}
         phases = [(n, fn) for n, fn in phases if n in keep]
-    for name, fn in phases:
-        t = time.perf_counter()
-        try:
-            fn()
-        except Exception as e:            # every phase's failure is fatal
-            import traceback
-            traceback.print_exc()
-            s.fail(name, f"{type(e).__name__}: {e}")
-        log(f"[{name}] phase {time.perf_counter() - t:.1f} s")
-        if name == "build" and s.failures:
-            break
+    try:
+        for name, fn in phases:
+            t = time.perf_counter()
+            try:
+                fn()
+            except Exception as e:        # every phase's failure is fatal
+                import traceback
+                traceback.print_exc()
+                s.fail(name, f"{type(e).__name__}: {e}")
+            log(f"[{name}] phase {time.perf_counter() - t:.1f} s")
+            if name == "build" and s.failures:
+                break
+    finally:
+        import shutil
+        if s._live_proc is not None and s._live_proc.is_alive():
+            s._live_proc.terminate()
+            s._live_proc.join()
+        if s._io_pool is not None:
+            s._io_pool.shutdown(cancel_futures=True)
+        shutil.rmtree(s.scratch, ignore_errors=True)
     if s.failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(s.failures),
               file=sys.stderr)

@@ -56,7 +56,6 @@ Public API
 from dpsvm_tpu_torch.api import fit, sweep_c, train, warm_start
 from dpsvm_tpu_torch.config import SVMConfig, TrainResult
 from dpsvm_tpu_torch.models.cv import cross_validate, cross_validate_c_sweep
-from dpsvm_tpu_torch.models.estimator import DPSVMClassifier, DPSVMRegressor
 from dpsvm_tpu_torch.models.io import load_model, save_model
 from dpsvm_tpu_torch.models.multiclass import (MulticlassModel,
                                                evaluate_multiclass,
@@ -105,3 +104,13 @@ __all__ = [
     "train_nusvc",
     "train_nusvr",
 ]
+
+
+def __getattr__(name: str):
+    """The estimators load on first use: their module imports sklearn
+    when it is installed (~2 s), which a writer process or a CLI call
+    should not pay."""
+    if name in ("DPSVMClassifier", "DPSVMRegressor"):
+        from dpsvm_tpu_torch.models import estimator
+        return getattr(estimator, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

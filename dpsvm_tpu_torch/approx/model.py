@@ -19,13 +19,13 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from dpsvm_tpu_torch.approx.features import (CHUNK, FeatureMap, device_map,
-                                             rff_omega)
+from dpsvm_tpu_torch.approx.features import (CHUNK, DeviceMap, FeatureMap,
+                                             device_map, rff_omega)
 from dpsvm_tpu_torch.ops.kernels import exact_f32
 
 _FORMAT = "dpsvm-approx-v1"
@@ -88,22 +88,53 @@ def decision_function(model: ApproxSVMModel, x_test: np.ndarray,
         raise ValueError(
             f"approx evaluation needs {model.num_attributes} "
             f"attributes, got {x_test.shape[1]}")
-    dm = device_map(model.fmap, device)
-    w = torch.from_numpy(np.asarray(model.w, np.float32)).to(dm.device)
-    b = torch.tensor(np.float32(model.b), device=dm.device)
+    ops = approx_operands(model, device)
     m = x_test.shape[0]
     step = m if batch_size is None else max(1, int(batch_size))
     out = np.empty((m,), np.float32)
     with exact_f32():
         for lo in range(0, m, step):
             hi = min(lo + step, m)
-            phi = dm.block(torch.from_numpy(
-                np.ascontiguousarray(x_test[lo:hi])).to(dm.device))
-            dual = torch.matmul(phi, w)
-            if include_b:
-                dual = dual - b
-            out[lo:hi] = dual.cpu().numpy()
+            xb = torch.from_numpy(np.ascontiguousarray(x_test[lo:hi])).to(
+                ops.dm.device)
+            out[lo:hi] = approx_block(xb, ops, include_b).cpu().numpy()
     return out
+
+
+class ApproxOperands(NamedTuple):
+    """An approx model's decision operands on a device: the feature map's
+    arrays, the weights and the intercept."""
+    dm: DeviceMap
+    w: torch.Tensor           # (dim,) f32
+    b: torch.Tensor           # () f32
+
+    def device_bytes(self) -> int:
+        dm = self.dm
+        ts = [self.w, self.b] + [getattr(dm, a) for a in
+                                 ("omega_t", "l2", "landmarks", "proj")
+                                 if hasattr(dm, a)]
+        return int(sum(t.numel() * t.element_size() for t in ts))
+
+
+def approx_operands(model: ApproxSVMModel, device,
+                    precision: str = "highest") -> ApproxOperands:
+    dm = device_map(model.fmap, device, precision)
+    return ApproxOperands(
+        dm, torch.from_numpy(np.asarray(model.w, np.float32)).to(dm.device),
+        torch.tensor(np.float32(model.b), device=dm.device))
+
+
+def approx_block(xb: torch.Tensor, ops: ApproxOperands,
+                 include_b: bool = True) -> torch.Tensor:
+    """(m,) decisions phi(x).w [- b] of a block on the device, in row
+    tiles (``models/svm.row_tiles``): the one definition
+    ``decision_function`` and the serving engine share."""
+    from dpsvm_tpu_torch.models.svm import row_tiles
+
+    def tile(t):
+        dual = torch.matmul(ops.dm.block(t), ops.w)
+        return dual - ops.b if include_b else dual
+    return row_tiles(tile, xb)
 
 
 def predict(model: ApproxSVMModel, x_test: np.ndarray,

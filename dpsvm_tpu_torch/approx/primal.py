@@ -148,8 +148,8 @@ def unpack_state(ck, dp: int) -> PrimalCarry:
             f"checkpoint state shapes {ck.alpha.shape}/{f.shape} do not "
             f"match this problem's packed dim {dp} — was it written by "
             "a different approx_dim?"
-            + (" (shape dp + 4 is a live streaming checkpoint of the JAX "
-               "package, which this port does not resume)"
+            + (" (shape dp + 4 is a LIVE streaming checkpoint; resume "
+               "it with fit_approx_stream(live=True))"
                if f.shape == (dp + 4,) else ""))
     return PrimalCarry(
         w=np.asarray(ck.alpha, np.float32),
@@ -160,6 +160,39 @@ def unpack_state(ck, dp: int) -> PrimalCarry:
         n_iter=np.int32(ck.n_iter),
         nact=np.int32(0),
     )
+
+
+def pack_state_live(carry_host: PrimalCarry, generation: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """A live streaming checkpoint's slots: ``pack_state`` plus one lane
+    carrying the shard-log generation the trajectory had consumed, so a
+    killed live run resumes with exactly the shard set it had admitted
+    (generations are small integers, exact in float32)."""
+    w, f = pack_state(carry_host)
+    return w, np.concatenate(
+        [f, np.asarray([np.float32(generation)], np.float32)])
+
+
+def unpack_state_live(ck, dp: int) -> Tuple[PrimalCarry, int]:
+    """(carry, consumed generation) from a live streaming checkpoint
+    (``pack_state_live``'s inverse)."""
+    f = np.asarray(ck.f, np.float32)
+    if ck.alpha.shape != (dp,) or f.shape != (dp + 4,):
+        raise ValueError(
+            f"live checkpoint state shapes {ck.alpha.shape}/{f.shape} "
+            f"do not match packed dim {dp} + the generation lane — "
+            "written by a frozen-stream run (resume with live=False) "
+            "or a different approx_dim?")
+    carry = PrimalCarry(
+        w=np.asarray(ck.alpha, np.float32),
+        v=f[:dp].copy(),
+        metric=np.float32(f[dp]),
+        best=np.float32(f[dp + 1]),
+        lrf=np.float32(f[dp + 2]),
+        n_iter=np.int32(ck.n_iter),
+        nact=np.int32(0),
+    )
+    return carry, int(f[dp + 3])
 
 
 def warm_start_vector(model: ApproxSVMModel) -> np.ndarray:
@@ -620,18 +653,22 @@ class _ShardReader:
         return got
 
     def passes(self):
-        """One pass over the shards. The reads run on ahead through the
-        shards in cyclic order, into the next pass too (a step's first
-        shards are read while the last ones are consumed), a window of
-        at most n_shards - 1 reads: a shard's next read starts only after
-        its last one was consumed."""
+        """One pass over the shards admitted when it starts. The reads run
+        on ahead through the shards in cyclic order, into the next pass
+        too (a step's first shards are read while the last ones are
+        consumed), a window of at most n_shards - 1 reads: a shard's next
+        read starts only after its last one was consumed. The cursor is a
+        shard index below the pass's count, so the reads never pass the
+        admitted list: a live log's view grows only between passes, and
+        shards it admits join the next pass in manifest order after the
+        ones read ahead."""
         n = self.ds.n_shards
         window = max(1, min(self.PREFETCH, n - 1))
         for _ in range(n):
             while len(self._futs) < window:
-                k = self._next % n
+                k = self._next
                 self._futs.append((k, self._pool.submit(self._read, k)))
-                self._next += 1
+                self._next = (k + 1) % n
             k, fut = self._futs.popleft()
             t0 = time.perf_counter()
             got = fut.result()
@@ -649,11 +686,11 @@ def _pinned(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def fit_approx_stream(ds, config: Optional[SVMConfig] = None,
                       task: str = "svc", allow_nonfinite: bool = False, *,
-                      live: Optional[bool] = None, init_w=None, device=None
-                      ) -> Tuple[ApproxSVMModel, TrainResult]:
+                      live: Optional[bool] = None, init_w=None, watcher=None,
+                      device=None) -> Tuple[ApproxSVMModel, TrainResult]:
     """Featurize + primal-solve a ``data.stream.ShardedDataset`` that never
     fully materializes: the out-of-core path (JAX
-    ``approx/primal.fit_approx_stream``, without its live branch).
+    ``approx/primal.fit_approx_stream``).
 
     Deterministic full-batch gradient steps: each step streams every live
     shard, in manifest order, through a verified read on the host
@@ -672,8 +709,25 @@ def fit_approx_stream(ds, config: Optional[SVMConfig] = None,
     the device; the data term's divisor stays the manifest's n when
     shards are quarantined. Resume from a checkpoint is bitwise (the
     trajectory is a function of the carry, the shard bytes and the
-    manifest order). ``init_w`` warm-starts the weights; ``live=True``
-    (or ``config.live``) raises: the live shard log is ROADMAP item 10c.
+    manifest order). ``init_w`` warm-starts the weights.
+
+    ``live=True`` (or ``config.live``) trains the directory as a LIVE
+    shard log (``data/live.py``): before each step, a sweep boundary, a
+    ``ShardLogWatcher`` (or the given ``watcher``, which must wrap ``ds``)
+    polls the manifest once, on the host, and admits new durable shards
+    into the run: each is read and verified once to grow the curvature
+    statistic (in shard order, as the prologue does), the divisor, lam and
+    the step size are rewritten in place in their device scalars from the
+    admitted view (no device-to-host read: the step-size arithmetic runs
+    on the device in float64, as the host's would), and the next pass
+    reads the grown list. One ``ingest_grow`` event a growing boundary and
+    one ``append_admitted`` a shard go through the driver's event queue.
+    So a live fit reads the packed stats exactly as often as a frozen one.
+    Checkpoints carry the consumed generation (``pack_state_live``): a
+    resume opens the dataset at the run's entry generation
+    (``ShardedDataset.open(dir, at_generation=g0)``) and re-admits exactly
+    the shards the killed run had consumed before the watcher may see
+    more; a frozen resume of a live checkpoint raises ``ValueError``.
 
     ``RUN`` records the set-up, the steps and their wall seconds, and the
     host seconds of the reads and verifies (summed over the read-ahead
@@ -683,12 +737,8 @@ def fit_approx_stream(ds, config: Optional[SVMConfig] = None,
     from dpsvm_tpu_torch.data import stream as streamlib
 
     config = config or SVMConfig()
-    if live:
-        raise NotImplementedError(
-            "fit_approx_stream(live=True) (a shard directory as a live "
-            "append log, data/live.py) is not ported to dpsvm_tpu_torch "
-            "yet (ROADMAP Queue 1 item 10c)")
     config.validate()
+    live = bool(config.live) if live is None else bool(live)
     if config.solver == "exact":
         raise ValueError(
             "streaming training is the approx primal path (the exact "
@@ -747,47 +797,68 @@ def fit_approx_stream(ds, config: Optional[SVMConfig] = None,
         and the lanes as host tensors to copy from."""
         return [_pinned(a, dev) for a in (x, *shard_lanes(k, y))]
 
+    if live and watcher is None:
+        from dpsvm_tpu_torch.data.live import ShardLogWatcher
+        from dpsvm_tpu_torch.solver.driver import queue_trace_event
+        # the absorb step below verifies (and may quarantine) every
+        # admitted shard, so the watcher reads none itself
+        watcher = ShardLogWatcher(
+            ds, on_bad_shard=config.on_bad_shard,
+            allow_nonfinite=allow_nonfinite, verify_appends=False,
+            on_event=queue_trace_event)
+    if watcher is not None and watcher.ds is not ds:
+        raise ValueError("watcher must wrap the SAME ShardedDataset "
+                         "handle this run trains on")
+
     with _ShardReader(ds, config.on_bad_shard, allow_nonfinite,
                       prepare) as reader:
-        return _fit_stream(ds, config, task, init_w, dev, fmap, reader)
+        return _fit_stream(ds, config, task, init_w, dev, fmap, reader,
+                           watcher if live else None, shard_lanes,
+                           allow_nonfinite)
 
 
 def _fit_stream(ds, config: SVMConfig, task: str, init_w, dev, fmap,
-                reader: _ShardReader):
+                reader: _ShardReader, watcher, shard_lanes,
+                allow_nonfinite: bool):
     """``fit_approx_stream`` from its prologue epoch on; ``reader``
-    yields each shard's (x, y lane, row-weight lane) as host tensors."""
+    yields each shard's (x, y lane, row-weight lane) as host tensors;
+    ``watcher`` is the live run's (None: a frozen run)."""
     from dpsvm_tpu_torch.approx.features import device_map
     from dpsvm_tpu_torch.data import stream as streamlib
     from dpsvm_tpu_torch.solver.driver import queue_trace_event
 
+    # n is the ENTRY view's row count, the run's identity (checkpoint
+    # validation) even as a live log grows: a resume re-enters at the
+    # same pinned view and re-admits to the checkpoint's generation.
     n = ds.n
+    live = watcher is not None
     gamma = float(config.resolve_gamma(ds.d))
     dp = fmap.dim + 1
     dm = device_map(fmap, dev, config.matmul_precision)
+    msq_num = torch.zeros((), dtype=torch.float64, device=dev)
+    scale = {"seen": 0}
+
+    def absorb(xt: torch.Tensor) -> None:
+        # the curvature statistic over a shard's real rows, in float64 on
+        # the device; shards add in index order, whether they were in the
+        # entry view or admitted later (the bitwise-resume arithmetic)
+        with exact_f32():
+            phi = dm.block(xt.to(dev, non_blocking=True))
+        msq_num.add_(phi.double().square().sum())
+        scale["seen"] += xt.shape[0]
 
     # Prologue epoch: every shard verified once (quarantine fires here
     # first, so a run and its resume see the same live set) while the
     # squared feature norms accumulate over real rows, in shard order.
     t_pro = time.perf_counter()
-    msq_num = torch.zeros((), dtype=torch.float64, device=dev)
-    seen = 0
     for _k, got in reader.passes():
-        if got is None:
-            continue
-        with exact_f32():
-            phi = dm.block(got[0].to(dev, non_blocking=True))
-        msq_num += phi.double().square().sum()
-        seen += got[0].shape[0]
-    if seen == 0:
+        if got is not None:
+            absorb(got[0])
+    if scale["seen"] == 0:
         raise streamlib.IngestAbortError(
             f"{ds.directory}: no readable shard survived the prologue")
-    # The divisor is the manifest's n (quarantined rows included); the
-    # step keeps the trace curvature bound.
     maxrw = (max(float(config.weight_pos), float(config.weight_neg))
              if task == "svc" else 1.0)
-    msq = float(msq_num) / seen + 1.0
-    lam = 1.0 / (float(config.c) * n)
-    big_l = lam + 2.0 * maxrw * msq
     reg_mask = torch.ones((dp,), dtype=torch.float32, device=dev)
     reg_mask[-1] = 0.0
 
@@ -796,27 +867,89 @@ def _fit_stream(ds, config: SVMConfig, task: str, init_w, dev, fmap,
 
     prob = PrimalProblem(
         phi=None, y=None, rw=None, reg_mask=reg_mask, denom=f32(n),
-        n_real=f32(n), lam=f32(lam), lr=f32(1.0 / big_l), n_batches=1,
+        n_real=f32(n), lam=f32(0.0), lr=f32(0.0), n_batches=1,
         batch=0, task=task, svr_eps=float(np.float32(config.svr_epsilon)),
         two_eps=two_eps_f32(config.epsilon))
+
+    def rescale() -> torch.Tensor:
+        """(divisor, lam, lr) of the admitted view, written in place into
+        the problem's device scalars. The divisor is the admitted
+        manifest's n (quarantined rows included: the objective does not
+        renormalize around lost rows); the step keeps the trace curvature
+        bound, computed on the device in float64 as the host would (so
+        no read) and rounded once to float32. Returns the float64
+        curvature bound big_l."""
+        n_live = ds.n
+        lam = 1.0 / (float(config.c) * n_live)
+        big_l = lam + 2.0 * maxrw * (msq_num / scale["seen"] + 1.0)
+        prob.n_real.fill_(float(np.float32(n_live)))
+        prob.lam.fill_(float(np.float32(lam)))
+        prob.lr.copy_((1.0 / big_l).float())
+        return big_l
+
+    big_l = float(rescale())
+    msq = float(msq_num) / scale["seen"] + 1.0
     RUN.clear()
     RUN.update(stream=True, n_shards=ds.n_shards,
                rows_per_shard=ds.rows_per_shard, divisor=n, msq=msq,
-               big_l=big_l,
-               lr=np.float32(1.0 / big_l), phi_device=str(dev),
+               big_l=big_l, lr=np.float32(prob.lr.item()),
+               phi_device=str(dev),
                prologue_seconds=time.perf_counter() - t_pro,
                steps=0, read_seconds=0.0, read_wait_seconds=0.0,
-               step_seconds=0.0)
+               step_seconds=0.0, live=live, generation=ds.generation,
+               admissions=0, grown_rows=0, step_walls=[])
+
+    def absorb_shard(k: int) -> int:
+        got = ds.read_shard_checked(k, on_bad_shard=config.on_bad_shard,
+                                    allow_nonfinite=allow_nonfinite)
+        if got is None:
+            return 0
+        shard_lanes(k, got[1])               # label check up front
+        absorb(torch.from_numpy(got[0]))
+        return int(got[0].shape[0])
+
+    def admit_new() -> None:
+        """Sweep-boundary admission: one manifest poll on the host; new
+        shards absorbed and the scalars rewritten on the device; one
+        ingest_grow event for the boundary."""
+        admitted = watcher.poll()
+        if not admitted:
+            return
+        grown = sum(absorb_shard(k) for k in admitted)
+        rescale()
+        RUN["admissions"] += 1
+        RUN["grown_rows"] += grown
+        RUN["generation"] = ds.generation
+        queue_trace_event("ingest_grow", generation=int(ds.generation),
+                          n_new_rows=int(grown), shards=int(ds.n_shards),
+                          quarantined=len(ds.quarantined))
 
     carry = init_carry(dp)
     if init_w is not None:
         carry = _apply_init_w(carry, init_w, dp)
     ckpt = resume_state(config, n, dp, gamma)
     if ckpt is not None:
-        carry = unpack_state(ckpt, dp)
-        queue_trace_event("ingest_resume", n_iter=int(ckpt.n_iter),
-                          shards=int(ds.n_shards),
-                          quarantined=len(ds.quarantined))
+        if live:
+            carry, gen_ck = unpack_state_live(ckpt, dp)
+            if gen_ck > ds.generation:
+                # re-admit exactly the shards the killed run had consumed
+                # before the watcher may see anything newer
+                from dpsvm_tpu_torch.data.live import read_manifest_checked
+                pinned = streamlib.pin_manifest_generation(
+                    read_manifest_checked(ds.directory), gen_ck)
+                for k in ds.admit_manifest(pinned):
+                    absorb_shard(k)
+                rescale()
+                RUN["generation"] = ds.generation
+            queue_trace_event("ingest_resume", n_iter=int(ckpt.n_iter),
+                              shards=int(ds.n_shards),
+                              generation=int(ds.generation),
+                              quarantined=len(ds.quarantined))
+        else:
+            carry = unpack_state(ckpt, dp)
+            queue_trace_event("ingest_resume", n_iter=int(ckpt.n_iter),
+                              shards=int(ds.n_shards),
+                              quarantined=len(ds.quarantined))
     carry = carry_to_device(carry, dev)
     state = {"it": int(ckpt.n_iter) if ckpt is not None else 0}
 
@@ -852,9 +985,15 @@ def _fit_stream(ds, config: SVMConfig, task: str, init_w, dev, fmap,
         r0, w0 = reader.read_s, reader.wait_s
         steps = 0
         while state["it"] < int(limit):
+            t_step = time.perf_counter()
+            if live:
+                admit_new()
             c = one_step(c, limit_t)
             state["it"] += 1
             steps += 1
+            if live:
+                RUN["step_walls"].append(
+                    (ds.n_shards, time.perf_counter() - t_step))
         # Zero steps (a chunk dispatched at max_iter): the carry as it is.
         st: ChunkStats = read_stats(_stats(c))
         COUNTS["reads"] += 1
@@ -865,11 +1004,16 @@ def _fit_stream(ds, config: SVMConfig, task: str, init_w, dev, fmap,
         step_chunk.carry = c
         return c, st
 
+    def to_host(c):
+        if live:
+            return pack_state_live(carry_to_host(c), ds.generation)
+        return pack_state(carry_to_host(c))
+
     step_chunk.carry = carry
     result = host_training_loop(
-        config, gamma, carry, step_chunk,
-        lambda c: pack_state(carry_to_host(c)), it0=state["it"],
+        config, gamma, carry, step_chunk, to_host, it0=state["it"],
         dims=(n, dp))
+    RUN["divisor"] = ds.n
     final = carry_to_host(step_chunk.carry)
     w_out = np.asarray(final.w, np.float32)
     model = ApproxSVMModel(fmap=fmap, w=w_out[:-1].copy(),

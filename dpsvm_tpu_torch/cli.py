@@ -1,6 +1,7 @@
-"""Command-line front end of the port: the ``train`` and ``test``
-subcommands of ``dpsvm_tpu/cli.py``, with the same flag names and closing
-report, plus ``--device {cuda,cpu}`` (default cuda).
+"""Command-line front end of the port: the ``train``, ``test``,
+``convert``, ``scale`` and ``grid`` subcommands of ``dpsvm_tpu/cli.py``,
+with the same flag names and closing report, plus ``--device {cuda,cpu}``
+(default cuda).
 
     python -m dpsvm_tpu_torch.cli train -f train.csv -m model.svm -c 10 -g 0.25
     python -m dpsvm_tpu_torch train -f train.csv -m model.svm -c 10 -g 0.25 \
@@ -52,6 +53,13 @@ report, plus ``--device {cuda,cpu}`` (default cuda).
     python -m dpsvm_tpu_torch train -f shard_dir -m model.svm -c 10 \
         --solver cascade                           # out of core, exact model
     python -m dpsvm_tpu_torch test -f shard_dir -m model.svm
+    python -m dpsvm_tpu_torch train -f shard_dir -m model.npz -c 10 \
+        --solver approx-rff --live                 # a live append log
+    python -m dpsvm_tpu_torch test -f test.csv -m model.svm --batch 256
+                                                   # the serving engine
+    python -m dpsvm_tpu_torch grid -f train.csv --cs 1,10 \
+        --gammas 0.125,0.25 [--polish --compare-sequential --out w.svm \
+        --promote served.svm --json]              # the C x gamma grid
 
 ``-f`` takes a dense CSV, a libsvm file (sniffed) or a shard directory
 from ``convert shards``: ``train --solver approx-*`` streams it
@@ -67,7 +75,13 @@ command writes, LIBSVM ``.model`` files included, and reports by the
 model's task: accuracy (classifiers), MSE/MAE/R^2 (regression) or the
 inlier fraction (one-class). The flag conflicts and their messages are
 the JAX CLI's. ``--solver approx-*`` writes an approx ``.npz`` model (no
-SV set), which ``test`` reads like any other.
+SV set), which ``test`` reads like any other. ``train --live`` treats a
+shard directory as a live append log (``data/live.py``); it applies to
+the streaming approx path only and is refused elsewhere. ``test --batch
+N`` evaluates through the serving engine's ladder (``serving/engine.py``)
+instead of one monolithic pass. ``grid`` trains a C x gamma grid
+(``fleet/grid.py``); its run trace and ledger row (``--trace-out``,
+``--ledger``) are ROADMAP item 13.
 
 Distributed training (``--shards P``, the reference's ``mpirun -np P``):
 without ``--coordinator`` and outside ``torchrun`` the command starts P
@@ -369,6 +383,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "manifest CRC or finiteness check (shard-"
                          "directory inputs): 'quarantine' drops the "
                          "shard, bounded by the bad-fraction abort")
+    tr.add_argument("--live", action="store_true",
+                    help="treat a shard-directory input as a LIVE append "
+                         "log: streaming approx training polls the "
+                         "manifest at sweep boundaries and admits newly "
+                         "durable shards mid-run (append_admitted / "
+                         "ingest_grow events; checkpoints carry the "
+                         "consumed generation)")
     tr.add_argument("-q", "--quiet", action="store_true")
 
     te = sub.add_parser("test", help="evaluate a saved model on a dataset")
@@ -378,6 +399,12 @@ def build_parser() -> argparse.ArgumentParser:
     te.add_argument("--predictions", default=None, metavar="PATH",
                     help="also write one predicted label per line "
                          "(binary models: 'label,decision_value')")
+    te.add_argument("--batch", type=int, default=0, metavar="N",
+                    help="evaluate through the serving engine's bucket "
+                         "ladder at up to N rows a device pass (one "
+                         "captured CUDA graph a bucket) instead of one "
+                         "monolithic pass; bounds device memory on large "
+                         "test splits (0 = monolithic)")
     te.add_argument("--proba", default=None, metavar="PATH",
                     help="binary model: write Platt-calibrated P(y=+1|x) "
                          "per line + Brier/log-loss (needs the "
@@ -420,6 +447,52 @@ def build_parser() -> argparse.ArgumentParser:
                     default=True,
                     help="shards: ignore a previous conversion's cursor "
                          "and restart from row 0")
+
+    gd = sub.add_parser(
+        "grid", help="C x gamma grid trainer: the whole grid as batched "
+                     "sweeps spread over the devices, per-cell held-out "
+                     "accuracy, optional cascade polish of the winner; "
+                     "prints one JSON row and can promote the winner "
+                     "into a serving artifact atomically")
+    _add_common(gd, "unused (the winner goes to --out / --promote)",
+                model_required=False)
+    gd.add_argument("--cs", default="0.25,1,4,16", metavar="C1,C2",
+                    help="comma list of C values: the grid rows "
+                         "(default 0.25,1,4,16)")
+    gd.add_argument("--gammas", default=None, metavar="G1,G2",
+                    help="comma list of gamma values: the grid columns "
+                         "(default: one column at the 1/d default)")
+    gd.add_argument("-k", "--kernel", default="rbf",
+                    choices=["rbf", "linear", "poly", "sigmoid"])
+    gd.add_argument("-d", "--degree", type=int, default=3)
+    gd.add_argument("--coef0", type=float, default=0.0)
+    gd.add_argument("--max-iter", type=int, default=None,
+                    help="per-cell iteration cap (default: the config "
+                         "default)")
+    gd.add_argument("--holdout-frac", type=float, default=0.2,
+                    help="fraction of rows held out for per-cell scoring "
+                         "(seeded shuffle split; the winner is the best "
+                         "held-out accuracy, row-major first on ties)")
+    gd.add_argument("--seed", type=int, default=0,
+                    help="holdout-split shuffle seed")
+    gd.add_argument("--polish", action="store_true",
+                    help="re-fit the winning cell with the cascade solver "
+                         "on ALL rows (train + holdout) before saving or "
+                         "promoting")
+    gd.add_argument("--compare-sequential", action="store_true",
+                    help="also fit every cell sequentially (one api.fit "
+                         "each) and report the grid_vs_sequential "
+                         "speedup")
+    gd.add_argument("--out", default=None, metavar="PATH",
+                    help="save the winning model here (atomic tmp + "
+                         "rename in the target directory)")
+    gd.add_argument("--promote", default=None, metavar="PATH",
+                    help="promote the winner onto this serving artifact "
+                         "path through the registry's atomic "
+                         "promote_file (os.replace + a warmed reload)")
+    gd.add_argument("--json", action="store_true",
+                    help="print only the JSON row")
+    gd.add_argument("-q", "--quiet", action="store_true")
 
     sc = sub.add_parser(
         "scale", help="feature scaling (svm-scale analog; LIBSVM-"
@@ -623,6 +696,13 @@ def cmd_train(args: argparse.Namespace) -> int:
                   "(streaming covers plain --solver approx-* "
                   "training); reads stay integrity-checked and "
                   "budget-guarded", file=sys.stderr)
+    if args.live and not stream_train:
+        # no silent ignore: live ingest is the streaming train path
+        print("error: --live applies to streaming shard-directory "
+              "training (--solver approx-* on a converted directory); "
+              "this input/mode trains a frozen materialized view",
+              file=sys.stderr)
+        return 2
     if stream_train:
         x = y = None
     else:
@@ -657,6 +737,7 @@ def cmd_train(args: argparse.Namespace) -> int:
                        screen_cap=args.screen_cap,
                        mem_budget_mb=args.mem_budget_mb,
                        on_bad_shard=args.on_bad_shard,
+                       live=args.live,
                        verbose=not args.quiet)
     dev = args.device
     if stream_train:
@@ -762,6 +843,7 @@ def _train_streaming(args, config) -> int:
               + (f", {len(ds.quarantined)} quarantined"
                  if ds.quarantined else "") + ")")
     else:
+        gen0 = ds.generation
         model, result = fit_approx_stream(
             ds, config, task=task, allow_nonfinite=args.allow_nonfinite,
             device=dev)
@@ -770,6 +852,9 @@ def _train_streaming(args, config) -> int:
               f"(no SV set; streamed from {ds.n_shards} shard(s)"
               + (f", {len(ds.quarantined)} quarantined"
                  if ds.quarantined else "") + ")")
+        if config.live:
+            print(f"Live log: generation {gen0} -> {ds.generation} "
+                  f"({ds.n} rows admitted)")
     print(f"b: {result.b:.6f}")
     print(f"Training iterations: {result.n_iter}"
           + ("" if result.converged
@@ -919,6 +1004,14 @@ def _train_cv(args, x, y, config, class_weight) -> int:
     return 0
 
 
+def _engine(args, model, include_b: bool = True):
+    """``test --batch N``: the serving engine over the model, its ladder
+    topped at N rows (full N-row passes and one padded remainder)."""
+    from dpsvm_tpu_torch.serving.engine import PredictionEngine
+    return PredictionEngine(model, name="cmd-test", max_batch=args.batch,
+                            include_b=include_b, device=args.device)
+
+
 def _test_multiclass(args: argparse.Namespace) -> int:
     """``test`` on a --multiclass model directory: the OvO vote (or, with
     --proba, the coupled argmax of LIBSVM -b 1), one shared pass for the
@@ -943,8 +1036,12 @@ def _test_multiclass(args: argparse.Namespace) -> int:
         print(f"error: dataset has {x.shape[1]} attributes, model has "
               f"{d_model}", file=sys.stderr)
         return 2
-    decisions = pairwise_decisions(mc, x, include_b=not args.no_b,
-                                   device=args.device)
+    if args.batch:
+        decisions = _engine(args, mc, include_b=not args.no_b
+                            ).pairwise_list(x)
+    else:
+        decisions = pairwise_decisions(mc, x, include_b=not args.no_b,
+                                       device=args.device)
     proba = None
     if args.proba:
         # the sigmoids were fit on intercept-included decisions
@@ -1025,7 +1122,10 @@ def _test_task(args, model, x, y) -> int:
     if model.task == "oneclass":
         from dpsvm_tpu_torch.models.oneclass import predict_oneclass
         # one-class decisions always include rho: --no-b does not apply
-        pred = predict_oneclass(model, x, device=args.device)
+        if args.batch:
+            pred = _engine(args, model).predict(x)
+        else:
+            pred = predict_oneclass(model, x, device=args.device)
         if args.predictions:
             with open(args.predictions, "w") as f:
                 f.writelines(f"{int(v)}\n" for v in pred)
@@ -1038,8 +1138,11 @@ def _test_task(args, model, x, y) -> int:
                   f"{acc:.6f}")
         return 0
     from dpsvm_tpu_torch.models.svr import predict_svr, regression_metrics
-    pred = predict_svr(model, x, include_b=not args.no_b,
-                       device=args.device)
+    if args.batch:
+        pred = _engine(args, model, include_b=not args.no_b).predict(x)
+    else:
+        pred = predict_svr(model, x, include_b=not args.no_b,
+                           device=args.device)
     if args.predictions:
         with open(args.predictions, "w") as f:
             f.writelines(f"{float(v):.9g}\n" for v in pred)
@@ -1057,6 +1160,10 @@ def cmd_test(args: argparse.Namespace) -> int:
     from dpsvm_tpu_torch.models.io import load_model
     from dpsvm_tpu_torch.models.svm import decision_function
 
+    if args.batch < 0:
+        print(f"error: --batch must be >= 0, got {args.batch}",
+              file=sys.stderr)
+        return 2
     if os.path.isdir(args.model):
         return _test_multiclass(args)
     model = load_model(args.model)
@@ -1070,8 +1177,12 @@ def cmd_test(args: argparse.Namespace) -> int:
     if model.task != "svc":
         return _test_task(args, model, x, y)
     t_eval = time.perf_counter()
-    dec = decision_function(model, x, include_b=not args.no_b,
-                            device=args.device)
+    if args.batch:
+        dec = _engine(args, model, include_b=not args.no_b
+                      ).decision_values(x)
+    else:
+        dec = decision_function(model, x, include_b=not args.no_b,
+                                device=args.device)
     t_eval = time.perf_counter() - t_eval
     pred = np.where(dec < 0, -1, 1)                    # svmTrain.cu:650-656
     acc = float(np.mean(pred == np.asarray(y, np.int32)))
@@ -1139,6 +1250,139 @@ def cmd_convert(args: argparse.Namespace) -> int:
     else:
         rows = mnist_to_odd_even_csv(args.src, args.dst)
     print(f"Wrote {rows} rows to {args.dst}")
+    return 0
+
+
+def cmd_grid(args: argparse.Namespace) -> int:
+    """``grid``: train the whole C x gamma grid as batched sweeps, score
+    every cell on a seeded holdout, optionally cascade-polish the winner
+    and promote it atomically."""
+    import json
+
+    import numpy as np
+
+    from dpsvm_tpu_torch.config import SVMConfig
+    from dpsvm_tpu_torch.data.loader import load_dataset
+    from dpsvm_tpu_torch.fleet.grid import (holdout_split,
+                                            sequential_grid_seconds,
+                                            train_grid)
+
+    try:
+        cs = tuple(float(v) for v in args.cs.split(",") if v.strip())
+        gammas = (tuple(float(v) for v in args.gammas.split(",")
+                        if v.strip()) if args.gammas else None)
+    except ValueError:
+        print(f"error: --cs/--gammas must be comma lists of numbers "
+              f"(got --cs {args.cs!r} --gammas {args.gammas!r})",
+              file=sys.stderr)
+        return 2
+    if not cs or any(c <= 0 for c in cs):
+        print(f"error: --cs needs at least one positive C, got "
+              f"{args.cs!r}", file=sys.stderr)
+        return 2
+    if gammas is not None and any(g <= 0 for g in gammas):
+        print(f"error: --gammas must be positive, got {args.gammas!r}",
+              file=sys.stderr)
+        return 2
+    if not (0.0 < args.holdout_frac < 1.0):
+        print(f"error: --holdout-frac must be in (0, 1), got "
+              f"{args.holdout_frac}", file=sys.stderr)
+        return 2
+    x, y = load_dataset(args.input, allow_nonfinite=args.allow_nonfinite,
+                        mem_budget_mb=args.mem_budget_mb)
+    config = SVMConfig(kernel=args.kernel, degree=args.degree,
+                       coef0=args.coef0, verbose=not args.quiet,
+                       **({"max_iter": args.max_iter}
+                          if args.max_iter is not None else {}))
+    grid = train_grid(x, y, cs=cs, gammas=gammas, config=config,
+                      holdout_frac=args.holdout_frac, seed=args.seed,
+                      polish=args.polish, device=args.device)
+    best = grid.best
+    row = {
+        "metric": "grid_train_seconds",
+        "value": round(grid.train_seconds, 4),
+        "unit": "s",
+        "cs": list(cs),
+        "gammas": [c.gamma for c in grid.cells[:len(grid.cells)
+                                               // len(cs)]],
+        "cells": [{"c": c.c, "gamma": round(c.gamma, 8),
+                   "holdout_acc": round(c.holdout_acc, 6),
+                   "n_sv": int(c.result.n_sv),
+                   "converged": bool(c.result.converged)}
+                  for c in grid.cells],
+        "winner": {"c": best.c, "gamma": round(best.gamma, 8),
+                   "holdout_acc": round(best.holdout_acc, 6),
+                   "n_sv": int(best.result.n_sv)},
+        "n_train": grid.n_train, "n_holdout": grid.n_holdout,
+        "devices": grid.devices, "polished": grid.polished,
+    }
+    if args.compare_sequential:
+        from dpsvm_tpu_torch.models.svm import evaluate
+        seq_s, seq_models = sequential_grid_seconds(
+            x, y, cs=cs, gammas=gammas, config=config,
+            holdout_frac=args.holdout_frac, seed=args.seed,
+            device=args.device)
+        row["sequential_seconds"] = round(seq_s, 4)
+        row["grid_vs_sequential_x"] = (round(seq_s / grid.train_seconds, 3)
+                                       if grid.train_seconds > 0 else None)
+        # the speedup counts only if the batched cells reached the
+        # sequential ones' quality
+        _, ho_idx = holdout_split(x.shape[0], args.holdout_frac, args.seed)
+        x_ho, y_ho = np.asarray(x)[ho_idx], np.asarray(y)[ho_idx]
+        row["seq_acc_gap_max"] = round(max(
+            abs(float(evaluate(m, x_ho, y_ho, device=args.device))
+                - c.holdout_acc)
+            for (_, _, m), c in zip(seq_models, grid.cells)), 6)
+    if args.out:
+        import tempfile
+
+        from dpsvm_tpu_torch.models.io import save_model
+        out = os.path.abspath(args.out)
+        fd, tmp = tempfile.mkstemp(prefix=f".{os.path.basename(out)}.",
+                                   suffix=".grid-cand",
+                                   dir=os.path.dirname(out) or ".")
+        os.close(fd)
+        try:
+            save_model(best.model, tmp)
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        row["out"] = out
+    if args.promote:
+        from dpsvm_tpu_torch.fleet.grid import promote_winner
+        from dpsvm_tpu_torch.serving.registry import ModelRegistry
+        target = os.path.abspath(args.promote)
+        reg = ModelRegistry()
+        reg.register("winner", target, lazy=True, warmup=False,
+                     max_batch=32, device=args.device)
+        try:
+            gen = promote_winner(grid, reg, "winner")
+        except (OSError, ValueError) as e:
+            print(f"error: promote failed: {e}", file=sys.stderr)
+            return 1
+        row["promoted"] = target
+        row["generation"] = gen
+    if args.json or args.quiet:
+        print(json.dumps(row), flush=True)
+    else:
+        print(f"grid {len(cs)}x{len(grid.cells) // len(cs)} on "
+              f"{grid.devices} device(s): {grid.train_seconds:.2f}s "
+              f"({grid.n_train} train / {grid.n_holdout} holdout rows)")
+        for c in grid.cells:
+            mark = " <-- winner" if c is best else ""
+            print(f"  C={c.c:<8g} gamma={c.gamma:<12.6g} "
+                  f"holdout_acc={c.holdout_acc:.4f} "
+                  f"n_sv={c.result.n_sv}{mark}")
+        if "grid_vs_sequential_x" in row:
+            print(f"  sequential baseline: {row['sequential_seconds']}s "
+                  f"-> {row['grid_vs_sequential_x']}x speedup "
+                  f"(max per-cell acc gap {row['seq_acc_gap_max']})")
+        if row.get("out"):
+            print(f"  saved winner -> {row['out']}")
+        if row.get("promoted"):
+            print(f"  promoted -> {row['promoted']} "
+                  f"(generation {row['generation']})")
     return 0
 
 
@@ -1215,6 +1459,8 @@ def _run(args) -> int:
             return cmd_convert(args)
         if args.command == "scale":
             return cmd_scale(args)
+        if args.command == "grid":
+            return cmd_grid(args)
         return cmd_test(args)
     except StreamError as e:
         # shard corruption under on_bad_shard='raise', the bad-fraction

@@ -185,9 +185,10 @@ class SVMConfig:
                                         # shard, bounded by the
                                         # bad-fraction abort
     live: bool = False                  # a shard directory as a LIVE
-                                        # append log: accepted as a field;
-                                        # True raises (ROADMAP item 10c;
-                                        # the CLI has no --live yet)
+                                        # append log: the streaming approx
+                                        # fit admits appended shards at
+                                        # sweep boundaries (data/live.py;
+                                        # train -f DIR --live)
 
     # --- execution ---
     shards: int = 1                     # ranks along the data axis, one
@@ -320,12 +321,6 @@ class SVMConfig:
                 "(fit_approx_stream admits appended shards at sweep "
                 f"boundaries); solver {self.solver!r} trains a frozen "
                 "view — docs/DATA.md 'Live shard logs'")
-        if self.live:
-            raise NotImplementedError(
-                "live=True (a shard directory as a live append log, "
-                "data/live.py) is not ported to dpsvm_tpu_torch yet "
-                "(ROADMAP Queue 1 item 10c); train the directory's "
-                "current view with live=False")
         if not (math.isfinite(self.weight_pos) and self.weight_pos > 0
                 and math.isfinite(self.weight_neg)
                 and self.weight_neg > 0):

@@ -9,8 +9,11 @@ materialize; a conversion stopped after two shards resumes to a
 byte-identical manifest; a streaming fit with one corrupt shard
 (quarantined, its event drained at a poll) and one transient read failure
 (retried); a streaming fit cut at a checkpoint resumes bitwise; the
-memory-budget refusal names the shard math; ``live=True`` is refused
-(ROADMAP item 10c).
+memory-budget refusal names the shard math; the live-append gate: a
+torn publish is never read (the watcher holds its view) and is repaired by
+the next append, a stale generation is refused, clean publishes are
+admitted, and a live fit cut at a checkpoint after an admission resumes
+bitwise (``data/live.py``).
 """
 
 from __future__ import annotations
@@ -138,14 +141,72 @@ def selfcheck(tmp_dir: Optional[str] = None, device=None) -> List[str]:
                 problems.append(f"budget refusal lacks the shard math: "
                                 f"{e}")
 
-        # 6. the live shard log is refused, naming its item.
+        # 6. the live-append gate: a torn publish is never read (the
+        # watcher holds its view), a stale generation is refused, clean
+        # publishes are admitted, and a live fit cut at a checkpoint after
+        # an admission resumes bitwise.
+        from dpsvm_tpu_torch.data import live as livelib
+
+        ldir = os.path.join(base, "livelog")
+        streamlib.convert_to_shards(src, ldir, rows_per_shard=96)
+        ds_l = streamlib.ShardedDataset.open(ldir)
+        watcher = livelib.ShardLogWatcher(ds_l)
+        faultinject.install(faultinject.FaultPlan(live_torn_publish=1))
         try:
-            fit_approx_stream(ds, SVMConfig(**base_cfg), live=True,
-                              device=device)
-            problems.append("live=True was not refused")
-        except NotImplementedError as e:
-            if "10c" not in str(e):
-                problems.append(f"live refusal names no item: {e}")
+            livelib.append_shard(ldir, x[:96], y[:96])
+            problems.append("torn publish did not crash the writer")
+        except livelib.WriterCrashError:
+            pass
+        finally:
+            faultinject.install(prior)
+        if watcher.poll() or ds_l.generation != 0:
+            problems.append("watcher advanced on a TORN publish")
+        if watcher.torn_observed != 1:
+            problems.append(f"torn publish not observed "
+                            f"({watcher.torn_observed})")
+        livelib.append_shard(ldir, x[:96], y[:96])   # repairs the log
+        watcher.poll()
+        if ds_l.generation != 1 or ds_l.n != 480:
+            problems.append(f"repaired publish not admitted (gen "
+                            f"{ds_l.generation}, n {ds_l.n})")
+        # the watcher is at generation 1: a replayed generation-1 publish
+        # with other content is refused
+        faultinject.install(faultinject.FaultPlan(live_stale_generation=1))
+        try:
+            livelib.append_shard(ldir, x[96:160], y[96:160])
+        finally:
+            faultinject.install(prior)
+        watcher.poll()
+        if ds_l.generation != 1 or watcher.stale_observed < 1:
+            problems.append(
+                f"stale-generation publish not refused (gen "
+                f"{ds_l.generation}, stale {watcher.stale_observed})")
+        # the next clean publish carries the stale-published shard and the
+        # new one, admitted together
+        livelib.append_shard(ldir, x[160:200], y[160:200])
+        watcher.poll()
+        if ds_l.generation != 2 or ds_l.n != 384 + 96 + 64 + 40:
+            problems.append(f"clean publishes not admitted (gen "
+                            f"{ds_l.generation}, n {ds_l.n})")
+        live_cfg = dict(base_cfg, max_iter=64)
+        m_live, _ = fit_approx_stream(
+            streamlib.ShardedDataset.open(ldir, at_generation=0),
+            SVMConfig(**live_cfg), live=True, device=device)
+        lck = os.path.join(base, "live_ck.npz")
+        fit_approx_stream(
+            streamlib.ShardedDataset.open(ldir, at_generation=0),
+            SVMConfig(**dict(live_cfg, max_iter=32), checkpoint_path=lck,
+                      checkpoint_every=32), live=True, device=device)
+        ds_r = streamlib.ShardedDataset.open(ldir, at_generation=0)
+        m_lres, _ = fit_approx_stream(
+            ds_r, SVMConfig(resume_from=lck, **live_cfg), live=True,
+            device=device)
+        if not (np.array_equal(m_live.w, m_lres.w)
+                and ds_r.generation == 2):
+            problems.append(
+                "live resume across an admission is not bitwise "
+                f"(generation {ds_r.generation}, max delta "
+                f"{float(np.max(np.abs(m_live.w - m_lres.w)))})")
     except Exception as e:              # noqa: BLE001 - the gate reports
         import traceback
         traceback.print_exc()
@@ -177,5 +238,5 @@ def main(argv: Optional[List[str]] = None) -> int:
     print("data selfcheck OK: convert + verify + byte-identical manifest "
           "resume + stream-train with a quarantined shard and a retried "
           "read + bitwise streaming resume + budget refusal + live "
-          "refusal")
+          "append gate (torn, stale, bitwise live resume)")
     return 0

@@ -27,10 +27,12 @@
 training on data that never materializes is
 ``approx/primal.fit_approx_stream`` and
 ``solver/cascade.fit_cascade_stream``. Ingest metrics (``dpsvm_data_*``)
-go to the process metric registry on the host. The live shard log
-(``data/live.py``: appends, pinned generations, the watcher) is ROADMAP
-item 10c; a live log's manifest is read here as a frozen view (its
-self-CRC verified).
+go to the process metric registry on the host. A live shard log's
+manifest carries a generation and a self-CRC (``data/live.py``: the
+crash-safe append, the watcher); here a handle opens it, verified, as of
+its newest generation or pinned at an older one
+(``ShardedDataset.open(at_generation=)``), and ``admit_manifest`` grows
+the handle's view to a newer generation that extends it.
 """
 
 from __future__ import annotations
@@ -88,9 +90,11 @@ class MemBudgetError(StreamError):
 
 
 class TornPublishError(StreamError):
-    """manifest.json exists but cannot be trusted: unparseable JSON beside
-    a ``.prev`` backup, or a failed self-CRC — a live-log writer crashed
-    mid-publish (the live log itself is ROADMAP item 10c)."""
+    """manifest.json exists but cannot be trusted: unparseable JSON or a
+    failed self-CRC — a live-log writer crashed mid-publish (or is
+    mid-write on a non-atomic filesystem). Transient to readers (they
+    hold their last admitted view); writers recover from the ``.prev``
+    backup (``data/live.py``)."""
 
 
 def _log(msg: str) -> None:
@@ -125,9 +129,9 @@ def is_shard_dir(path: str) -> bool:
 
 
 def manifest_crc(manifest: dict) -> int:
-    """CRC32 over the canonical serialization of a live-log manifest
-    without its ``manifest_crc`` key (the JAX package's ``data/live.py``
-    helper, which a frozen reader needs to trust such a manifest)."""
+    """CRC32 over the canonical serialization of the manifest WITHOUT its
+    ``manifest_crc`` key: a pure function of the content, so any torn or
+    bit-rotted publish fails verification."""
     body = {k: v for k, v in manifest.items() if k != "manifest_crc"}
     raw = json.dumps(body, sort_keys=True, separators=(",", ":")).encode()
     return zlib.crc32(raw)
@@ -141,6 +145,27 @@ def verify_manifest_crc(manifest: dict, where: str = "manifest") -> None:
             f"{where}: manifest self-CRC mismatch (recorded {want}, "
             f"computed {got}) — a torn or bit-rotted publish; readers "
             "must hold their last admitted view")
+
+
+def pin_manifest_generation(manifest: dict, generation: int) -> dict:
+    """The manifest's view AS OF ``generation``: only shards whose entry
+    generation (0 for converted seed shards, which predate the append
+    protocol) is <= the target survive, and ``n``/``generation`` shrink to
+    match. Appends are strictly ordered, so this is exactly the shard set
+    a reader at that generation had admitted: the resume contract of live
+    streaming training."""
+    generation = int(generation)
+    current = int(manifest.get("generation", 0))
+    if generation >= current:
+        return manifest
+    kept = [s for s in manifest["shards"]
+            if int(s.get("generation", 0)) <= generation]
+    pinned = dict(manifest)
+    pinned["shards"] = kept
+    pinned["n"] = sum(int(s["rows"]) for s in kept)
+    pinned["generation"] = generation
+    pinned.pop("manifest_crc", None)     # the pinned view is derived,
+    return pinned                        # not published bytes
 
 
 def _write_json_atomic(path: str, obj: dict) -> None:
@@ -180,6 +205,9 @@ class ShardedDataset:
         self.float_labels = manifest.get("label_dtype") == "float32"
         self.quarantined: dict = {}          # shard idx -> reason
         self.max_bad_fraction = MAX_BAD_FRACTION
+        #: the live-log generation this handle's view corresponds to; 0
+        #: on a frozen converted directory
+        self.generation = int(manifest.get("generation", 0))
         self._rebuild_offsets()
 
     def _rebuild_offsets(self) -> None:
@@ -196,7 +224,11 @@ class ShardedDataset:
     # -- opening -------------------------------------------------------
 
     @classmethod
-    def open(cls, directory: str) -> "ShardedDataset":
+    def open(cls, directory: str,
+             at_generation: Optional[int] = None) -> "ShardedDataset":
+        """Open a shard directory, verified; ``at_generation`` pins the
+        view to the shards durable at (or before) that live-log
+        generation, the start of a resumed live run."""
         mpath = os.path.join(directory, MANIFEST_NAME)
         if not os.path.exists(mpath):
             raise FileNotFoundError(
@@ -238,7 +270,42 @@ class ShardedDataset:
             # Live-log manifests carry a self-CRC: a torn publish on a
             # non-atomic filesystem must never be mistaken for a dataset.
             verify_manifest_crc(manifest, where=mpath)
+        if at_generation is not None:
+            manifest = pin_manifest_generation(manifest, at_generation)
         return cls(directory, manifest)
+
+    def admit_manifest(self, manifest: dict) -> List[int]:
+        """Grow this handle's view to ``manifest`` (a strictly newer
+        generation of the same log). It must EXTEND the current view, the
+        common shard prefix identical in file, rows and CRC, because
+        appends only ever add shards; a rewritten prefix is a corrupted
+        (or foreign) log. Returns the newly admitted shard indices."""
+        gen = int(manifest.get("generation", 0))
+        if gen <= self.generation:
+            raise StreamError(
+                f"{self.directory}: admit_manifest generation {gen} "
+                f"does not advance the current {self.generation}")
+        new_shards = list(manifest["shards"])
+        if len(new_shards) < len(self.shards):
+            raise StreamError(
+                f"{self.directory}: generation {gen} manifest holds "
+                f"{len(new_shards)} shard(s), fewer than the admitted "
+                f"{len(self.shards)} — a log never shrinks")
+        for k, (old, new) in enumerate(zip(self.shards, new_shards)):
+            if (old["file"] != new["file"]
+                    or int(old["rows"]) != int(new["rows"])
+                    or int(old["crc32"]) != int(new["crc32"])):
+                raise StreamError(
+                    f"{self.directory}: generation {gen} manifest "
+                    f"REWROTE shard {k} ({old['file']}) — appends only "
+                    "extend the log; refusing the admitted view")
+        admitted = list(range(len(self.shards), len(new_shards)))
+        self.manifest = manifest
+        self.shards = new_shards
+        self.n = int(manifest["n"])
+        self.generation = gen
+        self._rebuild_offsets()
+        return admitted
 
     @property
     def n_shards(self) -> int:

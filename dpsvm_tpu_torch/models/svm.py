@@ -20,15 +20,16 @@ trainer's accuracy does (``svmTrain.cu:648``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from dpsvm_tpu_torch.config import TrainResult
 from dpsvm_tpu_torch.device import resolve_device
-from dpsvm_tpu_torch.ops.kernels import (KernelSpec, exact_f32, kernel_rows,
-                                         row_norms_sq)
+from dpsvm_tpu_torch.ops.kernels import (KernelSpec, dots_f32, exact_f32,
+                                         kernel_rows, row_norms_sq,
+                                         rows_from_dots)
 
 
 @dataclasses.dataclass
@@ -97,6 +98,109 @@ class SVMModel:
             **common)
 
 
+#: rows a decision's products are computed over at once (``row_tiles``)
+ROW_TILE = 64
+
+
+class SVOperands(NamedTuple):
+    """One model's (or a one-vs-one model's concatenated) decision
+    operands on a device: what ``decision_block`` and
+    ``pairwise_block`` read. ``x_low`` is the SV rows in bfloat16 for
+    ``precision="default"`` (None: float32 products, TF32 off)."""
+    x_sv: Optional[torch.Tensor]     # (S, d) f32; None for precomputed
+    sv2: Optional[torch.Tensor]      # (S,) f32 squared norms
+    coef: torch.Tensor               # (S,) f32 alpha * y
+    b: torch.Tensor                  # () f32, or (P,) for pairwise
+    spec: KernelSpec
+    cols: Optional[torch.Tensor]     # precomputed: (S,) int64 SV columns
+    bounds: tuple                    # pairwise: the P + 1 range ends
+    x_low: Optional[torch.Tensor] = None
+
+    def device_bytes(self) -> int:
+        return int(sum(t.numel() * t.element_size() for t in
+                       (self.x_sv, self.sv2, self.coef, self.b, self.cols,
+                        self.x_low) if t is not None))
+
+
+def sv_operands(models, device, precision: str = "highest") -> SVOperands:
+    """The operands of one SV model, or (a sequence of models sharing one
+    kernel) of their concatenated SVs, copied to ``device`` once."""
+    single = isinstance(models, SVMModel)
+    ms = [models] if single else list(models)
+    dev = torch.device(device)
+    spec = ms[0].kernel_spec
+    coef = torch.from_numpy(np.concatenate(
+        [m.alpha * m.y_sv.astype(np.float32) for m in ms]).astype(
+            np.float32)).to(dev)
+    bs = np.array([m.b for m in ms], np.float32)
+    b = torch.from_numpy(bs[:1].reshape(()) if single else bs).to(dev)
+    bounds = tuple(int(v) for v in np.cumsum([0] + [m.n_sv for m in ms]))
+    if spec.kind == "precomputed":
+        cols = torch.from_numpy(np.concatenate(
+            [np.asarray(m.sv_idx, np.int64) for m in ms])).to(dev)
+        return SVOperands(None, None, coef, b, spec, cols, bounds)
+    x_sv = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([m.x_sv for m in ms]), np.float32)).to(dev)
+    low = (x_sv.to(torch.bfloat16) if str(precision).lower() == "default"
+           else None)
+    return SVOperands(x_sv, row_norms_sq(x_sv), coef, b, spec, None,
+                      bounds, low)
+
+
+def _kernel_block(xb: torch.Tensor, ops: SVOperands) -> torch.Tensor:
+    """The (m, S) kernel values of a block of rows against the SVs."""
+    if ops.cols is not None:
+        return xb.index_select(1, ops.cols)
+    if ops.x_low is not None:
+        # bfloat16 operands, float32 accumulation and epilogue
+        return rows_from_dots(dots_f32(xb.to(torch.bfloat16), ops.x_low),
+                              row_norms_sq(xb), ops.sv2, ops.spec)
+    return kernel_rows(xb, row_norms_sq(xb), ops.x_sv, ops.sv2, ops.spec)
+
+
+def row_tiles(fn, xb: torch.Tensor) -> torch.Tensor:
+    """``fn`` over the rows of ``xb`` in tiles of ROW_TILE rows (the last
+    one padded with zero rows), the results stacked and cut to the rows'
+    count. A product's algorithm, and so the order its sums take, depends
+    on its row count (on the CPU for odd counts and one row; on the card
+    cuBLAS picks by shape), so every decision is computed in tiles of one
+    shape: a row's decision is then the same whatever the request size,
+    the batch it was coalesced into or the bucket that ran it."""
+    m = xb.shape[0]
+    pad = (-m) % ROW_TILE
+    if pad:
+        xb = torch.cat([xb, xb.new_zeros((pad, xb.shape[1]))])
+    if xb.shape[0] == ROW_TILE:
+        return fn(xb)[:m]
+    return torch.cat([fn(xb[i:i + ROW_TILE])
+                      for i in range(0, xb.shape[0], ROW_TILE)])[:m]
+
+
+def decision_block(xb: torch.Tensor, ops: SVOperands,
+                   include_b: bool = True) -> torch.Tensor:
+    """(m,) decisions of a (m, d) block on the operands' device, in row
+    tiles: the one definition ``decision_function`` and the serving
+    engine share (no host read, so a CUDA graph can hold it)."""
+    def tile(t):
+        dual = torch.matmul(_kernel_block(t, ops), ops.coef)
+        return dual - ops.b if include_b else dual
+    return row_tiles(tile, xb)
+
+
+def pairwise_block(xb: torch.Tensor, ops: SVOperands,
+                   include_b: bool = True) -> torch.Tensor:
+    """(m, P) decisions of P models over their concatenated SVs, in row
+    tiles: one kernel product a tile, then each model's sum over its own
+    contiguous range of the columns (no sum across models)."""
+    def tile(t):
+        k = _kernel_block(t, ops)
+        b = ops.bounds
+        dual = torch.stack([torch.matmul(k[:, s:e], ops.coef[s:e])
+                            for s, e in zip(b[:-1], b[1:])], dim=1)
+        return dual - ops.b if include_b else dual
+    return row_tiles(tile, xb)
+
+
 def decision_function(model: SVMModel, x_test: np.ndarray,
                       include_b: bool = True,
                       batch_size: Optional[int] = 8192,
@@ -120,17 +224,7 @@ def decision_function(model: SVMModel, x_test: np.ndarray,
         raise ValueError(f"x_test must be (m, {width}), got {x_test.shape}"
                          + (" (K(test, train): one column per training row)"
                             if model.kernel == "precomputed" else ""))
-    spec = model.kernel_spec
-    coef = torch.from_numpy(
-        (model.alpha * model.y_sv.astype(np.float32)).astype(np.float32)
-    ).to(dev)
-    b = torch.tensor(np.float32(model.b), device=dev)
-    if spec.kind == "precomputed":
-        cols = torch.from_numpy(np.asarray(model.sv_idx, np.int64)).to(dev)
-    else:
-        x_sv = torch.from_numpy(np.ascontiguousarray(model.x_sv,
-                                                     np.float32)).to(dev)
-        sv2 = row_norms_sq(x_sv)
+    ops = sv_operands(model, dev)
     m = x_test.shape[0]
     step = m if batch_size is None else max(1, int(batch_size))
     out = np.empty((m,), np.float32)
@@ -138,14 +232,7 @@ def decision_function(model: SVMModel, x_test: np.ndarray,
         for lo in range(0, m, step):
             hi = min(lo + step, m)
             xb = torch.from_numpy(x_test[lo:hi]).to(dev)
-            if spec.kind == "precomputed":
-                k = xb.index_select(1, cols)
-            else:
-                k = kernel_rows(xb, row_norms_sq(xb), x_sv, sv2, spec)
-            dual = torch.matmul(k, coef)
-            if include_b:
-                dual = dual - b
-            out[lo:hi] = dual.cpu().numpy()
+            out[lo:hi] = decision_block(xb, ops, include_b).cpu().numpy()
     return out
 
 
@@ -163,15 +250,7 @@ def pairwise_decision_values(models, x_test: np.ndarray,
     non-finite kernel value stays in its pair's decision)."""
     dev = resolve_device(device)
     x_test = np.ascontiguousarray(x_test, np.float32)
-    spec = models[0].kernel_spec
-    bounds = np.cumsum([0] + [m.n_sv for m in models])
-    x_sv = torch.from_numpy(np.ascontiguousarray(
-        np.concatenate([m.x_sv for m in models]), np.float32)).to(dev)
-    coef = torch.from_numpy(np.concatenate(
-        [m.alpha * m.y_sv.astype(np.float32) for m in models]).astype(
-            np.float32)).to(dev)
-    b = torch.from_numpy(np.array([m.b for m in models], np.float32)).to(dev)
-    sv2 = row_norms_sq(x_sv)
+    ops = sv_operands(list(models), dev)
     m_rows, P = x_test.shape[0], len(models)
     out = np.empty((m_rows, P), np.float32)
     step = max(1, int(batch_size))
@@ -179,13 +258,7 @@ def pairwise_decision_values(models, x_test: np.ndarray,
         for lo in range(0, m_rows, step):
             hi = min(lo + step, m_rows)
             xb = torch.from_numpy(x_test[lo:hi]).to(dev)
-            k = kernel_rows(xb, row_norms_sq(xb), x_sv, sv2, spec)
-            dual = torch.stack([torch.matmul(k[:, s:e], coef[s:e])
-                                for s, e in zip(bounds[:-1], bounds[1:])],
-                               dim=1)
-            if include_b:
-                dual = dual - b
-            out[lo:hi] = dual.cpu().numpy()
+            out[lo:hi] = pairwise_block(xb, ops, include_b).cpu().numpy()
     return out
 
 

@@ -9,9 +9,11 @@ read and quarantined, transient-I/O retries, rows delivered and ingest
 seconds. Every update is host-side around a file read, so a metered
 streaming run makes no device-to-host transfer the unmetered one does not.
 ``render_prometheus()`` and ``snapshot()`` expose the registry as text and
-JSON. The exposition validator, the tenant label budget (ROADMAP item 12),
-the training feed, the sidecar server and the file snapshots (item 13) are
-not ported. Stdlib only.
+JSON. ``TenantLabelBudget`` is the bounded-cardinality resolver (second-
+touch admission, LRU of activity) that the fleet's model cache
+(``fleet/modelcache.py``) applies to model names. The exposition
+validator, the training feed, the sidecar server and the file snapshots
+(item 13) are not ported. Stdlib only.
 """
 
 from __future__ import annotations
@@ -439,3 +441,111 @@ class DataMetrics:
     def on_ingest_seconds(self, seconds: float) -> None:
         if seconds > 0:
             self._c_secs.inc(float(seconds))
+
+
+# ---------------------------------------------------------------------
+# bounded-cardinality tenant labels
+# ---------------------------------------------------------------------
+
+#: the overflow bucket every out-of-budget tenant lands in: a fixed label
+#: value, so total series stay <= budget + 1 a family.
+TENANT_OTHER = "other"
+
+#: default top-K active tenants that get their own label value
+DEFAULT_TENANT_BUDGET = 32
+
+
+class TenantLabelBudget:
+    """Bounded-cardinality tenant -> label-value resolver.
+
+    Prometheus dies by label cardinality: a fleet with an unbounded
+    tenant label is one curious client away from a series explosion.
+    This resolver admits at most ``budget`` resident tenants; everyone
+    else resolves to the ``other`` overflow bucket, so per-family
+    series are <= budget + 1 forever (pinned by the 10k-churn test).
+
+    Residency is LRU-of-activity with a deterministic twist: activity
+    is a monotone integer tick (no wall clock — replays and tests see
+    identical evictions), and a non-resident needs a SECOND touch
+    while the budget is full to evict the least-recently-active
+    resident. One-shot names — the churny tail — never displace a
+    working set, they aggregate into ``other``; a genuinely active
+    newcomer gets in on its second request. ``on_evict(tenant)`` fires
+    (outside any hot path, same thread) so the owner can drop the
+    evicted tenant's series (``_Metric.remove``).
+
+    Thread-safe; stdlib only."""
+
+    OTHER = TENANT_OTHER
+
+    def __init__(self, budget: int = DEFAULT_TENANT_BUDGET,
+                 on_evict: Optional[Callable[[str], None]] = None):
+        if int(budget) < 1:
+            raise ValueError(f"tenant budget must be >= 1, got {budget}")
+        self.budget = int(budget)
+        self._on_evict = on_evict
+        self._lock = threading.Lock()
+        self._tick = 0
+        self._resident: Dict[str, int] = {}     # tenant -> last tick
+        self._waiting: Dict[str, int] = {}      # non-resident touches
+        self._evictions = 0
+        self._overflow = 0
+
+    def resolve(self, tenant: str) -> str:
+        """The label value to use for ``tenant`` right now: the name
+        itself while resident (or admitted by this touch), else
+        ``other``. Every call counts as activity."""
+        tenant = str(tenant)
+        if tenant == TENANT_OTHER:
+            return TENANT_OTHER
+        evicted = None
+        with self._lock:
+            self._tick += 1
+            if tenant in self._resident:
+                self._resident[tenant] = self._tick
+                return tenant
+            if len(self._resident) < self.budget:
+                self._resident[tenant] = self._tick
+                self._waiting.pop(tenant, None)
+                return tenant
+            touches = self._waiting.get(tenant, 0) + 1
+            if touches >= 2:
+                lru = min(self._resident, key=self._resident.get)
+                del self._resident[lru]
+                self._evictions += 1
+                evicted = lru
+                self._resident[tenant] = self._tick
+                self._waiting.pop(tenant, None)
+            else:
+                self._waiting[tenant] = touches
+                # the waiting map is itself bounded: one-shot churn
+                # must not hoard host memory either
+                while len(self._waiting) > self.budget:
+                    drop = next(iter(self._waiting))
+                    del self._waiting[drop]
+                self._overflow += 1
+        if evicted is not None and self._on_evict is not None:
+            try:
+                self._on_evict(evicted)
+            except Exception:
+                pass
+        if evicted is not None:
+            return tenant
+        return TENANT_OTHER
+
+    def is_resident(self, tenant: str) -> bool:
+        with self._lock:
+            return tenant in self._resident
+
+    def residents(self) -> List[str]:
+        """Resident tenants, most recently active first."""
+        with self._lock:
+            return sorted(self._resident,
+                          key=self._resident.get, reverse=True)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"budget": self.budget,
+                    "live": len(self._resident),
+                    "evictions": self._evictions,
+                    "overflow": self._overflow}

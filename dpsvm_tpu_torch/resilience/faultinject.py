@@ -1,6 +1,7 @@
 """Deterministic fault injection: the parts of
 ``dpsvm_tpu/resilience/faultinject.py`` that the port's cascade
-(``solver/cascade.py``) and shard reader (``data/stream.py``) read.
+(``solver/cascade.py``), shard reader (``data/stream.py``), live shard
+log (``data/live.py``) and model registry (``serving/registry.py``) read.
 
 ``DPSVM_FAULT_CASCADE_STOP_STAGE=k`` (or ``BENCH_FAULT_CASCADE_STOP_STAGE``)
 makes the cascade raise ``CascadeInterrupted`` right after its stage-k
@@ -22,8 +23,28 @@ shard numbers are 1-based):
   half its bytes on every read (an unreadable npz);
 * ``DPSVM_FAULT_IO_SLOW_READ_MS=t``: every shard read sleeps t ms first.
 
+Live shard-log knobs (``DPSVM_FAULT_LIVE_*``, consumed by the writer side
+of ``data/live.py``; publish and append counts are 1-based):
+
+* ``DPSVM_FAULT_LIVE_TORN_PUBLISH=k``: the k-th manifest publish writes
+  half its bytes in place, non-atomically, then the writer crashes
+  (``WriterCrashError``): readers hold their view, and the restarted
+  writer recovers from ``manifest.json.prev``;
+* ``DPSVM_FAULT_LIVE_STALE_GENERATION=k``: the k-th publish writes
+  CRC-valid bytes whose generation did not advance (a replayed or
+  split-brain writer), which readers refuse;
+* ``DPSVM_FAULT_LIVE_WRITER_CRASH_AFTER=k``: the writer crashes after
+  appended shard #k is durable, before its publish (an orphan shard no
+  manifest names);
+* ``DPSVM_FAULT_LIVE_SHIFT_AT_SHARD=k``: the subprocess writer draws
+  appended shard #k and every later one from a shifted distribution.
+
+Serving: ``DPSVM_FAULT_SERVE_FAIL_RELOAD=j`` makes the j-th
+``ModelRegistry.reload`` in this process raise before it loads anything,
+so the old engine stays live.
+
 The rest of the JAX module's fault knobs (checkpoint writes, NaN
-injection, preemption, serving, distributed, live logs) are not ported.
+injection, preemption, the replica pool, distributed) are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +62,7 @@ def _log(msg: str) -> None:
 
 
 _IO_LOCK = threading.Lock()
+_SERVE_LOCK = threading.Lock()
 
 
 class InjectedFaultError(OSError):
@@ -58,14 +80,31 @@ class FaultPlan:
     io_slow_read_ms: int = 0         # every shard read sleeps this
     cascade_stop_stage: int = 0      # kill the cascade right after the
                                      # stage-k boundary state (0 = off)
+    # live shard-log knobs (module docstring): 1-based counts
+    live_torn_publish: int = 0       # the k-th publish tears mid-write
+    live_stale_generation: int = 0   # the k-th publish replays its old
+                                     # generation (CRC-valid, stale)
+    live_writer_crash_after: int = 0  # crash after shard #k is durable,
+                                     # before its publish
+    live_shift_at_shard: int = 0     # appended shard #k on is shifted
+    serve_fail_reload: int = 0       # the j-th registry reload fails
     _cascade_fired: bool = False
     _io_reads: int = 0
     _io_fail_fired: bool = False
+    _live_publishes: int = 0
+    _live_appends: int = 0
+    _torn_fired: bool = False
+    _stale_fired: bool = False
+    _writer_crash_fired: bool = False
+    _serve_reloads: int = 0
 
     def any(self) -> bool:
         return bool(self.io_read_fail_once or self.io_corrupt_shard
                     or self.io_truncate_shard or self.io_slow_read_ms
-                    or self.cascade_stop_stage)
+                    or self.cascade_stop_stage or self.live_torn_publish
+                    or self.live_stale_generation
+                    or self.live_writer_crash_after
+                    or self.live_shift_at_shard or self.serve_fail_reload)
 
     def io_read_begin(self, shard_idx: int) -> None:
         """Called as a shard read starts: applies the slow-read latency
@@ -97,6 +136,57 @@ class FaultPlan:
         read, like corruption)."""
         return bool(self.io_truncate_shard
                     and shard_idx + 1 == self.io_truncate_shard)
+
+    # -- live shard-log injection points (data/live.py), one writer loop
+
+    def live_append_begin(self) -> bool:
+        """Counted per durable appended shard, before its publish. True
+        exactly once, when the writer should crash with the shard on disk
+        but unpublished (the orphan-shard model)."""
+        self._live_appends += 1
+        if (self.live_writer_crash_after and not self._writer_crash_fired
+                and self._live_appends >= self.live_writer_crash_after):
+            self._writer_crash_fired = True
+            _log(f"crashing writer after appended shard "
+                 f"#{self._live_appends} (pre-publish)")
+            return True
+        return False
+
+    def live_publish_mode(self) -> str:
+        """Counted per manifest publish: "clean", "torn" (half the bytes
+        written non-atomically onto the manifest, then a crash) or
+        "stale" (CRC-valid bytes whose generation did not advance). Each
+        fires once."""
+        self._live_publishes += 1
+        if (self.live_torn_publish and not self._torn_fired
+                and self._live_publishes >= self.live_torn_publish):
+            self._torn_fired = True
+            _log(f"tearing manifest publish #{self._live_publishes}")
+            return "torn"
+        if (self.live_stale_generation and not self._stale_fired
+                and self._live_publishes >= self.live_stale_generation):
+            self._stale_fired = True
+            _log(f"replaying stale generation at publish "
+                 f"#{self._live_publishes}")
+            return "stale"
+        return "clean"
+
+    def live_shift_now(self, append_idx: int) -> bool:
+        """True when appended shard #(idx+1), and every later one, is
+        drawn from the shifted distribution."""
+        return bool(self.live_shift_at_shard
+                    and append_idx + 1 >= self.live_shift_at_shard)
+
+    def note_serve_reload(self) -> None:
+        """``ModelRegistry.reload``'s injection point: the j-th call in
+        this process raises."""
+        with _SERVE_LOCK:
+            self._serve_reloads += 1
+            n = self._serve_reloads
+            fire = self.serve_fail_reload and n == self.serve_fail_reload
+        if fire:
+            _log(f"failing serve reload #{n}")
+            raise InjectedFaultError(f"injected reload failure #{n}")
 
     def cascade_stop_now(self, stage: int) -> bool:
         """True exactly once, when the cascade has made the stage-k
@@ -130,7 +220,12 @@ def plan_from_env() -> Optional[FaultPlan]:
         io_corrupt_shard=_env_int("IO_CORRUPT_SHARD"),
         io_truncate_shard=_env_int("IO_TRUNCATE_SHARD"),
         io_slow_read_ms=_env_int("IO_SLOW_READ_MS"),
-        cascade_stop_stage=_env_int("CASCADE_STOP_STAGE"))
+        cascade_stop_stage=_env_int("CASCADE_STOP_STAGE"),
+        live_torn_publish=_env_int("LIVE_TORN_PUBLISH"),
+        live_stale_generation=_env_int("LIVE_STALE_GENERATION"),
+        live_writer_crash_after=_env_int("LIVE_WRITER_CRASH_AFTER"),
+        live_shift_at_shard=_env_int("LIVE_SHIFT_AT_SHARD"),
+        serve_fail_reload=_env_int("SERVE_FAIL_RELOAD"))
     return p if p.any() else None
 
 
@@ -159,3 +254,10 @@ def current() -> Optional[FaultPlan]:
         if _plan is not None:
             _log(f"active plan: {_plan}")
     return _plan
+
+
+def on_serve_reload() -> None:
+    """``serving/registry.ModelRegistry.reload``'s injection point."""
+    p = current()
+    if p is not None:
+        p.note_serve_reload()

@@ -373,17 +373,24 @@ def run_chunk_plain(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
 
 
 @contextlib.contextmanager
-def capture(graph: "torch.cuda.CUDAGraph"):
-    """``torch.cuda.graph(graph)`` with TF32 off, after a collection and
-    with Python's cycle collector held off until it ends: a collection
-    inside a capture can release the CUDA objects of dead cycles that
-    earlier code left, which may invalidate the capture (one capture in a
-    run of the 157 card tests was invalidated before this was added)."""
+def capture(graph: "torch.cuda.CUDAGraph", pool=None,
+            thread_local: bool = False):
+    """``torch.cuda.graph(graph, pool=pool)`` with TF32 off, after a
+    collection and with Python's cycle collector held off until it ends: a
+    collection inside a capture can release the CUDA objects of dead
+    cycles that earlier code left, which may invalidate the capture (one
+    capture in a run of the 157 card tests was invalidated before this was
+    added). ``pool`` shares one memory pool among graphs (the serving
+    engine's ladder). ``thread_local``: other threads may go on using the
+    card during the capture (a registry reload captures a new engine's
+    graphs while the old engine serves)."""
     gc.collect()
     enabled = gc.isenabled()
     gc.disable()
+    mode = "thread_local" if thread_local else "global"
     try:
-        with exact_f32(), torch.cuda.graph(graph):
+        with exact_f32(), torch.cuda.graph(graph, pool=pool,
+                                           capture_error_mode=mode):
             yield
     finally:
         if enabled:

@@ -1607,3 +1607,143 @@ def test_stream_default_device_without_cuda_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         primal.fit_approx_stream(st.ShardedDataset.open(sdir),
                                  SVMConfig(solver="approx-rff"))
+
+
+# --- the live log, the serving engine and the fleet on the card --------------
+
+def test_live_fit_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A live fit admitting two appended shards on the card against the
+    CPU on the same log: the same generation, the same stats reads (as a
+    frozen fit's), n_iter within 5%, decisions within 5e-3; no capture."""
+    from dpsvm_tpu_torch.approx import primal
+    from dpsvm_tpu_torch.data import live as lv
+    from dpsvm_tpu_torch.data import stream as st
+    from dpsvm_tpu_torch.models.svm import decision_function
+    x, _, sdir = _stream_dir(tmp_path, 2048, rows=512)
+    for s in (1, 2):
+        xa, ya = make_blobs(n=512, d=16, seed=40 + s)
+        lv.append_shard(sdir, xa, ya)
+    cfg = SVMConfig(solver="approx-rff", approx_dim=256, c=5.0,
+                    gamma=1.0 / 16, epsilon=1e-3, max_iter=20_000,
+                    chunk_iters=64)
+    out = {}
+    for where in (dev, "cpu"):
+        primal.reset_counts()
+        ds = st.ShardedDataset.open(sdir, at_generation=0)
+        m, r = primal.fit_approx_stream(ds, cfg, live=True, device=where)
+        out[str(where)] = (m, r, ds.generation, dict(primal.COUNTS))
+    (mg, rg, gg, cg), (mc, rc, gc, cc) = out.values()
+    assert gg == gc == 2 and rg.converged and rc.converged
+    assert cg["reads"] == -(-rg.n_iter // 64) and cg["captures"] == 0
+    assert abs(rg.n_iter - rc.n_iter) <= max(2, 0.05 * rc.n_iter)
+    dg = decision_function(mg, x, device=dev)
+    dc = decision_function(mc, x, device="cpu")
+    assert float(np.max(np.abs(dg - dc))) < 5e-3
+
+
+def _serve_model(n_sv=3000, d=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return SVMModel(x_sv=rng.standard_normal((n_sv, d)).astype(np.float32),
+                    alpha=rng.uniform(0.05, 1.0, n_sv).astype(np.float32),
+                    y_sv=np.where(rng.random(n_sv) < 0.5, -1,
+                                  1).astype(np.int32),
+                    b=0.1, gamma=1.0 / d)
+
+
+@pytest.mark.parametrize("kind", ["sv", "rff"])
+def test_engine_captures_a_graph_a_bucket_and_holds_the_contract(dev, kind):
+    """One capture a bucket at warmup, none across mixed sizes after it;
+    every answer bitwise ``decision_function`` on the same block; across
+    request sizes within 1e-5 of the block's max |decision| (cuBLAS may
+    pick another algorithm by the row count: ROADMAP Queue 3)."""
+    from dpsvm_tpu_torch.serving import engine as E
+    if kind == "sv":
+        model = _serve_model()
+        from dpsvm_tpu_torch.models.svm import decision_function
+    else:
+        from dpsvm_tpu_torch.approx.model import decision_function
+        from dpsvm_tpu_torch.approx.primal import fit_approx
+        xb, yb = make_blobs(n=600, d=64, seed=4)
+        model, _ = fit_approx(xb, yb, SVMConfig(
+            solver="approx-rff", approx_dim=512, c=5.0, epsilon=1e-3),
+            device=dev)
+    E.reset_counts()
+    engine = E.PredictionEngine(model, max_batch=64, device=dev)
+    assert engine.warmup_captures == len(engine.buckets) == 7
+    assert E.COUNTS["captures"] == 7
+    rng = np.random.default_rng(5)
+    worst = 0.0
+    for s in list(range(1, 70)) + [130, 200]:
+        q = rng.standard_normal((s, 64)).astype(np.float32)
+        out = engine.decision_values(q)
+        for lo, take, bucket in engine._ladder.plan(s):
+            block = np.zeros((bucket, 64), np.float32)
+            block[:take] = q[lo:lo + take]
+            want = decision_function(model, block, device=dev)[:take]
+            assert np.array_equal(out[lo:lo + take].view(np.int32),
+                                  want.view(np.int32)), (s, bucket)
+        direct = decision_function(model, q, device=dev)
+        worst = max(worst, float(np.max(np.abs(out - direct)))
+                    / float(np.max(np.abs(direct))))
+    assert E.COUNTS["captures"] == 7 and E.COUNTS["replays"] > 0
+    assert worst <= 1e-5, worst
+
+
+def test_sharded_decider_over_cuda_twice(dev):
+    from dpsvm_tpu_torch.serving import engine as E
+    from dpsvm_tpu_torch.serving.sharded import ShardedDecider
+    model = _serve_model(n_sv=2049)
+    sd = ShardedDecider(model, devices=[dev, dev])
+    q = np.random.default_rng(6).standard_normal((64, 64)).astype(
+        np.float32)
+    got = sd(q).cpu().numpy()
+    assert np.array_equal(got.view(np.int32),
+                          sd.reference(q).cpu().numpy().view(np.int32))
+    lad = E.PredictionEngine(model, max_batch=64,
+                             device=dev).decision_values(q)
+    assert float(np.max(np.abs(got - lad))) <= 1e-5 * float(
+        np.max(np.abs(lad)))
+
+
+def test_paging_out_frees_the_device_bytes(dev, tmp_path):
+    """A dedicated engine's operands and graphs go with its page-out: the
+    allocated device bytes fall by at least its operand bytes."""
+    import gc
+    from dpsvm_tpu_torch.approx.model import save_approx_model
+    from dpsvm_tpu_torch.approx.primal import fit_approx
+    from dpsvm_tpu_torch.fleet.modelcache import ModelCache
+    from dpsvm_tpu_torch.observability.metrics import MetricsRegistry
+    from dpsvm_tpu_torch.serving.registry import ModelRegistry
+    xb, yb = make_blobs(n=600, d=64, seed=4)
+    model, _ = fit_approx(xb, yb, SVMConfig(
+        solver="approx-rff", approx_dim=4096, c=5.0, epsilon=1e-3),
+        device=dev)
+    path = str(tmp_path / "a.npz")
+    save_approx_model(model, path)
+    reg = ModelRegistry()
+    reg.register("a", path, lazy=True)
+    cache = ModelCache(reg, budget=2, max_batch=64,
+                       metrics=MetricsRegistry())
+    q = xb[:5]
+    cache.infer("a", q)
+    engine = cache._resident["a"].engine
+    held = engine.device_bytes()
+    assert engine.captured == 7 and held > 0
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    assert cache.evict("a") and engine.device_bytes() == 0
+    del engine
+    gc.collect()
+    torch.cuda.synchronize()
+    assert before - torch.cuda.memory_allocated() >= held
+    assert cache.resident_bytes() == 0
+
+
+def test_engine_default_device_without_cuda_raises(monkeypatch):
+    """``PredictionEngine(device=None)`` means the card: without CUDA it
+    raises, it never moves to the CPU (the CUDA check is stubbed off)."""
+    from dpsvm_tpu_torch.serving.engine import PredictionEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PredictionEngine(_serve_model(n_sv=8, d=4))

@@ -51,10 +51,16 @@ def test_no_jax_import(path):
 @pytest.mark.parametrize("rel", ["native/__init__.py", "native/build.py",
                                  "observability/metrics.py",
                                  "data/stream.py", "data/convert.py",
-                                 "data/scale.py", "data/__init__.py"])
+                                 "data/scale.py", "data/__init__.py",
+                                 "data/live.py", "serving/__init__.py",
+                                 "serving/engine.py", "serving/batcher.py",
+                                 "serving/budget.py", "serving/registry.py",
+                                 "serving/sharded.py", "fleet/__init__.py",
+                                 "fleet/packer.py", "fleet/modelcache.py",
+                                 "fleet/grid.py"])
 def test_the_host_layers_are_scanned_and_import_no_jax(rel):
-    """The data layer's modules are among the scanned sources, and the
-    native helper builds the port's own copy of the C++ source."""
+    """The data, serving and fleet modules are among the scanned sources,
+    and the native helper builds the port's own copy of the C++ source."""
     path = PORT / rel
     assert path in _sources()
     assert not [m for m in _imports(path) if _forbidden(m)]

@@ -28,8 +28,9 @@ Bars, and why:
   violators, kept rows within 1%, n_sv within 2% or 3, accuracy within
   one example);
 * the CLI's ``convert``, ``train`` and ``test`` on shards, ``scale``, the
-  refusals (``live=True``, ``shards != 1``, ``solver="exact"``) and the
-  data selfcheck.
+  refusals (a frozen resume of a live checkpoint, ``shards != 1``,
+  ``solver="exact"``) and the data selfcheck (the live log's own tests are
+  ``tests/test_torch_live.py``).
 """
 
 import dataclasses
@@ -650,15 +651,28 @@ def test_refusals_match_jax(tmp_path, kw, task, exc):
 
 @pytest.mark.parametrize("how", ["argument", "config"])
 def test_live_is_refused_naming_its_item(tmp_path, how):
+    """live=True (by argument or by config) trains the directory as a live
+    log since the live shard log was ported; what stays refused, naming
+    "live", is a frozen resume of a live run's checkpoint (and JAX refuses
+    the same checkpoint the same way)."""
     _x, _y, _src, sdir = _make(tmp_path)
-    ds = tstream.ShardedDataset.open(sdir)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        if how == "argument":
-            tprimal.fit_approx_stream(ds, SVMConfig(solver="approx-rff"),
-                                      live=True, device=CPU)
-        else:
-            tprimal.fit_approx_stream(
-                ds, SVMConfig(solver="approx-rff", live=True), device=CPU)
+    ck = str(tmp_path / "live_ck.npz")
+    kw = dict(solver="approx-rff", approx_dim=32, epsilon=1e-9, max_iter=32,
+              chunk_iters=32, checkpoint_path=ck, checkpoint_every=32)
+    if how == "argument":
+        tprimal.fit_approx_stream(tstream.ShardedDataset.open(sdir),
+                                  SVMConfig(**kw), live=True, device=CPU)
+    else:
+        tprimal.fit_approx_stream(tstream.ShardedDataset.open(sdir),
+                                  SVMConfig(live=True, **kw), device=CPU)
+    resume = dict(kw, max_iter=64, checkpoint_path=None, checkpoint_every=0,
+                  resume_from=ck)
+    with pytest.raises(ValueError, match="live"):
+        tprimal.fit_approx_stream(tstream.ShardedDataset.open(sdir),
+                                  SVMConfig(**resume), device=CPU)
+    with pytest.raises(ValueError, match="live"):
+        jprimal.fit_approx_stream(jstream.ShardedDataset.open(sdir),
+                                  JConfig(**resume))
 
 
 def test_raise_policy_fails_fast(tmp_path):
