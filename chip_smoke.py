@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only stream         # build + the data layer
     python3 chip_smoke.py --only live           # build + the live shard log
     python3 chip_smoke.py --only serve          # build + serving and the fleet
+    python3 chip_smoke.py --only stack          # build + the serving stack
 
 Host text that only checks a file format (the model files of phases 3, 5
 and 9, phase 8's one-vs-one directory) is written and read back by
@@ -229,7 +230,34 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    ``model_bytes_est``); (h) ``train_grid`` on SWEEP_CS x SWEEP_GS over
    SWEEP_SMALL_N planted rows with the cascade polish, against
    ``sequential_grid_seconds`` (kernel A), the speedup;
-15. time each kernel on its path (kernel A: CUDA events over a chunk of
+15. the serving stack (``stack``: ``serving/server``, ``pool``,
+   ``frontdoor``, ``fairqueue``, ``loadgen``, ``lifecycle``, the CLI), on
+   phase 3's fused model (its file reused; trained here when the phase
+   runs alone): (a) ``ServingServer(replicas=2)`` on the card,
+   STACK_WORKERS closed-loop clients sending 1 to STACK_MAX_ROWS held-out
+   rows: every 200 bitwise ``decision_function`` on the request's rows, no
+   capture after the boot's, the Prometheus exposition valid, a serving
+   trace sampled at STACK_SAMPLE valid with ``queue_wait`` and
+   ``device_dispatch`` spans; ``run_loadgen``'s rows/s, p50/p99 and
+   requests a batch; (b) chaos on a 3-replica pool (deadline
+   STACK_DEADLINE_S): a wedged replica gives exactly one 504, then eject
+   -> rebuild -> closed with no stray capture; a NaN-poisoned replica is
+   ejected on its first output and nothing fails; a slowed primary is
+   hedged (``hedge="auto"``) and the answer is bitwise either replica's;
+   every accepted request a 200 or a 504; (c) ``AsyncFrontDoor`` over the
+   same artifact: bitwise the threaded server, STACK_IDLE_CONNS idle
+   keep-alive connections held while 8 workers carry the traffic, gold
+   (weight 8) against bronze (1) both saturating, the served ratio within
+   10% of 8:1, and ``drr_schedule`` exact; (d) ``run_saturate`` from 25
+   req/s by 2x to the 50 ms p99 knee, and the shed ladder answering from
+   phase 11 (a)'s approx sibling (trained here when alone) past its
+   threshold, bitwise the sibling; (e) ``cli serve`` and ``cli loadgen``
+   in subprocesses, the row naming the card and landing in the scratch
+   ledger, and a SIGTERM under load drained with every accepted request
+   answered and exit 0; (f) ``live_drift_drill`` at width D: drift fires,
+   the warm-started refresh promotes generation 2 with no ejection and
+   the shifted held-out accuracy above the floor;
+16. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
@@ -319,7 +347,8 @@ OVO_WARM_STEPS, OVO_TIMED_STEPS = 512, 256
 # defaults (C = 1, p = 0.1) on a target smooth in x (``Smoke.svr_targets``:
 # SVR_ANCHORS kernel bumps at seeded rows, unit variance, SVR_NOISE of
 # Gaussian noise), and on SVR_NOISY_N rows of the same target with
-# SVR_NOISY_NOISE of noise, where most rows are SVs; one-class at OC_NU;
+# SVR_NOISY_NOISE of noise, where most rows are SVs (cut from 20000 for
+# card time, PERF.md §4); one-class at OC_NU;
 # nu-SVC binary and one-vs-one at NUSVC_NU; nu-SVR at NUSVR_NU, a prefix
 # at full width and converged on NUSVR_SMALL_N rows (cut from 8000 for
 # card time, PERF.md §4); nu one-vs-one on
@@ -327,7 +356,7 @@ OVO_WARM_STEPS, OVO_TIMED_STEPS = 512, 256
 # against its eager loop for NU_GRAPH_ITERS iterations.
 TASK_N = 60000
 SVR_C, SVR_P, SVR_ANCHORS, SVR_NOISE = 1.0, 0.1, 64, 0.05
-SVR_NOISY_N, SVR_NOISY_NOISE = 20000, 0.2
+SVR_NOISY_N, SVR_NOISY_NOISE = 10000, 0.2
 OC_NU, NUSVC_NU, NUSVR_NU = 0.1, 0.2, 0.5
 NUSVR_PREFIX, NUSVR_SMALL_N = 2000, 5000
 NU_MC_N = 10000
@@ -360,13 +389,14 @@ APPROX_PROFILE_STEPS = 256
 # 148 s, PERF.md); shards of STREAM_SHARD_ROWS rows; STREAM_STEPS
 # streaming steps held to the in-memory steps, within STREAM_W_RTOL of
 # max|w| (float32 partial sums in shard order against one product, over
-# 64 momentum steps); the converged streaming fit's wall budget under
+# the momentum steps; cut from 64 for card time, PERF.md §4); the
+# converged streaming fit's wall budget under
 # --stream-converge; the drills' rows and shard size (8 shards, so one
 # quarantined shard stays under the 25% bad-fraction bound).
 STREAM_LIBSVM_ROWS = 30_000
 STREAM_FALLBACK_ROWS = 10_000
 STREAM_SHARD_ROWS = 4096
-STREAM_STEPS = 64
+STREAM_STEPS = 32
 STREAM_PROFILE_STEPS = 8
 STREAM_W_RTOL = 1e-5
 STREAM_CONVERGE_S = 60.0
@@ -419,10 +449,103 @@ SERVE_XSIZE_RTOL = 1e-5
 # max |decision| measured on the card; ROADMAP Queue 3), where the tests'
 # sizes hold 1e-5; bitwise against its own one-device reference.
 SERVE_FOLD_RTOL = 1e-4
+# The serving stack (phase 15): requests of 1 to STACK_MAX_ROWS held-out
+# rows, STACK_REQUESTS of them checked bitwise from STACK_WORKERS
+# closed-loop clients, and STACK_LOADGEN_REQS loadgen requests of
+# STACK_LOADGEN_ROWS rows; the trace's sample rate; the chaos pools' ladder
+# top, deadline and the hedge drill's slowed compute; the idle keep-alive
+# connections the front door holds; the fairness window: clients a tenant,
+# rows a request (also the DRR quantum, so a round is 8 gold requests and
+# 1 bronze), the device held to STACK_FAIR_SLOW_MS a batch (at full width
+# the card answers a batch in ~0.1 ms, and the host's JSON, ~160 requests
+# a second in one process, would hold the backlog instead of the lanes),
+# the front door's rows in flight (a batch of 16 requests, so ~100 a
+# second are served), warm-up and window seconds; the saturation
+# ramp and its requests a step; the shed server's queue bound and slowed
+# compute; the drift drill's shards and step cap (a streamed step reads
+# every shard from disk, ~15 ms of host a shard).
+STACK_MAX_ROWS, STACK_REQUESTS, STACK_WORKERS = 64, 80, 8
+STACK_LOADGEN_REQS, STACK_LOADGEN_ROWS = 120, 16
+STACK_SAMPLE = 0.25
+STACK_CHAOS_BATCH, STACK_DEADLINE_S, STACK_HEDGE_SLOW_MS = 64, 1.0, 1000
+STACK_IDLE_CONNS = 1000
+STACK_FAIR_WORKERS, STACK_FAIR_ROWS, STACK_FAIR_SLOW_MS = 32, 8, 160
+STACK_FAIR_INFLIGHT, STACK_FAIR_WARM_S, STACK_FAIR_S = 128, 1.0, 3.0
+STACK_SAT_START, STACK_SAT_STEPS, STACK_SAT_P99_MS = 25.0, 8, 50.0
+STACK_SAT_STEP_REQS = 40
+STACK_SHED_QUEUE, STACK_SHED_SLOW_MS = 256, 50
+STACK_DRILL_ROWS, STACK_DRILL_SEED, STACK_DRILL_SHIFTED = 4096, 4, 2
+STACK_DRILL_STEPS = 60
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _http_post(url: str, payload, headers=None, timeout: float = 60.0):
+    """(status, JSON body) of a POST; an HTTP error status is returned,
+    a transport error raised."""
+    import urllib.error
+    import urllib.request
+    data = (payload if isinstance(payload, bytes)
+            else json.dumps(payload).encode())
+    req = urllib.request.Request(
+        url, data=data, method="POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        body = e.read()
+        return e.code, (json.loads(body) if body else {})
+
+
+def _http_get(url: str, timeout: float = 30.0):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+def _stack_jobs(rng, n: int, n_rows: int):
+    """n (row offset, rows) requests of 1 to STACK_MAX_ROWS rows."""
+    sizes = rng.integers(1, STACK_MAX_ROWS + 1, n)
+    offs = rng.integers(0, n_rows - STACK_MAX_ROWS, n)
+    return [(int(o), int(s)) for o, s in zip(offs, sizes)]
+
+
+def _fire(url: str, jobs, x, workers: int, want=("decision",)):
+    """(status, body) of each job's POST /v1/predict from ``workers``
+    closed-loop threads; a transport error is (-1, {"error": ...})."""
+    import threading
+    out = [None] * len(jobs)
+    nxt, lock = iter(range(len(jobs))), threading.Lock()
+
+    def run():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            o, s = jobs[i]
+            try:
+                out[i] = _http_post(url + "/v1/predict",
+                                    {"instances": x[o:o + s].tolist(),
+                                     "return": list(want)})
+            except Exception as e:
+                out[i] = (-1, {"error": repr(e)})
+
+    ths = [threading.Thread(target=run) for _ in range(workers)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    return out
+
+
+def _bits(got, want) -> bool:
+    g, w = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return g.shape == w.shape and np.array_equal(g.view(np.int32),
+                                                 w.view(np.int32))
 
 
 def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
@@ -4671,6 +4794,714 @@ class Smoke:
         log(f"[serve] (h) C x gamma grid {SWEEP_SMALL_N}x784: "
             f"{json.dumps(r)}")
 
+    # ------------------------------------------------------------ phase 15
+    def stack(self) -> None:
+        """The serving stack (module docstring, phase 15) on phase 3's fused
+        model. Decisions are computed in row tiles of one shape, so a row's
+        bits do not depend on the request or batch it rides in: one
+        ``decision_function`` over the held-out rows is every request's
+        reference."""
+        import resource
+        from dpsvm_tpu_torch.models.io import load_model
+        from dpsvm_tpu_torch.models.svm import decision_function
+        self.rec["stack"] = {}
+        # every perf-ledger append of this phase, in this process and the
+        # ones it starts, lands in the scratch directory
+        os.environ["DPSVM_PERF_LEDGER"] = os.path.join(self.scratch,
+                                                       "perf_ledger.jsonl")
+        # the front door's idle connections and the clients' ends of them
+        soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+        want = 4 * STACK_IDLE_CONNS + 4096
+        if soft < want:
+            top = (want if hard == resource.RLIM_INFINITY
+                   else min(want, hard))
+            resource.setrlimit(resource.RLIMIT_NOFILE, (top, hard))
+        secs = self.rec["stack"]["seconds"] = {}
+
+        def timed(part, fn, *args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                secs[part] = time.perf_counter() - t
+
+        _, path = timed("model", self._serve_model)
+        # (e)'s server boots and (f)'s drill runs in processes of their own
+        # beside (a)-(d): their host work (interpreter and CUDA start, the
+        # 87.8 MB model text, shard reads) overlaps the in-process parts
+        started = time.perf_counter()
+        serve = self._stack_serve_start(path)
+        drill = self._stack_drill_start()
+        try:
+            _, _, xte, _ = self.planted()
+            # the file's model: (a), (c) and (e) load the file, (b) and
+            # (d) register it in memory (their boots and rebuilds skip
+            # the 87.8 MB text)
+            self._stack_model = load_model(path)
+            ref = decision_function(self._stack_model, xte)
+            thr = timed("a", self.stack_threaded, path, xte, ref)
+            try:
+                timed("b", self.stack_chaos, path, xte, ref, thr)
+                timed("c", self.stack_front_door, path, xte, ref, thr)
+                timed("d", self.stack_saturate, thr, path, xte, ref)
+            finally:
+                thr.drain(timeout=30.0)
+            self.stack_trace()
+            timed("e", self.stack_cli, serve)
+            timed("f", self.stack_lifecycle, drill)
+        finally:
+            for proc in (serve["proc"], drill["proc"]):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        secs["e_f_processes_from_start"] = time.perf_counter() - started
+        log(f"[stack] seconds by part: {json.dumps(secs)}")
+
+    def stack_threaded(self, path, xte, ref):
+        """(a) ``ServingServer(replicas=2)``: bitwise answers over HTTP, no
+        capture after the boot, a valid exposition; loadgen's numbers.
+        Returns the running server ((c) and (d) use it)."""
+        from dpsvm_tpu_torch.observability.metrics import validate_exposition
+        from dpsvm_tpu_torch.serving import engine as E
+        from dpsvm_tpu_torch.serving.loadgen import run_loadgen
+        from dpsvm_tpu_torch.serving.registry import ModelRegistry
+        from dpsvm_tpu_torch.serving.server import ServingServer
+        self._stack_trace_path = os.path.join(self.scratch,
+                                              "stack_trace.jsonl")
+        t = time.perf_counter()
+        reg = ModelRegistry()
+        reg.register("default", path, max_batch=SERVE_MAX_BATCH)
+        srv = ServingServer(reg, port=0, replicas=2,
+                            max_batch=SERVE_MAX_BATCH,
+                            trace_out=self._stack_trace_path,
+                            trace_sample_rate=STACK_SAMPLE).start()
+        boot_s = time.perf_counter() - t
+        caps = E.COUNTS["captures"]
+        jobs = _stack_jobs(np.random.default_rng(15), STACK_REQUESTS,
+                           len(xte))
+        t = time.perf_counter()
+        res = _fire(srv.url, jobs, xte, STACK_WORKERS)
+        fire_s = time.perf_counter() - t
+        not_bitwise = sum(1 for (c, b), (o, s) in zip(res, jobs)
+                          if c != 200 or not _bits(b["decision"],
+                                                   ref[o:o + s]))
+        lg = run_loadgen(srv.url, xte[:4096], requests=STACK_LOADGEN_REQS,
+                         batch=STACK_LOADGEN_ROWS, concurrency=STACK_WORKERS,
+                         want=("decision",), timeout=60.0)
+        code, text = _http_get(srv.url + "/metricsz?format=prometheus")
+        grammar = validate_exposition(text)
+        mm = srv.metrics()["models"]["default"]
+        r = {"boot_seconds": boot_s, "requests": len(jobs),
+             "not_bitwise_or_failed": not_bitwise,
+             "bitwise_pass_seconds": fire_s,
+             "rows": int(sum(s for _, s in jobs)),
+             "stray_captures": srv.pool("default").stray_compiles(),
+             "captures_after_boot": E.COUNTS["captures"] - caps,
+             "exposition_status": code, "exposition_problems": grammar[:5],
+             "loadgen": {k: lg[k] for k in (
+                 "requests", "batch", "concurrency", "errors",
+                 "throughput_rps", "examples_per_sec", "p50_ms", "p95_ms",
+                 "p99_ms")},
+             "batches": mm["batches"], "batched_requests": mm["requests"],
+             "requests_a_batch": mm["requests"] / max(mm["batches"], 1)}
+        ok = (not_bitwise == 0 and r["stray_captures"] == 0
+              and r["captures_after_boot"] == 0 and code == 200
+              and not grammar and lg["errors"] == 0)
+        if not ok:
+            self.fail("stack", f"(a) threaded server: {json.dumps(r)}")
+        self.rec["stack"]["a"] = r
+        log(f"[stack] (a) threaded server, 2 replicas: {json.dumps(r)}")
+        return srv
+
+    def stack_trace(self) -> None:
+        """(a) the serving trace the threaded server closed at its drain:
+        valid under the schema, with queue_wait and device_dispatch
+        spans."""
+        from dpsvm_tpu_torch.observability.schema import (read_trace,
+                                                          validate_trace)
+        recs = read_trace(self._stack_trace_path)
+        errs = validate_trace(recs)
+        names = {}
+        for rec in recs:
+            if rec.get("kind") == "span":
+                names[rec.get("name")] = names.get(rec.get("name"), 0) + 1
+        r = {"records": len(recs), "problems": errs[:5], "spans": names}
+        if errs or not names.get("queue_wait") or not names.get(
+                "device_dispatch"):
+            self.fail("stack", f"(a) serving trace: {json.dumps(r)}")
+        self.rec["stack"]["trace"] = r
+        log(f"[stack] (a) serving trace at {STACK_SAMPLE}: {json.dumps(r)}")
+
+    def _stack_recover(self, srv, xte, ref, rng, n, out) -> float:
+        """Single requests until the pool's ``n`` circuits are closed (60 s
+        at most), each (status, bitwise) appended to ``out``; the
+        seconds it took."""
+        pool = srv.pool("default")
+        t = time.perf_counter()
+        while (pool.replica_states() != ["closed"] * n
+               and time.perf_counter() - t < 60.0):
+            (o, s), = _stack_jobs(rng, 1, len(xte))
+            c, b = _fire(srv.url, [(o, s)], xte, 1)[0]
+            out.append((c, c == 200 and _bits(b["decision"],
+                                              ref[o:o + s])))
+            time.sleep(0.02)
+        return time.perf_counter() - t
+
+    def stack_chaos(self, path, xte, ref, thr) -> None:
+        """(b) a wedged replica and a poisoned one on a 3-replica pool, and
+        a slowed primary hedged on (a)'s 2-replica pool, its latency window
+        warm from (a)'s traffic (fault points of
+        ``resilience/faultinject``)."""
+        from dpsvm_tpu_torch.resilience import faultinject as fi
+        from dpsvm_tpu_torch.serving.registry import ModelRegistry
+        from dpsvm_tpu_torch.serving.server import ServingServer
+        rng = np.random.default_rng(16)
+        prior = fi.current()
+        seen, r = [], {}
+        reg = ModelRegistry()
+        reg.register("default", model=self._stack_model,
+                     max_batch=STACK_CHAOS_BATCH)
+        t = time.perf_counter()
+        srv = ServingServer(reg, port=0, replicas=3,
+                            max_batch=STACK_CHAOS_BATCH,
+                            predict_timeout=STACK_DEADLINE_S).start()
+        r["boot_seconds"] = time.perf_counter() - t
+        try:
+            pool = srv.pool("default")
+            # wedge: replica #1 blocks at the pool's 4th compute
+            fi.reset_serve_wedge()
+            fi.install(fi.FaultPlan(serve_wedge_replica=1,
+                                    serve_wedge_after=4))
+            jobs = _stack_jobs(rng, 12, len(xte))
+            res = _fire(srv.url, jobs, xte, 1)
+            wedge = [(c, c == 200 and _bits(b["decision"], ref[o:o + s]))
+                     for (c, b), (o, s) in zip(res, jobs)]
+            rec_s = self._stack_recover(srv, xte, ref, rng, 3, wedge)
+            ev = [e["event"] for e in pool.events]
+            r["wedge"] = {
+                "requests": len(wedge),
+                "n_504": sum(1 for c, _ in wedge if c == 504),
+                "n_200_bitwise": sum(1 for c, ok in wedge
+                                     if c == 200 and ok),
+                "events": ev, "states": pool.replica_states(),
+                "recovery_seconds": rec_s,
+                "stray_captures": pool.stray_compiles()}
+            seen += wedge
+            w = r["wedge"]
+            ok_w = (w["n_504"] == 1 and w["n_200_bitwise"] == len(wedge) - 1
+                    and ev[:2] == ["eject", "rebuild"]
+                    and w["states"] == ["closed"] * 3
+                    and w["stray_captures"] == 0)
+            # poison: the replica serving the 3rd compute answers NaN
+            mark = len(pool.events)
+            fi.install(fi.FaultPlan(serve_nan_after=3))
+            jobs = _stack_jobs(rng, 24, len(xte))
+            res = _fire(srv.url, jobs, xte, STACK_WORKERS)
+            poison = [(c, c == 200 and _bits(b["decision"], ref[o:o + s]))
+                      for (c, b), (o, s) in zip(res, jobs)]
+            rec_s = self._stack_recover(srv, xte, ref, rng, 3, poison)
+            evp = list(pool.events)[mark:]
+            ejects = [e for e in evp if e["event"] == "eject"]
+            r["poison"] = {
+                "requests": len(poison),
+                "failed": sum(1 for c, ok in poison if not ok),
+                "events": [[e["event"], e.get("reason")] for e in evp],
+                "states": pool.replica_states(),
+                "recovery_seconds": rec_s,
+                "stray_captures": pool.stray_compiles()}
+            seen += poison
+            p = r["poison"]
+            ok_p = (p["failed"] == 0 and len(ejects) == 1
+                    and ejects[0]["reason"] == "nonfinite outputs"
+                    and p["states"] == ["closed"] * 3
+                    and p["stray_captures"] == 0)
+        finally:
+            fi.release_serve_wedge()
+            fi.install(prior)
+            srv.drain(timeout=30.0)
+            fi.reset_serve_wedge()
+        # hedging: one compute slowed, the p99-based delay
+        poolh = thr.pool("default")
+        pm0 = poolh.metrics()
+        poolh.hedge = "auto"
+        try:
+            fi.install(fi.FaultPlan(serve_slow_replica_ms=STACK_HEDGE_SLOW_MS,
+                                    serve_slow_for=1))
+            (o, s), = _stack_jobs(rng, 1, len(xte))
+            t = time.perf_counter()
+            c, b = _fire(thr.url, [(o, s)], xte, 1)[0]
+            hedge_ms = 1e3 * (time.perf_counter() - t)
+            fi.install(prior)
+            pm = {k: poolh.metrics()[k] - pm0[k]
+                  for k in ("hedges_fired", "hedges_won")}
+            q = xte[o:o + s]
+            per = [rep.engine.decision_values(q) for rep in poolh._replicas]
+            seen.append((c, c == 200))
+            r["hedge"] = {"status": c, "ms": hedge_ms,
+                          "slowed_ms": STACK_HEDGE_SLOW_MS,
+                          "hedges_fired": pm["hedges_fired"],
+                          "hedges_won": pm["hedges_won"],
+                          "answer_bitwise_each_replica": bool(
+                              c == 200 and all(_bits(b["decision"], v)
+                                               for v in per)),
+                          "answer_bitwise_reference": bool(
+                              c == 200 and _bits(b["decision"],
+                                                 ref[o:o + s]))}
+            h = r["hedge"]
+            ok_h = (c == 200 and h["hedges_fired"] >= 1
+                    and h["hedges_won"] >= 1
+                    and h["answer_bitwise_each_replica"]
+                    and h["answer_bitwise_reference"]
+                    and hedge_ms < STACK_HEDGE_SLOW_MS)
+        finally:
+            fi.install(prior)
+            poolh.hedge = "off"
+        codes = sorted({c for c, _ in seen})
+        r["availability"] = {"accepted": len(seen), "codes": codes,
+                             "pct_200_or_504": 100.0 * sum(
+                                 1 for c, _ in seen if c in (200, 504))
+                             / len(seen)}
+        ok = ok_w and ok_p and ok_h and set(codes) <= {200, 504}
+        if not ok:
+            self.fail("stack", f"(b) chaos: {json.dumps(r)}")
+        self.rec["stack"]["b"] = r
+        log(f"[stack] (b) chaos: {json.dumps(r)}")
+
+    def stack_front_door(self, path, xte, ref, thr) -> None:
+        """(c) ``AsyncFrontDoor`` over the same artifact: bitwise the
+        threaded server, idle keep-alive connections held, the weighted
+        fair share under saturation, the DRR schedule exact."""
+        from dpsvm_tpu_torch.resilience import faultinject as fi
+        from dpsvm_tpu_torch.serving.fairqueue import drr_schedule
+        from dpsvm_tpu_torch.serving.frontdoor import AsyncFrontDoor
+        from dpsvm_tpu_torch.serving.loadgen import run_loadgen
+        from dpsvm_tpu_torch.serving.registry import ModelRegistry
+        from dpsvm_tpu_torch.serving.server import ServingServer
+        weights = {"gold": 8.0, "bronze": 1.0}
+        rng = np.random.default_rng(17)
+        r = {}
+        reg = ModelRegistry()
+        reg.register("default", path, max_batch=SERVE_MAX_BATCH)
+        fd = AsyncFrontDoor(
+            ServingServer(reg, port=0, max_batch=SERVE_MAX_BATCH),
+            tenant_weights=weights, quantum=STACK_FAIR_ROWS,
+            inflight_rows=STACK_FAIR_INFLIGHT,
+            max_connections=4 * STACK_IDLE_CONNS).start()
+        prior = fi.current()
+        try:
+            jobs = _stack_jobs(rng, 24, len(xte))
+            a = _fire(fd.url, jobs, xte, STACK_WORKERS)
+            b = _fire(thr.url, jobs, xte, STACK_WORKERS)
+            r["bitwise_threaded"] = sum(
+                1 for (ca, ba), (cb, bb), (o, s) in zip(a, b, jobs)
+                if ca == cb == 200 and _bits(ba["decision"], bb["decision"])
+                and _bits(ba["decision"], ref[o:o + s]))
+            r["requests"] = len(jobs)
+            idle = run_loadgen(fd.url, xte[:4096], requests=STACK_LOADGEN_REQS,
+                               batch=STACK_LOADGEN_ROWS,
+                               concurrency=STACK_WORKERS, want=("decision",),
+                               timeout=60.0, connections=STACK_IDLE_CONNS)
+            r["idle"] = {k: idle.get(k) for k in (
+                "open_connections", "requests", "errors", "throughput_rps",
+                "p50_ms", "p99_ms")}
+            # weighted fairness: both tenants saturating while the device
+            # answers a batch in STACK_FAIR_SLOW_MS
+            r["fair"] = self._stack_fair(fd, xte, rng, weights)
+        finally:
+            fi.install(prior)
+            fd.drain(timeout=30.0)
+        order = drr_schedule([("gold", 1)] * 80 + [("bronze", 1)] * 80,
+                             weights, quantum=8)
+        r["drr_gold_of_first_72"] = sum(1 for t, _ in order[:72]
+                                        if t == "gold")
+        fair = r["fair"]
+        ok = (r["bitwise_threaded"] == len(jobs)
+              and (r["idle"]["open_connections"] or 0) >= STACK_IDLE_CONNS
+              and r["idle"]["errors"] == 0
+              and all(min(v) > 0 for v in fair["queued_at_window_ends"]
+                      .values())
+              and abs(fair["ratio"] / 8.0 - 1.0) <= 0.10
+              and r["drr_gold_of_first_72"] == 64)
+        if not ok:
+            self.fail("stack", f"(c) front door: {json.dumps(r)}")
+        self.rec["stack"]["c"] = r
+        log(f"[stack] (c) async front door: {json.dumps(r)}")
+
+    def _stack_fair(self, fdf, xte, rng, weights) -> dict:
+        """STACK_FAIR_WORKERS keep-alive clients a tenant, each sending
+        STACK_FAIR_ROWS-row requests in a closed loop: the requests each
+        lane served over STACK_FAIR_S once both lanes hold a backlog."""
+        import http.client
+        import threading
+        from dpsvm_tpu_torch.resilience import faultinject as fi
+        offs = rng.integers(0, len(xte) - STACK_FAIR_ROWS, 16)
+        payload = [json.dumps({"instances": xte[o:o + STACK_FAIR_ROWS]
+                               .tolist(), "return": ["decision"]}).encode()
+                   for o in offs]
+        stop = threading.Event()
+        status = {"gold": {}, "bronze": {}}
+        lock = threading.Lock()
+
+        def client(tenant, k):
+            conn = http.client.HTTPConnection("127.0.0.1", fdf.port,
+                                              timeout=60)
+            i = k
+            try:
+                while not stop.is_set():
+                    conn.request("POST", "/v1/predict",
+                                 body=payload[i % len(payload)],
+                                 headers={"Content-Type": "application/json",
+                                          "X-Tenant": tenant})
+                    resp = conn.getresponse()
+                    resp.read()
+                    with lock:
+                        st = status[tenant]
+                        st[resp.status] = st.get(resp.status, 0) + 1
+                    i += 1
+            finally:
+                conn.close()
+
+        ths = [threading.Thread(target=client, args=(t, k))
+               for t in weights for k in range(STACK_FAIR_WORKERS)]
+        prior = fi.current()
+        fi.install(fi.FaultPlan(serve_slow_replica_ms=STACK_FAIR_SLOW_MS))
+        try:
+            for th in ths:
+                th.start()
+            time.sleep(STACK_FAIR_WARM_S)
+            l1 = fdf.stats()["fair_queue"]["lanes"]
+            time.sleep(STACK_FAIR_S)
+            l2 = fdf.stats()["fair_queue"]["lanes"]
+            stop.set()
+            fi.install(prior)
+            for th in ths:
+                th.join(60.0)
+        finally:
+            stop.set()
+            fi.install(prior)
+        served = {t: l2[t]["served"] - l1[t]["served"] for t in weights}
+        return {"served": served,
+                "queued_at_window_ends": {t: [l1[t]["depth"], l2[t]["depth"]]
+                                          for t in weights},
+                "ratio": served["gold"] / max(served["bronze"], 1),
+                "window_s": STACK_FAIR_S,
+                "status": {t: {str(k): v for k, v in st.items()}
+                           for t, st in status.items()}}
+
+    def stack_saturate(self, thr, path, xte, ref) -> None:
+        """(d) the open-loop ramp to the p99 knee on the threaded server,
+        and the shed ladder answering from the approx sibling."""
+        from dpsvm_tpu_torch import SVMConfig, fit, save_model
+        from dpsvm_tpu_torch.models.io import load_model
+        from dpsvm_tpu_torch.models.svm import decision_function
+        from dpsvm_tpu_torch.resilience import faultinject as fi
+        from dpsvm_tpu_torch.serving.loadgen import run_saturate
+        from dpsvm_tpu_torch.serving.registry import ModelRegistry
+        from dpsvm_tpu_torch.serving.server import ServingServer
+        sat = run_saturate(thr.url, xte[:4096],
+                           p99_target_ms=STACK_SAT_P99_MS,
+                           start_rps=STACK_SAT_START, rps_factor=2.0,
+                           max_steps=STACK_SAT_STEPS,
+                           step_requests=STACK_SAT_STEP_REQS,
+                           batch=STACK_LOADGEN_ROWS,
+                           concurrency=STACK_WORKERS, want=("decision",),
+                           timeout=30.0)
+        r = {"saturate": {k: sat.get(k) for k in (
+            "slo_met", "sustained_rps", "value", "p99_ms",
+            "availability_pct")},
+             "steps": [{k: st[k] for k in ("rps", "p99_ms",
+                                           "throughput_rps",
+                                           "availability_pct", "slo_met")}
+                       for st in sat["steps"]]}
+        model = self._approx_a
+        if model is None:
+            xtr, ytr, _, _ = self.planted()
+            model, _ = fit(xtr, ytr, SVMConfig(
+                solver="approx-rff", approx_dim=APPROX_D, c=C, gamma=GAMMA,
+                epsilon=1e-3))
+            self._approx_a = model
+        apath = os.path.join(self.scratch, "approx_sibling.npz")
+        save_model(model, apath)
+        ref_a = decision_function(load_model(apath), xte)
+        reg = ModelRegistry()
+        reg.register("default", model=self._stack_model,
+                     max_batch=STACK_CHAOS_BATCH)
+        reg.register("approx", model=load_model(apath),
+                     max_batch=STACK_CHAOS_BATCH)
+        srv = ServingServer(reg, port=0, max_batch=STACK_CHAOS_BATCH,
+                            max_queue=STACK_SHED_QUEUE,
+                            siblings={"default": "approx"}).start()
+        prior = fi.current()
+        fi.install(fi.FaultPlan(serve_slow_replica_ms=STACK_SHED_SLOW_MS))
+        try:
+            jobs = _stack_jobs(np.random.default_rng(18), 64, len(xte))
+            res = _fire(srv.url, jobs, xte, 32)
+            m = srv.metrics()
+        finally:
+            fi.install(prior)
+            srv.drain(timeout=30.0)
+        deg = [(b, o, s) for (c, b), (o, s) in zip(res, jobs)
+               if c == 200 and b.get("degraded")]
+        plain = [(b, o, s) for (c, b), (o, s) in zip(res, jobs)
+                 if c == 200 and not b.get("degraded")]
+        codes = {}
+        for c, _ in res:
+            codes[str(c)] = codes.get(str(c), 0) + 1
+        r["shed"] = {
+            "requests": len(jobs), "codes": codes,
+            "degraded": len(deg),
+            "markers": sorted({b["degraded"] for b, _, _ in deg}),
+            "degraded_bitwise_sibling": sum(
+                1 for b, o, s in deg if _bits(b["decision"],
+                                              ref_a[o:o + s])),
+            "plain_bitwise_model": sum(
+                1 for b, o, s in plain if _bits(b["decision"],
+                                                ref[o:o + s])),
+            "plain": len(plain), "shed_sibling": m["shed_sibling"]}
+        sh = r["shed"]
+        ok = (sat["slo_met"] and len(deg) >= 1
+              and sh["markers"] == ["sibling:approx"]
+              and sh["degraded_bitwise_sibling"] == len(deg)
+              and sh["plain_bitwise_model"] == len(plain)
+              and set(codes) <= {"200", "429"})
+        if not ok:
+            self.fail("stack", f"(d) saturation and shedding: "
+                               f"{json.dumps(r)}")
+        self.rec["stack"]["d"] = r
+        log(f"[stack] (d) saturation and shedding: {json.dumps(r)}")
+
+    def _stack_serve_start(self, path) -> dict:
+        """(e) ``cli serve`` started in a process of its own on the card,
+        with the perf ledger pointed at the scratch directory; the ledger
+        and git state it must leave alone, read first."""
+        import hashlib
+        root = os.path.dirname(os.path.abspath(__file__))
+        ledger = os.path.join(self.scratch, "perf_ledger.jsonl")
+        env = dict(os.environ, DPSVM_PERF_LEDGER=ledger,
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (root, os.environ.get("PYTHONPATH"))
+                       if p))
+        tracked = os.path.join(root, "benchmarks", "results",
+                               "perf_ledger.jsonl")
+        default_dir = os.path.join(root, "dpsvm_tpu_torch", "_ledger")
+
+        def digest():
+            if not os.path.exists(tracked):
+                return None
+            with open(tracked, "rb") as fh:
+                return hashlib.sha256(fh.read()).hexdigest()
+
+        def git_status():
+            if not os.path.isdir(os.path.join(root, ".git")):
+                return None
+            return subprocess.run(["git", "status", "--porcelain"],
+                                  cwd=root, capture_output=True,
+                                  text=True).stdout
+
+        def state():
+            return (digest(), os.path.exists(default_dir), git_status())
+
+        srv = {"root": root, "env": env, "ledger": ledger, "state": state,
+               "before": state(),
+               "port_file": os.path.join(self.scratch, "serve.port"),
+               "err_path": os.path.join(self.scratch, "serve.err"),
+               "t0": time.perf_counter()}
+        with open(srv["err_path"], "w") as err:
+            srv["proc"] = subprocess.Popen(
+                [sys.executable, "-m", "dpsvm_tpu_torch.cli", "serve", "-m",
+                 path, "--port", "0", "--port-file", srv["port_file"],
+                 "--max-batch", str(STACK_CHAOS_BATCH)], cwd=root, env=env,
+                stdout=subprocess.DEVNULL, stderr=err)
+        return srv
+
+    def _stack_drill_start(self) -> dict:
+        """(f) ``live_drift_drill`` at width D in a process of its own on
+        the card; it prints its row as its last line."""
+        root = os.path.dirname(os.path.abspath(__file__))
+        base = tempfile.mkdtemp(dir=self.scratch)
+        drill = {"trace": os.path.join(self.scratch, "drill_trace.jsonl"),
+                 "out": os.path.join(self.scratch, "drill.out"),
+                 "t0": time.perf_counter()}
+        code = (
+            "import json, time\n"
+            "t0 = time.perf_counter()\n"
+            "from dpsvm_tpu_torch.serving.lifecycle import live_drift_drill\n"
+            "print('imported in', time.perf_counter() - t0, flush=True)\n"
+            f"row = live_drift_drill({base!r}, d={D}, "
+            f"rows_per_shard={STACK_DRILL_ROWS}, "
+            f"seed_shards={STACK_DRILL_SEED}, "
+            f"append_shards={STACK_DRILL_SHIFTED}, approx_dim={APPROX_D}, "
+            f"max_iter={STACK_DRILL_STEPS}, holdout={STACK_DRILL_ROWS}, "
+            f"trace_path={drill['trace']!r}, ledger_path="
+            f"{os.path.join(self.scratch, 'drill_ledger.jsonl')!r})\n"
+            "print(json.dumps(row), flush=True)\n")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        with open(drill["out"], "w") as out:
+            drill["proc"] = subprocess.Popen(
+                [sys.executable, "-c", code], cwd=root, env=env,
+                stdout=out, stderr=subprocess.STDOUT)
+        return drill
+
+    def stack_cli(self, srv) -> None:
+        """(e) ``cli serve`` (started at the phase's start) and ``cli
+        loadgen`` in subprocesses on the card; a SIGTERM under load drains.
+        A client connection the listener never took (refused, or reset
+        when the listener closed) was not accepted; every request the
+        server counted must have reached its client: the drained process's
+        request and error counts against the 200s and 503s the clients
+        read."""
+        import signal
+        import threading
+        root, env, proc = srv["root"], srv["env"], srv["proc"]
+        port_file, err_path = srv["port_file"], srv["err_path"]
+        ledger = srv["ledger"]
+        r = {}
+        try:
+            while not (os.path.exists(port_file)
+                       and open(port_file).read().strip()):
+                if (proc.poll() is not None
+                        or time.perf_counter() - srv["t0"] > 300):
+                    raise RuntimeError("serve never wrote its port file: "
+                                       + open(err_path).read()[-2000:])
+                time.sleep(0.1)
+            r["serve_ready_seconds_from_start"] = (time.perf_counter()
+                                                   - srv["t0"])
+            r["serve_log"] = [ln for ln in open(err_path).read()
+                              .splitlines() if "HTTP/1.1" not in ln][:4]
+            url = f"http://127.0.0.1:{int(open(port_file).read())}"
+            t = time.perf_counter()
+            lg = subprocess.run(
+                [sys.executable, "-m", "dpsvm_tpu_torch.cli", "loadgen",
+                 "--url", url, "--requests", "80", "--batch",
+                 str(STACK_LOADGEN_ROWS), "--return", "decision",
+                 "--no-compare-sequential"], cwd=root, env=env,
+                capture_output=True, text=True, timeout=300)
+            r["loadgen_process_seconds"] = time.perf_counter() - t
+            row = (json.loads(lg.stdout.strip().splitlines()[-1])
+                   if lg.returncode == 0 else {})
+            r["loadgen"] = {"rc": lg.returncode, **{k: row.get(k) for k in (
+                "device", "device_name", "requests", "errors",
+                "examples_per_sec", "p50_ms", "p99_ms")}}
+            if lg.returncode:
+                r["loadgen"]["stderr"] = lg.stderr[-1000:]
+            # SIGTERM under load: clients fire until their first non-200
+            got, lock = [], threading.Lock()
+            rows = self.planted()[2][:16].tolist()
+
+            def client():
+                while True:
+                    try:
+                        c, _ = _http_post(url + "/v1/predict",
+                                          {"instances": rows}, timeout=60)
+                    except Exception:
+                        c = "not accepted"
+                    with lock:
+                        got.append(c)
+                    if c != 200:
+                        return
+
+            ths = [threading.Thread(target=client) for _ in range(8)]
+            for th in ths:
+                th.start()
+            time.sleep(1.0)
+            t = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            r["drain_seconds"] = time.perf_counter() - t
+            for th in ths:
+                th.join(60.0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        counts = {}
+        for c in got:
+            counts[str(c)] = counts.get(str(c), 0) + 1
+        import re
+        drained = re.search(r"drained \(signal (\d+)\): (\d+) requests, "
+                            r"(\d+) rejected, (\d+) errors",
+                            open(err_path).read())
+        server = ({"signal": int(drained.group(1)),
+                   "requests": int(drained.group(2)),
+                   "rejected": int(drained.group(3)),
+                   "errors": int(drained.group(4))} if drained else None)
+        answered = {"200": counts.get("200", 0)
+                    + int(r["loadgen"].get("requests") or 0)
+                    - int(r["loadgen"].get("errors") or 0),
+                    "503": counts.get("503", 0)}
+        r["sigterm"] = {"rc": rc, "outcomes": counts, "server": server,
+                        "clients_read": answered}
+        rows_in = []
+        if os.path.exists(ledger):
+            with open(ledger) as fh:
+                rows_in = [json.loads(ln) for ln in fh if ln.strip()]
+        mine = [x for x in rows_in if x.get("kind") == "loadgen"]
+        before, after = srv["before"], srv["state"]()
+        r["ledger"] = {"rows": len(mine),
+                       "backend": mine[-1].get("backend") if mine else None,
+                       "tracked_ledger_unchanged": before[0] == after[0],
+                       "default_dir_untouched": before[1] == after[1],
+                       "git_status_unchanged": (None if before[2] is None
+                                                else before[2] == after[2])}
+        import torch
+        kind = torch.cuda.get_device_name(0)
+        ok = (r["loadgen"]["rc"] == 0 and r["loadgen"]["errors"] == 0
+              and str(r["loadgen"]["device"]).startswith("cuda")
+              and r["loadgen"]["device_name"] == kind
+              and rc == 0 and server is not None
+              and server["signal"] == signal.SIGTERM
+              and server["requests"] == answered["200"]
+              and server["errors"] == answered["503"]
+              and server["rejected"] == 0
+              and counts.get("200", 0) > 0
+              and set(counts) <= {"200", "503", "not accepted"}
+              and len(mine) == 1 and r["ledger"]["backend"] == "cuda"
+              and r["ledger"]["tracked_ledger_unchanged"]
+              and r["ledger"]["default_dir_untouched"]
+              and r["ledger"]["git_status_unchanged"] is not False)
+        if not ok:
+            r["serve_stderr"] = "\n".join(
+                ln for ln in open(err_path).read().splitlines()
+                if "HTTP/1.1" not in ln)[-2000:]
+            self.fail("stack", f"(e) CLI serve/loadgen: {json.dumps(r)}")
+        self.rec["stack"]["e"] = r
+        log(f"[stack] (e) CLI serve/loadgen and the drain: {json.dumps(r)}")
+
+    def stack_lifecycle(self, drill) -> None:
+        """(f) the drift drill's process (started at the phase's start):
+        its row, and its serving trace valid under the schema."""
+        from dpsvm_tpu_torch.observability.schema import (read_trace,
+                                                          validate_trace)
+        proc = drill["proc"]
+        rc = proc.wait(timeout=600)
+        wall = time.perf_counter() - drill["t0"]
+        out = open(drill["out"]).read()
+        try:
+            row = json.loads(out.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            raise RuntimeError(f"the drill (rc {rc}) printed no row: "
+                               f"{out[-2000:]}")
+        recs = read_trace(drill["trace"])
+        errs = validate_trace(recs)
+        events = [rec.get("event") for rec in recs
+                  if rec.get("kind") == "event"]
+        r = {**{k: row.get(k) for k in (
+            "ok", "value", "outcomes", "refresh_kind", "generation",
+            "accuracy_shifted_before", "accuracy_shifted_after",
+            "accuracy_base_after", "accuracy_floor", "ejections",
+            "drill_seconds")}, "process_seconds_from_start": wall,
+             "import_line": next((ln for ln in out.splitlines()
+                                  if ln.startswith("imported in")), None),
+             "rc": rc, "trace_problems": errs[:5], "events": events}
+        ok = (rc == 0 and row["ok"] and row["generation"] == 2
+              and row["ejections"] == 0 and not errs
+              and "promoted" in row["outcomes"])
+        if not ok:
+            self.fail("stack", f"(f) lifecycle: {json.dumps(r)}")
+        self.rec["stack"]["f"] = r
+        log(f"[stack] (f) live drift drill at d={D}: {json.dumps(r)}")
+
     def timing(self) -> None:
         """Kernel A as the main path runs it: a training run's carry at its
         start, advanced by chunks of TIMED_ITERS iterations through
@@ -5102,7 +5933,7 @@ def main(argv=None) -> int:
                    ("tasks", s.tasks), ("distributed", s.distributed),
                    ("approx", s.approx), ("stream", s.stream),
                    ("live", s.live), ("serve", s.serve),
-                   ("timing", s.timing)]
+                   ("stack", s.stack), ("timing", s.timing)]
     if args.only:
         keep = {"build", *args.only.split(",")}
         phases = [(n, fn) for n, fn in phases if n in keep]

@@ -71,6 +71,8 @@ from dpsvm_tpu_torch.models.svm import (SVMModel, decision_function,
                                         evaluate, predict)
 from dpsvm_tpu_torch.models.svr import evaluate_svr, predict_svr, train_svr
 
+__version__ = "0.1.0"
+
 __all__ = [
     "SVMConfig",
     "TrainResult",

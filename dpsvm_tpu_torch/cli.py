@@ -1,7 +1,7 @@
 """Command-line front end of the port: the ``train``, ``test``,
-``convert``, ``scale`` and ``grid`` subcommands of ``dpsvm_tpu/cli.py``,
-with the same flag names and closing report, plus ``--device {cuda,cpu}``
-(default cuda).
+``convert``, ``scale``, ``grid``, ``serve`` and ``loadgen`` subcommands of
+``dpsvm_tpu/cli.py``, with the same flag names and closing report, plus
+``--device {cuda,cpu}`` (default cuda).
 
     python -m dpsvm_tpu_torch.cli train -f train.csv -m model.svm -c 10 -g 0.25
     python -m dpsvm_tpu_torch train -f train.csv -m model.svm -c 10 -g 0.25 \
@@ -506,7 +506,204 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("-r", "--restore-range", default=None, metavar="PATH",
                     help="apply previously saved params (svm-scale -r; "
                          "use for test files)")
+    _add_serve_parsers(sub)
     return root
+
+
+def _add_serve_parsers(sub) -> None:
+    sv = sub.add_parser(
+        "serve", help="online prediction server: micro-batched "
+                      "/v1/predict over any saved model (or several), "
+                      "one captured CUDA graph a batch bucket, /healthz, "
+                      "/metricsz, hot reload, SIGTERM graceful drain")
+    sv.add_argument("-m", "--model", action="append", required=True,
+                    metavar="[NAME=]PATH",
+                    help="model file or multiclass directory to serve "
+                         "(repeatable; an unnamed first model is "
+                         "registered as 'default')")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8317,
+                    help="listen port (0 = OS-assigned; the bound port "
+                         "is printed on the ready line)")
+    sv.add_argument("--max-batch", type=int, default=256,
+                    help="top rung of the bucket ladder AND the micro-"
+                         "batcher's coalescing cap (default 256; the "
+                         "tuned profile and --no-tuned come with the "
+                         "tuning layer, ROADMAP item 13)")
+    sv.add_argument("--precision", default="highest",
+                    choices=["highest", "high", "default"],
+                    help="precision of the decision ladder: 'highest' "
+                         "= exact f32 (the default and the bitwise "
+                         "decision_function-parity path), 'high' runs "
+                         "the f32 program, 'default' = bf16 operands "
+                         "with f32 accumulation at a float tolerance")
+    sv.add_argument("--max-delay-ms", type=float, default=2.0,
+                    help="micro-batching deadline: a batch closes after "
+                         "this long even if not full")
+    sv.add_argument("--max-queue", type=int, default=4096,
+                    help="admission bound in ROWS; a full queue "
+                         "fast-rejects with HTTP 429")
+    sv.add_argument("--no-b", action="store_true",
+                    help="serve intercept-free decisions like "
+                         "test --no-b")
+    sv.add_argument("--port-file", default=None, metavar="PATH",
+                    help="write the bound port here once listening "
+                         "(for harnesses that pass --port 0)")
+    sv.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas per model: a wedged or "
+                         "NaN-poisoned replica is ejected (circuit "
+                         "breaker) and rebuilt in the background while "
+                         "the rest keep serving")
+    sv.add_argument("--deadline-ms", type=float, default=30000.0,
+                    help="server-wide request deadline budget; a blown "
+                         "budget answers 504 + Retry-After. Clients may "
+                         "ask for LESS via timeout_ms / X-Deadline-Ms")
+    sv.add_argument("--hedge-ms", default="off", metavar="MS|auto|off",
+                    help="re-dispatch a still-unanswered request to a "
+                         "second replica after this delay ('auto' = "
+                         "p99-based); needs --replicas >= 2")
+    sv.add_argument("--no-degrade", dest="degrade", action="store_false",
+                    default=True,
+                    help="disable the overload shed ladder "
+                         "(proba->decision, then the sibling model): "
+                         "queue-full 429 only")
+    sv.add_argument("--degrade-to", action="append", default=[],
+                    metavar="NAME=SIBLING",
+                    help="tier-2 shed target: under deep overload NAME's "
+                         "requests are served by SIBLING (a registered, "
+                         "width-compatible model, e.g. an approx twin); "
+                         "repeatable")
+    sv.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a serving trace (JSONL): manifest, "
+                         "eject/rebuild/shed/hedge events, per-request "
+                         "span trees for sampled requests, summary at "
+                         "drain")
+    sv.add_argument("--trace-sample-rate", type=float, default=1.0,
+                    metavar="R",
+                    help="fraction of requests whose span tree is "
+                         "recorded into --trace-out (0..1, "
+                         "deterministic stride)")
+    sv.add_argument("--watch-rules", default=None, metavar="FILE",
+                    help="alert-rules JSON for the serving watchtower "
+                         "(default: the built-in multi-window "
+                         "availability burn-rate + queue-saturation "
+                         "rules)")
+    sv.add_argument("--bundle-dir", default=None, metavar="DIR",
+                    help="dump a self-contained incident bundle here "
+                         "when a watch rule fires")
+    sv.add_argument("--no-watch", dest="watch", action="store_false",
+                    default=True,
+                    help="disable the continuous SLO watchtower")
+    sv.add_argument("--tenant-budget", type=int, default=None,
+                    metavar="K",
+                    help="per-tenant metric label budget: at most K "
+                         "tenants get their own series; the long tail "
+                         "folds into 'other' (default 32)")
+    sv.add_argument("--model-cache-budget", type=int, default=None,
+                    metavar="K",
+                    help="arm the device model cache: at most K models "
+                         "resident at once; the rest are registered "
+                         "lazily and hydrate on first request")
+    sv.add_argument("--front-end", choices=["threaded", "async"],
+                    default="threaded",
+                    help="HTTP transport: 'threaded' (thread per "
+                         "connection, the default) or 'async' (one "
+                         "asyncio loop holds every connection, with the "
+                         "weighted-fair per-tenant admission queue)")
+    sv.add_argument("--tenant-weight", action="append", default=[],
+                    metavar="NAME=W",
+                    help="DRR weight for a tenant's fair-queue lane on "
+                         "the async front end (repeatable; default 1)")
+    sv.add_argument("--max-connections", type=int, default=10000,
+                    help="async front end only: open-connection cap; "
+                         "beyond it new connections get an immediate "
+                         "503 + close")
+    sv.add_argument("--hbm-budget-mb", type=float, default=None,
+                    metavar="MB",
+                    help="per-device budget for a model's packed "
+                         "buffers: a model over it is served by a "
+                         "ShardedDecider over every visible card (two "
+                         "or more), bitwise its one-device reference")
+    sv.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the engines run (default cuda)")
+    sv.add_argument("-q", "--quiet", action="store_true")
+
+    lg = sub.add_parser(
+        "loadgen", help="open/closed-loop load generator against a "
+                        "running `serve`; prints ONE JSON row with "
+                        "throughput + p50/p95/p99 latency and the "
+                        "sequential batch-1 baseline")
+    lg.add_argument("--url", default="http://127.0.0.1:8317",
+                    help="server base URL")
+    lg.add_argument("--model", default="default",
+                    help="registered model name to target")
+    lg.add_argument("-f", "--input", default=None,
+                    help="dataset whose feature rows become request "
+                         "payloads (labels ignored); synthetic rows at "
+                         "the model's width when omitted")
+    lg.add_argument("--mode", choices=["closed", "open"], default="closed",
+                    help="closed = each worker fires on completion; "
+                         "open = fixed-schedule arrivals at --rps")
+    lg.add_argument("--requests", type=int, default=200)
+    lg.add_argument("--batch", type=int, default=1,
+                    help="rows per request")
+    lg.add_argument("--concurrency", type=int, default=8)
+    lg.add_argument("--rps", type=float, default=100.0,
+                    help="open-loop target arrival rate")
+    lg.add_argument("--return", dest="want", default="labels",
+                    metavar="K1,K2",
+                    help="comma list of outputs to request: labels, "
+                         "decision, proba")
+    lg.add_argument("--timeout", type=float, default=30.0)
+    lg.add_argument("--trace", default=None, metavar="PATH",
+                    help="provenance trace pointer carried in the result "
+                         "row (the serving side's --trace-out artifact); "
+                         "turns on the per-request span breakdown "
+                         "(default: $BENCH_TRACE_OUT when set)")
+    lg.add_argument("--no-ledger", dest="ledger", action="store_false",
+                    default=True,
+                    help="skip the perf-ledger append ($DPSVM_PERF_LEDGER"
+                         ", else dpsvm_tpu_torch/_ledger/"
+                         "perf_ledger.jsonl)")
+    lg.add_argument("--no-compare-sequential", dest="compare_sequential",
+                    action="store_false", default=True,
+                    help="skip the batch-1 single-worker baseline pass")
+    lg.add_argument("--chaos", action="store_true",
+                    help="chaos-drill report: arm DPSVM_FAULT_SERVE_* on "
+                         "the serve process, run this, and the row "
+                         "carries availability of accepted requests + "
+                         "the /metricsz robustness-counter deltas")
+    lg.add_argument("--saturate", action="store_true",
+                    help="drive-to-saturation instead: step open-loop RPS "
+                         "by --rps-factor until p99 exceeds "
+                         "--p99-target-ms and print ONE SLO row")
+    lg.add_argument("--p99-target-ms", type=float, default=50.0)
+    lg.add_argument("--start-rps", type=float, default=25.0)
+    lg.add_argument("--rps-factor", type=float, default=2.0)
+    lg.add_argument("--max-steps", type=int, default=8)
+    lg.add_argument("--step-requests", type=int, default=100,
+                    help="requests per saturation step")
+    lg.add_argument("--tenants", type=int, default=0, metavar="N",
+                    help="stamp requests with N synthetic tenant labels "
+                         "t0..t{N-1}; the row gains per-tenant counts "
+                         "and p50/p99")
+    lg.add_argument("--hot-tenant-skew", type=float, default=0.0,
+                    metavar="S",
+                    help="fraction (0..1) of requests sent by the single "
+                         "hot tenant t0 (the noisy-neighbour shape)")
+    lg.add_argument("--models", type=int, default=0, metavar="N",
+                    help="spread requests over the first N models from "
+                         "the server's /v1/models list (--model first, "
+                         "as the hot model); the row gains per-model "
+                         "sub-rows and cold_start_p99_ms")
+    lg.add_argument("--model-skew", type=float, default=0.0, metavar="S",
+                    help="fraction (0..1) of requests sent to the hot "
+                         "model (--model); the rest round-robin the "
+                         "remaining N-1")
+    lg.add_argument("--connections", type=int, default=0, metavar="N",
+                    help="pre-open and HOLD N keep-alive connections for "
+                         "the whole run; the first --concurrency carry "
+                         "the traffic, the rest sit idle-open")
 
 
 def _train_conflicts(args: argparse.Namespace):
@@ -1386,6 +1583,313 @@ def cmd_grid(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_serve(args: argparse.Namespace) -> int:
+    """Online prediction server. Loads and warms every model, prints one
+    ready line, then serves until SIGTERM/SIGINT, which drains:
+    everything accepted is answered, then the process exits 0."""
+    from dpsvm_tpu_torch.device import resolve_device
+    from dpsvm_tpu_torch.serving import ModelRegistry
+    from dpsvm_tpu_torch.serving.server import ServingServer
+
+    if args.max_batch < 1 or args.max_queue < 1:
+        print("error: --max-batch and --max-queue must be >= 1",
+              file=sys.stderr)
+        return 2
+    if args.replicas < 1:
+        print("error: --replicas must be >= 1", file=sys.stderr)
+        return 2
+    if not (args.deadline_ms > 0):
+        print("error: --deadline-ms must be > 0", file=sys.stderr)
+        return 2
+    if not (0.0 <= args.trace_sample_rate <= 1.0):
+        print("error: --trace-sample-rate must be in [0, 1], got "
+              f"{args.trace_sample_rate}", file=sys.stderr)
+        return 2
+    hedge = args.hedge_ms            # "off", "auto" or a delay in ms
+    if hedge not in ("off", "auto"):
+        try:
+            hedge = float(hedge) / 1000.0
+        except ValueError:
+            print(f"error: --hedge-ms must be a number, 'auto' or "
+                  f"'off', got {args.hedge_ms!r}", file=sys.stderr)
+            return 2
+    siblings = {}
+    for spec in args.degrade_to:
+        name, sep, sib = spec.partition("=")
+        if not sep or not name or not sib:
+            print(f"error: --degrade-to needs NAME=SIBLING, got "
+                  f"{spec!r}", file=sys.stderr)
+            return 2
+        siblings[name] = sib
+    cache_budget = args.model_cache_budget
+    if cache_budget is not None and cache_budget < 1:
+        print("error: --model-cache-budget must be >= 1",
+              file=sys.stderr)
+        return 2
+    if args.hbm_budget_mb is not None and not (args.hbm_budget_mb > 0):
+        print(f"error: --hbm-budget-mb must be > 0, got "
+              f"{args.hbm_budget_mb}", file=sys.stderr)
+        return 2
+    if args.max_connections < 1:
+        print("error: --max-connections must be >= 1", file=sys.stderr)
+        return 2
+    tenant_weights = {}
+    if args.tenant_weight:
+        if args.front_end != "async":
+            print("error: --tenant-weight needs --front-end async (the "
+                  "threaded transport has no fair queue)",
+                  file=sys.stderr)
+            return 2
+        from dpsvm_tpu_torch.serving.fairqueue import parse_tenant_weights
+        try:
+            tenant_weights = parse_tenant_weights(args.tenant_weight)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    if cache_budget is not None and args.no_b:
+        # the cache's shared same-spec program serves include_b=True
+        # decisions; mixing the two would silently change semantics
+        print("error: --no-b is not supported with --model-cache-budget",
+              file=sys.stderr)
+        return 2
+    dev = resolve_device(args.device)
+    extra = ({"hbm_budget_mb": args.hbm_budget_mb}
+             if args.hbm_budget_mb else {})
+    registry = ModelRegistry()
+    for i, spec in enumerate(args.model):
+        name, sep, path = spec.partition("=")
+        if not sep:
+            name, path = ("default" if i == 0
+                          else os.path.basename(spec.rstrip("/"))), spec
+        if name in registry.names():
+            print(f"error: duplicate model name {name!r} (use NAME=PATH "
+                  "to disambiguate)", file=sys.stderr)
+            return 2
+        if not os.path.exists(path):
+            print(f"error: no such model: {path}", file=sys.stderr)
+            return 2
+        if cache_budget is not None:
+            # fleet mode: manifest-only registration; the model cache
+            # hydrates on first request, within its budget
+            registry.register(name, path, lazy=True,
+                              max_batch=args.max_batch, include_b=True,
+                              precision=args.precision, device=dev,
+                              **extra)
+            if not args.quiet:
+                print(f"registered {name!r} (lazy): {path}",
+                      file=sys.stderr)
+            continue
+        engine = registry.register(name, path, max_batch=args.max_batch,
+                                   include_b=not args.no_b,
+                                   precision=args.precision, device=dev,
+                                   **extra)
+        if not args.quiet:
+            m = engine.manifest
+            print(f"loaded {name!r}: task={m['task']} n_sv={m['n_sv']} "
+                  f"(dropped {m['n_sv_dropped']} zero-coef) "
+                  f"d={m['num_attributes']} precision={m['precision']} "
+                  f"buckets={m['buckets']} "
+                  f"warmup_captures={m['warmup_captures']} "
+                  f"on {m['device']} ({m['device_name']})"
+                  + (" [sharded decisions]" if m.get("sharded") else ""),
+                  file=sys.stderr)
+    unknown = [s for pair in siblings.items() for s in pair
+               if s not in registry.names()]
+    if unknown:
+        print(f"error: --degrade-to names unregistered model(s) "
+              f"{sorted(set(unknown))} (loaded: {registry.names()})",
+              file=sys.stderr)
+        return 2
+    # the process-wide metric registry: /metricsz?format=prometheus is
+    # the single scrape surface
+    from dpsvm_tpu_torch.observability.metrics import default_registry
+    try:
+        srv = ServingServer(registry, args.host, args.port,
+                            max_batch=args.max_batch,
+                            max_delay_ms=args.max_delay_ms,
+                            max_queue=args.max_queue,
+                            predict_timeout=args.deadline_ms / 1000.0,
+                            replicas=args.replicas, hedge=hedge,
+                            degrade=args.degrade, siblings=siblings,
+                            trace_out=args.trace_out,
+                            trace_sample_rate=args.trace_sample_rate,
+                            metrics_registry=default_registry(),
+                            watch_rules=args.watch_rules,
+                            bundle_dir=args.bundle_dir, watch=args.watch,
+                            **({"tenant_budget": args.tenant_budget}
+                               if args.tenant_budget is not None else {}),
+                            model_cache_budget=cache_budget,
+                            verbose=not args.quiet, device=dev)
+        if args.front_end == "async":
+            from dpsvm_tpu_torch.serving.frontdoor import AsyncFrontDoor
+            front = AsyncFrontDoor(
+                srv, max_connections=args.max_connections,
+                tenant_weights=tenant_weights).start()
+        else:
+            front = srv.start()
+    except ValueError as e:                 # width-mismatched sibling
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except OSError as e:                    # unreadable rules file
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.port_file:
+        with open(args.port_file, "w") as f:
+            f.write(str(front.port))
+    print(f"serving on http://{args.host}:{front.port} "
+          f"({args.front_end} front end; models: "
+          f"{', '.join(registry.names())}; device {dev}) — "
+          "SIGTERM/Ctrl-C drains", file=sys.stderr, flush=True)
+    signum = front.serve_until_signal()
+    if not args.quiet:
+        m = srv.metrics()
+        print(f"drained (signal {signum}): {m['requests']} requests, "
+              f"{m['rejected']} rejected, {m['errors']} errors",
+              file=sys.stderr)
+    return 0
+
+
+def cmd_loadgen(args: argparse.Namespace) -> int:
+    """Load generator: pure HTTP + numpy, touches no device; runs from
+    any machine that can reach the server. The row names the device and
+    card the target model is served on (its /v1/models manifest)."""
+    import json
+
+    import numpy as np
+
+    from dpsvm_tpu_torch.serving.loadgen import (fetch_models, loadgen_row,
+                                                 run_saturate,
+                                                 synthetic_rows)
+
+    want = tuple(w for w in args.want.split(",") if w)
+    if args.models < 0:
+        print("error: --models must be >= 0", file=sys.stderr)
+        return 2
+    if not (0.0 <= args.model_skew <= 1.0):
+        print(f"error: --model-skew must be in [0, 1], got "
+              f"{args.model_skew}", file=sys.stderr)
+        return 2
+    if args.connections < 0:
+        print(f"error: --connections must be >= 0, got "
+              f"{args.connections}", file=sys.stderr)
+        return 2
+    try:
+        all_models = fetch_models(args.url, timeout=args.timeout)
+    except (OSError, RuntimeError) as e:
+        print(f"error: cannot reach {args.url}: {e}", file=sys.stderr)
+        return 2
+    if args.model not in all_models:
+        print(f"error: server has no model {args.model!r} "
+              f"(models: {sorted(all_models)[:20]})", file=sys.stderr)
+        return 2
+    manifest = all_models[args.model]
+    # a lazy (fleet-cache) registration reports no feature width until
+    # it hydrates: borrow the width from any resident sibling, else
+    # require -f
+    width = manifest.get("num_attributes")
+    if width is None:
+        width = next((m["num_attributes"] for m in all_models.values()
+                      if m.get("num_attributes") is not None), None)
+    if args.input:
+        from dpsvm_tpu_torch.data.loader import load_dataset
+        rows, _ = load_dataset(args.input, None, None)
+        rows = np.asarray(rows, np.float32)
+        if width is not None and rows.shape[1] != width:
+            print(f"error: dataset has {rows.shape[1]} attributes, "
+                  f"model {args.model!r} expects {width}",
+                  file=sys.stderr)
+            return 2
+    elif width is not None:
+        rows = synthetic_rows(width)
+    else:
+        print(f"error: model {args.model!r} is not resident and no "
+              "sibling reports a feature width: pass -f DATASET so the "
+              "loadgen knows the request shape", file=sys.stderr)
+        return 2
+    served_on = next((m for m in [manifest, *all_models.values()]
+                      if m.get("device")), {})
+    device = {"device": served_on.get("device"),
+              "device_name": served_on.get("device_name")}
+    backend = (str(device["device"]).split(":")[0]
+               if device["device"] else None)
+    fleet_names: list = []
+    if args.models > 0:
+        # hot model first (the skew target), then the rest sorted
+        rest = [n for n in sorted(all_models) if n != args.model]
+        fleet_names = [args.model] + rest[:args.models - 1]
+        if len(fleet_names) < args.models:
+            print(f"error: --models {args.models} but the server has "
+                  f"only {len(all_models)} models", file=sys.stderr)
+            return 2
+    trace = args.trace or os.environ.get("BENCH_TRACE_OUT") or None
+
+    def _ledger_append(row):
+        if not args.ledger:
+            return
+        from dpsvm_tpu_torch.observability import ledger
+        ledger.append(row.get("metric", "loadgen"), row, kind="loadgen",
+                      trace=row.get("trace"), backend=backend)
+
+    if args.saturate:
+        row = run_saturate(args.url, rows, model=args.model,
+                           p99_target_ms=args.p99_target_ms,
+                           start_rps=args.start_rps,
+                           rps_factor=args.rps_factor,
+                           max_steps=args.max_steps,
+                           step_requests=args.step_requests,
+                           batch=args.batch,
+                           concurrency=args.concurrency, want=want,
+                           timeout=args.timeout, trace=trace,
+                           connections=args.connections)
+        row.update(device)
+        print(json.dumps(row), flush=True)
+        _ledger_append(row)
+        return 0 if row["slo_met"] else 1
+    row = loadgen_row(args.url, rows, model=args.model,
+                      requests=args.requests, batch=args.batch,
+                      concurrency=args.concurrency, mode=args.mode,
+                      rps=args.rps, want=want, timeout=args.timeout,
+                      chaos=args.chaos,
+                      compare_sequential=args.compare_sequential,
+                      trace=trace, tenants=args.tenants,
+                      hot_tenant_skew=args.hot_tenant_skew,
+                      models=fleet_names, model_skew=args.model_skew,
+                      connections=args.connections)
+    row.update(device)
+    print(json.dumps(row), flush=True)
+    _ledger_append(row)
+    if row.get("cold_start_p99_ms") is not None:
+        # the fleet shape also feeds the model_fleet case: cold-start
+        # p99, how fast a paged-out model comes back
+        _ledger_append({
+            "metric": "model_fleet",
+            "value": row["cold_start_p99_ms"], "unit": "ms",
+            "trace": row.get("trace"), "models": row.get("models"),
+            "model_skew": row.get("model_skew"),
+            "hot_model": row.get("hot_model"),
+            "p99_ms": row.get("p99_ms"), "requests": row.get("requests"),
+            "errors": row.get("errors"), **device})
+    if row.get("hot_tenant") and row.get("others_p99_ms") is not None:
+        # the noisy-neighbour shape also feeds the tenant_isolation
+        # case: the cold tenants' p99 while one tenant hogs the queue
+        _ledger_append({
+            "metric": "tenant_isolation",
+            "value": row["others_p99_ms"], "unit": "ms",
+            "trace": row.get("trace"), "tenants": row.get("tenants"),
+            "hot_tenant_skew": row.get("hot_tenant_skew"),
+            "hot_tenant": row.get("hot_tenant"),
+            "hot_p99_ms": row.get("hot_p99_ms"),
+            "others_p99_ms": row.get("others_p99_ms"),
+            "requests": row.get("requests"),
+            "errors": row.get("errors"), **device})
+    if args.chaos:
+        # a chaos drill EXPECTS some failures; the verdict is the
+        # availability of accepted requests
+        avail = row.get("availability_pct")
+        return 0 if (avail is not None and avail >= 99.0) else 1
+    return 0 if row["errors"] == 0 else 1
+
+
 def _host_flag_error(args) -> Optional[str]:
     """The JAX CLI's checks of the multi-host flags."""
     coord = args.coordinator
@@ -1461,6 +1965,10 @@ def _run(args) -> int:
             return cmd_scale(args)
         if args.command == "grid":
             return cmd_grid(args)
+        if args.command == "serve":
+            return cmd_serve(args)
+        if args.command == "loadgen":
+            return cmd_loadgen(args)
         return cmd_test(args)
     except StreamError as e:
         # shard corruption under on_bad_shard='raise', the bad-fraction

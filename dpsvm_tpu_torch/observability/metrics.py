@@ -1,5 +1,5 @@
 """Metric registry (the part of ``dpsvm_tpu/observability/metrics.py``
-the port's data layer feeds).
+the port's data and serving layers feed).
 
 ``MetricsRegistry`` holds counters, gauges and fixed-bucket histograms,
 each with optional label sets, thread-safe; ``default_registry()`` is the
@@ -9,11 +9,14 @@ read and quarantined, transient-I/O retries, rows delivered and ingest
 seconds. Every update is host-side around a file read, so a metered
 streaming run makes no device-to-host transfer the unmetered one does not.
 ``render_prometheus()`` and ``snapshot()`` expose the registry as text and
-JSON. ``TenantLabelBudget`` is the bounded-cardinality resolver (second-
-touch admission, LRU of activity) that the fleet's model cache
-(``fleet/modelcache.py``) applies to model names. The exposition
-validator, the training feed, the sidecar server and the file snapshots
-(item 13) are not ported. Stdlib only.
+JSON, and ``validate_exposition`` checks the text against the exposition
+grammar. ``TenantLabelBudget`` is the bounded-cardinality resolver
+(second-touch admission, LRU of activity) that the fleet's model cache
+(``fleet/modelcache.py``) applies to model names and the serving stack
+to tenants (``sanitize_tenant`` cleans a name at admission);
+``incidents_counter`` is the watchtower's ``dpsvm_incidents_total``. The
+training feed, the sidecar server and the file snapshots (item 13) are
+not ported. Stdlib only.
 """
 
 from __future__ import annotations
@@ -444,6 +447,231 @@ class DataMetrics:
 
 
 # ---------------------------------------------------------------------
+# exposition grammar validation (the test/selfcheck side of the format)
+# ---------------------------------------------------------------------
+
+_SAMPLE_RE = re.compile(
+    r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r"(?P<labels>\{[^{}]*\})?"
+    r" (?P<value>[^ ]+)(?: (?P<ts>-?[0-9]+))?$")
+_LABEL_PAIR_RE = re.compile(
+    r'^(?P<name>[a-zA-Z_][a-zA-Z0-9_]*)="(?P<value>(?:[^"\\]|\\["\\n])*)"$')
+_VALID_TYPES = ("counter", "gauge", "histogram", "summary", "untyped")
+
+
+def _split_labels(raw: str) -> Optional[List[Tuple[str, str]]]:
+    """Parse `{a="x",b="y"}` honoring escapes; None on bad syntax."""
+    body = raw[1:-1]
+    if not body:
+        return []
+    pairs: List[Tuple[str, str]] = []
+    # split on commas not inside quotes
+    parts: List[str] = []
+    depth_quote = False
+    cur = ""
+    i = 0
+    while i < len(body):
+        ch = body[i]
+        if ch == "\\" and depth_quote and i + 1 < len(body):
+            cur += body[i:i + 2]
+            i += 2
+            continue
+        if ch == '"':
+            depth_quote = not depth_quote
+        if ch == "," and not depth_quote:
+            parts.append(cur)
+            cur = ""
+        else:
+            cur += ch
+        i += 1
+    if depth_quote:
+        return None
+    if cur:
+        parts.append(cur)
+    for part in parts:
+        m = _LABEL_PAIR_RE.match(part.strip())
+        if m is None:
+            return None
+        pairs.append((m.group("name"), m.group("value")))
+    return pairs
+
+
+def _family_of(sample_name: str, typed: Dict[str, str]) -> str:
+    """Map a sample name to its metric family (histogram samples use
+    the _bucket/_sum/_count suffixes of the family name)."""
+    for suffix in ("_bucket", "_sum", "_count"):
+        if sample_name.endswith(suffix):
+            base = sample_name[: -len(suffix)]
+            if typed.get(base) in ("histogram", "summary"):
+                return base
+    return sample_name
+
+
+def validate_exposition(text: str) -> List[str]:
+    """Line-by-line grammar check of a Prometheus text exposition.
+    Returns problems (empty = valid). Checked: HELP/TYPE line shape
+    and ordering (TYPE before samples, at most one each per family,
+    families contiguous), sample-line grammar incl. label escaping,
+    duplicate series, and the histogram invariants — cumulative
+    non-decreasing ``_bucket`` counts, a ``+Inf`` bucket equal to
+    ``_count``, and a ``_sum`` sample per series."""
+    problems: List[str] = []
+    typed: Dict[str, str] = {}
+    helped: Dict[str, bool] = {}
+    seen_samples: Dict[str, List[Tuple[str, Tuple[Tuple[str, str], ...],
+                                       float]]] = {}
+    family_done: List[str] = []     # families whose block has closed
+    current: Optional[str] = None
+    seen_series = set()
+
+    def close(fam: Optional[str]) -> None:
+        if fam is not None and fam not in family_done:
+            family_done.append(fam)
+
+    for ln, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) < 3 or parts[1] not in ("HELP", "TYPE"):
+                if line.startswith("# "):   # plain comment: allowed
+                    continue
+                problems.append(f"line {ln}: malformed comment {line!r}")
+                continue
+            kind, name = parts[1], parts[2]
+            if not _NAME_RE.match(name):
+                problems.append(f"line {ln}: bad metric name {name!r}")
+                continue
+            if name != current:
+                close(current)
+                if name in family_done:
+                    problems.append(
+                        f"line {ln}: family {name!r} reopened (families "
+                        "must be contiguous)")
+                current = name
+            if kind == "HELP":
+                if helped.get(name):
+                    problems.append(f"line {ln}: second HELP for {name}")
+                helped[name] = True
+            else:
+                if len(parts) != 4 or parts[3] not in _VALID_TYPES:
+                    problems.append(
+                        f"line {ln}: TYPE must be one of "
+                        f"{_VALID_TYPES}, got {line!r}")
+                    continue
+                if name in typed:
+                    problems.append(f"line {ln}: second TYPE for {name}")
+                if name in seen_samples:
+                    problems.append(
+                        f"line {ln}: TYPE for {name} after its samples")
+                typed[name] = parts[3]
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None:
+            problems.append(f"line {ln}: not a valid sample: {line!r}")
+            continue
+        name = m.group("name")
+        labels_raw = m.group("labels")
+        labels = _split_labels(labels_raw) if labels_raw else []
+        if labels is None:
+            problems.append(f"line {ln}: bad label syntax: "
+                            f"{labels_raw!r}")
+            continue
+        try:
+            value = float(m.group("value").replace("+Inf", "inf")
+                          .replace("-Inf", "-inf").replace("NaN", "nan"))
+        except ValueError:
+            problems.append(f"line {ln}: bad sample value "
+                            f"{m.group('value')!r}")
+            continue
+        fam = _family_of(name, typed)
+        if fam != current:
+            close(current)
+            if fam in family_done:
+                problems.append(
+                    f"line {ln}: family {fam!r} reopened (families "
+                    "must be contiguous)")
+            current = fam
+        series_key = (name, tuple(sorted(labels)))
+        if series_key in seen_series:
+            problems.append(f"line {ln}: duplicate series "
+                            f"{name}{dict(labels)}")
+        seen_series.add(series_key)
+        seen_samples.setdefault(fam, []).append(
+            (name, tuple(labels), value))
+        kind = typed.get(fam)
+        if kind == "counter" and not math.isnan(value) and value < 0:
+            problems.append(f"line {ln}: counter {name} < 0")
+
+    # histogram invariants, per family and per label set (minus `le`)
+    for fam, kind in typed.items():
+        if kind != "histogram":
+            continue
+        samples = seen_samples.get(fam, [])
+        if not samples:
+            problems.append(f"histogram {fam}: TYPE with no samples")
+            continue
+        by_series: Dict[Tuple[Tuple[str, str], ...], dict] = {}
+        for name, labels, value in samples:
+            base = tuple(p for p in labels if p[0] != "le")
+            st = by_series.setdefault(
+                base, {"buckets": [], "sum": None, "count": None})
+            if name == fam + "_bucket":
+                le = dict(labels).get("le")
+                if le is None:
+                    problems.append(
+                        f"histogram {fam}: _bucket sample without le")
+                    continue
+                st["buckets"].append((le, value))
+            elif name == fam + "_sum":
+                st["sum"] = value
+            elif name == fam + "_count":
+                st["count"] = value
+            else:
+                problems.append(f"histogram {fam}: stray sample {name}")
+        for base, st in by_series.items():
+            lbl = dict(base)
+            if st["sum"] is None:
+                problems.append(f"histogram {fam}{lbl}: missing _sum")
+            if st["count"] is None:
+                problems.append(f"histogram {fam}{lbl}: missing _count")
+            buckets = st["buckets"]
+            if not buckets:
+                problems.append(f"histogram {fam}{lbl}: no _bucket "
+                                "samples")
+                continue
+            if buckets[-1][0] != "+Inf":
+                problems.append(f"histogram {fam}{lbl}: last bucket "
+                                f"must be le=\"+Inf\", got "
+                                f"{buckets[-1][0]!r}")
+            prev = -1.0
+            for le, v in buckets:
+                if v < prev:
+                    problems.append(
+                        f"histogram {fam}{lbl}: bucket counts not "
+                        f"cumulative at le={le}")
+                prev = v
+            if (st["count"] is not None and buckets[-1][0] == "+Inf"
+                    and buckets[-1][1] != st["count"]):
+                problems.append(
+                    f"histogram {fam}{lbl}: +Inf bucket "
+                    f"{buckets[-1][1]} != _count {st['count']}")
+    return problems
+
+
+def incidents_counter(registry: Optional[MetricsRegistry] = None):
+    """The process-wide ``dpsvm_incidents_total`` counter (one per
+    registry; get-or-create): every alert-rule firing that produced an
+    incident — serving watchtower or training driver alike — counts
+    here, so one scrape answers "has this process paged"
+    (docs/OBSERVABILITY.md "Watch & alerts")."""
+    reg = registry if registry is not None else default_registry()
+    return reg.counter(
+        "dpsvm_incidents_total",
+        "alert-rule firings that opened an incident").labels()
+
+
+# ---------------------------------------------------------------------
 # bounded-cardinality tenant labels
 # ---------------------------------------------------------------------
 
@@ -452,7 +680,31 @@ class DataMetrics:
 TENANT_OTHER = "other"
 
 #: default top-K active tenants that get their own label value
+#: (``serve --tenant-budget`` overrides).
 DEFAULT_TENANT_BUDGET = 32
+
+#: longest tenant name accepted at admission; longer ones are clamped
+#: (a label value is an identity, not a payload channel).
+MAX_TENANT_LEN = 64
+
+
+def sanitize_tenant(name) -> Optional[str]:
+    """Admission-side tenant-name hygiene: strip, replace control
+    characters (newline included) with ``_``, clamp to MAX_TENANT_LEN.
+    Returns None for an unusable name (empty / whitespace / not a
+    string-able scalar) so the caller falls back to its default.
+
+    Printable hostile characters (``"`` and ``\\``) are deliberately
+    KEPT: the exposition escapes them (``escape_label_value``) and the
+    grammar validator accepts the escaped form, so a tenant named
+    ``acme"prod`` stays identifiable instead of being silently
+    renamed."""
+    if name is None or isinstance(name, (dict, list, tuple)):
+        return None
+    s = str(name)
+    s = "".join(ch if ch.isprintable() else "_" for ch in s)
+    s = s.strip()[:MAX_TENANT_LEN].strip()
+    return s or None
 
 
 class TenantLabelBudget:
@@ -549,3 +801,15 @@ class TenantLabelBudget:
                     "live": len(self._resident),
                     "evictions": self._evictions,
                     "overflow": self._overflow}
+
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def wants_prometheus(path: str) -> bool:
+    """True when a /metricsz request asks for the text exposition
+    (`?format=prometheus`): the threaded server and the async front
+    door speak the same dialect."""
+    from urllib.parse import parse_qs, urlsplit
+    q = parse_qs(urlsplit(path).query)
+    return q.get("format", [""])[0] == "prometheus"

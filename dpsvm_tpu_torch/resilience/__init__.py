@@ -1,3 +1,6 @@
-"""Resilience layer of the port: only fault injection (``faultinject``:
-the cascade's kill point and the shard reader's I/O knobs) so far; the rest
-of ``dpsvm_tpu/resilience`` is ROADMAP Queue 1 item 13."""
+"""Resilience layer of the port: fault injection (``faultinject``: the
+cascade's kill point, the shard reader's I/O knobs, the live log's and the
+serving pool's points), the health monitors (``health``), the deferred
+SIGTERM/SIGINT trap (``preempt``) and the retry supervisor
+(``supervisor``). Elastic rollback, the host group and the doctor are
+ROADMAP Queue 1 item 13."""

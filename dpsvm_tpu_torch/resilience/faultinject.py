@@ -39,12 +39,28 @@ of ``data/live.py``; publish and append counts are 1-based):
 * ``DPSVM_FAULT_LIVE_SHIFT_AT_SHARD=k``: the subprocess writer draws
   appended shard #k and every later one from a shifted distribution.
 
-Serving: ``DPSVM_FAULT_SERVE_FAIL_RELOAD=j`` makes the j-th
-``ModelRegistry.reload`` in this process raise before it loads anything,
-so the old engine stays live.
+Serving (``DPSVM_FAULT_SERVE_*``, consumed by ``serving/pool.py`` and
+``serving/registry.py``):
+
+* ``DPSVM_FAULT_SERVE_WEDGE_REPLICA=k``: replica #k (1-based) wedges:
+  its worker blocks at the next compute, before the engine is called
+  (release with ``release_serve_wedge()`` in in-process tests; a chaos
+  subprocess abandons the daemon thread). With
+  ``DPSVM_FAULT_SERVE_WEDGE_AFTER=m`` the wedge waits until the pool
+  has served m computes;
+* ``DPSVM_FAULT_SERVE_NAN_AFTER=m``: the replica that serves the m-th
+  pool compute is NaN-poisoned for its current generation: every
+  output it gives is non-finite until the pool rebuilds it;
+* ``DPSVM_FAULT_SERVE_FAIL_RELOAD=j``: the j-th engine reload or
+  rebuild in this process raises before it loads anything, so the old
+  engine stays live;
+* ``DPSVM_FAULT_SERVE_SLOW_REPLICA_MS=t``: every replica compute sleeps
+  t ms first (the 504 storm that must fire the serving burn-rate
+  alert); with ``DPSVM_FAULT_SERVE_SLOW_FOR=m`` only the first m
+  computes are slowed, and the alert must then clear.
 
 The rest of the JAX module's fault knobs (checkpoint writes, NaN
-injection, preemption, the replica pool, distributed) are not ported.
+injection in training, preemption, distributed) are not ported.
 """
 
 from __future__ import annotations
@@ -54,7 +70,7 @@ import os
 import sys
 import threading
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def _log(msg: str) -> None:
@@ -87,7 +103,13 @@ class FaultPlan:
     live_writer_crash_after: int = 0  # crash after shard #k is durable,
                                      # before its publish
     live_shift_at_shard: int = 0     # appended shard #k on is shifted
-    serve_fail_reload: int = 0       # the j-th registry reload fails
+    serve_wedge_replica: int = 0     # replica #k wedges at a compute
+    serve_wedge_after: int = 0       # ...once pool computes >= m
+    serve_nan_after: int = 0         # poison the replica serving
+                                     # pool compute #m
+    serve_fail_reload: int = 0       # the j-th reload/rebuild fails
+    serve_slow_replica_ms: int = 0   # every compute sleeps this first
+    serve_slow_for: int = 0          # ...only the first m computes
     _cascade_fired: bool = False
     _io_reads: int = 0
     _io_fail_fired: bool = False
@@ -97,6 +119,11 @@ class FaultPlan:
     _stale_fired: bool = False
     _writer_crash_fired: bool = False
     _serve_reloads: int = 0
+    _serve_computes: int = 0
+    _wedge_fired: bool = False
+    _poisoned: Optional[Tuple[int, int]] = None  # (replica, generation)
+    _slow_computes: int = 0
+    _slow_lifted_logged: bool = False
 
     def any(self) -> bool:
         return bool(self.io_read_fail_once or self.io_corrupt_shard
@@ -104,7 +131,9 @@ class FaultPlan:
                     or self.cascade_stop_stage or self.live_torn_publish
                     or self.live_stale_generation
                     or self.live_writer_crash_after
-                    or self.live_shift_at_shard or self.serve_fail_reload)
+                    or self.live_shift_at_shard or self.serve_fail_reload
+                    or self.serve_wedge_replica or self.serve_nan_after
+                    or self.serve_slow_replica_ms)
 
     def io_read_begin(self, shard_idx: int) -> None:
         """Called as a shard read starts: applies the slow-read latency
@@ -177,9 +206,60 @@ class FaultPlan:
         return bool(self.live_shift_at_shard
                     and append_idx + 1 >= self.live_shift_at_shard)
 
+    # -- serving-side injection points (serving/pool.py): hit from
+    # concurrent replica workers, so counters advance under the serve
+    # lock.
+
+    def note_serve_compute(self, replica_idx: int,
+                           generation: int) -> bool:
+        """Called by a replica worker as a compute begins. Returns True
+        exactly when THIS compute should wedge (the worker then blocks
+        on the module wedge event). Also arms the NaN poison: the
+        replica serving the m-th pool compute becomes poisoned for its
+        current generation."""
+        with _SERVE_LOCK:
+            self._serve_computes += 1
+            if (self.serve_wedge_replica and not self._wedge_fired
+                    and replica_idx == self.serve_wedge_replica - 1
+                    and self._serve_computes >= self.serve_wedge_after):
+                self._wedge_fired = True
+                _log(f"wedging replica #{self.serve_wedge_replica} at "
+                     f"pool compute #{self._serve_computes}")
+                return True
+            if (self.serve_nan_after and self._poisoned is None
+                    and self._serve_computes >= self.serve_nan_after):
+                self._poisoned = (int(replica_idx), int(generation))
+                _log(f"NaN-poisoning replica {replica_idx} "
+                     f"(generation {generation}) from pool compute "
+                     f"#{self._serve_computes}")
+            return False
+
+    def serve_slow_delay_s(self) -> float:
+        """Seconds THIS replica compute must sleep (0.0 = run clean).
+        With ``serve_slow_for`` set, only the first m computes are
+        slowed; without it the slowness persists for the process."""
+        if not self.serve_slow_replica_ms:
+            return 0.0
+        with _SERVE_LOCK:
+            self._slow_computes += 1
+            if (self.serve_slow_for
+                    and self._slow_computes > self.serve_slow_for):
+                if not self._slow_lifted_logged:
+                    self._slow_lifted_logged = True
+                    _log(f"slow-replica fault lifted after "
+                         f"{self.serve_slow_for} computes")
+                return 0.0
+            return self.serve_slow_replica_ms / 1000.0
+
+    def serve_poisoned(self, replica_idx: int, generation: int) -> bool:
+        """True while (replica, generation) is the poisoned one: a
+        rebuilt replica (new generation) runs clean."""
+        with _SERVE_LOCK:
+            return self._poisoned == (int(replica_idx), int(generation))
+
     def note_serve_reload(self) -> None:
-        """``ModelRegistry.reload``'s injection point: the j-th call in
-        this process raises."""
+        """Reload/rebuild injection point (``ModelRegistry.reload`` and
+        the pool's rebuild): the j-th call in this process raises."""
         with _SERVE_LOCK:
             self._serve_reloads += 1
             n = self._serve_reloads
@@ -225,7 +305,12 @@ def plan_from_env() -> Optional[FaultPlan]:
         live_stale_generation=_env_int("LIVE_STALE_GENERATION"),
         live_writer_crash_after=_env_int("LIVE_WRITER_CRASH_AFTER"),
         live_shift_at_shard=_env_int("LIVE_SHIFT_AT_SHARD"),
-        serve_fail_reload=_env_int("SERVE_FAIL_RELOAD"))
+        serve_wedge_replica=_env_int("SERVE_WEDGE_REPLICA"),
+        serve_wedge_after=_env_int("SERVE_WEDGE_AFTER"),
+        serve_nan_after=_env_int("SERVE_NAN_AFTER"),
+        serve_fail_reload=_env_int("SERVE_FAIL_RELOAD"),
+        serve_slow_replica_ms=_env_int("SERVE_SLOW_REPLICA_MS"),
+        serve_slow_for=_env_int("SERVE_SLOW_FOR"))
     return p if p.any() else None
 
 
@@ -256,8 +341,30 @@ def current() -> Optional[FaultPlan]:
     return _plan
 
 
+# Wedged replica workers block here. In-process tests release them at
+# teardown; a chaos subprocess just exits around the daemon thread.
+_WEDGE_EVENT = threading.Event()
+
+
+def serve_wedge_wait(timeout: Optional[float] = None) -> None:
+    """Block the calling replica worker until released (the wedge)."""
+    _WEDGE_EVENT.wait(timeout)
+
+
+def release_serve_wedge() -> None:
+    """Unstick every wedged worker (test teardown)."""
+    _WEDGE_EVENT.set()
+
+
+def reset_serve_wedge() -> None:
+    """Re-arm the wedge barrier (paired with ``clear()`` in tests)."""
+    global _WEDGE_EVENT
+    _WEDGE_EVENT = threading.Event()
+
+
 def on_serve_reload() -> None:
-    """``serving/registry.ModelRegistry.reload``'s injection point."""
+    """``ModelRegistry.reload`` and the pool rebuild's injection
+    point."""
     p = current()
     if p is not None:
         p.note_serve_reload()

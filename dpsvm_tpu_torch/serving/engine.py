@@ -15,8 +15,10 @@ The engine fixes the shape economy once, at load time:
   remainder bucket.
 * **One CUDA graph a bucket**: on the card, warmup captures each bucket's
   decision program once, over a static input block, in one memory pool
-  shared across the ladder, with TF32 off (the cuBLAS algorithm is fixed
-  at capture time). A request copies its rows into the bucket's static
+  shared across the ladder and on a capture stream of the ladder's own
+  (cuBLAS keeps a workspace per stream, and replicas that replay at once
+  on their own streams must not share one), with TF32 off (the cuBLAS
+  algorithm is fixed at capture time). A request copies its rows into the bucket's static
   input (one host-to-device copy), replays, and reads the output once
   (one device-to-host read; nothing is read a row at a time). A request
   longer than ``max_batch`` is one copy of all its padded blocks, a
@@ -73,11 +75,24 @@ AnyModel = Union[SVMModel, MulticlassModel]
 # Ever, in this process: CUDA graphs captured for ladder buckets, and
 # their replays.
 COUNTS = {"captures": 0, "replays": 0}
+_DRAINED = {"captures": 0}
+_DRAIN_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
-    for k in COUNTS:
-        COUNTS[k] = 0
+    with _DRAIN_LOCK:
+        for k in COUNTS:
+            COUNTS[k] = 0
+        _DRAINED["captures"] = 0
+
+
+def drain_captures() -> int:
+    """Captures since the previous drain, process-wide: the replica pool's
+    stray-capture watch (the JAX package's ``compilewatch.drain``)."""
+    with _DRAIN_LOCK:
+        n = COUNTS["captures"] - _DRAINED["captures"]
+        _DRAINED["captures"] = COUNTS["captures"]
+    return max(0, n)
 
 
 def bucket_ladder(max_batch: int) -> List[int]:
@@ -180,7 +195,7 @@ class _Bucket:
     """One rung on the card: a static input block, the graph of the
     decision program over it, and its output."""
 
-    def __init__(self, fn, rows: int, d: int, device, pool):
+    def __init__(self, fn, rows: int, d: int, device, pool, stream):
         from dpsvm_tpu_torch.solver.smo import capture
         self.x = torch.zeros((rows, d), dtype=torch.float32, device=device)
         self.host = torch.zeros((rows, d), dtype=torch.float32).pin_memory()
@@ -191,8 +206,10 @@ class _Bucket:
             fn(self.x)
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        # thread_local: a reload captures while the old engine serves
-        with capture(self.graph, pool=pool, thread_local=True):
+        # thread_local: a reload captures while the old engine serves;
+        # the ladder's own capture stream: its own cuBLAS workspace
+        with capture(self.graph, pool=pool, thread_local=True,
+                     stream=stream):
             self.out = fn(self.x)
         COUNTS["captures"] += 1
 
@@ -222,6 +239,7 @@ class Ladder:
         self.graphs = bool(graphs) and self.device.type == "cuda"
         self._graphs: Dict[int, _Bucket] = {}
         self._pool = None
+        self._stream = None
         self.lock = threading.Lock()
         self.counts: Dict[int, int] = {b: 0 for b in self.buckets}
 
@@ -233,10 +251,12 @@ class Ladder:
         with self.lock:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
+                self._stream = torch.cuda.Stream(self.device)
             for b in self.buckets:
                 if b not in self._graphs:
                     self._graphs[b] = _Bucket(self.fn, b, self.d,
-                                              self.device, self._pool)
+                                              self.device, self._pool,
+                                              self._stream)
 
     @property
     def captured(self) -> int:
@@ -312,6 +332,7 @@ class Ladder:
         with self.lock:
             self._graphs.clear()
             self._pool = None
+            self._stream = None
 
 
 class PredictionEngine:
@@ -503,6 +524,8 @@ class PredictionEngine:
             "model_kind": self.model_kind,
             "source": self.source,
             "device": str(self.device),
+            "device_name": (torch.cuda.get_device_name(self.device)
+                            if self.device.type == "cuda" else "cpu"),
             "num_attributes": self.num_attributes,
             "n_sv": self.n_sv,
             "n_sv_dropped": self.n_sv_dropped,

@@ -86,8 +86,8 @@ class ModelRegistry:
         """Construct a FRESH, fully-warmed engine for ``name`` from its
         current source (or retained in-memory model) WITHOUT touching
         the registered entry: the fleet cache's hydration of in-memory
-        registrations, and the replica pool's rebuild path when it is
-        ported (ROADMAP item 11b)."""
+        registrations, and the replica pool's replicas and rebuilds
+        (``serving/pool.py``)."""
         from dpsvm_tpu_torch.serving.engine import PredictionEngine
 
         with self._lock:

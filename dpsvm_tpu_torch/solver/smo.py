@@ -374,7 +374,7 @@ def run_chunk_plain(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
 
 @contextlib.contextmanager
 def capture(graph: "torch.cuda.CUDAGraph", pool=None,
-            thread_local: bool = False):
+            thread_local: bool = False, stream=None):
     """``torch.cuda.graph(graph, pool=pool)`` with TF32 off, after a
     collection and with Python's cycle collector held off until it ends: a
     collection inside a capture can release the CUDA objects of dead
@@ -383,13 +383,18 @@ def capture(graph: "torch.cuda.CUDAGraph", pool=None,
     added). ``pool`` shares one memory pool among graphs (the serving
     engine's ladder). ``thread_local``: other threads may go on using the
     card during the capture (a registry reload captures a new engine's
-    graphs while the old engine serves)."""
+    graphs while the old engine serves). ``stream`` is the capture stream
+    (default: PyTorch's one shared capture stream). cuBLAS keeps a
+    workspace per (handle, stream), and a graph replays the one its capture
+    used: graphs that may replay at the same time on different streams
+    (the replicas of a serving pool) need capture streams of their own, or
+    their products share a workspace and race."""
     gc.collect()
     enabled = gc.isenabled()
     gc.disable()
     mode = "thread_local" if thread_local else "global"
     try:
-        with exact_f32(), torch.cuda.graph(graph, pool=pool,
+        with exact_f32(), torch.cuda.graph(graph, pool=pool, stream=stream,
                                            capture_error_mode=mode):
             yield
     finally:

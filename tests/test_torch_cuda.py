@@ -1747,3 +1747,153 @@ def test_engine_default_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PredictionEngine(_serve_model(n_sv=8, d=4))
+
+
+def _pool_of(path, n, dev, **kw):
+    from dpsvm_tpu_torch.serving.engine import PredictionEngine
+    from dpsvm_tpu_torch.serving.pool import ReplicaPool
+    return ReplicaPool(lambda i: PredictionEngine.load(
+        path, max_batch=64, device=dev), n, watch_compiles=True, **kw)
+
+
+def test_replicas_on_one_card_answer_bitwise_under_concurrency(dev,
+                                                                tmp_path):
+    """Two replicas of one artifact on cuda:0, each replaying on its own
+    stream from its own thread, with an approx model's ladder replaying
+    beside them: every answer bitwise ``decision_function`` on its rows
+    (each ladder captures on its own stream, so no two graphs share a
+    cuBLAS workspace), and no capture after the builds."""
+    import threading
+    from dpsvm_tpu_torch.approx.model import save_approx_model
+    from dpsvm_tpu_torch.approx.primal import fit_approx
+    from dpsvm_tpu_torch.models.io import save_model
+    from dpsvm_tpu_torch.models.svm import decision_function
+    model = _serve_model(n_sv=3000, d=96)
+    path = str(tmp_path / "m.svm")
+    save_model(model, path)
+    xa, ya = make_blobs(n=600, d=96, seed=8)
+    amodel, _ = fit_approx(xa, ya, SVMConfig(
+        solver="approx-rff", approx_dim=1024, c=5.0, epsilon=1e-3),
+        device=dev)
+    apath = str(tmp_path / "a.npz")
+    save_approx_model(amodel, apath)
+    x = np.random.default_rng(3).standard_normal((4096, 96)).astype(
+        np.float32)
+    ref = decision_function(model, x, device=dev)
+    aref = decision_function(amodel, x, device=dev)
+    pool = _pool_of(path, 2, dev, name="sv")
+    apool = _pool_of(apath, 2, dev, name="approx")
+    bad, lock = [], threading.Lock()
+    try:
+        assert all(r.stream is not None for r in pool._replicas)
+
+        def client(p, r, seed):
+            rng = np.random.default_rng(seed)
+            for _ in range(60):
+                s, o = int(rng.integers(1, 65)), int(rng.integers(0, 4000))
+                got = p.infer(x[o:o + s], ("decision",))["decision"]
+                if not np.array_equal(got.view(np.int32),
+                                      r[o:o + s].view(np.int32)):
+                    with lock:
+                        bad.append((o, s))
+
+        ths = [threading.Thread(target=client, args=(p, r, k))
+               for k, (p, r) in enumerate([(pool, ref), (pool, ref),
+                                           (apool, aref), (apool, aref)])]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(120)
+        assert not bad, bad[:5]
+        assert pool.stray_compiles() == 0 and apool.stray_compiles() == 0
+    finally:
+        pool.close()
+        apool.close()
+
+
+def test_rebuild_under_traffic_captures_no_strays(dev, tmp_path):
+    """A NaN-poisoned replica is ejected and rebuilt while the other keeps
+    serving: the rebuild's ladder captures inside the build guard (no
+    stray), nothing fails, every answer bitwise."""
+    import threading
+    import time
+    from dpsvm_tpu_torch.models.io import save_model
+    from dpsvm_tpu_torch.models.svm import decision_function
+    from dpsvm_tpu_torch.resilience import faultinject as fi
+    model = _serve_model(n_sv=2000, d=64)
+    path = str(tmp_path / "m.svm")
+    save_model(model, path)
+    x = np.random.default_rng(4).standard_normal((2048, 64)).astype(
+        np.float32)
+    ref = decision_function(model, x, device=dev)
+    pool = _pool_of(path, 2, dev, name="rb", deadline_s=30.0)
+    fi.install(fi.FaultPlan(serve_nan_after=5))
+    bad, lock = [], threading.Lock()
+    try:
+        def client(seed):
+            rng = np.random.default_rng(seed)
+            for _ in range(80):
+                s, o = int(rng.integers(1, 65)), int(rng.integers(0, 1980))
+                got = pool.infer(x[o:o + s], ("decision",))["decision"]
+                if not np.array_equal(got.view(np.int32),
+                                      ref[o:o + s].view(np.int32)):
+                    with lock:
+                        bad.append((o, s))
+
+        ths = [threading.Thread(target=client, args=(k,)) for k in range(3)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(120)
+        deadline = time.time() + 60
+        while pool.replica_states() != ["closed"] * 2:
+            assert time.time() < deadline, pool.replica_states()
+            pool.infer(x[:3], ("decision",))
+            time.sleep(0.05)
+        m = pool.metrics()
+        assert not bad, bad[:5]
+        assert m["ejections"] == 1 and m["rebuilds"] == 1
+        assert pool.stray_compiles() == 0
+    finally:
+        fi.clear()
+        pool.close()
+
+
+def test_threaded_server_on_the_card_answers_bitwise(dev, tmp_path):
+    import json
+    import urllib.request
+    from dpsvm_tpu_torch.models.io import save_model
+    from dpsvm_tpu_torch.models.svm import decision_function
+    from dpsvm_tpu_torch.observability.metrics import validate_exposition
+    from dpsvm_tpu_torch.serving.registry import ModelRegistry
+    from dpsvm_tpu_torch.serving.server import ServingServer
+    model = _serve_model(n_sv=1500, d=32)
+    path = str(tmp_path / "m.svm")
+    save_model(model, path)
+    reg = ModelRegistry()
+    reg.register("default", path, max_batch=64)
+    srv = ServingServer(reg, port=0, max_batch=64, replicas=2).start()
+    try:
+        x = np.random.default_rng(5).standard_normal((200, 32)).astype(
+            np.float32)
+        ref = decision_function(model, x, device=dev)
+        for o, s in ((0, 1), (3, 17), (40, 64), (100, 33)):
+            req = urllib.request.Request(
+                srv.url + "/v1/predict", method="POST",
+                data=json.dumps({"instances": x[o:o + s].tolist(),
+                                 "return": ["decision"]}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                got = np.asarray(json.loads(r.read())["decision"],
+                                 np.float32)
+            assert np.array_equal(got.view(np.int32),
+                                  ref[o:o + s].view(np.int32))
+        with urllib.request.urlopen(
+                srv.url + "/metricsz?format=prometheus", timeout=30) as r:
+            assert validate_exposition(r.read().decode()) == []
+        man = srv.model_manifests()["default"]
+        assert man["device"].startswith("cuda")
+        assert man["device_name"] == torch.cuda.get_device_name(0)
+        assert srv.pool("default").stray_compiles() == 0
+    finally:
+        srv.drain(timeout=30.0)

@@ -57,10 +57,24 @@ def test_no_jax_import(path):
                                  "serving/budget.py", "serving/registry.py",
                                  "serving/sharded.py", "fleet/__init__.py",
                                  "fleet/packer.py", "fleet/modelcache.py",
-                                 "fleet/grid.py"])
+                                 "fleet/grid.py", "serving/pool.py",
+                                 "serving/fairqueue.py", "serving/server.py",
+                                 "serving/frontdoor.py", "serving/loadgen.py",
+                                 "serving/lifecycle.py",
+                                 "observability/spans.py",
+                                 "observability/schema.py",
+                                 "observability/record.py",
+                                 "observability/ledger.py",
+                                 "observability/slo.py",
+                                 "observability/blackbox.py",
+                                 "resilience/health.py",
+                                 "resilience/preempt.py",
+                                 "resilience/supervisor.py",
+                                 "resilience/faultinject.py", "cli.py"])
 def test_the_host_layers_are_scanned_and_import_no_jax(rel):
-    """The data, serving and fleet modules are among the scanned sources,
-    and the native helper builds the port's own copy of the C++ source."""
+    """The data, serving, fleet, observability and resilience modules are
+    among the scanned sources, and the native helper builds the port's own
+    copy of the C++ source."""
     path = PORT / rel
     assert path in _sources()
     assert not [m for m in _imports(path) if _forbidden(m)]
