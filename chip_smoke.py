@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only live           # build + the live shard log
     python3 chip_smoke.py --only serve          # build + serving and the fleet
     python3 chip_smoke.py --only stack          # build + the serving stack
+    python3 chip_smoke.py --only observe        # build + observability
 
 Host text that only checks a file format (the model files of phases 3, 5
 and 9, phase 8's one-vs-one directory) is written and read back by
@@ -68,10 +69,12 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    path and read after it: kernel A's device-counted runs must equal the
    iterations; kernel B's launches, runs and rounds must be equal and its
    device-counted steps must add up to n_iter. The decomposition's model
-   must match the pair's (n_sv within 2%, held-out accuracy within 0.5%).
-   Then the general pair: WSS2 (``selection="second-order"``) to
-   convergence in both precisions through fit, save, load and evaluate,
-   held to the fused model by the same bar; linear, poly and sigmoid at
+   must match the pair's (n_sv within 2%, held-out accuracy within 0.5%);
+   both are trained on the first DECOMP_SUB_N rows for it (the fused pair
+   there a second time). Then the general pair: WSS2
+   (``selection="second-order"``) to convergence in both precisions (in
+   float32 on the first SUB_N rows) through fit, save, load and
+   evaluate, held to the fused model by the same bar; linear, poly and sigmoid at
    LIBSVM's defaults (gamma = 1/d, coef0 = 0, degree 3) for a
    SMO_PREFIX_ITERS prefix of the general pair and a KIND_DECOMP_ROUNDS
    prefix of the decomposition through kernel B; and a precomputed K of
@@ -85,10 +88,11 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    converged on planted 8000 x 784 at q=4096 (``Smoke.convergence`` says
    why the bars split so); the general pair's first-order RBF path against
    kernel A for PREFIX_ITERS iterations;
-5. shrinking at full width in float32 through ``api.fit``: WSS2 on the
-   general pair and the decomposition (q = DECOMP_Q, kernel B on padded
-   active sets), each to convergence with save/load/evaluate, held to its
-   unshrunk model of phase 3 by the bar between paths; their active-set
+5. shrinking in float32 through ``api.fit``: WSS2 on the general pair
+   (the first SUB_N rows) and the decomposition (the first DECOMP_SUB_N
+   rows, q = DECOMP_Q, kernel B on padded active sets), each to
+   convergence with save/load/evaluate,
+   held to its unshrunk model of phase 3 by the bar between paths; their active-set
    sizes, compactions, unshrinks and graph captures (at or under the
    distinct capacities); the f the last unshrink rebuilt against a fresh
    streamed pass; kernel B's counts, and no masked slot ever updated; then
@@ -121,7 +125,7 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    with the design the card took for a double hit;
 9. the task families (``tasks``) through their entry points on the
    planted rows: epsilon-SVR (C = 1, p = 0.1, a target smooth in x made
-   here from the seed) on TASK_N rows, 2 x TASK_N stacked variables, and
+   here from the seed) on SVR_N rows, 2 x SVR_N stacked variables, and
    the same target with SVR_NOISY_NOISE of noise on SVR_NOISY_N rows
    (most rows outside the tube), each to convergence on the
    decomposition (kernel B: launches, runs and rounds equal,
@@ -138,9 +142,9 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    through LIBSVM ``.model`` files and reference files, their decisions
    bit for bit;
 10. distributed training (``distributed``, ``parallel/``): (a) the pair
-   through ``train_distributed`` in an NCCL group of one rank on cuda:0 at
-   60000 x 784 to convergence, held to the fused model by the bar between
-   paths, with its seconds, microseconds an iteration, kernels an
+   through ``train_distributed`` in an NCCL group of one rank on cuda:0 to
+   convergence on the first SUB_N rows, held to the fused model on them by
+   the bar between paths, with its seconds, microseconds an iteration, kernels an
    iteration and the device's busy share (torch.profiler over a chunk);
    a DIST_PREFIX_ITERS prefix bitwise the general pair's (alpha, f, b's),
    or the iteration where they part; its captured chunk (NCCL inside the
@@ -257,7 +261,28 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    answered and exit 0; (f) ``live_drift_drill`` at width D: drift fires,
    the warm-started refresh promotes generation 2 with no ejection and
    the shifted held-out accuracy above the floor;
-16. time each kernel on its path (kernel A: CUDA events over a chunk of
+16. training observability (``observe``: the driver's run trace,
+   ``observability/``, the CLI's ``report``, ``compare``, ``bundle``): (a)
+   kernel A for OBS_PREFIX iterations at 60000 x 784 (chunks of
+   OBS_CHUNK) with the trace, the metrics file, the ``--metrics-port``
+   sidecar scraped once mid-run, a planted watch rule, a bundle directory
+   and a profiler window, against the same prefix bare: bitwise (n_iter,
+   b, alpha), one stats read a poll in both, the trace valid with the
+   allocator's in-use bytes on every chunk record, kernel A's nvcc from a
+   fresh build directory and the chunk program's first launch (with
+   kernel A's work an iteration) as its compile records, the profile
+   summary's phases matching the trace's and its device time; a WSS2
+   prefix of OBS_WSS2_ITERS iterations whose trace holds its graph's one
+   capture; (b) phase 3's converged float32 fit writes its trace (trained
+   here, traced, when phase 3 did not run): ``report`` renders it, its
+   summary's n_iter and n_sv the fit's, and its roofline fractions
+   against the data-sheet row with the power limit; (c) the
+   decomposition (q = DECOMP_Q, kernel B) for OBS_DECOMP_ITERS updates
+   traced, rounds on its records and kernel B's work on its first round's
+   record, compared to (b) by ``compare``; (d) the planted rule fired once
+   and left one bundle, which ``bundle`` validates and renders with its
+   embedded report;
+17. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
@@ -293,6 +318,16 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, HBM3
 FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, fp32 outside tensor cores
 N, D, GAMMA, C = 60000, 784, 0.25, 10.0
+# Rows of the runs to convergence on the secondary paths: the first SUB_N
+# planted rows for the float32 runs of phase 3's general pair, phase 5's
+# shrinking on it and phase 10 (a)'s distributed pair (the general pair's
+# bfloat16 run keeps all N rows), the first DECOMP_SUB_N for phase 3's
+# decomposition in both precisions and phase 5's shrinking on it, each
+# held to the fused pair's model in its precision on the same rows. Cut
+# from N for card time (PERF.md §4). The decomposition's shrinking
+# compacts only when the active set halves and stays at or above q =
+# DECOMP_Q (on 24000 rows it never did), hence its larger share.
+SUB_N, DECOMP_SUB_N = 24000, 36000
 TWO_EPS = 2e-3
 # f of kernel and plain version within F_RTOL * max(1, |f|): each sums 784
 # float32 products in its own order (warp shuffles against cuBLAS), which
@@ -321,6 +356,11 @@ GRAPH_CHECK_ITERS = 200          # graph against eager, bitwise
 SMO_PREFIX_ITERS = 2000          # linear, poly, sigmoid on the pair
 KIND_DECOMP_ROUNDS = 10          # ... and on the decomposition
 SMO_TIMED_ITERS = 512
+# Phase 16 (observe): kernel A's traced prefix and its chunk, the
+# decomposition's traced prefix (rounds of DECOMP_CAP steps), WSS2's.
+OBS_PREFIX, OBS_CHUNK = 20_000, 2_000
+OBS_DECOMP_ITERS, OBS_DECOMP_CHUNK = 20 * DECOMP_CAP, 4 * DECOMP_CAP
+OBS_WSS2_ITERS = 512
 # Precomputed: planted rows whose RBF matrix (1.07 GB in float32) is built
 # on the card; q for its decomposition above ~1.3x its SV count.
 PRE_N, PRE_Q = 16384, 4096
@@ -346,7 +386,8 @@ OVO_WARM_STEPS, OVO_TIMED_STEPS = 512, 256
 # The task families (phase 9), on the planted rows: epsilon-SVR at LIBSVM's
 # defaults (C = 1, p = 0.1) on a target smooth in x (``Smoke.svr_targets``:
 # SVR_ANCHORS kernel bumps at seeded rows, unit variance, SVR_NOISE of
-# Gaussian noise), and on SVR_NOISY_N rows of the same target with
+# Gaussian noise) on SVR_N rows (cut from 60000 for card time, PERF.md
+# §4), and on SVR_NOISY_N rows of the same target with
 # SVR_NOISY_NOISE of noise, where most rows are SVs (cut from 20000 for
 # card time, PERF.md §4); one-class at OC_NU;
 # nu-SVC binary and one-vs-one at NUSVC_NU; nu-SVR at NUSVR_NU, a prefix
@@ -354,7 +395,7 @@ OVO_WARM_STEPS, OVO_TIMED_STEPS = 512, 256
 # card time, PERF.md §4); nu one-vs-one on
 # NU_MC_N rows of MC_K classes; the general pair's nu-selection graph
 # against its eager loop for NU_GRAPH_ITERS iterations.
-TASK_N = 60000
+TASK_N, SVR_N = 60000, 30000
 SVR_C, SVR_P, SVR_ANCHORS, SVR_NOISE = 1.0, 0.1, 64, 0.05
 SVR_NOISY_N, SVR_NOISY_NOISE = 10000, 0.2
 OC_NU, NUSVC_NU, NUSVR_NU = 0.1, 0.2, 0.5
@@ -365,10 +406,14 @@ TASK_MAX_ITER = 2_000_000
 # Distributed training (phase 10): the pair's prefix held bitwise to the
 # general pair's and its graph to its eager loop; the decomposition's
 # rounds held to the single-device rounds; two gloo ranks sharing the
-# card on GLOO_N rows, the decomposition at q = GLOO_Q.
+# card on GLOO_N rows, the decomposition at q = GLOO_Q. The gloo pair
+# stages every iteration through the host (~7.5-8.5 ms an iteration: 106
+# s to convergence on 4000 rows, 46 s on 2000), so its rows stay few. On
+# 1000 rows (q = 512) its trajectory parted from world size 1's (3304
+# against 3315 iterations, PERF.md §7), so the rows stay at 2000.
 DIST_PREFIX_ITERS, DIST_GRAPH_ITERS = 2000, 512
 DIST_DECOMP_ROUNDS = 10
-GLOO_N, GLOO_Q = 4000, 1024
+GLOO_N, GLOO_Q = 2000, 1024
 # The approx solvers and the cascade (phase 11): D = APPROX_D features;
 # the million-row path on APPROX_BIG_N rows (at most APPROX_BIG_MAX
 # steps); the cascade with the default dual knobs on CASC_N rows (+
@@ -742,6 +787,8 @@ class Smoke:
         self.rec = {}
         self._planted = None
         self._fused_f32 = None
+        self._fused_refs = {}             # _fused_on's models
+        self._main_trace = None           # phase 3's f32 trace and fit
         self.stream_converge = False
 
     def fail(self, phase: str, msg: str) -> None:
@@ -755,6 +802,31 @@ class Smoke:
             x, y = make_planted(N + 10000, D, GAMMA, seed=0)
             self._planted = x[:N], y[:N], x[N:], y[N:]
         return self._planted
+
+    def _fused_on(self, prec: str, n: int) -> dict:
+        """The fused pair's model in precision ``prec`` on the first ``n``
+        planted rows (n_sv, held-out accuracy, n_iter, train seconds):
+        phase 3's when n = N and phase 3 ran, else trained here once, its
+        kernel-A launches counted."""
+        if n == N and prec in self.rec.get("main", {}):
+            return self.rec["main"][prec]
+        if (prec, n) not in self._fused_refs:
+            from dpsvm_tpu_torch import SVMConfig, fit
+            from dpsvm_tpu_torch.models.svm import evaluate
+            xtr, ytr, xte, yte = self.planted()
+            cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
+                            max_iter=MAIN_MAX_ITER, matmul_precision=prec)
+            (model, res), counts = self.counted(
+                lambda: fit(xtr[:n], ytr[:n], cfg))
+            self._add_a_counts(counts)
+            if not (res.converged and counts["A_runs"] == res.n_iter):
+                self.fail("main", f"fused pair {prec} on {n} rows: "
+                          f"converged {res.converged}, {counts}")
+            self._fused_refs[prec, n] = {
+                "n": n, "n_sv": res.n_sv,
+                "heldout_accuracy": evaluate(model, xte, yte),
+                "n_iter": res.n_iter, "train_seconds": res.train_seconds}
+        return self._fused_refs[prec, n]
 
     # ------------------------------------------------------------ phase 1
     def build(self) -> None:
@@ -1380,8 +1452,12 @@ class Smoke:
         launches = dict.fromkeys(fs.KERNELS, 0)
         runs = dict.fromkeys(fs.KERNELS, 0)
         for prec in ("highest", "default"):
+            # the float32 fit writes its run trace (phase 16 (b) reads it)
+            trace = (os.path.join(self.scratch, "main_f32.jsonl")
+                     if prec == "highest" else None)
             cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
-                            max_iter=MAIN_MAX_ITER, matmul_precision=prec)
+                            max_iter=MAIN_MAX_ITER, matmul_precision=prec,
+                            trace_out=trace)
             torch.cuda.reset_peak_memory_stats()
             fs.reset_counts()
             model, res = fit(xtr, ytr, cfg)
@@ -1418,6 +1494,7 @@ class Smoke:
             self.rec["main"][prec] = r
             if prec == "highest":
                 self._fused_f32 = model
+                self._main_trace = (trace, res.n_iter, res.n_sv)
             log(f"[main] {prec}: {json.dumps(r)}")
         self.rec["main_launches"] = launches
         self.rec["main_runs"] = runs
@@ -1461,25 +1538,28 @@ class Smoke:
                 and counts["pair_replays"] * gs.GRAPH_BODIES >= res.n_iter)
 
     def main_general(self) -> None:
-        """WSS2 on the general pair at full width through ``api.fit``,
-        held to the fused pair's model by the bar between paths."""
+        """WSS2 on the general pair through ``api.fit``, in float32 on the
+        first SUB_N rows and in bfloat16 on all N, held to the fused pair's
+        model on the same rows by the bar between paths."""
         torch = self.torch
         from dpsvm_tpu_torch import fit
         from dpsvm_tpu_torch.solver import smo as gs
         xtr, ytr, xte, yte = self.planted()
         self.rec["general"] = {}
         for prec in ("highest", "default"):
+            n = SUB_N if prec == "highest" else N
             cfg = self.kind_config("rbf", gamma=GAMMA, max_iter=MAIN_MAX_ITER,
                                    selection="second-order",
                                    matmul_precision=prec)
             torch.cuda.reset_peak_memory_stats()
-            (model, res), counts = self.counted(lambda: fit(xtr, ytr, cfg))
+            (model, res), counts = self.counted(
+                lambda: fit(xtr[:n], ytr[:n], cfg))
             peak = torch.cuda.max_memory_allocated()
             same, finite, acc, io_s, eval_s = self._round_trip(model, xte,
                                                                yte)
-            pair = self.rec["main"][prec]
+            pair = self._fused_on(prec, n)
             bodies = counts["pair_replays"] * gs.GRAPH_BODIES
-            r = {"n_iter": res.n_iter, "converged": res.converged,
+            r = {"n": n, "n_iter": res.n_iter, "converged": res.converged,
                  "gap": res.gap, "n_sv": res.n_sv, "b": res.b,
                  "train_seconds": res.train_seconds,
                  "us_per_iteration": 1e6 * res.train_seconds / res.n_iter,
@@ -1649,7 +1729,9 @@ class Smoke:
             f"{time.perf_counter() - t:.1f} s waited): {json.dumps(out)}")
 
     def main_decomp(self) -> None:
-        """The decomposition at full width through ``api.fit``."""
+        """The decomposition through ``api.fit`` on the first DECOMP_SUB_N
+        rows in both precisions, held to the fused pair's model on the same
+        rows."""
         torch = self.torch
         from dpsvm_tpu_torch import SVMConfig, fit
         from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
@@ -1657,14 +1739,16 @@ class Smoke:
         xtr, ytr, xte, yte = self.planted()
         self.rec["decomp"] = {}
         totals = {"launches": 0, "runs": 0}
+        n = DECOMP_SUB_N
         for prec in ("highest", "default"):
             cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
                             max_iter=DECOMP_MAX_ITER, working_set=DECOMP_Q,
                             inner_iters=DECOMP_CAP, matmul_precision=prec)
+            pair = self._fused_on(prec, n)
             torch.cuda.reset_peak_memory_stats()
             sk.reset_counts()
             reads0 = sd.READS["stats"]
-            model, res = fit(xtr, ytr, cfg)
+            model, res = fit(xtr[:n], ytr[:n], cfg)
             name = "inner_subsolve"
             got = {"launches": sk.LAUNCHES[name], "runs": sk.RUNS[name],
                    "steps": sk.STEPS[name]}
@@ -1674,14 +1758,13 @@ class Smoke:
                 totals[k] += got[k]
             same, finite, acc, io_s, eval_s = self._round_trip(model, xte,
                                                                yte)
-            pair = self.rec["main"][prec]
             ok = (same and finite and res.converged and acc > 0.9
                   and np.all(np.isfinite(res.alpha))
                   and got["launches"] == got["runs"] == res.rounds > 0
                   and got["steps"] == res.n_iter
                   and abs(res.n_sv - pair["n_sv"]) <= 0.02 * pair["n_sv"]
                   and abs(acc - pair["heldout_accuracy"]) <= 0.005)
-            r = {"n_iter": res.n_iter, "rounds": res.rounds,
+            r = {"n": n, "n_iter": res.n_iter, "rounds": res.rounds,
                  "converged": res.converged, "gap": res.gap,
                  "n_sv": res.n_sv, "b": res.b,
                  "train_seconds": res.train_seconds,
@@ -1871,10 +1954,11 @@ class Smoke:
 
     # ------------------------------------------------------------ phase 5
     def shrinking(self) -> None:
-        """Shrinking (``solver/shrink.py``) at full width through
-        ``api.fit``, in float32: on the general pair with WSS2 (LIBSVM's
-        own default, -h 1) and on the decomposition through kernel B, each
-        held to its unshrunk model of phase 3 by the bar between paths;
+        """Shrinking (``solver/shrink.py``) through ``api.fit``, in float32:
+        on the general pair with WSS2 (LIBSVM's own default, -h 1) on the
+        first SUB_N planted rows and on the decomposition through kernel B
+        on the first DECOMP_SUB_N, each held to its unshrunk model of phase
+        3 (on the same rows) by the bar between paths;
         then the decomposition's kernel path against its plain path with
         shrinking on planted 8000 x 784."""
         self.shrink_general()
@@ -1886,7 +1970,7 @@ class Smoke:
             self._io_pool = None
 
     def _shrink_record(self, res, run, counts, acc, unshrunk):
-        return {"n_iter": res.n_iter, "rounds": res.rounds,
+        return {"n": len(res.alpha), "n_iter": res.n_iter, "rounds": res.rounds,
                 "converged": res.converged, "gap": res.gap,
                 "n_sv": res.n_sv, "b": res.b,
                 "train_seconds": res.train_seconds,
@@ -1913,6 +1997,7 @@ class Smoke:
         from dpsvm_tpu_torch.ops.diagnostics import _stream_kv
         from dpsvm_tpu_torch.solver import shrink
         xtr, ytr, xte, yte = self.planted()
+        xtr, ytr = xtr[:SUB_N], ytr[:SUB_N]
         cfg = self.kind_config("rbf", gamma=GAMMA, max_iter=MAIN_MAX_ITER,
                                selection="second-order", shrinking=True)
         (model, res), counts = self.counted(lambda: fit(xtr, ytr, cfg))
@@ -1973,12 +2058,14 @@ class Smoke:
 
     def shrink_decomp(self) -> None:
         """The decomposition with shrinking at q = DECOMP_Q, cap
-        DECOMP_CAP, to convergence: kernel B's launches, runs and rounds
-        equal, its steps adding up to n_iter, and no masked slot (capacity
-        padding or W's own padding) ever updated."""
+        DECOMP_CAP, to convergence on the first DECOMP_SUB_N rows: at least
+        one compaction, kernel B's launches, runs and rounds equal, its
+        steps adding up to n_iter, and no masked slot (capacity padding or
+        W's own padding) ever updated."""
         from dpsvm_tpu_torch import fit
         from dpsvm_tpu_torch.solver import shrink
         xtr, ytr, xte, yte = self.planted()
+        xtr, ytr = xtr[:DECOMP_SUB_N], ytr[:DECOMP_SUB_N]
         cfg = self.kind_config("rbf", gamma=GAMMA, max_iter=DECOMP_MAX_ITER,
                                working_set=DECOMP_Q, inner_iters=DECOMP_CAP,
                                shrinking=True)
@@ -1997,6 +2084,7 @@ class Smoke:
               and np.all(np.isfinite(res.alpha))
               and counts["B_launches"] == counts["B_runs"] == res.rounds > 0
               and counts["B_steps"] == res.n_iter and int(moved) == 0
+              and run["compactions"] >= 1
               and min(run["active_sizes"]) >= DECOMP_Q
               and self._path_bar(res, acc, self.rec["decomp"]["highest"]))
         if not ok:
@@ -2136,15 +2224,7 @@ class Smoke:
         with tempfile.TemporaryDirectory() as tmp:
             lib, csv = (os.path.join(tmp, f"train.{e}")
                         for e in ("libsvm", "csv"))
-            t = time.perf_counter()
-            keys = [f"{j + 1}:" for j in range(D)]
-            with open(lib, "w") as fl, open(csv, "w") as fc:
-                for row, lab in zip(xtr.tolist(), ytr.tolist()):
-                    vals = list(map(repr, row))
-                    fl.write(f"{lab} " + " ".join(map(str.__add__, keys,
-                                                      vals)) + "\n")
-                    fc.write(f"{lab}," + ",".join(vals) + "\n")
-            r["write_seconds"] = time.perf_counter() - t
+            r["write_seconds"] = self._write_text(xtr, ytr, csv, lib)
             loaded = {}
             for fmt, path in (("libsvm", lib), ("csv", csv)):
                 t = time.perf_counter()
@@ -2544,7 +2624,7 @@ class Smoke:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
         self.rec["tasks"] = {}
-        models = {"epsilon-SVR": self.tasks_svr(TASK_N, SVR_NOISE),
+        models = {"epsilon-SVR": self.tasks_svr(SVR_N, SVR_NOISE),
                   "one-class": self.tasks_oneclass(),
                   "nu-SVC": self.tasks_nusvc()}
         # the models' file round trips (host text) run in spawned processes
@@ -2880,25 +2960,11 @@ class Smoke:
         finally:
             dist.destroy_process_group()
 
-    def _fused_reference(self):
-        """Phase 3's f32 fused model (n_sv, held-out accuracy), trained here
-        when phase 3 did not run."""
-        ref = self.rec.get("main", {}).get("highest")
-        if ref is None:
-            from dpsvm_tpu_torch import SVMConfig, fit
-            from dpsvm_tpu_torch.models.svm import evaluate
-            xtr, ytr, xte, yte = self.planted()
-            model, res = fit(xtr, ytr, SVMConfig(
-                c=C, gamma=GAMMA, epsilon=1e-3, max_iter=MAIN_MAX_ITER))
-            ref = {"n_sv": res.n_sv, "heldout_accuracy": evaluate(
-                model, xte, yte), "n_iter": res.n_iter,
-                "train_seconds": res.train_seconds}
-        return ref
-
     def dist_pair(self) -> None:
-        """(a) ``train_distributed`` at world size 1 over NCCL on planted
-        60000 x 784 to convergence, held to the fused pair by the bar
-        between paths (n_sv within 2%, accuracy within 0.5%); its counts
+        """(a) ``train_distributed`` at world size 1 over NCCL to
+        convergence on the first SUB_N planted rows, held to the fused pair
+        on those rows by the bar between paths (n_sv within 2%, accuracy
+        within 0.5%); its counts
         (no kernel launched; one capture, a read a chunk); a
         DIST_PREFIX_ITERS prefix against the general pair's (alpha, f,
         b_hi, b_lo), bitwise, and where they part, the iteration and what
@@ -2916,11 +2982,12 @@ class Smoke:
         xtr, ytr, xte, yte = self.planted()
         cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
                         max_iter=MAIN_MAX_ITER)
+        xs, ys = xtr[:SUB_N], ytr[:SUB_N]
+        ref = self._fused_on("highest", SUB_N)
         res, counts = self.counted(lambda: ds.train_distributed(
-            xtr, ytr, cfg, group=self.group))
-        acc = evaluate(SVMModel.from_train_result(xtr, ytr, res), xte, yte)
-        ref = self._fused_reference()
-        r = {"n_iter": res.n_iter, "converged": res.converged,
+            xs, ys, cfg, group=self.group))
+        acc = evaluate(SVMModel.from_train_result(xs, ys, res), xte, yte)
+        r = {"n": SUB_N, "n_iter": res.n_iter, "converged": res.converged,
              "seconds": res.train_seconds,
              "us_per_iteration_wall": 1e6 * res.train_seconds / res.n_iter,
              "n_sv": res.n_sv, "heldout_accuracy": acc, "b": res.b,
@@ -3763,6 +3830,7 @@ class Smoke:
                                        self.dev)
         step = primal.make_chunk_runner(carry, prob)
         _, stt = step(carry, STREAM_STEPS)
+        stt = stt()          # the chunk's read books its CUDA-event time
         torch.cuda.synchronize()
         r["in_memory_seconds"] = time.perf_counter() - t
         r["in_memory_ms_per_step"] = (primal.RUN.get("graph_ms", 0.0)
@@ -5502,6 +5570,292 @@ class Smoke:
         self.rec["stack"]["f"] = r
         log(f"[stack] (f) live drift drill at d={D}: {json.dumps(r)}")
 
+    # ------------------------------------------------------------ phase 16
+    def observe(self) -> None:
+        """Training observability on the card (module docstring, phase 16):
+        (a) kernel A observed against its bare twin, (b) phase 3's trace
+        through ``report``, (c) the decomposition's traced prefix against
+        it through ``compare``, (d) the planted watch rule's one bundle
+        through ``bundle``."""
+        import contextlib
+        import io
+        from dpsvm_tpu_torch.cli import main as cli_main
+        from dpsvm_tpu_torch.observability import compare, report, roofline
+        tmp = os.path.join(self.scratch, "observe")
+        os.makedirs(tmp, exist_ok=True)
+        rec = self.rec["observe"] = {"seconds": {}}
+
+        def cli(*argv) -> tuple:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(list(argv))
+            return rc, buf.getvalue()
+
+        t = time.perf_counter()
+        a_trace, bundle_dir = self.observe_prefix(tmp, rec)
+        rec["seconds"]["a"] = time.perf_counter() - t
+
+        # (b) phase 3's converged float32 fit and its trace (trained here,
+        # traced, when phase 3 did not run)
+        t = time.perf_counter()
+        if self._main_trace is None:
+            from dpsvm_tpu_torch import SVMConfig, fit
+            xtr, ytr, _, _ = self.planted()
+            path = os.path.join(tmp, "main_f32.jsonl")
+            _, res = fit(xtr, ytr, SVMConfig(
+                c=C, gamma=GAMMA, epsilon=1e-3, max_iter=MAIN_MAX_ITER,
+                trace_out=path))
+            self._main_trace = (path, res.n_iter, res.n_sv)
+        b_trace, n_iter, n_sv = self._main_trace
+        s = report.load_trace(b_trace)[-1]
+        rc, text = cli("report", b_trace)
+        ok = (rc == 0 and s["kind"] == "summary"
+              and (s["n_iter"], s["n_sv"]) == (n_iter, n_sv)
+              and f"converged at iter {n_iter:,}" in text)
+        if not ok:
+            self.fail("observe", f"(b) report rc {rc}, summary "
+                      f"{s.get('n_iter')}/{s.get('n_sv')} against the fit's "
+                      f"{n_iter}/{n_sv}")
+        for ln in text.splitlines()[:5]:
+            log(f"[observe] (b) {ln}")
+        # the converged fit's roofline: its train seconds hold no build
+        rf = report.trace_facts(report.load_trace(b_trace))["roofline"]
+        for ln in roofline.render_roofline(rf):
+            log(f"[observe] (b) {ln}")
+        rec["b"] = {"n_iter": n_iter, "n_sv": n_sv,
+                    "iters_per_sec": s.get("iters_per_sec"),
+                    "train_seconds": s.get("train_seconds"),
+                    "flops_fraction": rf["flops_fraction"],
+                    "bandwidth_fraction": rf["bandwidth_fraction"]}
+        rec["seconds"]["b"] = time.perf_counter() - t
+
+        # (c) a traced decomposition prefix (kernel B), compared to (b)
+        t = time.perf_counter()
+        c_trace = self.observe_decomp(tmp, rec)
+        cmp_, _, _ = compare.compare_paths(b_trace, c_trace)
+        rc, text = cli("compare", b_trace, c_trace)
+        by = {m["metric"]: m for m in cmp_["metrics"]}
+        if rc != 0 or "iters_per_sec" not in by:
+            self.fail("observe", f"(c) compare rc {rc}")
+        for ln in text.splitlines()[:8]:
+            log(f"[observe] (c) {ln}")
+        rec["c"]["compare_iters_per_sec"] = [by["iters_per_sec"]["a"],
+                                             by["iters_per_sec"]["b"]]
+        rec["seconds"]["c"] = time.perf_counter() - t
+
+        # (d) the planted rule's one incident bundle through ``bundle``
+        t = time.perf_counter()
+        bundles = [d for d in os.listdir(bundle_dir)
+                   if d.startswith("incident-")]
+        rc, text = cli("bundle", bundle_dir)
+        ok = (len(bundles) == 1 and rc == 0
+              and "rule:     planted-iter [warn]" in text
+              and "embedded trace:" in text and "bundle OK" in text)
+        if not ok:
+            self.fail("observe", f"(d) {len(bundles)} bundle(s), bundle "
+                      f"rc {rc}")
+        rec["d"] = {"bundles": len(bundles), "rc": rc}
+        rec["seconds"]["d"] = time.perf_counter() - t
+        log(f"[observe] {json.dumps(rec)}")
+
+    def observe_prefix(self, tmp: str, rec: dict) -> tuple:
+        """(a): OBS_PREFIX iterations of kernel A at 60000 x 784 traced,
+        with the metrics file, the sidecar scraped once mid-run by a
+        thread, the planted watch rule, the bundle directory and a
+        profiler window, against the same prefix bare: bitwise (n_iter,
+        b, alpha) with one stats read a poll in both. Kernel A's library
+        comes from a fresh build directory for the observed run, so its
+        nvcc is one build record of that run's trace. Then a WSS2 prefix's
+        trace holds its graph's capture record."""
+        import re
+        import socket
+        import threading
+        import urllib.request
+        from pathlib import Path
+        from dpsvm_tpu_torch import SVMConfig, build, train
+        from dpsvm_tpu_torch.observability import (blackbox, profiler,
+                                                   report, roofline)
+        from dpsvm_tpu_torch.observability.metrics import validate_exposition
+        from dpsvm_tpu_torch.solver import driver
+        xtr, ytr, _, _ = self.planted()
+        with socket.socket() as sock:       # a free port for the sidecar
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        rules = os.path.join(tmp, "rules.json")
+        with open(rules, "w") as fh:
+            json.dump([{"name": "planted-iter", "kind": "threshold",
+                        "severity": "warn", "metric": "n_iter",
+                        "above": OBS_PREFIX // 2, "clear_after_s": 1e9}],
+                      fh)
+        obs = dict(trace_out=os.path.join(tmp, "a.jsonl"),
+                   metrics_out=os.path.join(tmp, "a.prom"),
+                   metrics_port=port, watch_rules=rules,
+                   bundle_dir=os.path.join(tmp, "bundles"),
+                   profile_dir=os.path.join(tmp, "profile"))
+        base = dict(c=C, gamma=GAMMA, epsilon=1e-3, max_iter=OBS_PREFIX,
+                    chunk_iters=OBS_CHUNK)
+        scraped = {}
+        stop = threading.Event()
+
+        def scrape():
+            url = f"http://127.0.0.1:{port}/metricsz?format=prometheus"
+            while not stop.is_set():
+                try:
+                    with urllib.request.urlopen(url, timeout=2) as r:
+                        text = r.read().decode()
+                    if re.search(r"^dpsvm_train_polls_total [1-9]", text,
+                                 re.M):
+                        scraped["text"] = text
+                        return
+                except OSError:
+                    pass
+                stop.wait(0.002)
+
+        runs = []
+        saved = (build.BUILD_DIR, build._LOADED.get("fused_step"))
+        env = {k: os.environ.get(k) for k in ("DPSVM_PROFILE_SKIP_POLLS",
+                                              "DPSVM_PROFILE_POLLS")}
+        for tag, extra in (("bare", {}), ("observed", obs)):
+            th = None
+            if extra:
+                build.BUILD_DIR = Path(tmp) / "_build"
+                build._LOADED.pop("fused_step", None)
+                os.environ.update(DPSVM_PROFILE_SKIP_POLLS="1",
+                                  DPSVM_PROFILE_POLLS="2")
+                th = threading.Thread(target=scrape, daemon=True)
+                th.start()
+            reads = driver.READS["stats"]
+            t = time.perf_counter()
+            try:
+                res, counts = self.counted(lambda: train(
+                    xtr, ytr, SVMConfig(**base, **extra)))
+            finally:
+                if th is not None:
+                    stop.set()
+                    th.join()
+                    build.BUILD_DIR = saved[0]
+                    if saved[1] is not None:
+                        build._LOADED["fused_step"] = saved[1]
+                    for k, v in env.items():
+                        if v is None:
+                            os.environ.pop(k, None)
+                        else:
+                            os.environ[k] = v
+            runs.append((res, driver.READS["stats"] - reads, counts,
+                         time.perf_counter() - t))
+            self._add_a_counts(counts)
+        (bare, nb, cb, sb), (seen, ns, cs, ss) = runs
+        records = report.load_trace(obs["trace_out"])
+        chunks = [r for r in records if r["kind"] == "chunk"]
+        comp = {r["program"]: r for r in records if r["kind"] == "compile"}
+        events = [r for r in records if r["kind"] == "event"]
+        alerts = [e for e in events if e["event"] == "alert"]
+        incidents = [e for e in events if e["event"] == "incident"]
+        bitwise = (np.array_equal(bare.alpha.view(np.int32),
+                                  seen.alpha.view(np.int32))
+                   and (bare.n_iter, bare.b) == (seen.n_iter, seen.b))
+        with open(obs["metrics_out"]) as fh:
+            prom_errs = validate_exposition(fh.read())
+        summ = profiler.summarize_profile(obs["profile_dir"],
+                                          trace_path=obs["trace_out"])
+        facts = report.trace_facts(records)
+        rf = facts["roofline"]
+        bdir = blackbox.resolve_bundle_dir(obs["bundle_dir"])
+        checks = {
+            "bitwise": bitwise, "n_iter": seen.n_iter == OBS_PREFIX,
+            "one_read_a_poll": nb == ns == len(chunks) >= 2,
+            "launches": cb["A_launches"] == cs["A_launches"] > 0,
+            "hbm_in_use": all((c["hbm"]["in_use"] or 0) > 0
+                              for c in chunks),
+            "build_record": "build:fused_step" in comp,
+            "chunk_record": comp.get("fused-chunk", {}).get("flops")
+            == 4.0 * N * D,
+            "metrics_file": prom_errs == [],
+            "sidecar": "text" in scraped
+            and validate_exposition(scraped["text"]) == [],
+            "watch": [a["state"] for a in alerts] == ["firing"]
+            and len(incidents) == 1
+            and os.path.basename(incidents[0]["bundle"])
+            == os.path.basename(bdir)
+            and blackbox.validate_bundle(bdir) == [],
+            "profile": summ.get("phases_match") is True
+            and summ["device"].get("kernels_ms", 0) > 0
+            and bool(summ["artifacts"]),
+            "roofline": rf["peaks"] is not None
+            and rf["flops_fraction"] is not None,
+        }
+        failed = [k for k, v in checks.items() if not v]
+        if failed:
+            self.fail("observe", f"(a) {failed}: reads {nb}/{ns} for "
+                      f"{len(chunks)} chunk records, programs "
+                      f"{sorted(comp)}")
+        rec["a"] = {
+            "bare_seconds": sb, "observed_seconds": ss,
+            "train_seconds": [bare.train_seconds, seen.train_seconds],
+            "reads": [nb, ns], "chunk_records": len(chunks),
+            "launches": [cb["A_launches"], cs["A_launches"]],
+            "hbm_peak": facts.get("hbm_peak"),
+            "build_seconds": comp.get("build:fused_step", {}).get("seconds"),
+            "first_launch_seconds": comp.get("fused-chunk", {}).get(
+                "seconds"),
+            "flops_fraction": rf["flops_fraction"],
+            "bandwidth_fraction": rf["bandwidth_fraction"],
+            "peak_precision": rf["peak_precision"],
+            "power_limit": rf["power_limit"],
+            "profile_device_ms": summ["device"],
+            "profile_window_seconds": summ["window"]["seconds"],
+            # where the observed run's host seconds went: each poll's
+            # record time, the alert's poll
+            "chunk_t": [c["t"] for c in chunks],
+            "alert_n_iter": alerts[0]["n_iter"] if alerts else None,
+            "checks": checks}
+
+        # the general pair's graph: one capture record in its trace
+        wss2 = os.path.join(tmp, "wss2.jsonl")
+        res, counts = self.counted(lambda: train(xtr, ytr, SVMConfig(
+            c=C, gamma=GAMMA, epsilon=1e-3, selection="second-order",
+            max_iter=OBS_WSS2_ITERS, chunk_iters=OBS_WSS2_ITERS // 2,
+            trace_out=wss2)))
+        caps = [r for r in report.load_trace(wss2)
+                if r["kind"] == "compile"]
+        if ([r["program"] for r in caps] != ["smo-chunk"]
+                or counts["pair_captures"] != 1):
+            self.fail("observe", f"(a) WSS2 prefix: compile records "
+                      f"{[r['program'] for r in caps]}, "
+                      f"{counts['pair_captures']} capture(s)")
+        rec["a"]["capture_seconds"] = caps[0]["seconds"] if caps else None
+        return obs["trace_out"], obs["bundle_dir"]
+
+    def observe_decomp(self, tmp: str, rec: dict) -> str:
+        """(c): the decomposition (q = DECOMP_Q, cap DECOMP_CAP, kernel B)
+        for OBS_DECOMP_ITERS pair updates, traced; rounds on its chunk
+        records, its first-round record carrying kernel B's work."""
+        from dpsvm_tpu_torch import SVMConfig, train
+        from dpsvm_tpu_torch.observability import report
+        xtr, ytr, _, _ = self.planted()
+        path = os.path.join(tmp, "decomp.jsonl")
+        res, counts = self.counted(lambda: train(xtr, ytr, SVMConfig(
+            c=C, gamma=GAMMA, epsilon=1e-3, working_set=DECOMP_Q,
+            inner_iters=DECOMP_CAP, max_iter=OBS_DECOMP_ITERS,
+            chunk_iters=OBS_DECOMP_CHUNK, trace_out=path)))
+        self._add_b_counts(counts)
+        records = report.load_trace(path)
+        rounds = [r["rounds"] for r in records if r["kind"] == "chunk"]
+        comp = [r for r in records if r["kind"] == "compile"]
+        ok = (len(rounds) >= 2 and rounds == sorted(rounds)
+              and rounds[-1] == res.rounds == counts["B_launches"] > 0
+              and [r["program"] for r in comp]
+              == [f"decomp-chunk/q={DECOMP_Q}"]
+              and comp[0]["flops"] == 11.0 * DECOMP_Q)
+        if not ok:
+            self.fail("observe", f"(c) rounds {rounds}, result "
+                      f"{res.rounds}, B launches {counts['B_launches']}, "
+                      f"programs {[r['program'] for r in comp]}")
+        rec["c"] = {"n_iter": res.n_iter, "rounds": res.rounds,
+                    "B_launches": counts["B_launches"],
+                    "train_seconds": res.train_seconds}
+        return path
+
     def timing(self) -> None:
         """Kernel A as the main path runs it: a training run's carry at its
         start, advanced by chunks of TIMED_ITERS iterations through
@@ -5933,7 +6287,8 @@ def main(argv=None) -> int:
                    ("tasks", s.tasks), ("distributed", s.distributed),
                    ("approx", s.approx), ("stream", s.stream),
                    ("live", s.live), ("serve", s.serve),
-                   ("stack", s.stack), ("timing", s.timing)]
+                   ("stack", s.stack), ("observe", s.observe),
+                   ("timing", s.timing)]
     if args.only:
         keep = {"build", *args.only.split(",")}
         phases = [(n, fn) for n, fn in phases if n in keep]

@@ -69,10 +69,11 @@ from dpsvm_tpu_torch.approx.features import (FeatureMap, build_feature_map,
 from dpsvm_tpu_torch.approx.model import ApproxSVMModel
 from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
 from dpsvm_tpu_torch.device import resolve_device
+from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.ops.kernels import exact_f32
-from dpsvm_tpu_torch.solver.driver import (ChunkStats, host_training_loop,
-                                           pack_stats, read_stats,
-                                           resume_state)
+from dpsvm_tpu_torch.solver.driver import (ChunkStats, Poll,
+                                           host_training_loop, pack_stats,
+                                           read_stats, resume_state)
 from dpsvm_tpu_torch.solver.smo import capture, two_eps_f32
 from dpsvm_tpu_torch.utils import densify
 
@@ -376,7 +377,8 @@ class GraphChunk:
             primal_body(carry, prob, self.limit)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with capture(self.graph):
+        with capture(self.graph, program="primal-chunk",
+                     signature=compilewatch.shape_signature(prob.phi)):
             for _ in range(self.bodies):
                 primal_body(carry, prob, self.limit)
         COUNTS["captures"] += 1
@@ -406,10 +408,11 @@ def _stats(s: PrimalCarry) -> torch.Tensor:
 
 def make_chunk_runner(carry: PrimalCarry, prob: PrimalProblem,
                       plain: bool = False):
-    """``step(carry, limit) -> (carry, ChunkStats)`` for
+    """``step(carry, limit) -> (carry, poll)`` for
     ``host_training_loop``: the captured graph on the card, the eager loop
-    on the CPU (or anywhere, with ``plain``). ``step.carry`` is the carry
-    after the last chunk."""
+    on the CPU (or anywhere, with ``plain``); ``poll`` (a ``driver.Poll``)
+    makes the chunk's one read. ``step.carry`` is the carry after the last
+    chunk."""
     state = {"n_iter": int(carry.n_iter), "bodies": 0}
     chunk = None
     if carry.w.is_cuda and not plain:
@@ -427,15 +430,19 @@ def make_chunk_runner(carry: PrimalCarry, prob: PrimalProblem,
 
     def step(cr: PrimalCarry, limit: int):
         cr = advance(cr, limit)
-        st: ChunkStats = read_stats(_stats(cr))
-        COUNTS["reads"] += 1
-        if chunk is not None:      # the read synchronised: events are done
-            RUN["graph_ms"] += chunk.events[0].elapsed_time(
-                chunk.events[1])
-            RUN["graph_bodies"] += state["bodies"]
-        state["n_iter"] = st.n_iter
+        stats = _stats(cr)
+
+        def poll() -> ChunkStats:
+            st: ChunkStats = read_stats(stats)
+            COUNTS["reads"] += 1
+            if chunk is not None:  # the read synchronised: events are done
+                RUN["graph_ms"] += chunk.events[0].elapsed_time(
+                    chunk.events[1])
+                RUN["graph_bodies"] += state["bodies"]
+            state["n_iter"] = st.n_iter
+            return st
         step.carry = cr
-        return cr, st
+        return cr, Poll(poll)
 
     step.carry = carry
     return step

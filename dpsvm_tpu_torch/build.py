@@ -5,7 +5,9 @@ interface, compiled for Hopper (``sm_90a``) at first use into
 ``dpsvm_tpu_torch/_build/`` (listed in .gitignore). The library's file name
 carries a hash of the source and the flags, so an edited source is rebuilt
 and a stale library is never loaded. ``build_all`` starts one nvcc per
-source, all at once, and waits for them together.
+source, all at once, and waits for them together; each build is one
+``build:<library>`` observation (``observability/compilewatch``), which a
+run in progress records in its trace.
 
 Nothing here runs at import time: the CPU tests import every module and
 have no nvcc.
@@ -21,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
+
+from dpsvm_tpu_torch.observability import compilewatch
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -79,6 +83,9 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, dict]:
             continue
         os.replace(tmp, out)
         report[name] = {"path": str(out), "seconds": secs, "log": log}
+        # one build is one compile record of the run trace in progress
+        compilewatch.observe(f"build:{name}", secs,
+                             signature=SOURCES[name])
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return report

@@ -80,8 +80,12 @@ shard directory as a live append log (``data/live.py``); it applies to
 the streaming approx path only and is refused elsewhere. ``test --batch
 N`` evaluates through the serving engine's ladder (``serving/engine.py``)
 instead of one monolithic pass. ``grid`` trains a C x gamma grid
-(``fleet/grid.py``); its run trace and ledger row (``--trace-out``,
-``--ledger``) are ROADMAP item 13.
+(``fleet/grid.py``), with its run trace (``--trace-out``) and its
+perf-ledger rows (``--no-ledger`` turns them off). ``train --trace-out``,
+``--metrics-out``, ``--metrics-port``, ``--watch-rules``, ``--bundle-dir``
+and ``--profile-dir`` observe a run; ``report``, ``compare``, ``perf``,
+``profile``, ``watch``, ``bundle`` and ``info`` are the JAX CLI's
+subcommands of the same names (either package's traces).
 
 Distributed training (``--shards P``, the reference's ``mpirun -np P``):
 without ``--coordinator`` and outside ``torchrun`` the command starts P
@@ -390,6 +394,40 @@ def build_parser() -> argparse.ArgumentParser:
                          "durable shards mid-run (append_admitted / "
                          "ingest_grow events; checkpoints carry the "
                          "consumed generation)")
+    tr.add_argument("--profile-dir", default=None,
+                    help="write a windowed torch.profiler trace here "
+                         "(the first polls skipped, K polls captured, "
+                         "phases annotated) plus a profile_summary.json "
+                         "sidecar — render with `profile summarize DIR`")
+    tr.add_argument("--metrics-port", type=int, default=None,
+                    metavar="N",
+                    help="opt-in read-only metrics sidecar: serve the "
+                         "live metric registry on this port (0 = OS-"
+                         "assigned; bound port printed to stderr) as "
+                         "/metricsz JSON and /metricsz?format="
+                         "prometheus, torn down at run end — fed from "
+                         "the existing packed-stats polls, zero extra "
+                         "device transfers")
+    tr.add_argument("--metrics-out", default=None, metavar="FILE",
+                    help="scrape-less CI: rewrite FILE with the "
+                         "Prometheus text exposition at every poll "
+                         "(atomic replace)")
+    tr.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a run-telemetry JSONL here (manifest + "
+                         "per-chunk gap/SV-count/cache-counter records "
+                         "+ capture/build records + summary — zero "
+                         "extra device polls; render with `report "
+                         "PATH`)")
+    tr.add_argument("--watch-rules", default=None, metavar="FILE",
+                    help="alert-rules JSON for the continuous watch "
+                         "(gap stagnation, compile storm, roofline drop "
+                         "vs the perf-ledger median; default rules when "
+                         "only --bundle-dir is given)")
+    tr.add_argument("--bundle-dir", default=None, metavar="DIR",
+                    help="arm the black-box flight recorder: a firing "
+                         "watch rule dumps a self-contained incident "
+                         "bundle here (ring trace + metrics + doctor + "
+                         "ledger context; render with `bundle DIR`)")
     tr.add_argument("-q", "--quiet", action="store_true")
 
     te = sub.add_parser("test", help="evaluate a saved model on a dataset")
@@ -490,9 +528,182 @@ def build_parser() -> argparse.ArgumentParser:
                     help="promote the winner onto this serving artifact "
                          "path through the registry's atomic "
                          "promote_file (os.replace + a warmed reload)")
+    gd.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the grid training trace here "
+                         "(solver='grid': one grid_cell event per "
+                         "cell, grid_winner, summary) — the "
+                         "provenance pointer the ledger rows carry")
+    gd.add_argument("--no-ledger", dest="ledger", action="store_false",
+                    default=True,
+                    help="skip the perf-ledger append (the grid_train "
+                         "and grid_vs_sequential rows)")
     gd.add_argument("--json", action="store_true",
                     help="print only the JSON row")
     gd.add_argument("-q", "--quiet", action="store_true")
+
+    inf = sub.add_parser(
+        "info", help="environment diagnostics: torch, CUDA, the "
+                     "card and its power limit, native helper, kernel "
+                     "builds")
+    inf.add_argument("--timeout", type=float, default=20.0,
+                     help="seconds to wait for nvidia-smi before "
+                          "reporting the power limit unknown")
+
+    rp = sub.add_parser(
+        "report", help="render a run-telemetry trace (train "
+                       "--trace-out): convergence curve, phase "
+                       "breakdown, cache hit rate, compile/HBM/FLOP "
+                       "facts")
+    rp.add_argument("trace", help="trace JSONL written by --trace-out "
+                                  "(either package's), or a directory "
+                                  "of traces — the newest *.jsonl is "
+                                  "picked")
+    rp.add_argument("--json", action="store_true",
+                    help="machine-readable digest instead of the human "
+                         "rendering")
+    rp.add_argument("--width", type=int, default=60,
+                    help="plot width in columns")
+    rp.add_argument("--follow", action="store_true",
+                    help="live mode: tail an in-flight trace and "
+                         "refresh the report until a terminal record "
+                         "(summary / stall / preempt) or a stall "
+                         "timeout — makes a run in progress watchable")
+    rp.add_argument("--interval", type=float, default=1.0, metavar="S",
+                    help="--follow refresh poll interval (default 1 s)")
+    rp.add_argument("--stall-timeout", type=float, default=300.0,
+                    metavar="S",
+                    help="--follow exits 3 when the trace file stops "
+                         "growing for this long (default 300 s; a run "
+                         "killed too hard to stamp its own terminal "
+                         "event)")
+
+    cp = sub.add_parser(
+        "compare", help="delta table + regression gate between two "
+                        "run-telemetry traces (it/s, gap trajectory at "
+                        "matched iteration marks, phase split, cache "
+                        "hit rate, compile count/seconds, HBM peak)")
+    cp.add_argument("a", help="baseline trace JSONL (or a directory — "
+                              "newest *.jsonl)")
+    cp.add_argument("b", help="candidate trace JSONL (or a directory)")
+    cp.add_argument("--json", action="store_true",
+                    help="machine-readable comparison")
+    cp.add_argument("--fail-on-regress", type=float, default=None,
+                    metavar="PCT",
+                    help="exit 1 when the candidate regresses past "
+                         "PCT%% on a gated metric (it/s drop, HBM-peak "
+                         "growth, compile-seconds growth) — the "
+                         "mechanical perf gate for benches and CI")
+    cp.add_argument("--marks", type=int, default=4,
+                    help="iteration marks for the gap-trajectory "
+                         "comparison (default 4)")
+
+    pf = sub.add_parser(
+        "perf", help="persistent perf ledger: per-case measurement "
+                     "history and the historical regression gate "
+                     "(median-of-last-N baseline) that catches drift "
+                     "accumulating across individually-passing runs")
+    pf.add_argument("action", nargs="?", default="history",
+                    choices=["history", "gate"],
+                    help="history (default): render per-case trends; "
+                         "gate: fail on a historical regression")
+    pf.add_argument("--ledger", default=None, metavar="PATH",
+                    help="ledger JSONL (default: $DPSVM_PERF_LEDGER, "
+                         "else dpsvm_tpu_torch/_ledger/"
+                         "perf_ledger.jsonl)")
+    pf.add_argument("--case", default=None,
+                    help="restrict to one case tag (default: all)")
+    pf.add_argument("--metric", default="value",
+                    help="reading to plot/gate: 'value' (the row's "
+                         "headline) or any numeric key of the "
+                         "record's metrics dict")
+    pf.add_argument("--window", type=int, default=5, metavar="N",
+                    help="gate baseline: median of the last N records "
+                         "before the newest (default 5)")
+    pf.add_argument("--fail-on-regress", type=float, default=10.0,
+                    metavar="PCT",
+                    help="gate threshold percent (direction-aware "
+                         "like `compare`; default 10)")
+    pf.add_argument("--last", type=int, default=12,
+                    help="history rows rendered per case (default 12)")
+    pf.add_argument("--json", action="store_true",
+                    help="machine-readable output")
+
+    pr = sub.add_parser(
+        "profile", help="render the reconciliation sidecar of a "
+                        "`train --profile-dir` capture: phase-"
+                        "attributed host wall split next to the run "
+                        "trace's phase_counts, plus the device-trace "
+                        "artifact inventory and the device time the "
+                        "profiler saw")
+    pr.add_argument("action", choices=["summarize"],
+                    help="summarize: the one reconciliation table")
+    pr.add_argument("dir", help="the --profile-dir directory")
+    pr.add_argument("--trace", default=None, metavar="PATH",
+                    help="run-telemetry trace (or directory) to "
+                         "reconcile against: its phase_counts are "
+                         "printed next to the profile's phases and "
+                         "the match is verified")
+    pr.add_argument("--json", action="store_true",
+                    help="machine-readable summary")
+
+    wt = sub.add_parser(
+        "watch", help="continuous SLO watch: tail a live /metricsz "
+                      "endpoint, a --metrics-out snapshot file or an "
+                      "in-flight run trace, evaluate the alert rules "
+                      "and exit with a distinct code per severity "
+                      "(0 = clean, 4 = warn fired, 5 = page fired, "
+                      "3 = source stale/unreachable) so cron/CI can "
+                      "gate on it")
+    src = wt.add_mutually_exclusive_group(required=True)
+    src.add_argument("--url", default=None,
+                     help="base URL (or full /metricsz URL) of a live "
+                          "`serve` / `train --metrics-port` "
+                          "process to poll")
+    src.add_argument("--metrics-file", default=None, metavar="FILE",
+                     help="a `train --metrics-out` snapshot file to "
+                          "tail (the seq header detects missed/"
+                          "duplicate snapshots)")
+    src.add_argument("--trace", default=None, metavar="PATH",
+                     help="a run-telemetry trace (or directory — "
+                          "newest *.jsonl) to tail; chunk records "
+                          "become training watch samples")
+    wt.add_argument("--rules", default=None, metavar="FILE",
+                    help="alert-rules JSON (default: the built-in "
+                         "serving rules for --url/--metrics-file, the "
+                         "training rules for --trace)")
+    wt.add_argument("--interval", type=float, default=2.0, metavar="S",
+                    help="poll interval (default 2 s)")
+    wt.add_argument("--for", dest="duration", type=float, default=0.0,
+                    metavar="S",
+                    help="watch this long then exit (0 = until the "
+                         "source ends: trace summary/terminal event, "
+                         "or stale timeout)")
+    wt.add_argument("--once", action="store_true",
+                    help="evaluate one sample and exit (CI gate mode)")
+    wt.add_argument("--stale-timeout", type=float, default=60.0,
+                    metavar="S",
+                    help="exit 3 when the source stops updating for "
+                         "this long (default 60 s)")
+    wt.add_argument("--bundle-dir", default=None, metavar="DIR",
+                    help="dump an incident bundle here when a rule "
+                         "fires (the watch-side black box: recent "
+                         "samples + alert history)")
+    wt.add_argument("--json", action="store_true",
+                    help="machine-readable final state instead of the "
+                         "live rendering")
+    wt.add_argument("-q", "--quiet", action="store_true")
+
+    bd = sub.add_parser(
+        "bundle", help="render + validate an incident bundle dumped "
+                       "by the flight recorder (`--bundle-dir`): "
+                       "incident manifest, embedded-trace report, "
+                       "schema/exposition validation; exit 0 valid / "
+                       "1 invalid")
+    bd.add_argument("dir", help="a bundle directory (incident-*) or a "
+                                "parent --bundle-dir (newest bundle "
+                                "wins)")
+    bd.add_argument("--json", action="store_true",
+                    help="machine-readable manifest + verdict")
 
     sc = sub.add_parser(
         "scale", help="feature scaling (svm-scale analog; LIBSVM-"
@@ -529,7 +740,7 @@ def _add_serve_parsers(sub) -> None:
                     help="top rung of the bucket ladder AND the micro-"
                          "batcher's coalescing cap (default 256; the "
                          "tuned profile and --no-tuned come with the "
-                         "tuning layer, ROADMAP item 13)")
+                         "tuning layer, ROADMAP item 13b)")
     sv.add_argument("--precision", default="highest",
                     choices=["highest", "high", "default"],
                     help="precision of the decision ladder: 'highest' "
@@ -710,7 +921,7 @@ def _train_conflicts(args: argparse.Namespace):
     """(error message or None, class_weight) from the flags alone, before
     the dataset is parsed: the JAX CLI's rules and messages for the flags
     the port has. Its rows on flags the port does not have (``--pallas``,
-    ``--polish``, ``--check-kkt``, ``--trace-out``) drop out."""
+    ``--polish``, ``--check-kkt``) drop out."""
     if args.model_format == "libsvm" and args.multiclass:
         return ("--model-format libsvm applies to binary models; "
                 "--multiclass writes a directory of reference-format "
@@ -752,6 +963,9 @@ def _train_conflicts(args: argparse.Namespace):
             return ("--checkpoint/--resume are single-model flags; they "
                     "cannot be shared across the pairwise multiclass "
                     "subproblems"), None
+        if args.trace_out:
+            return ("--trace-out records ONE training run; the pairwise "
+                    "multiclass subproblems would each overwrite it"), None
         if args.weight_pos != 1.0 or args.weight_neg != 1.0:
             # '+1' is just the lower-sorted label of each pair
             return ("--weight-pos/--weight-neg are binary-problem flags; "
@@ -817,7 +1031,9 @@ def _train_conflicts(args: argparse.Namespace):
                  " (CV dispatches to one-vs-one automatically when the "
                  "labels have more than two classes)"),
                 ("--checkpoint/--resume",
-                 bool(args.checkpoint or args.resume), "")):
+                 bool(args.checkpoint or args.resume), ""),
+                ("--trace-out", bool(args.trace_out),
+                 " (it records one run; folds would overwrite it)")):
             if on:
                 return f"{flag} does not apply to --cv mode{hint}", None
     modes = [f for f, on in (("--svr", args.svr),
@@ -935,6 +1151,12 @@ def cmd_train(args: argparse.Namespace) -> int:
                        mem_budget_mb=args.mem_budget_mb,
                        on_bad_shard=args.on_bad_shard,
                        live=args.live,
+                       profile_dir=args.profile_dir,
+                       metrics_port=args.metrics_port,
+                       metrics_out=args.metrics_out,
+                       trace_out=args.trace_out,
+                       watch_rules=args.watch_rules,
+                       bundle_dir=args.bundle_dir,
                        verbose=not args.quiet)
     dev = args.device
     if stream_train:
@@ -1491,9 +1713,21 @@ def cmd_grid(args: argparse.Namespace) -> int:
                        coef0=args.coef0, verbose=not args.quiet,
                        **({"max_iter": args.max_iter}
                           if args.max_iter is not None else {}))
-    grid = train_grid(x, y, cs=cs, gammas=gammas, config=config,
-                      holdout_frac=args.holdout_frac, seed=args.seed,
-                      polish=args.polish, device=args.device)
+    tr = None
+    if args.trace_out:
+        from dpsvm_tpu_torch.observability.record import RunTrace
+        from dpsvm_tpu_torch.solver.driver import trace_env
+        tr = RunTrace(args.trace_out, config=config, n=x.shape[0],
+                      d=x.shape[1], gamma=(gammas[0] if gammas
+                                           else 1.0 / x.shape[1]),
+                      solver="grid", env=trace_env(args.device))
+    try:
+        grid = train_grid(x, y, cs=cs, gammas=gammas, config=config,
+                          holdout_frac=args.holdout_frac, seed=args.seed,
+                          polish=args.polish, trace=tr, device=args.device)
+    finally:
+        if tr is not None:
+            tr.close()
     best = grid.best
     row = {
         "metric": "grid_train_seconds",
@@ -1512,7 +1746,16 @@ def cmd_grid(args: argparse.Namespace) -> int:
                    "n_sv": int(best.result.n_sv)},
         "n_train": grid.n_train, "n_holdout": grid.n_holdout,
         "devices": grid.devices, "polished": grid.polished,
+        "trace": args.trace_out,
     }
+
+    def _ledger_append(case, value, unit, extra):
+        if not args.ledger:
+            return
+        from dpsvm_tpu_torch.observability import ledger
+        ledger.append(case, extra, kind="fleet", value=value, unit=unit,
+                      trace=args.trace_out)
+
     if args.compare_sequential:
         from dpsvm_tpu_torch.models.svm import evaluate
         seq_s, seq_models = sequential_grid_seconds(
@@ -1530,6 +1773,18 @@ def cmd_grid(args: argparse.Namespace) -> int:
             abs(float(evaluate(m, x_ho, y_ho, device=args.device))
                 - c.holdout_acc)
             for (_, _, m), c in zip(seq_models, grid.cells)), 6)
+        _ledger_append("grid_vs_sequential", row["grid_vs_sequential_x"],
+                       "x", {"grid_seconds": row["value"],
+                             "sequential_seconds":
+                             row["sequential_seconds"],
+                             "cells": len(grid.cells),
+                             "devices": grid.devices,
+                             "seq_acc_gap_max": row["seq_acc_gap_max"],
+                             "n": int(x.shape[0]), "d": int(x.shape[1])})
+    _ledger_append("grid_train", row["value"], "s", {
+        "cells": len(grid.cells), "devices": grid.devices,
+        "winner": row["winner"], "polished": grid.polished,
+        "n": int(x.shape[0]), "d": int(x.shape[1])})
     if args.out:
         import tempfile
 
@@ -1581,6 +1836,511 @@ def cmd_grid(args: argparse.Namespace) -> int:
             print(f"  promoted -> {row['promoted']} "
                   f"(generation {row['generation']})")
     return 0
+
+
+def cmd_info(args: argparse.Namespace) -> int:
+    """Environment diagnostics: what a training run will see, without
+    starting one (torch, CUDA, the cards and the power limit, the native
+    helper, the kernel builds). Touches no card beyond naming it."""
+    import shutil
+    import subprocess
+
+    import torch
+
+    import dpsvm_tpu_torch
+    from dpsvm_tpu_torch import build
+    from dpsvm_tpu_torch.native.build import load_native_lib
+
+    print(f"dpsvm_tpu_torch {dpsvm_tpu_torch.__version__}")
+    print(f"torch {torch.__version__} (CUDA {torch.version.cuda})")
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n:
+        print(f"backend: cuda ({n} device{'s' if n != 1 else ''})")
+        for i in range(n):
+            print(f"  cuda:{i} {torch.cuda.get_device_name(i)}")
+        smi = shutil.which("nvidia-smi")
+        limit = None
+        if smi:
+            try:
+                out = subprocess.run(
+                    [smi, "--query-gpu=name,power.limit",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True, timeout=max(args.timeout, 1.0))
+                limit = out.stdout.strip() if out.returncode == 0 else None
+            except (OSError, subprocess.SubprocessError):
+                limit = None
+        print(f"power limit: {limit or 'unknown (nvidia-smi did not answer)'}")
+        print(f"distributed: --shards up to {n} on this host (a card a "
+              "rank, NCCL)")
+    else:
+        print("backend: cpu (no CUDA device; pass --device cpu)")
+    lib = load_native_lib()
+    print("native helper: "
+          + ("loaded (C++ CSV/libsvm parser)" if lib is not None else
+             "unavailable (pure-Python fallbacks active)"))
+    built = {name: build._target(name).exists() for name in build.SOURCES}
+    print(f"kernel builds: {build.BUILD_DIR} ("
+          + ", ".join(f"{k} {'built' if v else 'not built'}"
+                      for k, v in built.items()) + ")")
+    return 0
+
+
+def _pipe_safe_print(text: str) -> None:
+    """print() for the read-only report surfaces, tolerant of a closed
+    downstream pipe (`report run.jsonl | head` is the normal
+    consumption pattern; a BrokenPipeError traceback there reads as a
+    crash). Python re-raises on the shutdown flush too, so stdout is
+    redirected to devnull after the pipe breaks."""
+    import os
+
+    try:
+        print(text)
+        sys.stdout.flush()
+    except BrokenPipeError:
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+
+
+def cmd_report(args: argparse.Namespace) -> int:
+    """Render a run-telemetry trace (either package's). Pure file I/O:
+    nothing touches a device, so it works on a machine with no card.
+    ``--follow`` tails an in-flight trace instead (exit 0 = run
+    finished, 1 = terminal stall/preempt event, 3 = file stopped
+    growing)."""
+    import json
+
+    from dpsvm_tpu_torch.observability import (follow_trace, load_trace_auto,
+                                     render_report, resolve_trace_path,
+                                     summarize_trace)
+
+    width = max(int(args.width), 20)
+    if args.follow:
+        # The trace may not exist yet (watching a run about to start):
+        # resolve directories when possible, else follow the raw path.
+        # A multi-host trace family cannot be followed live — name one
+        # host's file (or report the directory after the run).
+        try:
+            path = resolve_trace_path(args.trace)
+        except FileNotFoundError:
+            path = args.trace
+        except ValueError as e:
+            print(f"error: --follow needs one trace: {e}",
+                  file=sys.stderr)
+            return 2
+        return follow_trace(path, interval=max(args.interval, 0.01),
+                            stall_timeout=args.stall_timeout,
+                            width=width)
+    try:
+        # a directory resolves to its newest trace (a multi-host
+        # trace_h* family is refused: merging is not ported)
+        records = load_trace_auto(args.trace)
+    except FileNotFoundError as e:
+        print(f"error: no such trace: {e}", file=sys.stderr)
+        return 2
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        _pipe_safe_print(json.dumps(summarize_trace(records)))
+    else:
+        _pipe_safe_print(render_report(records, width=width))
+    return 0
+
+
+def cmd_compare(args: argparse.Namespace) -> int:
+    """Two traces in (either package's), one verdict out. Pure file I/O
+    like report. Exit codes: 0 = no gated
+    regression (or no gate requested), 1 = regression past
+    --fail-on-regress, 2 = unreadable/invalid input."""
+    import json
+
+    from dpsvm_tpu_torch.observability import (compare_paths, regressions,
+                                     render_compare)
+
+    try:
+        cmp, ra, rb = compare_paths(args.a, args.b,
+                                    marks=max(int(args.marks), 1))
+    except FileNotFoundError as e:
+        print(f"error: no such trace: {e}", file=sys.stderr)
+        return 2
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    regress = (regressions(cmp, args.fail_on_regress)
+               if args.fail_on_regress is not None else [])
+    if args.fail_on_regress is not None:
+        # Gated verdicts join the perf ledger: pairwise outcomes
+        # become history `dpsvm perf gate` can check for accumulated
+        # drift the pairwise gate cannot see. Best-effort (a ledger
+        # hiccup must not change the compare verdict).
+        import os as _os
+
+        from dpsvm_tpu_torch.observability import ledger
+        by = {r["metric"]: r for r in cmp["metrics"]}
+        ips_b = (by.get("iters_per_sec") or {}).get("b")
+        ledger.append(
+            _os.path.splitext(_os.path.basename(rb))[0],
+            {"passed": not regress, "regressions": regress,
+             "threshold_pct": args.fail_on_regress,
+             "a": ra, "b": rb, "value": ips_b, "unit": "iter/s"},
+            kind="compare", trace=rb)
+    if args.json:
+        _pipe_safe_print(json.dumps(dict(cmp, a_path=ra, b_path=rb,
+                                         regressions=regress)))
+    else:
+        text = render_compare(cmp, label_a=ra, label_b=rb)
+        if args.fail_on_regress is not None:
+            if regress:
+                text += ("\n\nREGRESSION past "
+                         f"{args.fail_on_regress:g}% threshold:")
+                text += "".join(f"\n  {r}" for r in regress)
+            else:
+                text += (f"\n\nno regression past "
+                         f"{args.fail_on_regress:g}% threshold")
+        _pipe_safe_print(text)
+    return 1 if regress else 0
+
+
+def cmd_perf(args: argparse.Namespace) -> int:
+    """Perf-ledger history + historical regression gate. Pure file I/O
+    like report/compare. Exit codes: 0 = OK (or gate
+    passed), 1 = gate regression, 2 = no/unreadable ledger."""
+    import json
+
+    from dpsvm_tpu_torch.observability import ledger
+
+    path = ledger.ledger_path(args.ledger)
+    if path is None or not os.path.isfile(path):
+        where = path or "(ledger disabled: DPSVM_PERF_LEDGER is empty)"
+        print(f"error: no perf ledger at {where} — loadgen, grid and "
+              "gated compare runs append to it automatically",
+              file=sys.stderr)
+        return 2
+    try:
+        records = ledger.read(path)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.action == "gate":
+        try:
+            verdicts = ledger.gate(records, window=args.window,
+                                   threshold_pct=args.fail_on_regress,
+                                   case=args.case, metric=args.metric)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if args.json:
+            _pipe_safe_print(json.dumps({
+                "ledger": path, "window": args.window,
+                "threshold_pct": args.fail_on_regress,
+                "cases": ledger.cases(records),
+                "regressions": verdicts}))
+        elif verdicts:
+            print(f"HISTORICAL REGRESSION past "
+                  f"{args.fail_on_regress:g}% (window {args.window}):")
+            for v in verdicts:
+                print(f"  {v}")
+        else:
+            n = len([args.case] if args.case
+                    else ledger.cases(records))
+            print(f"no historical regression past "
+                  f"{args.fail_on_regress:g}% across {n} case(s) "
+                  f"(median-of-last-{args.window} baseline, {path})")
+        return 1 if verdicts else 0
+    if args.json:
+        out = {"ledger": path, "cases": {}}
+        for c in ([args.case] if args.case
+                  else ledger.cases(records)):
+            out["cases"][c] = ledger.series(records, c,
+                                            metric=args.metric)
+            for h in out["cases"][c]:
+                h.pop("record", None)
+        _pipe_safe_print(json.dumps(out))
+        return 0
+    if args.case and args.case not in ledger.cases(records):
+        print(f"error: no case {args.case!r} in {path} "
+              f"(cases: {ledger.cases(records)})", file=sys.stderr)
+        return 2
+    _pipe_safe_print(f"perf ledger: {path} "
+                     f"({len(records)} record(s))\n"
+                     + ledger.render_history(
+                         records, case=args.case, metric=args.metric,
+                         last=args.last))
+    return 0
+
+
+def cmd_profile(args: argparse.Namespace) -> int:
+    """`profile summarize DIR`: the reconciliation table of a windowed
+    --profile-dir capture (observability/profiler.py). Pure file I/O."""
+    import json
+
+    from dpsvm_tpu_torch.observability import profiler
+
+    try:
+        result = profiler.summarize_profile(args.dir,
+                                            trace_path=args.trace)
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except (ValueError, json.JSONDecodeError) as e:
+        print(f"error: unreadable profile summary: {e}",
+              file=sys.stderr)
+        return 2
+    if args.json:
+        _pipe_safe_print(json.dumps(result))
+        return 0
+    text = profiler.render_summary(
+        result, trace_phase_counts=result.get("trace_phase_counts"))
+    if args.trace is not None and not result.get("phases_match", True):
+        text += ("\nWARNING: trace phases missing from the profile's "
+                 "annotation vocabulary")
+    _pipe_safe_print(text)
+    return 0
+
+
+def cmd_watch(args: argparse.Namespace) -> int:
+    """`watch`: continuous SLO evaluation against a live source. Pure
+    HTTP/file I/O, so it runs from any machine that can reach the
+    source. Exit codes: 0 clean, 4 a warn rule fired, 5 a page rule
+    fired (worst severity DURING the watch — a fired-and-cleared burn
+    still fails the gate), 3 source stale/unreachable, 2 usage."""
+    import json
+    import time
+    import urllib.error
+    import urllib.request
+
+    from dpsvm_tpu_torch.observability import blackbox, slo
+
+    default_kind = "training" if args.trace else "serving"
+    try:
+        rules = slo.load_rules(args.rules, default=default_kind)
+    except (OSError, ValueError) as e:
+        print(f"error: bad rules: {e}", file=sys.stderr)
+        return 2
+    tower = slo.Watchtower(rules)
+    follower = slo.SnapshotFollower()
+    if args.trace and os.path.isdir(args.trace):
+        from dpsvm_tpu_torch.observability.report import resolve_trace_path
+        try:
+            args.trace = resolve_trace_path(args.trace)
+        except (OSError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    flight = None
+    if args.bundle_dir:
+        flight = blackbox.FlightRecorder(blackbox.make_manifest(
+            solver=f"watch-{default_kind}",
+            config={"source": args.url or args.metrics_file
+                    or args.trace}))
+
+    def say(msg: str) -> None:
+        if not args.quiet and not args.json:
+            print(msg, flush=True)
+
+    def handle(transitions, t_label) -> None:
+        for tr in transitions:
+            mark = ("FIRING" if tr["state"] == "firing" else "ok")
+            say(f"[{t_label}] {mark:>6} {tr['severity']:<4} "
+                f"{tr['rule']} ({tr['window']}) {tr['reason']}")
+            if flight is not None:
+                flight.event("alert", rule=tr["rule"],
+                             window=tr["window"],
+                             severity=tr["severity"],
+                             state=tr["state"], reason=tr["reason"])
+                if tr["state"] == "firing":
+                    blackbox.dump_bundle(
+                        args.bundle_dir, recorder=flight,
+                        rule=tr["rule"], severity=tr["severity"],
+                        window=tr["window"], reason=tr["reason"],
+                        extra={"source": f"watch-{default_kind}"})
+
+    url = None
+    if args.url:
+        url = args.url.rstrip("/")
+        if not url.endswith("/metricsz"):
+            url += "/metricsz"
+
+    start = time.monotonic()
+    last_progress = start
+    trace_pos = 0
+    trace_done = None
+    stale = False
+    # The SOURCE's own watchtower outranks ours: a serving process
+    # reports its alert states in /metricsz, and a fresh `watch --url
+    # --once` has no sample history of its own — without this merge it
+    # would read a mid-incident server as clean.
+    server_worst: Optional[str] = None
+    server_firing: set = set()
+    while True:
+        now = time.monotonic()
+        got_sample = False
+        if url is not None:
+            try:
+                with urllib.request.urlopen(url, timeout=10) as r:
+                    raw = r.read()
+                try:
+                    obj = json.loads(raw)
+                except json.JSONDecodeError:
+                    obj = None
+                if isinstance(obj, dict) and ("alerts" in obj
+                                              or "requests" in obj):
+                    # the serving server's JSON blob: counters + its
+                    # own alert states
+                    sample = slo.sample_from_metricsz_json(obj)
+                    firing_now = set()
+                    for a in obj.get("alerts") or []:
+                        if a.get("state") != "firing":
+                            continue
+                        sev = a.get("severity", "warn")
+                        firing_now.add(a.get("rule"))
+                        server_worst = slo.worst_severity(
+                            server_worst, sev)
+                        if a.get("rule") not in server_firing:
+                            ten = (f" [tenant {a['tenant']}]"
+                                   if a.get("tenant") else "")
+                            say(f"[live] FIRING {sev:<4} "
+                                f"{a.get('rule')} "
+                                f"({a.get('window')}){ten} — reported "
+                                "by the source's own watchtower")
+                    for rule in server_firing - firing_now:
+                        say(f"[live]     ok      {rule} — cleared at "
+                            "the source")
+                    server_firing = firing_now
+                else:
+                    # registry-snapshot shape (the train sidecar):
+                    # re-fetch as the text exposition and flatten
+                    with urllib.request.urlopen(
+                            url + "?format=prometheus",
+                            timeout=10) as r:
+                        sample = slo.sample_from_prometheus(
+                            r.read().decode())
+                handle(tower.observe(sample, t=now), "live")
+                got_sample = True
+            except (urllib.error.URLError, OSError) as e:
+                say(f"source unreachable: {e}")
+        elif args.metrics_file is not None:
+            try:
+                with open(args.metrics_file) as fh:
+                    text = fh.read()
+            except OSError:
+                text = None             # not written yet: wait
+            if text:
+                fresh, problems = follower.note(
+                    slo.parse_snapshot_header(text))
+                for p in problems:
+                    say(f"WARNING: {p}")
+                if fresh:
+                    handle(tower.observe(
+                        slo.sample_from_prometheus(text), t=now),
+                        f"seq={follower.last_seq}")
+                    got_sample = True
+        else:
+            try:
+                with open(args.trace) as fh:
+                    fh.seek(trace_pos)
+                    new = fh.read()
+                    trace_pos = fh.tell()
+            except OSError:
+                new = ""
+            for line in new.splitlines():
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except json.JSONDecodeError:
+                    continue            # torn final line of a live run
+                got_sample = True
+                kind = rec.get("kind")
+                if kind == "chunk":
+                    t_rec, sample = slo.sample_from_chunk(rec)
+                    handle(tower.observe(sample, t=t_rec),
+                           f"iter={rec.get('n_iter')}")
+                elif (kind == "summary"
+                      or (kind == "event"
+                          and rec.get("event") in ("stall",
+                                                   "preempt"))):
+                    trace_done = (rec.get("event")
+                                  if kind == "event" else "summary")
+        if got_sample:
+            last_progress = now
+        if trace_done is not None:
+            say(f"trace ended ({trace_done})")
+            break
+        if args.once and got_sample:
+            break
+        if args.duration and now - start >= args.duration:
+            break
+        if now - last_progress >= args.stale_timeout:
+            stale = True
+            break
+        time.sleep(max(args.interval, 0.05))
+
+    states = tower.states()
+    worst = slo.worst_severity(tower.worst_fired, server_worst)
+    code = slo.EXIT_STALE if stale else slo.severity_exit_code(worst)
+    if args.json:
+        _pipe_safe_print(json.dumps({
+            "states": states, "worst_fired": worst,
+            "source_reported": sorted(server_firing),
+            "stale": stale,
+            "snapshots": {"missed": follower.missed,
+                          "duplicates": follower.duplicates},
+            "exit_code": code}))
+    else:
+        say("")
+        for s in states:
+            mark = "FIRING" if s["state"] == "firing" else "ok"
+            say(f"{mark:>6} {s['severity']:<4} {s['rule']} "
+                f"({s['window']})"
+                + (f" [tenant {s['tenant']}]" if s.get("tenant")
+                   else "")
+                + (f" — {s['reason']}" if s["reason"] else "")
+                + (f" [fired {s['fired_count']}x]"
+                   if s["fired_count"] else ""))
+        for rule in sorted(server_firing):
+            say(f"FIRING (source-reported) {rule}")
+        if stale:
+            print(f"error: source stale for {args.stale_timeout:g}s",
+                  file=sys.stderr)
+    return code
+
+
+def cmd_bundle(args: argparse.Namespace) -> int:
+    """`bundle DIR`: render + validate one incident bundle
+    (observability/blackbox.py). Exit 0 = valid, 1 = invalid, 2 = no
+    bundle found."""
+    import json
+
+    from dpsvm_tpu_torch.observability import blackbox
+
+    try:
+        path = blackbox.resolve_bundle_dir(args.dir)
+    except (FileNotFoundError, NotADirectoryError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    problems = blackbox.validate_bundle(path)
+    if args.json:
+        try:
+            incident = blackbox.load_incident(path)
+        except (OSError, json.JSONDecodeError):
+            incident = None
+        _pipe_safe_print(json.dumps({
+            "path": path, "valid": not problems,
+            "problems": problems, "incident": incident}))
+    else:
+        try:
+            _pipe_safe_print(blackbox.render_bundle(path))
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"error: unrenderable bundle: {e}", file=sys.stderr)
+            return 1
+        if problems:
+            print("bundle INVALID:", file=sys.stderr)
+            for p in problems:
+                print(f"  {p}", file=sys.stderr)
+        else:
+            _pipe_safe_print("bundle OK (trace schema-valid, "
+                             "exposition grammar-valid)")
+    return 1 if problems else 0
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
@@ -1969,6 +2729,20 @@ def _run(args) -> int:
             return cmd_serve(args)
         if args.command == "loadgen":
             return cmd_loadgen(args)
+        if args.command == "info":
+            return cmd_info(args)
+        if args.command == "report":
+            return cmd_report(args)
+        if args.command == "compare":
+            return cmd_compare(args)
+        if args.command == "perf":
+            return cmd_perf(args)
+        if args.command == "profile":
+            return cmd_profile(args)
+        if args.command == "watch":
+            return cmd_watch(args)
+        if args.command == "bundle":
+            return cmd_bundle(args)
         return cmd_test(args)
     except StreamError as e:
         # shard corruption under on_bad_shard='raise', the bad-fraction

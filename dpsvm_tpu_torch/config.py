@@ -227,6 +227,38 @@ class SVMConfig:
                                             # the newest intact rotation
                                             # slot)
 
+    # --- observability (solver/driver.py; observability/) ---
+    profile_dir: Optional[str] = None       # torch.profiler output dir: a
+                                            # window of polls (skip, then
+                                            # capture; DPSVM_PROFILE_*),
+                                            # record_function ranges named
+                                            # after the driver's phases and
+                                            # a profile_summary.json sidecar
+                                            # (observability/profiler.py)
+    metrics_port: Optional[int] = None      # read-only metrics sidecar on
+                                            # this port (0 = OS-assigned):
+                                            # /metricsz JSON and
+                                            # ?format=prometheus, down at
+                                            # run end; fed from the poll's
+                                            # one stats read
+    metrics_out: Optional[str] = None       # rewrite this file with the
+                                            # Prometheus text exposition at
+                                            # every poll (tmp + rename)
+    trace_out: Optional[str] = None         # run-trace JSONL path: manifest,
+                                            # a chunk record a poll (from
+                                            # the poll's one stats read),
+                                            # capture/build records, events,
+                                            # summary; the JAX package's
+                                            # schema (`report`, `compare`)
+    watch_rules: Optional[str] = None       # alert-rules JSON for the
+                                            # driver's continuous watch
+                                            # (observability/slo.py); None
+                                            # with bundle_dir set = the
+                                            # default training rules
+    bundle_dir: Optional[str] = None        # incident bundles land here
+                                            # when a watch rule fires (arms
+                                            # the flight recorder)
+
     def fused_incompatibility(self) -> Optional[str]:
         """Why the fused iteration cannot run this config (None if it can).
         ``api.train`` sends such a config to the general pair."""
@@ -308,6 +340,11 @@ class SVMConfig:
         if self.wall_budget_s < 0:
             raise ValueError(
                 f"wall_budget_s must be >= 0, got {self.wall_budget_s}")
+        if self.metrics_port is not None and not (
+                0 <= int(self.metrics_port) <= 65535):
+            raise ValueError(
+                f"metrics_port must be in [0, 65535], got "
+                f"{self.metrics_port}")
         if self.mem_budget_mb is not None and self.mem_budget_mb <= 0:
             raise ValueError(
                 f"mem_budget_mb must be > 0, got {self.mem_budget_mb}")
@@ -409,6 +446,12 @@ class SVMConfig:
                     "boundaries are its checkpoint cadence — set "
                     "checkpoint_path alone to name where stage state "
                     "lives")
+            if self.profile_dir:
+                raise ValueError(
+                    "cascade does not support profile_dir: the "
+                    "auto-windowed capture profiles ONE chunk-runner "
+                    "steady state and the cascade is three runs — "
+                    "profile a stage's solver directly")
         if self.selection not in ("first-order", "second-order"):
             raise ValueError(f"selection must be 'first-order' or "
                              f"'second-order', got {self.selection!r}")
@@ -432,6 +475,25 @@ class SVMConfig:
                 raise ValueError("select_impl applies to first-order "
                                  "selection only (WSS2's argmax-over-"
                                  "objective has no packed lowering)")
+        if self.polish:
+            # The JAX table, row for row (its row on backend, a field
+            # the port does not have, cannot fire).
+            for field, bad, what in (
+                    ("resume_from", bool(self.resume_from),
+                     "the two-phase schedule is not one replayable "
+                     "trajectory; resume the fast phase, then polish"),
+                    ("checkpoint_path", bool(self.checkpoint_path),
+                     "the two-phase schedule is not one replayable "
+                     "trajectory; checkpoint the fast phase, then "
+                     "polish"),
+                    ("trace_out", bool(self.trace_out),
+                     "the two-phase schedule is two runs, not one "
+                     "trajectory — one trace file would be overwritten "
+                     "by the refinement phase; trace each phase "
+                     "separately via warm_start")):
+                if bad:
+                    raise ValueError(f"polish does not support {field}: "
+                                     f"{what}")
         # Identity checks, not equality: 1 == True and np.True_ == True
         # would pass a membership test yet skip every 'is True' guard.
         if not (self.shrinking is True or self.shrinking is False
@@ -492,6 +554,10 @@ class SVMConfig:
             # The JAX table, row for row, for the fields the port has
             # ("auto" is exempt: the plan never picks shrinking when one
             # of them is set).
+            # For solver="cascade" the exporters and the watch belong to
+            # the cascade's driver runs, and are stripped before the
+            # shrinking polish sub-run sees them.
+            cascade = self.solver == "cascade"
             for field, bad, what in (
                     ("cache_size", self.cache_size > 0,
                      "cached row indices would dangle across "
@@ -506,7 +572,22 @@ class SVMConfig:
                      "state"),
                     ("resume_from", bool(self.resume_from),
                      "checkpoint/resume does not capture active-set "
-                     "state")):
+                     "state"),
+                    ("profile_dir", bool(self.profile_dir),
+                     "the shrinking loop manages its own dispatch; "
+                     "profile the unshrunk path"),
+                    ("metrics_port/metrics_out",
+                     (self.metrics_port is not None
+                      or bool(self.metrics_out)) and not cascade,
+                     "the shrinking loop manages its own dispatch; "
+                     "the metrics exporters ride the shared host "
+                     "driver"),
+                    ("watch_rules/bundle_dir",
+                     (bool(self.watch_rules) or bool(self.bundle_dir))
+                     and not cascade,
+                     "the shrinking loop manages its own dispatch; "
+                     "the continuous watch rides the shared host "
+                     "driver")):
                 if bad:
                     raise ValueError(
                         f"shrinking does not support {field}: {what}")
@@ -562,6 +643,11 @@ def _auto_solver_plan(n: int, d: int, config: SVMConfig) -> dict:
                             and config.cache_size == 0
                             and not config.checkpoint_path
                             and not config.resume_from
+                            and not config.profile_dir
+                            and config.metrics_port is None
+                            and not config.metrics_out
+                            and not config.watch_rules
+                            and not config.bundle_dir
                             and not (config.use_pallas == "on"
                                      and config.working_set == 2))
         plan["shrinking"] = bool(want_shrink and shrink_supported)

@@ -35,14 +35,16 @@ import numpy as np
 import torch
 
 from dpsvm_tpu_torch.config import SVMConfig, TrainResult
+from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.experimental.fused_step import (
     S_BHI, S_BLO, S_NITER, S_RUN, FusedCarry, FusedWorkspace, book_runs,
     launch_fused_chunk, pack_state, run_chunk_plain, unpack_state)
 from dpsvm_tpu_torch.ops.kernels import row_norms_sq
 from dpsvm_tpu_torch.ops.selection import masked_extrema
-from dpsvm_tpu_torch.solver.driver import (device_sv_count, gap_open,
-                                           host_training_loop, pack_stats,
-                                           read_stats, resume_state)
+from dpsvm_tpu_torch.solver.driver import (Poll, device_sv_count,
+                                           gap_open, host_training_loop,
+                                           pack_stats, read_stats,
+                                           resume_state)
 
 
 def init_fused_carry(alpha: torch.Tensor, f: torch.Tensor, y: torch.Tensor,
@@ -60,6 +62,17 @@ def _stats(carry: FusedCarry) -> torch.Tensor:
     return pack_stats(s[S_NITER], s[S_BLO], s[S_BHI],
                       device_sv_count(carry.alpha), torch.zeros_like(s[0]),
                       s[S_RUN])
+
+
+def iteration_work(xd: torch.Tensor) -> dict:
+    """Kernel A's work an iteration, the counts of ``chip_smoke.py``'s
+    bound column: X read once in its stored type, the two rows, five
+    f32 vectors (alpha, f, y, x2 in, f out) and the scalars; 4 n d
+    operations (two dot products and the f update's products)."""
+    n, d = xd.shape
+    el = xd.element_size()
+    return {"flops": 4.0 * n * d,
+            "bytes": float(n * d * el + 2 * d * el + 5 * n * 4 + 8 * 4)}
 
 
 def _prepare(x: np.ndarray, y: np.ndarray, config: SVMConfig,
@@ -128,11 +141,17 @@ def _run(x: np.ndarray, y: np.ndarray, config: SVMConfig,
     carry = init_fused_carry(alpha, f, yd, float(config.c), it0)
     ws = None if plain else FusedWorkspace(xd, n_iter=it0)
 
-    def launch(cr: FusedCarry, limit: int):
+    def run(cr: FusedCarry, limit: int):
         if plain:
             run_chunk_plain(cr, xd, x2, yd, limit=limit, **consts)
         else:
             launch_fused_chunk(cr, xd, x2, yd, ws, limit=limit, **consts)
+
+    # The chunk program's first launch of this run is its one
+    # compile-kind observation, with kernel A's work an iteration.
+    launch = compilewatch.instrument(
+        run, "fused-chunk", signature=compilewatch.shape_signature(xd, yd),
+        **iteration_work(xd))
 
     if ckpt is not None and it0 < config.max_iter:
         _, _, b_hi, b_lo, _ = unpack_state(carry.state)
@@ -141,10 +160,14 @@ def _run(x: np.ndarray, y: np.ndarray, config: SVMConfig,
 
     def step(cr: FusedCarry, limit: int):
         launch(cr, limit)
-        st = read_stats(_stats(cr))
-        if ws is not None:
-            book_runs(ws, st.n_iter, *st.runs)
-        return cr, st
+        stats = _stats(cr)
+
+        def poll():
+            st = read_stats(stats)
+            if ws is not None:
+                book_runs(ws, st.n_iter, *st.runs)
+            return st
+        return cr, Poll(poll)
 
     return host_training_loop(
         config, gamma, carry, step,

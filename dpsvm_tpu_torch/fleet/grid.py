@@ -21,8 +21,9 @@ wraps it into the production line:
   ``ModelRegistry.promote_file`` (``os.replace`` and a warmed reload).
 
 ``sequential_grid_seconds`` times the same cells as one ``api.fit`` each
-(kernel A at the default knobs), the baseline of the grid's speedup. The
-JAX package's run trace of a grid (``trace=``) is ROADMAP item 13.
+(kernel A at the default knobs), the baseline of the grid's speedup.
+``train_grid(trace=)`` writes a ``grid_cell`` event a cell, a
+``grid_winner`` event and the summary, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -114,16 +115,13 @@ def train_grid(x, y, *, cs: Sequence[float],
                max_devices: Optional[int] = None,
                device=None) -> GridResult:
     """Solve the full C x gamma grid, score every cell held-out, pick the
-    winner (module docstring). ``device`` None means the GPUs."""
+    winner (module docstring). ``device`` None means the GPUs. ``trace``
+    (an open ``observability.record.RunTrace``) gets a ``grid_cell``
+    event a cell, a ``grid_winner`` event and the summary."""
     from dpsvm_tpu_torch import api
     from dpsvm_tpu_torch.config import SVMConfig
     from dpsvm_tpu_torch.models.svm import evaluate
 
-    if trace is not None:
-        raise NotImplementedError(
-            "train_grid(trace=...) (the grid's run trace: grid_cell and "
-            "grid_winner events) is not ported to dpsvm_tpu_torch yet "
-            "(ROADMAP Queue 1 item 13); pass trace=None")
     config = config or SVMConfig()
     x = np.asarray(x, np.float32)
     y = np.asarray(y)
@@ -165,13 +163,20 @@ def train_grid(x, y, *, cs: Sequence[float],
     if errors:
         raise errors[0]
     fitted = [pair for part in part_out for pair in (part or [])]
+    grid_seconds = time.perf_counter() - t0
 
     gs = gammas_l if gammas_l is not None else [None]
     cells: List[GridCell] = []
     for i, (model, result) in enumerate(fitted):
+        c_val, g_val = cs[i // len(gs)], float(result.gamma)
         acc = float(evaluate(model, x_ho, y_ho, device=devices[0]))
-        cells.append(GridCell(c=cs[i // len(gs)], gamma=float(result.gamma),
-                              model=model, result=result, holdout_acc=acc))
+        cells.append(GridCell(c=c_val, gamma=g_val, model=model,
+                              result=result, holdout_acc=acc))
+        if trace is not None:
+            trace.event("grid_cell", n_iter=int(result.n_iter), c=c_val,
+                        gamma=g_val, holdout_acc=round(acc, 6),
+                        n_sv=int(result.n_sv),
+                        converged=bool(result.converged))
     # np.argmax: the first maximum, row-major (smaller C, then gamma)
     winner = int(np.argmax([c.holdout_acc for c in cells]))
 
@@ -188,10 +193,25 @@ def train_grid(x, y, *, cs: Sequence[float],
                                  holdout_acc=best.holdout_acc)
         polished = True
 
-    return GridResult(cells=cells, winner=winner, n_train=len(tr_idx),
-                      n_holdout=len(ho_idx),
-                      train_seconds=time.perf_counter() - t0,
-                      devices=len(c_parts), polished=polished)
+    out = GridResult(cells=cells, winner=winner, n_train=len(tr_idx),
+                     n_holdout=len(ho_idx),
+                     train_seconds=time.perf_counter() - t0,
+                     devices=len(c_parts), polished=polished)
+    if trace is not None:
+        best = out.best
+        trace.event("grid_winner", n_iter=int(best.result.n_iter),
+                    c=best.c, gamma=best.gamma,
+                    holdout_acc=round(best.holdout_acc, 6),
+                    polished=polished)
+        trace.summary(converged=all(c.result.converged for c in cells),
+                      n_iter=max(int(c.result.n_iter) for c in cells),
+                      b=float(best.result.b), b_lo=float(best.result.b_lo),
+                      b_hi=float(best.result.b_hi),
+                      n_sv=int(best.result.n_sv),
+                      train_seconds=out.train_seconds,
+                      grid_cells=len(cells), grid_devices=out.devices,
+                      grid_seconds=round(grid_seconds, 6))
+    return out
 
 
 def sequential_grid_seconds(x, y, *, cs: Sequence[float],

@@ -105,6 +105,10 @@ def cross_validate(x: np.ndarray, y: np.ndarray, k: int,
     if config.checkpoint_path or config.resume_from:
         raise ValueError("checkpoint/resume are single-run options; they "
                          "cannot be shared across CV folds")
+    if config.trace_out:
+        raise ValueError("trace_out records ONE training run; CV folds "
+                         "would each overwrite it — trace a single fit "
+                         "instead")
 
     if class_weight is not None:
         if task == "svr":

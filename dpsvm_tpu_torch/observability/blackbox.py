@@ -30,13 +30,12 @@ self-contained incident directory:
                            CUDA: device facts only when this process
                            has already initialized it)
       tuned_profile.json   the active tuned-profile entry (none until
-                           the tuning layer is ported, ROADMAP item 13)
+                           the tuning layer is ported, ROADMAP item 13b)
       perf_ledger.jsonl    the relevant perf-ledger context rows
                            (tail), when a ledger is configured
 
-``validate_bundle`` re-checks a bundle; ``render_bundle`` prints its
-header (the embedded trace report and the ``bundle`` CLI are ROADMAP
-item 13).
+``validate_bundle`` and ``render_bundle`` (the incident header and the
+embedded trace's report) back the ``bundle`` CLI.
 
 Like the schema module this file is dependency-free (stdlib only) and
 never initializes a backend.
@@ -434,7 +433,7 @@ def _doctor_text() -> str:
 
 def _tuned_profile_entry() -> Optional[dict]:
     """The active tuned-profile entry: none until the tuning layer is
-    ported (ROADMAP item 13)."""
+    ported (ROADMAP item 13b)."""
     return None
 
 
@@ -702,9 +701,8 @@ def validate_bundle(bundle_dir: str) -> List[str]:
 
 
 def render_bundle(bundle_dir: str) -> str:
-    """Human rendering of one bundle: the incident header and the
-    embedded trace's record count (its full report is ROADMAP item
-    13)."""
+    """Human rendering of one bundle: the incident header plus the
+    embedded trace's report (observability/report.py)."""
     incident = load_incident(bundle_dir)
     lines = [
         f"incident bundle: {bundle_dir}",
@@ -721,7 +719,11 @@ def render_bundle(bundle_dir: str) -> str:
     if os.path.isfile(trace_path):
         try:
             records = read_trace(trace_path)
-            lines.append(f"  trace:    {len(records)} records")
+            from dpsvm_tpu_torch.observability.report import render_report
+            lines.append("")
+            lines.append("embedded trace:")
+            lines.extend("  " + ln
+                         for ln in render_report(records).splitlines())
         except (ValueError, OSError) as e:
-            lines.append(f"  trace: unreadable ({e})")
+            lines.append(f"  trace: unrenderable ({e})")
     return "\n".join(lines)

@@ -14,16 +14,23 @@ grammar. ``TenantLabelBudget`` is the bounded-cardinality resolver
 (second-touch admission, LRU of activity) that the fleet's model cache
 (``fleet/modelcache.py``) applies to model names and the serving stack
 to tenants (``sanitize_tenant`` cleans a name at admission);
-``incidents_counter`` is the watchtower's ``dpsvm_incidents_total``. The
-training feed, the sidecar server and the file snapshots (item 13) are
-not ported. Stdlib only.
+``incidents_counter`` is the watchtower's ``dpsvm_incidents_total``.
+``TrainingMetrics`` is the ``dpsvm_train_*`` family the training driver
+feeds at each poll from the values it already holds (the packed-stats
+read, the phase buckets, the allocator snapshot, the drained capture and
+build records); ``MetricsServer`` is the read-only sidecar
+(``--metrics-port``) and ``write_snapshot`` the per-poll file
+(``--metrics-out``). Stdlib only.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import re
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
@@ -803,6 +810,123 @@ class TenantLabelBudget:
                     "overflow": self._overflow}
 
 
+# ---------------------------------------------------------------------
+# the training half: packed-stats polls -> registry
+# ---------------------------------------------------------------------
+
+class TrainingMetrics:
+    """Feeds training instruments from the values the driver already
+    holds at each poll boundary — the packed-stats read, the PhaseTimer
+    buckets, the host-side HBM snapshot and the drained compilewatch
+    observations (captures and builds). Every update is host-side dict
+    arithmetic: a scraped (or snapshotted) training run performs no
+    device-to-host transfer the bare run does not, pinned by
+    tests/test_torch_trace.py."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None, *,
+                 solver: str = "", n: int = 0, d: int = 0):
+        reg = registry if registry is not None else default_registry()
+        self.registry = reg
+        self._g_info = reg.gauge(
+            "dpsvm_train_run_info",
+            "1 while a run is live; labels carry the run identity",
+            labels=("solver",))
+        self._g_iter = reg.gauge("dpsvm_train_iterations",
+                                 "solver iteration count at the last "
+                                 "poll")
+        self._g_gap = reg.gauge("dpsvm_train_gap",
+                                "duality gap (b_lo - b_hi) at the last "
+                                "poll")
+        self._g_nsv = reg.gauge("dpsvm_train_n_sv",
+                                "support-vector count at the last poll")
+        self._g_ips = reg.gauge("dpsvm_train_iters_per_sec",
+                                "iteration throughput between the last "
+                                "two polls")
+        self._c_polls = reg.counter("dpsvm_train_polls_total",
+                                    "host packed-stats polls")
+        self._g_hits = reg.gauge("dpsvm_train_cache_hits",
+                                 "kernel-row cache hits (device "
+                                 "cumulative)")
+        self._g_misses = reg.gauge("dpsvm_train_cache_misses",
+                                   "kernel-row cache misses (device "
+                                   "cumulative)")
+        self._g_hbm = reg.gauge("dpsvm_train_hbm_peak_bytes",
+                                "allocator high-water mark (absent "
+                                "stats report 0)")
+        self._c_compiles = reg.counter("dpsvm_train_compiles_total",
+                                       "CUDA-graph captures and kernel "
+                                       "builds of chunk programs")
+        self._c_compile_s = reg.counter(
+            "dpsvm_train_compile_seconds_total",
+            "wall seconds spent in captures and builds")
+        self._g_phase = reg.gauge("dpsvm_train_phase_seconds",
+                                  "cumulative host-loop phase seconds",
+                                  labels=("phase",))
+        self._g_phase_calls = reg.gauge("dpsvm_train_phase_calls",
+                                        "cumulative host-loop phase "
+                                        "call counts",
+                                        labels=("phase",))
+        self._g_heartbeat = reg.gauge(
+            "dpsvm_train_shard_heartbeat_age_seconds",
+            "seconds since a shard's reported progress advanced",
+            labels=("shard",))
+        self._g_converged = reg.gauge("dpsvm_train_converged",
+                                      "1 once the run converged")
+        self._info = self._g_info.labels(solver=solver or "unknown")
+        self._info.set(1)
+        self._g_converged.set(0)
+        self._prev: Optional[Tuple[int, float]] = None   # (n_iter, t)
+
+    def on_poll(self, *, n_iter: int, b_lo: float, b_hi: float,
+                n_sv: int = 0, cache_hits: int = 0,
+                cache_misses: int = 0,
+                phases: Optional[Dict[str, float]] = None,
+                phase_counts: Optional[Dict[str, int]] = None,
+                hbm: Optional[dict] = None,
+                shard_ages: Optional[Sequence[float]] = None) -> None:
+        now = time.perf_counter()
+        self._c_polls.inc()
+        self._g_iter.set(n_iter)
+        gap = b_lo - b_hi
+        self._g_gap.set(gap if math.isfinite(gap) else float("nan"))
+        self._g_nsv.set(n_sv)
+        self._g_hits.set(cache_hits)
+        self._g_misses.set(cache_misses)
+        if self._prev is not None and now > self._prev[1]:
+            self._g_ips.set((n_iter - self._prev[0])
+                            / (now - self._prev[1]))
+        self._prev = (int(n_iter), now)
+        peak = (hbm or {}).get("peak")
+        if peak is not None:
+            self._g_hbm.set(int(peak))
+        for name, sec in (phases or {}).items():
+            self._g_phase.labels(phase=name).set(float(sec))
+        for name, cnt in (phase_counts or {}).items():
+            self._g_phase_calls.labels(phase=name).set(int(cnt))
+        for i, age in enumerate(shard_ages or ()):
+            self._g_heartbeat.labels(shard=str(i)).set(float(age))
+
+    def on_compile(self, rec: dict) -> None:
+        self._c_compiles.inc()
+        self._c_compile_s.inc(float(rec.get("seconds", 0.0)))
+
+    def compile_totals(self) -> Tuple[float, float]:
+        """(compiles, compile-seconds) — cumulative process counters,
+        read by the driver's watch hook to feed the compile-storm rule
+        (observability/slo.py) without a second accounting path."""
+        return (float(self._c_compiles.value),
+                float(self._c_compile_s.value))
+
+    def on_done(self, *, converged: bool, n_iter: int) -> None:
+        self._g_converged.set(1 if converged else 0)
+        self._g_iter.set(n_iter)
+        self._info.set(0)
+
+
+# ---------------------------------------------------------------------
+# exporters: sidecar HTTP server + scrape-less file snapshots
+# ---------------------------------------------------------------------
+
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 
@@ -813,3 +937,109 @@ def wants_prometheus(path: str) -> bool:
     from urllib.parse import parse_qs, urlsplit
     q = parse_qs(urlsplit(path).query)
     return q.get("format", [""])[0] == "prometheus"
+
+
+class MetricsServer:
+    """Read-only metrics sidecar for a training run: GET ``/metricsz``
+    answers the JSON snapshot, ``/metricsz?format=prometheus`` the text
+    exposition — the same handler semantics as the serving server's
+    endpoint. One daemon thread; ``close()`` tears it down at run end
+    (the driver's finally block)."""
+
+    def __init__(self, registry: MetricsRegistry,
+                 host: str = "127.0.0.1", port: int = 0):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        reg = registry
+
+        class _Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            server_version = "dpsvm-metrics"
+
+            def log_message(self, fmt, *args):      # quiet sidecar
+                pass
+
+            def do_GET(self):                       # noqa: N802
+                if not self.path.startswith("/metricsz"):
+                    body = b'{"error": "only /metricsz here"}'
+                    self.send_response(404)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                if wants_prometheus(self.path):
+                    body = reg.render_prometheus().encode()
+                    ctype = PROMETHEUS_CONTENT_TYPE
+                else:
+                    body = json.dumps(reg.snapshot()).encode()
+                    ctype = "application/json"
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                try:
+                    self.wfile.write(body)
+                except (BrokenPipeError, ConnectionResetError):
+                    pass
+
+        self._httpd = ThreadingHTTPServer((host, int(port)), _Handler)
+        self._httpd.daemon_threads = True
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="dpsvm-metrics-http",
+            kwargs={"poll_interval": 0.1}, daemon=True)
+        self._thread.start()
+
+    @property
+    def port(self) -> int:
+        return int(self._httpd.server_address[1])
+
+    def close(self) -> None:
+        try:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._thread.join(1.0)
+        except Exception:
+            pass
+
+
+#: per-path monotonic snapshot sequence numbers (process-local): the
+#: header line every ``write_snapshot`` emits so a tailing consumer
+#: (``dpsvm watch``, observability/slo.SnapshotFollower) can tell a
+#: missed snapshot from a duplicate re-read instead of silently
+#: mis-windowing its rates. Reset only with the process.
+_SNAPSHOT_SEQS: Dict[str, int] = {}
+_SNAPSHOT_LOCK = threading.Lock()
+
+
+def snapshot_header(seq: int, now: Optional[float] = None) -> str:
+    """The one header line (a plain comment to every Prometheus
+    parser; slo.parse_snapshot_header reads it back):
+    ``# dpsvm-snapshot seq=N unix=T time=ISO``."""
+    now = time.time() if now is None else float(now)
+    iso = time.strftime("%Y-%m-%dT%H:%M:%S%z", time.localtime(now))
+    return f"# dpsvm-snapshot seq={int(seq)} unix={now:.3f} time={iso}"
+
+
+def write_snapshot(registry: MetricsRegistry, path: str,
+                   seq: Optional[int] = None,
+                   now: Optional[float] = None) -> int:
+    """Atomic text-exposition snapshot (tmp + rename): the scrape-less
+    CI story — ``train --metrics-out FILE`` refreshes it every poll, so
+    a harness reads a complete, parseable exposition at any moment.
+    The first line is the monotonic ``seq`` + wall-timestamp header
+    (``snapshot_header``); returns the seq written. Best-effort: a
+    full disk must not kill the training run."""
+    if seq is None:
+        with _SNAPSHOT_LOCK:
+            seq = _SNAPSHOT_SEQS.get(path, 0) + 1
+            _SNAPSHOT_SEQS[path] = seq
+    try:
+        tmp = f"{path}.tmp{os.getpid()}"
+        with open(tmp, "w") as fh:
+            fh.write(snapshot_header(seq, now) + "\n")
+            fh.write(registry.render_prometheus())
+        os.replace(tmp, path)
+    except OSError:
+        pass
+    return int(seq)

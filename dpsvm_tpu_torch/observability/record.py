@@ -1,7 +1,7 @@
 """The RunTrace recorder: one run's JSONL artifact (port of
-``dpsvm_tpu/observability/record.py``). The port writes serving traces
-with it (``open_serving_trace``); the training driver's ``trace_out``
-is ROADMAP item 13.
+``dpsvm_tpu/observability/record.py``). The training driver, the
+shrinking manager, the cascade and the grid write their run traces with
+it, and the serving stack its serving traces (``open_serving_trace``).
 
 The reference left its per-phase instrumentation commented out
 (``svmTrain.cu:218-293``) and its duality-gap probe dead

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
+from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.ops.kernels import (KernelSpec, dots_f32, exact_f32,
                                          host_row_stats, kdiag_from_norms,
                                          rows_from_dots)
@@ -72,7 +73,8 @@ from dpsvm_tpu_torch.parallel.mesh import (DataMesh, all_gather, all_sum_,
                                            shard_probe, to_host)
 from dpsvm_tpu_torch.parallel.mesh import owner_read as _owner_read
 from dpsvm_tpu_torch.solver import smo
-from dpsvm_tpu_torch.solver.driver import (device_sv_count,
+from dpsvm_tpu_torch.solver.driver import (ChunkStats, Poll,
+                                           device_sv_count,
                                            host_training_loop, pack_stats,
                                            read_stats, resume_state)
 
@@ -553,7 +555,9 @@ class DistGraphChunk:
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize(dev)
         self.graph = torch.cuda.CUDAGraph()
-        with smo.capture(self.graph):
+        with smo.capture(self.graph, program="dist-smo-chunk",
+                         signature=compilewatch.shape_signature(
+                             carry.alpha)):
             run_bodies(self.bodies)
         COUNTS["captures"] += 1
 
@@ -586,10 +590,10 @@ def make_dist_runner(carry: DistCarry, prob: DistProblem,
                      opts: smo.SMOOptions, two_eps: float,
                      plain: bool = False,
                      chunk: Optional[DistGraphChunk] = None):
-    """``step(carry, limit) -> (carry, ChunkStats)``: the captured graph
-    on an NCCL rank, the eager loop elsewhere (or anywhere, with
-    ``plain``); each chunk ends in the poll's one read. ``chunk`` is a
-    graph already captured over this carry and problem."""
+    """``step(carry, limit) -> (carry, poll)``: the captured graph on an
+    NCCL rank, the eager loop elsewhere (or anywhere, with ``plain``);
+    ``poll`` (a ``driver.Poll``) makes the chunk's one read. ``chunk`` is
+    a graph already captured over this carry and problem."""
     state = {"n_iter": int(carry.n_iter)}
     graph = carry.alpha.is_cuda and prob.mesh.backend == "nccl" and not plain
     if graph:
@@ -607,12 +611,18 @@ def make_dist_runner(carry: DistCarry, prob: DistProblem,
     def step(cr: DistCarry, limit: int):
         cr = advance(cr, limit)
         cache = () if cr.cache is None else (cr.cache.hits, cr.cache.misses)
-        st = read_stats(dist_stats(cr, prob, runs=cache),
-                        shards=prob.mesh.size)
-        COUNTS["reads"] += 1
-        state["n_iter"] = st.n_iter
-        step.last = st
-        return cr, st
+        stats = dist_stats(cr, prob, runs=cache)
+
+        def poll() -> ChunkStats:
+            st = read_stats(stats, shards=prob.mesh.size)
+            COUNTS["reads"] += 1
+            if cr.cache is not None:
+                st = st._replace(cache_hits=st.runs[0],
+                                 cache_misses=st.runs[1])
+            state["n_iter"] = st.n_iter
+            step.last = st
+            return st
+        return cr, Poll(poll)
 
     step.chunk = chunk
     return step

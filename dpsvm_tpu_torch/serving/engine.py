@@ -24,8 +24,9 @@ The engine fixes the shape economy once, at load time:
   longer than ``max_batch`` is one copy of all its padded blocks, a
   device-to-device copy and a replay a block, and one read of all the
   outputs. ``COUNTS`` counts captures and replays: warmup captures one
-  graph a bucket and traffic after it captures none (the JAX package's
-  ``compilewatch`` receipt). On the CPU the same bucket programs run
+  graph a bucket and traffic after it captures none; each capture is
+  also one ``observability/compilewatch`` observation (the receipt the
+  replica pool drains). On the CPU the same bucket programs run
   eagerly. Replays from the batcher's thread and from direct callers
   serialize on the engine's lock.
 
@@ -67,6 +68,7 @@ from dpsvm_tpu_torch.models.multiclass import (MulticlassModel,
                                                predict_proba_multiclass)
 from dpsvm_tpu_torch.models.svm import (SVMModel, decision_block,
                                         pairwise_block, sv_operands)
+from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.ops.kernels import exact_f32
 from dpsvm_tpu_torch.serving.batcher import KNOWN_OUTPUTS
 
@@ -75,24 +77,11 @@ AnyModel = Union[SVMModel, MulticlassModel]
 # Ever, in this process: CUDA graphs captured for ladder buckets, and
 # their replays.
 COUNTS = {"captures": 0, "replays": 0}
-_DRAINED = {"captures": 0}
-_DRAIN_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
-    with _DRAIN_LOCK:
-        for k in COUNTS:
-            COUNTS[k] = 0
-        _DRAINED["captures"] = 0
-
-
-def drain_captures() -> int:
-    """Captures since the previous drain, process-wide: the replica pool's
-    stray-capture watch (the JAX package's ``compilewatch.drain``)."""
-    with _DRAIN_LOCK:
-        n = COUNTS["captures"] - _DRAINED["captures"]
-        _DRAINED["captures"] = COUNTS["captures"]
-    return max(0, n)
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def bucket_ladder(max_batch: int) -> List[int]:
@@ -209,7 +198,8 @@ class _Bucket:
         # thread_local: a reload captures while the old engine serves;
         # the ladder's own capture stream: its own cuBLAS workspace
         with capture(self.graph, pool=pool, thread_local=True,
-                     stream=stream):
+                     stream=stream, program=f"serve-bucket/rows={rows}",
+                     signature=compilewatch.shape_signature(self.x)):
             self.out = fn(self.x)
         COUNTS["captures"] += 1
 

@@ -19,14 +19,12 @@ already has:
 2. **Supervised retrain** — ``resilience.supervisor.run_with_retries``
    wraps the caller's ``retrain_fn``, so a preempted retrain resumes
    from its checkpoint instead of aborting the refresh.
-3. **Eval gate** — the candidate must clear a held-out accuracy floor.
-   A refresh that fails the gate changes NOTHING: the old generation
-   keeps serving, and the failure is a trace event, not a page. The
-   JAX package's second half of the gate, the ``dpsvm compare``
-   regression verdicts against the serving generation's training
-   trace, needs the trace comparison tools (ROADMAP item 13): a loop
-   armed with ``baseline_trace`` and ``fail_on_regress_pct`` is refused
-   at construction, never quietly held at the gate.
+3. **Eval gate** — the candidate must clear a held-out accuracy floor
+   AND (when both runs traced) the ``compare`` regression gate
+   (``observability.compare.regressions``) against the serving
+   generation's training trace. A refresh that fails the gate changes
+   NOTHING: the old generation keeps serving, and the failure is a
+   trace event, not a page.
 4. **Atomic hot-swap** — only a passing candidate is promoted:
    ``os.replace`` onto the registry source path (atomic at the
    filesystem level), then the registry's explicit reload (new engine
@@ -136,9 +134,9 @@ class LifecycleLoop:
       under ``run_with_retries`` with ``checkpoint_path``, so a
       preempted attempt resumes.
     * ``eval_fn(model_path)`` -> held-out accuracy in [0, 1].
-    * ``baseline_trace`` — the serving generation's training trace
-      (kept for the compare gate; with ``fail_on_regress_pct`` it
-      raises NotImplementedError until ROADMAP item 13).
+    * ``baseline_trace`` — the serving generation's training trace;
+      with it (and a candidate trace) the ``compare`` regression gate
+      arms at ``fail_on_regress_pct``.
     * ``on_event(name, **extra)`` — trace/metrics sink (`drift`,
       `retrain`, `promote` with ok True/False).
     * ``on_promote(name)`` — post-swap hook (the server refreshes the
@@ -159,12 +157,6 @@ class LifecycleLoop:
                  cooldown_s: float = 0.0,
                  on_event: Optional[Callable[..., None]] = None,
                  on_promote: Optional[Callable[[str], None]] = None):
-        if baseline_trace and fail_on_regress_pct is not None:
-            raise NotImplementedError(
-                "the lifecycle's compare gate (baseline_trace with "
-                "fail_on_regress_pct) needs observability/compare.py, "
-                "report.py and merge.py, which are ROADMAP item 13 of "
-                "the port")
         source = registry.source(name)
         if source is None:
             raise ValueError(
@@ -250,8 +242,8 @@ class LifecycleLoop:
     # -- gate ---------------------------------------------------------
 
     def gate(self, result: RetrainResult) -> GateResult:
-        """Held-out accuracy floor (the compare verdicts are refused at
-        construction, module docstring)."""
+        """Held-out accuracy floor and (when traces exist on both sides)
+        the mechanical ``compare`` regression verdicts."""
         problems: "list[str]" = []
         accuracy: Optional[float] = None
         try:
@@ -261,6 +253,17 @@ class LifecycleLoop:
         if accuracy is not None and accuracy < self.accuracy_floor:
             problems.append(f"held-out accuracy {accuracy:.4f} below "
                             f"floor {self.accuracy_floor:.4f}")
+        if (self.baseline_trace and result.trace_path
+                and self.fail_on_regress_pct is not None):
+            try:
+                from dpsvm_tpu_torch.observability.compare import (
+                    compare_paths, regressions)
+                cmp_, _, _ = compare_paths(self.baseline_trace,
+                                           result.trace_path)
+                problems.extend(regressions(cmp_,
+                                            self.fail_on_regress_pct))
+            except Exception as e:     # noqa: BLE001
+                problems.append(f"trace compare failed: {e}")
         return GateResult(passed=not problems, accuracy=accuracy,
                           floor=self.accuracy_floor, problems=problems)
 
@@ -677,9 +680,10 @@ def live_drift_drill(base_dir: str, *, seed: int = 0,
                 served = load_model(registry.source("default"))
                 init = warm_start_vector(served)
                 ds_train = streamlib.ShardedDataset.open(log_dir)
-                # the port's training driver writes no run trace yet
-                # (ROADMAP item 13): the candidate carries none
-                rcfg = SVMConfig(resume_from=resume_from, **cfg)
+                tr_path = os.path.join(
+                    base_dir, f"refresh-{kind}.jsonl")
+                rcfg = SVMConfig(trace_out=tr_path,
+                                 resume_from=resume_from, **cfg)
                 if kind == "full":
                     # The cadenced full retrain: the cascade's
                     # warm-started exact polish is the chip-scale
@@ -696,7 +700,7 @@ def live_drift_drill(base_dir: str, *, seed: int = 0,
                 save_model(model, cand)
                 xs = ds_train.materialize()[0][-holdout:]
                 return RetrainResult(
-                    model_path=cand, trace_path=None,
+                    model_path=cand, trace_path=tr_path,
                     reference_scores=np.asarray(
                         decision_function(model, xs, device=dev),
                         np.float64))

@@ -42,9 +42,10 @@ poison / failed-rebuild are exact, reproducible events on CPU.
 On the card each replica's worker replays its engine's graphs on a
 CUDA stream of its own, so replicas of one device overlap and a
 rebuild's (thread-local) capture runs beside their replays. "Stray
-compiles" are CUDA graph captures (``serving/engine.COUNTS``) made
-outside a replica build: the steady state captures nothing, and a
-rebuild's own warmup captures are drained inside its build guard.
+compiles" are capture and build observations
+(``observability/compilewatch``, each engine capture one) made outside a
+replica build: the steady state captures nothing, and a rebuild's own
+warmup captures are drained inside its build guard.
 
 No device at module import: engines are built by the caller-supplied
 ``build_fn`` (the registry's loader); the pool itself is stdlib +
@@ -61,6 +62,7 @@ from typing import Callable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.observability.metrics import MetricsRegistry
 from dpsvm_tpu_torch.resilience import faultinject
 from dpsvm_tpu_torch.resilience.health import ReplicaMonitor
@@ -78,8 +80,10 @@ REBUILD_MAX_ATTEMPTS = 6
 
 
 def _drain_captures() -> int:
-    from dpsvm_tpu_torch.serving import engine
-    return engine.drain_captures()
+    """Observations since the previous drain, process-wide: captures and
+    builds (``observability/compilewatch``, the source the JAX package's
+    pool drains)."""
+    return len(compilewatch.drain())
 
 
 def _replica_stream(engine):

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
+from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.ops.kernels import (dots_f32, exact_f32,
                                          host_row_stats, rows_from_dots)
 from dpsvm_tpu_torch.ops.selection import (box_sides, rowwise_extrema,
@@ -284,7 +285,8 @@ class OvoGraphChunk:
             ovo_body(carry, prob, self.limit)     # limit 0: a no-op
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with capture(self.graph):
+        with capture(self.graph, program="ovo-chunk",
+                     signature=compilewatch.shape_signature(prob.x)):
             for _ in range(self.bodies):
                 ovo_body(carry, prob, self.limit)
         COUNTS["captures"] += 1

@@ -36,7 +36,13 @@ screened subproblem materializes, under ``mem_budget_mb``, which also caps
 it (``_screen_cap``). The probe and the polish are the in-memory cascade's
 ``api.fit`` and ``api.warm_start``, so the kernels are picked alike.
 
-Not ported: ``shards > 1`` and the cascade's run trace (ROADMAP item 13).
+Tracing: ``trace_out`` records one cascade trace, as the JAX package's:
+a manifest (solver="cascade"), ``cascade_resume``, ``screen``,
+``polish``, ``readmit`` (and, on a shard directory, ``quarantine``)
+events and a summary whose phase split (approx/screen/polish/verify)
+``report`` renders. The stage sub-runs write no traces of their own.
+
+Not ported: ``shards > 1`` (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ import sys
 import tempfile
 import time
 import zlib
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -198,6 +204,8 @@ class _ShardSource:
     never fit in memory and a quarantined shard drops out of every pass as
     it does in streaming training."""
 
+    kind = "stream"
+
     def __init__(self, ds, config: SVMConfig, allow_nonfinite: bool,
                  device):
         self.ds = ds
@@ -205,11 +213,13 @@ class _ShardSource:
         self.policy = config.on_bad_shard
         self.allow_nonfinite = allow_nonfinite
         self.device = device
+        self.notify_quarantine: Optional[Callable] = None
 
     def _read(self, k: int):
         return self.ds.read_shard_checked(
             k, on_bad_shard=self.policy,
-            allow_nonfinite=self.allow_nonfinite)
+            allow_nonfinite=self.allow_nonfinite,
+            on_quarantine=self.notify_quarantine)
 
     def fit_approx(self, cfg: SVMConfig, init_w=None):
         from dpsvm_tpu_torch.approx.primal import fit_approx_stream
@@ -421,21 +431,26 @@ def _approx_config(config: SVMConfig) -> SVMConfig:
         working_set=2, inner_iters=0, grow_working_set=False,
         shrinking=False, cache_size=0, use_pallas="auto", polish=False,
         screen_margin=SCREEN_MARGIN_DEFAULT, screen_cap=0,
-        checkpoint_path=None, checkpoint_every=0, resume_from=None)
+        trace_out=None, checkpoint_path=None, checkpoint_every=0,
+        resume_from=None, profile_dir=None, metrics_port=None,
+        metrics_out=None)
 
 
 def _polish_config(config: SVMConfig, budget: int,
                    epsilon: Optional[float] = None) -> SVMConfig:
     """Stage-3 sub-config: the exact dual solver with the user's
     dual-family knobs intact (selection, working_set, shrinking, clip and
-    precision pass through); checkpoints stay with the orchestrator."""
+    precision pass through); checkpoints, the trace, the profiler and the
+    metrics exporters stay with the orchestrator."""
     return dataclasses.replace(
         config, solver="exact", polish=False,
         screen_margin=SCREEN_MARGIN_DEFAULT, screen_cap=0,
         max_iter=int(budget),
         epsilon=(float(epsilon) if epsilon is not None
                  else config.epsilon),
-        checkpoint_path=None, checkpoint_every=0, resume_from=None)
+        trace_out=None, checkpoint_path=None, checkpoint_every=0,
+        resume_from=None, profile_dir=None, metrics_port=None,
+        metrics_out=None)
 
 
 def _calibrate(source, config: SVMConfig, model_a) -> float:
@@ -532,8 +547,34 @@ def fit_cascade_stream(ds, config: Optional[SVMConfig] = None,
         config, approx_init_w=approx_init_w)
 
 
+def _begin_trace(config: SVMConfig, n: int, d: int, gamma: float, device):
+    if not config.trace_out:
+        return None
+    from dpsvm_tpu_torch.solver.driver import begin_trace, trace_env
+    return begin_trace(config, n, d, gamma, "cascade",
+                       env=trace_env(device))
+
+
 def _run_cascade(source, config: SVMConfig, *, approx_init_w=None
                  ) -> Tuple[SVMModel, CascadeResult]:
+    """The three stages under the cascade's one run trace."""
+    trace = _begin_trace(config, source.n, source.d,
+                         float(config.resolve_gamma(source.d)),
+                         source.device)
+    if trace is not None and getattr(source, "kind", None) == "stream":
+        source.notify_quarantine = (
+            lambda k, reason: trace.event(
+                "quarantine", shard=int(k), reason=reason,
+                rows=source.ds.shard_rows(k)))
+    try:
+        return _stages(source, config, trace, approx_init_w)
+    finally:
+        if trace is not None and not trace.closed:
+            trace.close()
+
+
+def _stages(source, config: SVMConfig, trace, approx_init_w
+            ) -> Tuple[SVMModel, CascadeResult]:
     n, d = source.n, source.d
     gamma = float(config.resolve_gamma(d))
     margin = float(config.screen_margin)
@@ -546,6 +587,8 @@ def _run_cascade(source, config: SVMConfig, *, approx_init_w=None
              if config.checkpoint_path else None)
     st = state.load() if state is not None else None
     RUN.clear()
+    if st is not None and trace is not None:
+        trace.event("cascade_resume", stage=int(st["stage"]))
 
     # -- stage 1: approx warm-start ----------------------------------
     approx_iters = 0
@@ -575,6 +618,10 @@ def _run_cascade(source, config: SVMConfig, *, approx_init_w=None
         n_band = int(st["n_band"])
         wnd_idx = st.get("wnd_idx")
         x_kept, y_kept = source.gather(kept_idx)
+        if trace is not None:
+            trace.event("screen", n_iter=approx_iters,
+                        n_kept=int(len(kept_idx)), n_total=int(n),
+                        band=n_band, resumed=True)
     else:
         t0 = time.perf_counter()
         # The band tests the calibrated margin yf / scale.
@@ -629,6 +676,11 @@ def _run_cascade(source, config: SVMConfig, *, approx_init_w=None
         # rejected a margin-implied start); repair rounds warm-start.
         alpha = np.zeros((len(kept_idx),), np.float32)
         phases["screen"] = time.perf_counter() - t0
+        if trace is not None:
+            trace.event("screen", n_iter=approx_iters,
+                        n_kept=int(len(kept_idx)), n_total=int(n),
+                        band=n_band, scale=round(float(scale), 4),
+                        capped=bool(capped))
         if state is not None:
             state.save(2, [approx_iters, 0, 0, 0], kept_idx=kept_idx,
                        alpha=alpha, n_band=n_band, wnd_idx=wnd_idx)
@@ -680,6 +732,10 @@ def _run_cascade(source, config: SVMConfig, *, approx_init_w=None
             _log(f"polish round {rounds_done}: {res_p.n_iter} iter(s) on "
                  f"{len(kept_idx):,} rows at eps={round_eps:g} "
                  f"(converged={res_p.converged})")
+            if trace is not None:
+                trace.event("polish", n_iter=approx_iters + polish_iters,
+                            round=rounds_done, n_kept=int(len(kept_idx)),
+                            converged=bool(res_p.converged))
             if state is not None:
                 state.save(3, [approx_iters, polish_iters, rounds_done,
                                readmitted_total],
@@ -751,6 +807,9 @@ def _run_cascade(source, config: SVMConfig, *, approx_init_w=None
         readmitted_total += int(n_vio)
         _log(f"readmit round {rounds_done}: {n_vio} KKT violator(s) "
              f"re-admitted (kept now {len(kept_idx):,})")
+        if trace is not None:
+            trace.event("readmit", n_iter=approx_iters + polish_iters,
+                        round=rounds_done, n_readmitted=int(n_vio))
 
     # -- finish ------------------------------------------------------
     train_seconds = time.perf_counter() - t_start
@@ -778,6 +837,12 @@ def _run_cascade(source, config: SVMConfig, *, approx_init_w=None
         kkt_violators=last_vio, approx_iters=approx_iters,
         polish_iters=polish_iters, stage_seconds=dict(phases))
     result._kept_idx = kept_idx        # fit_cascade scatters
+    if trace is not None:
+        trace.summary(converged=result.converged, n_iter=result.n_iter,
+                      b=result.b, b_lo=result.b_lo, b_hi=result.b_hi,
+                      n_sv=result.n_sv, train_seconds=train_seconds,
+                      phases=dict(phases), n_kept=result.n_kept,
+                      n_readmitted=result.n_readmitted)
     if state is not None:
         state.cleanup()
     return model, result

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
+from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
 from dpsvm_tpu_torch.ops.kernels import (KernelSpec, dots_f32, exact_f32,
                                          host_row_stats, rows_from_dots)
@@ -244,16 +245,26 @@ def _stats(carry: DecompCarry, ws: DecompWorkspace) -> torch.Tensor:
                       ws.runs[0], ws.runs[1])
 
 
+def round_work(q: int) -> dict:
+    """Kernel B's work an inner step (an iteration of the decomposition),
+    the counts of ``chip_smoke.py``'s bound column: two K rows of q f32
+    read, 11 operations a slot (7 for the partner's objective, 4 for the
+    f update). The round's rank-q pass (cuBLAS) is not counted."""
+    return {"flops": 11.0 * q, "bytes": 8.0 * q}
+
+
 def make_runner(prob: DecompProblem, config: SVMConfig, q: int,
                 ws: DecompWorkspace, plain: bool = False,
                 n_valid: Optional[int] = None):
     """The chunk runner at working-set size q (``_build_decomp_runner``):
     ``run(carry, limit) -> (carry, ChunkStats)`` runs rounds while the gap
-    is open and ``n_iter < limit``. The inner cap is ``inner_iters``, or
-    ``max(32, q // 4)`` when that is 0. ``plain`` runs the subsolve's
-    plain version on any device (the reference the kernel path is held
-    against on the card). ``n_valid`` masks the rows at or past it out of
-    selection (the ``masked=True`` runner of the JAX package)."""
+    is open and ``n_iter < limit``, reading the packed stats once a round
+    (so its poll is already read: ``driver.settle``). The inner cap is
+    ``inner_iters``, or ``max(32, q // 4)`` when that is 0. ``plain`` runs
+    the subsolve's plain version on any device (the reference the kernel
+    path is held against on the card). ``n_valid`` masks the rows at or
+    past it out of selection (the ``masked=True`` runner of the JAX
+    package)."""
     cap = int(config.inner_iters) or max(32, q // 4)
     two_eps = sk.two_eps_f32(config.epsilon)
     subsolve = (sk.inner_subsolve_plain if plain else
@@ -274,12 +285,18 @@ def make_runner(prob: DecompProblem, config: SVMConfig, q: int,
         ws.last = st
         return st
 
+    # The runner's first round is its one compile-kind observation, with
+    # kernel B's work an inner step (round_work).
+    round_ = compilewatch.instrument(
+        lambda carry, step_cap: decomp_step(carry, prob, step_cap=step_cap,
+                                            **kw),
+        f"decomp-chunk/q={q}",
+        signature=compilewatch.shape_signature(prob.y), **round_work(q))
+
     def run(carry: DecompCarry, limit: int):
         st = ws.last if ws.last is not None else read(carry)
         while gap_open(st.b_lo, st.b_hi, two_eps) and st.n_iter < limit:
-            carry = decomp_step(carry, prob, step_cap=min(cap, limit
-                                                          - st.n_iter),
-                                **kw)
+            carry = round_(carry, min(cap, limit - st.n_iter))
             st = read(carry)
         return carry, st
 

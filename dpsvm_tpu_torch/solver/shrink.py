@@ -80,8 +80,11 @@ from dpsvm_tpu_torch.parallel.mesh import (all_max, gather_rows,
 from dpsvm_tpu_torch.solver import smo
 from dpsvm_tpu_torch.solver.decomp import (DecompCarry, DecompProblem,
                                            DecompWorkspace, make_runner)
-from dpsvm_tpu_torch.solver.driver import (DivergenceError, check_probe,
-                                           gap_open, log_progress)
+from dpsvm_tpu_torch.observability.device import memory_snapshot
+from dpsvm_tpu_torch.solver.driver import (DivergenceError, begin_trace,
+                                           check_probe, drain_compiles,
+                                           gap_open, log_progress, settle,
+                                           trace_env)
 
 # Ceiling on iterations between shrink-rule checks (each pulls alpha and
 # f); the cadence is min(n, this) a run. LIBSVM's is min(n, 1000).
@@ -187,7 +190,7 @@ def _step_and_pull(run, carry, n_act: int):
 
     def step(limit: int):
         state[0], st = run(state[0], limit)
-        return st
+        return settle(st)
 
     def pull():
         return (state[0].alpha[:n_act].cpu().numpy(),
@@ -317,7 +320,7 @@ class _DistPath:
 
         def step(limit: int):
             state[0], st = run(state[0], limit)
-            return st
+            return settle(st)
 
         def pull():
             return (to_host(mesh, state[0].alpha, n_act),
@@ -455,82 +458,126 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
         RUN["seconds"]["pull"] += time.perf_counter() - t
         return out
 
-    active = np.arange(n)
-    step, pull = make_active(active, 0, -SENTINEL, SENTINEL, 0)
-    it = last_check = 0
-    while True:
-        limit = min(it + chunk, config.max_iter)
-        prev_polled = it
-        st = step(limit)
-        check_probe(st)
-        it, b_lo, b_hi = st.n_iter, st.b_lo, st.b_hi
-        if not (math.isfinite(b_lo) and math.isfinite(b_hi)):
-            raise DivergenceError(
-                f"non-finite optimality gap at iter {it} (b_lo={b_lo}, "
-                f"b_hi={b_hi}): a NaN/Inf in the data or the solver state")
-        sub_converged = not gap_open(b_lo, b_hi, 2.0 * eps)
-        capped = it >= config.max_iter
-        if not capped and config.wall_budget_s:
-            # the same exit as the iteration cap, taken alike by every rank
-            over = time.perf_counter() - t0 > config.wall_budget_s
-            capped = (over if mesh is None
-                      else all_max(mesh, float(over)) > 0)
-        if not capped:          # the final line after the loop reports
-            log_progress(config, it, b_lo, b_hi, False, prev_polled)
+    # The run trace (the JAX manager's): chunk records from the runners'
+    # packed stats (n_sv and the counters describe the active subproblem;
+    # n_active rides each record) and shrink/unshrink events at every
+    # active-set transition. Rank 0 alone writes a distributed run's.
+    trace = (begin_trace(config, n, d, gamma, "shrink",
+                         env=trace_env(device))
+             if config.trace_out and (mesh is None or mesh.rank == 0)
+             else None)
+    try:
+        active = np.arange(n)
+        step, pull = make_active(active, 0, -SENTINEL, SENTINEL, 0)
+        it = last_check = 0
+        while True:
+            limit = min(it + chunk, config.max_iter)
+            prev_polled = it
+            st = step(limit)
+            check_probe(st)
+            it, b_lo, b_hi = st.n_iter, st.b_lo, st.b_hi
+            if not (math.isfinite(b_lo) and math.isfinite(b_hi)):
+                raise DivergenceError(
+                    f"non-finite optimality gap at iter {it} "
+                    f"(b_lo={b_lo}, b_hi={b_hi}): a NaN/Inf in the data "
+                    "or the solver state")
+            sub_converged = not gap_open(b_lo, b_hi, 2.0 * eps)
+            capped = it >= config.max_iter
+            if not capped and config.wall_budget_s:
+                # the same exit as the iteration cap, taken alike by
+                # every rank
+                over = time.perf_counter() - t0 > config.wall_budget_s
+                capped = (over if mesh is None
+                          else all_max(mesh, float(over)) > 0)
+                if capped and trace is not None:
+                    trace.event("wall_budget", n_iter=it)
+            if not capped:          # the final line after the loop reports
+                log_progress(config, it, b_lo, b_hi, False, prev_polled)
+            if trace is not None:
+                # the driver's poll-boundary facts: queued captures (the
+                # manager's rebuilds land here) and the watermarks
+                drain_compiles(trace, it)
+                trace.chunk(n_iter=it, b_lo=b_lo, b_hi=b_hi,
+                            n_sv=st.n_sv, cache_hits=st.cache_hits,
+                            cache_misses=st.cache_misses,
+                            rounds=st.rounds, n_active=len(active),
+                            hbm=memory_snapshot(device))
 
-        if sub_converged or capped:
-            alpha[active], f[active] = pulled()
-            if len(active) == n:
-                converged = sub_converged
-                break
-            # Unshrink: exact f for the frozen rows, then the real
-            # optimality check on the full problem.
-            t = time.perf_counter()
-            mask = np.zeros(n, bool)
-            mask[active] = True
-            f = _reconstruct_inactive_f(x, y_np, alpha, f, alpha0, f0, mask,
-                                        kspec, device=device, mesh=mesh)
-            RUN["rebuilt"] = (np.flatnonzero(~mask), f[~mask].copy(),
-                              alpha.copy())
-            RUN["seconds"]["reconstruct"] += time.perf_counter() - t
-            RUN["unshrinks"] += 1
-            RUN["active_sizes"].append(n)
-            RUN["active_since"].append(int(it))
-            b_hi, b_lo = _host_extrema(alpha, y_np, f, c_box)
-            converged = not gap_open(b_lo, b_hi, 2.0 * eps)
-            if converged or capped:
-                break
-            # Not there yet: go on with the full problem (and shrink again
-            # as its tail converges). n_iter survives the rebuild, so the
-            # budget is not granted again, and the rebuilt extrema are
-            # the next chunk's entry state.
-            active = np.arange(n)
-            step, pull = make_active(active, it, b_hi, b_lo, st.rounds)
-            continue
+            if sub_converged or capped:
+                alpha[active], f[active] = pulled()
+                if len(active) == n:
+                    converged = sub_converged
+                    break
+                # Unshrink: exact f for the frozen rows, then the real
+                # optimality check on the full problem.
+                t = time.perf_counter()
+                mask = np.zeros(n, bool)
+                mask[active] = True
+                f = _reconstruct_inactive_f(x, y_np, alpha, f, alpha0, f0,
+                                            mask, kspec, device=device,
+                                            mesh=mesh)
+                RUN["rebuilt"] = (np.flatnonzero(~mask), f[~mask].copy(),
+                                  alpha.copy())
+                RUN["seconds"]["reconstruct"] += time.perf_counter() - t
+                RUN["unshrinks"] += 1
+                RUN["active_sizes"].append(n)
+                RUN["active_since"].append(int(it))
+                b_hi, b_lo = _host_extrema(alpha, y_np, f, c_box)
+                converged = not gap_open(b_lo, b_hi, 2.0 * eps)
+                if trace is not None:
+                    trace.event("unshrink", n_iter=it,
+                                n_active_before=len(active),
+                                n_active_after=n,
+                                full_problem_converged=converged)
+                if converged or capped:
+                    break
+                # Not there yet: go on with the full problem (and shrink
+                # again as its tail converges). n_iter survives the
+                # rebuild, so the budget is not granted again, and the
+                # rebuilt extrema are the next chunk's entry state.
+                active = np.arange(n)
+                step, pull = make_active(active, it, b_hi, b_lo, st.rounds)
+                continue
 
-        # The shrink check, at most every min(SHRINK_CHECK_ITERS, n)
-        # iterations (each pulls alpha and f); compact only when the
-        # active set at least halves.
-        if it - last_check < min(SHRINK_CHECK_ITERS, n):
-            continue
-        last_check = it
-        a_act, f_act = pulled()
-        shrink = _shrinkable(a_act, y_np[active], f_act, c_box[active],
-                             b_hi, b_lo)
-        keep = int(len(active) - shrink.sum())
-        if keep <= len(active) // 2 and keep >= min_active:
-            alpha[active] = a_act
-            f[active] = f_act
-            active = active[~shrink]
-            RUN["compactions"] += 1
-            # n_iter and the stopping state survive the compaction
-            step, pull = make_active(active, it, b_hi, b_lo, st.rounds)
+            # The shrink check, at most every min(SHRINK_CHECK_ITERS, n)
+            # iterations (each pulls alpha and f); compact only when the
+            # active set at least halves.
+            if it - last_check < min(SHRINK_CHECK_ITERS, n):
+                continue
+            last_check = it
+            a_act, f_act = pulled()
+            shrink = _shrinkable(a_act, y_np[active], f_act,
+                                 c_box[active], b_hi, b_lo)
+            keep = int(len(active) - shrink.sum())
+            if keep <= len(active) // 2 and keep >= min_active:
+                alpha[active] = a_act
+                f[active] = f_act
+                if trace is not None:
+                    trace.event("shrink", n_iter=it,
+                                n_active_before=len(active),
+                                n_active_after=keep)
+                active = active[~shrink]
+                RUN["compactions"] += 1
+                # n_iter and the stopping state survive the compaction
+                step, pull = make_active(active, it, b_hi, b_lo, st.rounds)
 
-    log_progress(config, it, b_lo, b_hi, True, it)
-    RUN["captures"] = counts["captures"] - captures0
-    return TrainResult(
-        alpha=alpha, b=(b_lo + b_hi) / 2.0, n_iter=it, converged=converged,
-        b_lo=b_lo, b_hi=b_hi, train_seconds=time.perf_counter() - t0,
-        gamma=gamma, n_sv=int(np.sum(alpha > 0)), kernel=config.kernel,
-        coef0=float(config.coef0), degree=int(config.degree),
-        rounds=st.rounds)
+        log_progress(config, it, b_lo, b_hi, True, it)
+        RUN["captures"] = counts["captures"] - captures0
+        result = TrainResult(
+            alpha=alpha, b=(b_lo + b_hi) / 2.0, n_iter=it,
+            converged=converged, b_lo=b_lo, b_hi=b_hi,
+            train_seconds=time.perf_counter() - t0, gamma=gamma,
+            n_sv=int(np.sum(alpha > 0)), kernel=config.kernel,
+            coef0=float(config.coef0), degree=int(config.degree),
+            rounds=st.rounds)
+        if trace is not None:
+            drain_compiles(trace, result.n_iter)
+            trace.summary(converged=result.converged, n_iter=result.n_iter,
+                          b=result.b, b_lo=result.b_lo, b_hi=result.b_hi,
+                          n_sv=result.n_sv,
+                          train_seconds=result.train_seconds)
+        return result
+    finally:
+        drain_compiles(None)        # never leak into the next run
+        if trace is not None:
+            trace.close()

@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
+from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.ops.kernels import (KernelSpec, dots_f32, exact_f32,
                                          host_row_stats, kdiag_from_norms,
                                          rows_from_dots)
@@ -88,7 +89,8 @@ from dpsvm_tpu_torch.ops.selection import (box_sides, extrema_of,
                                            rowwise_extrema, sided_scores,
                                            valid_rows)
 from dpsvm_tpu_torch.ops.update import alpha_pair_step
-from dpsvm_tpu_torch.solver.driver import (ChunkStats, device_sv_count,
+from dpsvm_tpu_torch.solver.driver import (ChunkStats, Poll,
+                                           device_sv_count,
                                            host_training_loop, pack_stats,
                                            read_stats, resume_state)
 
@@ -374,7 +376,8 @@ def run_chunk_plain(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
 
 @contextlib.contextmanager
 def capture(graph: "torch.cuda.CUDAGraph", pool=None,
-            thread_local: bool = False, stream=None):
+            thread_local: bool = False, stream=None, *,
+            program: str = "graph", signature: Optional[str] = None):
     """``torch.cuda.graph(graph, pool=pool)`` with TF32 off, after a
     collection and with Python's cycle collector held off until it ends: a
     collection inside a capture can release the CUDA objects of dead
@@ -388,14 +391,18 @@ def capture(graph: "torch.cuda.CUDAGraph", pool=None,
     workspace per (handle, stream), and a graph replays the one its capture
     used: graphs that may replay at the same time on different streams
     (the replicas of a serving pool) need capture streams of their own, or
-    their products share a workspace and race."""
+    their products share a workspace and race. Each capture is one
+    observation of ``program`` at ``signature`` for the run trace
+    (``observability/compilewatch``), with the capture's seconds."""
     gc.collect()
     enabled = gc.isenabled()
     gc.disable()
     mode = "thread_local" if thread_local else "global"
     try:
-        with exact_f32(), torch.cuda.graph(graph, pool=pool, stream=stream,
-                                           capture_error_mode=mode):
+        with compilewatch.observing(program, signature=signature), \
+                exact_f32(), torch.cuda.graph(graph, pool=pool,
+                                              stream=stream,
+                                              capture_error_mode=mode):
             yield
     finally:
         if enabled:
@@ -433,7 +440,9 @@ class GraphChunk:
             run_bodies(1)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with capture(self.graph):
+        with capture(self.graph, program="smo-chunk",
+                     signature=compilewatch.shape_signature(
+                         carry.alpha, prob.x)):
             run_bodies(self.bodies)
         COUNTS["captures"] += 1
 
@@ -466,10 +475,10 @@ def make_chunk_runner(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
                       two_eps: float, plain: bool = False,
                       n_valid: Optional[int] = None,
                       chunk: Optional[GraphChunk] = None):
-    """``step(carry, limit) -> (carry, ChunkStats)`` for
-    ``host_training_loop``: the captured graph on the card, the eager loop
-    on the CPU (or anywhere, with ``plain``). Each chunk ends in the
-    poll's one read. ``n_valid`` masks the rows at or past it out of
+    """``step(carry, limit) -> (carry, poll)`` for ``host_training_loop``:
+    the captured graph on the card, the eager loop on the CPU (or
+    anywhere, with ``plain``). ``poll`` (a ``driver.Poll``) makes the
+    chunk's one read. ``n_valid`` masks the rows at or past it out of
     selection; ``chunk`` is a graph already captured over this carry and
     problem (the shrinking manager's cache), masked when ``n_valid`` is
     given."""
@@ -494,11 +503,18 @@ def make_chunk_runner(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
 
     def step(cr: SMOCarry, limit: int):
         cr = advance(cr, limit)
-        st: ChunkStats = read_stats(_stats(cr))
-        COUNTS["reads"] += 1
-        state["n_iter"] = st.n_iter
-        step.last = st
-        return cr, st
+        stats = _stats(cr)
+
+        def poll() -> ChunkStats:
+            st: ChunkStats = read_stats(stats)
+            COUNTS["reads"] += 1
+            if cr.cache is not None:
+                st = st._replace(cache_hits=st.runs[0],
+                                 cache_misses=st.runs[1])
+            state["n_iter"] = st.n_iter
+            step.last = st
+            return st
+        return cr, Poll(poll)
 
     return step
 

@@ -1897,3 +1897,71 @@ def test_threaded_server_on_the_card_answers_bitwise(dev, tmp_path):
         assert srv.pool("default").stray_compiles() == 0
     finally:
         srv.drain(timeout=30.0)
+
+
+# ---------------------------------------------------------------------
+# the driver's observability on the card
+# ---------------------------------------------------------------------
+
+def test_traced_kernel_a_run_is_bitwise_its_untraced_twin(dev, tmp_path):
+    """A traced, exported, watched and profiled kernel-A run against the
+    bare run: bitwise (n_iter, b, alpha), one stats read a poll in both,
+    a chunk record a poll with the allocator's in-use bytes, and the
+    chunk program's first-launch record with kernel A's work."""
+    from dpsvm_tpu_torch.observability.report import load_trace
+    from dpsvm_tpu_torch.solver import driver
+
+    x, y = make_blobs(n=2000, d=32, seed=4)
+    kw = dict(c=C, gamma=GAMMA, epsilon=1e-3, chunk_iters=64,
+              max_iter=1024)
+    obs = dict(trace_out=str(tmp_path / "t.jsonl"),
+               metrics_out=str(tmp_path / "m.prom"), metrics_port=0,
+               bundle_dir=str(tmp_path / "b"),
+               profile_dir=str(tmp_path / "p"))
+    runs = []
+    for extra in ({}, obs):
+        reads = driver.READS["stats"]
+        r = train(x, y, SVMConfig(**kw, **extra), device=dev)
+        runs.append((r, driver.READS["stats"] - reads))
+    (bare, nb), (seen, ns) = runs
+    assert np.array_equal(bare.alpha.view(np.int32),
+                          seen.alpha.view(np.int32))
+    assert (bare.n_iter, bare.b) == (seen.n_iter, seen.b) and nb == ns
+    recs = load_trace(obs["trace_out"])
+    chunks = [r for r in recs if r["kind"] == "chunk"]
+    assert len(chunks) == ns
+    assert all(c["hbm"]["in_use"] > 0 for c in chunks)
+    comp = [r for r in recs if r["kind"] == "compile"]
+    assert comp[0]["program"] == "fused-chunk"
+    assert comp[0]["flops"] == 4.0 * 2000 * 32
+    assert recs[0]["env"]["backend"] == "cuda"
+
+
+def test_memory_snapshot_reads_the_allocator(dev):
+    from dpsvm_tpu_torch.observability.device import memory_snapshot
+    keep = torch.ones(1 << 20, device=dev)
+    snap = memory_snapshot(dev)
+    assert snap["in_use"] >= keep.numel() * 4
+    assert snap["peak"] >= snap["in_use"] and snap["limit"] > snap["peak"]
+
+
+def test_a_capture_is_recorded_once_per_graph_chunk(dev, tmp_path):
+    """Each GraphChunk is one capture: one compile record of ``smo-chunk``
+    in the run's trace, with its capture's seconds; its replays record
+    none."""
+    from dpsvm_tpu_torch.observability.report import load_trace
+    from dpsvm_tpu_torch.solver import smo as gsmo
+
+    x, y = make_blobs(n=300, d=8, seed=2)
+    caps = gsmo.COUNTS["captures"]
+    recs = []
+    for i in range(2):
+        cfg = SVMConfig(c=C, gamma=GAMMA, selection="second-order",
+                        chunk_iters=32, max_iter=256,
+                        trace_out=str(tmp_path / f"t{i}.jsonl"))
+        gsmo.train_single_device(x, y, cfg, dev)
+        recs += [r for r in load_trace(cfg.trace_out)
+                 if r["kind"] == "compile"]
+    assert gsmo.COUNTS["captures"] - caps == 2
+    assert [r["program"] for r in recs] == ["smo-chunk"] * 2
+    assert all(r["seconds"] > 0 and "300" in r["signature"] for r in recs)

@@ -284,8 +284,24 @@ def test_grid_matches_jax_and_sequential_fits():
         assert _sv_close(m.n_sv, cell.model.n_sv)
         assert abs(evaluate(m, x[ho], y[ho], device=CPU)
                    - cell.holdout_acc) <= 0.005 + one
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tgrid.train_grid(x, y, cs=cs, trace=object(), device=CPU)
+    # the grid's run trace: a grid_cell event a cell, then the winner
+    # and the summary (the refusal this once pinned is gone)
+    events = []
+
+    class _Rec:
+        def event(self, name, **kw):
+            events.append((name, kw))
+
+        def summary(self, **kw):
+            events.append(("summary", kw))
+
+    g1 = tgrid.train_grid(x, y, cs=cs[:1], gammas=gs[:1],
+                          config=SVMConfig(**cfg), trace=_Rec(),
+                          device=CPU)
+    assert [e for e, _ in events] == ["grid_cell", "grid_winner",
+                                      "summary"]
+    assert events[0][1]["holdout_acc"] == round(g1.best.holdout_acc, 6)
+    assert events[2][1]["grid_cells"] == 1
 
 
 def test_grid_polish_and_promote(tmp_path):

@@ -70,7 +70,16 @@ def test_no_jax_import(path):
                                  "resilience/health.py",
                                  "resilience/preempt.py",
                                  "resilience/supervisor.py",
-                                 "resilience/faultinject.py", "cli.py"])
+                                 "resilience/faultinject.py", "cli.py",
+                                 "utils/timing.py",
+                                 "observability/device.py",
+                                 "observability/compilewatch.py",
+                                 "observability/roofline.py",
+                                 "observability/profiler.py",
+                                 "observability/report.py",
+                                 "observability/compare.py",
+                                 "observability/__init__.py",
+                                 "observability/__main__.py"])
 def test_the_host_layers_are_scanned_and_import_no_jax(rel):
     """The data, serving, fleet, observability and resilience modules are
     among the scanned sources, and the native helper builds the port's own

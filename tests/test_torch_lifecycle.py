@@ -77,9 +77,13 @@ def _mk_model(seed=0, d=4, b=0.2):
 
 
 def test_compare_gate_is_refused_at_construction(tmp_path):
-    """A loop armed with a baseline trace AND a regression bar raises at
-    construction, naming ROADMAP item 13, never a quietly held gate."""
+    """A loop armed with a baseline trace AND a regression bar is built
+    and gates on ``compare`` (the refusal this test once pinned is gone):
+    a candidate trace slower past the bar holds, an equal one passes, an
+    unreadable one holds with the reason; either half alone leaves the
+    accuracy floor as the gate."""
     from dpsvm_tpu_torch.models.io import save_model
+    from dpsvm_tpu_torch.observability.record import RunTrace
     from dpsvm_tpu_torch.serving.lifecycle import (DriftDetector,
                                                    LifecycleLoop,
                                                    RetrainResult)
@@ -92,14 +96,31 @@ def test_compare_gate_is_refused_at_construction(tmp_path):
               detector=DriftDetector(np.arange(10.0)),
               score_source=lambda: [], retrain_fn=lambda r, a: None,
               eval_fn=lambda p: 1.0, accuracy_floor=0.5)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        LifecycleLoop(baseline_trace=str(tmp_path / "t.jsonl"),
-                      fail_on_regress_pct=5.0, **kw)
+
+    def traced(name, seconds):
+        tp = str(tmp_path / name)
+        tr = RunTrace(tp, solver="smo", n=8, d=4, gamma=0.5)
+        tr.chunk(n_iter=100, b_lo=1.0, b_hi=0.0, n_sv=4)
+        tr.summary(converged=True, n_iter=100, b=0.5, b_lo=0.5,
+                   b_hi=0.5, n_sv=4, train_seconds=seconds)
+        tr.close()
+        return tp
+
+    base, same, slow = (traced("a.jsonl", 1.0), traced("b.jsonl", 1.0),
+                        traced("c.jsonl", 2.0))
+    cand = str(tmp_path / "c.svm")
+    save_model(_mk_model(seed=1), cand)
+    gated = LifecycleLoop(baseline_trace=base, fail_on_regress_pct=5.0,
+                          **kw)
+    assert gated.gate(RetrainResult(model_path=cand,
+                                    trace_path=same)).passed
+    g = gated.gate(RetrainResult(model_path=cand, trace_path=slow))
+    assert not g.passed and any("iters_per_sec" in p for p in g.problems)
+    g = gated.gate(RetrainResult(model_path=cand, trace_path=cand))
+    assert not g.passed and "trace compare failed" in g.problems[0]
     # either half alone is accepted: the gate is the accuracy floor
     loop = LifecycleLoop(baseline_trace=str(tmp_path / "t.jsonl"), **kw)
     loop2 = LifecycleLoop(fail_on_regress_pct=5.0, **kw)
-    cand = str(tmp_path / "c.svm")
-    save_model(_mk_model(seed=1), cand)
     for lp in (loop, loop2):
         g = lp.gate(RetrainResult(model_path=cand, trace_path=cand))
         assert g.passed and g.problems == []

@@ -380,13 +380,22 @@ def test_pool_refresh_swaps_generations_while_serving():
 
 
 def test_stray_captures_count_outside_builds_only():
-    """The pool's stray counter drains ``engine.COUNTS['captures']``: a
-    build's own captures are not strays, a capture outside one is."""
+    """The pool's stray counter drains the capture and build observations
+    (``observability/compilewatch``, the source JAX's pool drains): a
+    build's own captures are not strays, a capture outside one is, and a
+    capture (one ``engine.COUNTS`` step and one observation, as
+    ``smo.capture`` makes it) counts once."""
+    from dpsvm_tpu_torch.observability import compilewatch
     from dpsvm_tpu_torch.serving import engine as E
     from dpsvm_tpu_torch.serving.pool import ReplicaPool
 
+    def captured():
+        E.COUNTS["captures"] += 1
+        compilewatch.observe("serve-bucket/rows=1", 0.0)
+
     def build(i):
-        E.COUNTS["captures"] += 3          # a build's warmup captures
+        for _ in range(3):                  # a build's warmup captures
+            captured()
         return StubEngine()
 
     pool = ReplicaPool(build, 2, name="strays", deadline_s=5.0,
@@ -394,7 +403,7 @@ def test_stray_captures_count_outside_builds_only():
     try:
         pool.infer(_rows(1, 4), ("decision",))
         assert pool.stray_compiles() == 0
-        E.COUNTS["captures"] += 1          # a capture under traffic
+        captured()                          # a capture under traffic
         assert pool.stray_compiles() == 1
         pool.refresh()                      # rebuilds capture inside guards
         assert pool.stray_compiles() == 1
