@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only serve          # build + serving and the fleet
     python3 chip_smoke.py --only stack          # build + the serving stack
     python3 chip_smoke.py --only observe        # build + observability
+    python3 chip_smoke.py --only resilience     # build + training resilience
 
 Host text that only checks a file format (the model files of phases 3, 5
 and 9, phase 8's one-vs-one directory) is written and read back by
@@ -70,11 +71,12 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    iterations; kernel B's launches, runs and rounds must be equal and its
    device-counted steps must add up to n_iter. The decomposition's model
    must match the pair's (n_sv within 2%, held-out accuracy within 0.5%);
-   both are trained on the first DECOMP_SUB_N rows for it (the fused pair
-   there a second time). Then the general pair: WSS2
-   (``selection="second-order"``) to convergence in both precisions (in
-   float32 on the first SUB_N rows) through fit, save, load and
-   evaluate, held to the fused model by the same bar; linear, poly and sigmoid at
+   both are trained on the first DECOMP_SUB_N rows for it in float32 and
+   on the first SUB_N in bfloat16 (the fused pair there a second time).
+   Then the general pair: WSS2 (``selection="second-order"``) to
+   convergence in both precisions on the first SUB_N rows through fit,
+   save, load and evaluate, held to the fused model by the same bar;
+   linear, poly and sigmoid at
    LIBSVM's defaults (gamma = 1/d, coef0 = 0, degree 3) for a
    SMO_PREFIX_ITERS prefix of the general pair and a KIND_DECOMP_ROUNDS
    prefix of the decomposition through kernel B; and a precomputed K of
@@ -83,7 +85,8 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    Counts are set to 0 before each run and read after it: the general
    pair launches neither kernel, replays its graph and reads once a chunk;
 4. the kernel paths against the plain paths, both on the card: the pair
-   for PREFIX_ITERS iterations at 60000 x 784 and converged on 4096 x 784;
+   for PREFIX_ITERS iterations at 60000 x 784 and converged on
+   CONV_SMALL_N x 784;
    the decomposition for DECOMP_PREFIX_ROUNDS rounds at full width and
    converged on planted 8000 x 784 at q=4096 (``Smoke.convergence`` says
    why the bars split so); the general pair's first-order RBF path against
@@ -97,7 +100,7 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    distinct capacities); the f the last unshrink rebuilt against a fresh
    streamed pass; kernel B's counts, and no masked slot ever updated; then
    the shrinking decomposition's kernel path against its plain path on
-   planted 8000 x 784 at q = 4096;
+   planted SHRINK_PLAIN_N x 784 at q = SHRINK_PLAIN_Q;
 6. kill and resume on the three paths at full width (f32): 2K iterations
    straight against K with checkpoints resumed from the file to 2K, and
    again from the rotation slot after the newest file is truncated, all
@@ -107,15 +110,16 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    as CSV load to the same arrays, and the fused pair trains on both to
    the same prefix, bitwise;
 8. multi-class and the batched subproblem program (``multiclass``): 10-class
-   planted data at MNIST's training shape (MC_N x 784) through
+   planted data at MNIST's width (MC_N x 784) through
    ``train_multiclass`` to convergence, sequentially with -b (45 pairs, each
    through kernel A: its device-counted runs equal the pairs' iterations)
    and batched (one captured program of 45 subproblems), held to each other
    by the bar between paths, with save, load and evaluate; the pairwise
    decisions of one product against the per-model loop; the -b
    probabilities; the batched graph against its eager loop, bitwise, for
-   GRAPH_CHECK_ITERS steps. A C x gamma sweep on planted binary 60000 x 784
-   against four general-pair fits at prefixes of PREFIX_ITERS and
+   GRAPH_CHECK_ITERS steps on all N rows. A C x gamma sweep on planted
+   binary 60000 x 784 against four general-pair fits at prefixes of
+   PREFIX_ITERS and
    SWEEP_PREFIX steps (the sweep to convergence on SWEEP_SMALL_N x 784
    against ``api.fit`` at each point is phase 14 (h)); 5-fold
    ``cross_validate``,
@@ -145,7 +149,8 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    through ``train_distributed`` in an NCCL group of one rank on cuda:0 to
    convergence on the first SUB_N rows, held to the fused model on them by
    the bar between paths, with its seconds, microseconds an iteration, kernels an
-   iteration and the device's busy share (torch.profiler over a chunk);
+   iteration and the device's busy share (torch.profiler over
+   DIST_PROFILE_ITERS iterations);
    a DIST_PREFIX_ITERS prefix bitwise the general pair's (alpha, f, b's),
    or the iteration where they part; its captured chunk (NCCL inside the
    graph) bitwise its eager loop for DIST_GRAPH_ITERS iterations. (b) The
@@ -159,7 +164,11 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    on cuda:0, GLOO_N x 784: the pair against world size 1 (the same
    n_iter, alpha within 1e-4), the decomposition (q = GLOO_Q) by the
    _check bar; gloo stages CUDA tensors through the host, so these times
-   are not performance;
+   are not performance. In a whole run the two ranks run beside phase 12
+   (d) and (e), whose host-bound work they overlap, and are checked at
+   phase 12's end (a failure is still phase 10's). (a) and (c) time the
+   pair's per-poll agreement (``driver._agree``: one all-reduce and one
+   read a poll);
 11. the approx solvers and the cascade (``approx``, ``approx/``,
    ``solver/cascade.py``) through ``api.fit``, f32, D = APPROX_D: (a)
    approx-rff on the planted 60000 x 784 rows, held-out accuracy within 1%
@@ -174,8 +183,8 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    the same ``api.fit`` model; (f) the resume drills, bitwise: (a) cut at APPROX_CUT steps and
    resumed to APPROX_END, the cascade killed after each of stages 1-3 on
    CASC_RESUME_N rows;
-12. the data layer (``stream``, ``data/``, ``native/``): (a) the planted
-   60000 x 784 rows written as a CSV and their first STREAM_LIBSVM_ROWS as
+12. the data layer (``stream``, ``data/``, ``native/``): (a) the first
+   STREAM_N planted rows written as a CSV and their first STREAM_LIBSVM_ROWS as
    a libsvm file, each parsed by the native helper (bitwise the rows;
    seconds) and, on their first
    STREAM_FALLBACK_ROWS rows, by the Python fallback (bitwise the native
@@ -282,7 +291,37 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    record, compared to (b) by ``compare``; (d) the planted rule fired once
    and left one bundle, which ``bundle`` validates and renders with its
    embedded report;
-17. time each kernel on its path (kernel A: CUDA events over a chunk of
+17. training resilience (``resilience``: the driver's guards and
+   snapshots, ``resilience/``), each check's seconds printed: (a) kernel
+   A's RES_PREFIX-iteration prefix at 60000 x 784 (chunks of RES_CHUNK, a
+   checkpoint a chunk) preempted by ``PREEMPT_POLL`` at its 3rd poll and
+   resumed by ``run_with_retries``: bitwise the uninterrupted prefix
+   (alpha, f, b, n_iter), ``preempt`` on attempt 0's trace and ``retry`` on
+   attempt 1's, kernel A's device-counted runs the iterations run; (b)
+   ``NAN_ITER`` poisons a poll: with rollback a ``rollback`` event to the
+   newest checkpoint, the chunk halved and the end bitwise the prefix;
+   with raise ``DivergenceError`` and a ``divergence`` event; with ignore
+   the run completes with the event; (c) the same rollback on the
+   decomposition (q = DECOMP_Q, kernel B) over RES_DECOMP_ROUNDS rounds,
+   bitwise the prefix resumed from the restored state at the halved
+   chunk, kernel B's launches all run and its steps the updates made; (d)
+   ``debug_nans``: one NaN planted in X raises ``FloatingPointError`` at
+   the first poll; clean, bitwise the bare prefix with one flag read a
+   poll more; with every hook on and no fault (rollback policy, health
+   window, heartbeat files, an empty installed plan), bitwise the bare
+   prefix with the same reads; (e) the kill-one-shard drill over two gloo
+   ranks sharing cuda:0 on GLOO_N rows: ``run_elastic`` resumes on one
+   rank, n_iter the uninterrupted two-rank prefix's, alpha within 1e-4,
+   ``retry`` and ``reshard`` on a valid trace; (f) the kill-one-host drill
+   (three ``train --coordinator --dist-backend gloo`` host processes of
+   64 rows sharing cuda:0, one SIGKILLed, two reformed): the model within
+   1e-4, the trace ``host_lost`` -> ``reform``, ``host_loss_recovery_s``;
+   (g) ``doctor`` in this process on (a)'s checkpoint: exit 0, the backend
+   line naming the card, the roofline line the data-sheet row, the
+   collective's ms, and exit 6 with its one slot bit-flipped. The checks
+   run one after another. The stall watchdog is armed for the whole
+   script (STALL_TIMEOUT_S);
+18. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
@@ -319,11 +358,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, HBM3
 FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, fp32 outside tensor cores
 N, D, GAMMA, C = 60000, 784, 0.25, 10.0
 # Rows of the runs to convergence on the secondary paths: the first SUB_N
-# planted rows for the float32 runs of phase 3's general pair, phase 5's
-# shrinking on it and phase 10 (a)'s distributed pair (the general pair's
-# bfloat16 run keeps all N rows), the first DECOMP_SUB_N for phase 3's
-# decomposition in both precisions and phase 5's shrinking on it, each
-# held to the fused pair's model in its precision on the same rows. Cut
+# planted rows for phase 3's general pair in both precisions and its
+# bfloat16 decomposition, phase 5's shrinking on the pair and phase 10
+# (a)'s distributed pair, the first DECOMP_SUB_N for phase 3's float32
+# decomposition and phase 5's shrinking on it, each held to the fused
+# pair's model in its precision on the same rows. Cut
 # from N for card time (PERF.md §4). The decomposition's shrinking
 # compacts only when the active set halves and stays at or above q =
 # DECOMP_Q (on 24000 rows it never did), hence its larger share.
@@ -336,6 +375,10 @@ TWO_EPS = 2e-3
 F_RTOL = 1e-5
 MAIN_MAX_ITER = 400_000
 PREFIX_ITERS = 100
+# Phase 4's converged kernel-against-plain pair runs: CONV_SMALL_N planted
+# rows and 1000 held out (cut from 4096 for card time, PERF.md §4: the
+# plain path's run to convergence dominated the phase).
+CONV_SMALL_N = 2048
 TIMED_ITERS = 500
 # The decomposition at the reference shape: q must exceed n_sv (~8.3k
 # here) by ~1.3x (dpsvm_tpu/solver/decomp.py), and cap 128 is the inner
@@ -361,6 +404,17 @@ SMO_TIMED_ITERS = 512
 OBS_PREFIX, OBS_CHUNK = 20_000, 2_000
 OBS_DECOMP_ITERS, OBS_DECOMP_CHUNK = 20 * DECOMP_CAP, 4 * DECOMP_CAP
 OBS_WSS2_ITERS = 512
+# Phase 17: kernel A's prefix (chunks of RES_CHUNK, one checkpoint a
+# chunk) and the decomposition's rounds.
+RES_PREFIX, RES_CHUNK = 6000, 1000
+RES_DECOMP_ROUNDS = 20
+# The stall watchdog's patience: a phase whose device stops answering
+# for this long exits 124 (the phases pet it at every poll and start).
+STALL_TIMEOUT_S = 600.0
+# Phase 5's shrinking decomposition, kernel against plain: planted rows
+# and q (cut from 8000 and 4096 for card time, PERF.md §4: the plain
+# path's run to convergence dominated the check).
+SHRINK_PLAIN_N, SHRINK_PLAIN_Q = 4000, 2048
 # Precomputed: planted rows whose RBF matrix (1.07 GB in float32) is built
 # on the card; q for its decomposition above ~1.3x its SV count.
 PRE_N, PRE_Q = 16384, 4096
@@ -372,12 +426,14 @@ RESUME_DECOMP_K = 10 * DECOMP_CAP
 # libsvm input: the first LIBSVM_ROWS planted rows at full width (the
 # native parser; phase 12 times it against the Python one).
 LIBSVM_ROWS = 10_000
-# Multi-class at MNIST's training shape: MC_K planted classes, MC_N rows
-# to train and 10000 held out; the C x gamma grid, its prefix and the
-# smaller problem it converges on; CV (on 12000 rows: cut from 20000 for
-# card time, PERF.md §4); the row cache's lines (the reference's default)
-# and its prefix.
-MC_K, MC_N = 10, 60000
+# Multi-class: MC_K planted classes at MNIST's width, the first MC_N of
+# MNIST's 60000 training rows to train (cut from 60000 for card time,
+# PERF.md §4; the batched graph against its eager loop and phase 18's
+# batched step keep all N) and 10000 held out; the C x gamma grid, its
+# prefix and the smaller problem it converges on; CV (on 12000 rows: cut
+# from 20000 for card time, PERF.md §4); the row cache's lines (the
+# reference's default) and its prefix.
+MC_K, MC_N = 10, 30000
 SWEEP_CS, SWEEP_GS = (1.0, 10.0), (0.125, 0.25)
 SWEEP_PREFIX, SWEEP_SMALL_N = 2000, 8000
 CV_N, CV_K = 12000, 5
@@ -386,20 +442,20 @@ OVO_WARM_STEPS, OVO_TIMED_STEPS = 512, 256
 # The task families (phase 9), on the planted rows: epsilon-SVR at LIBSVM's
 # defaults (C = 1, p = 0.1) on a target smooth in x (``Smoke.svr_targets``:
 # SVR_ANCHORS kernel bumps at seeded rows, unit variance, SVR_NOISE of
-# Gaussian noise) on SVR_N rows (cut from 60000 for card time, PERF.md
-# §4), and on SVR_NOISY_N rows of the same target with
+# Gaussian noise) on SVR_N rows (cut from 60000, then 30000, for card
+# time, PERF.md §4), and on SVR_NOISY_N rows of the same target with
 # SVR_NOISY_NOISE of noise, where most rows are SVs (cut from 20000 for
 # card time, PERF.md §4); one-class at OC_NU;
 # nu-SVC binary and one-vs-one at NUSVC_NU; nu-SVR at NUSVR_NU, a prefix
-# at full width and converged on NUSVR_SMALL_N rows (cut from 8000 for
-# card time, PERF.md §4); nu one-vs-one on
+# at full width and converged on NUSVR_SMALL_N rows (cut from 8000, then
+# 5000, for card time, PERF.md §4); nu one-vs-one on
 # NU_MC_N rows of MC_K classes; the general pair's nu-selection graph
 # against its eager loop for NU_GRAPH_ITERS iterations.
-TASK_N, SVR_N = 60000, 30000
+TASK_N, SVR_N = 60000, 20000
 SVR_C, SVR_P, SVR_ANCHORS, SVR_NOISE = 1.0, 0.1, 64, 0.05
 SVR_NOISY_N, SVR_NOISY_NOISE = 10000, 0.2
 OC_NU, NUSVC_NU, NUSVR_NU = 0.1, 0.2, 0.5
-NUSVR_PREFIX, NUSVR_SMALL_N = 2000, 5000
+NUSVR_PREFIX, NUSVR_SMALL_N = 2000, 2500
 NU_MC_N = 10000
 NU_GRAPH_ITERS = 512
 TASK_MAX_ITER = 2_000_000
@@ -412,6 +468,9 @@ TASK_MAX_ITER = 2_000_000
 # 1000 rows (q = 512) its trajectory parted from world size 1's (3304
 # against 3315 iterations, PERF.md §7), so the rows stay at 2000.
 DIST_PREFIX_ITERS, DIST_GRAPH_ITERS = 2000, 512
+# (a)'s torch.profiler window, in iterations: every kernel of every
+# iteration is an event that key_averages() sums in Python on the host.
+DIST_PROFILE_ITERS = 64
 DIST_DECOMP_ROUNDS = 10
 GLOO_N, GLOO_Q = 2000, 1024
 # The approx solvers and the cascade (phase 11): D = APPROX_D features;
@@ -420,26 +479,30 @@ GLOO_N, GLOO_Q = 2000, 1024
 # CASC_HELD held out, the shape of the JAX package's CPU reference run)
 # and with the decomposition at q = CASC_Q on the same rows; the approx
 # resume drill cut at APPROX_CUT steps and run to APPROX_END; the
-# cascade's kill points on CASC_RESUME_N rows; the profiled steps.
+# cascade's kill points on CASC_RESUME_N rows (cut from 8000 for card
+# time, PERF.md §4: seven cascades run there); the profiled steps.
 APPROX_D = 1024
 APPROX_BIG_N, APPROX_BIG_MAX = 1_000_000, 10_000
 CASC_N, CASC_HELD, CASC_Q = 20000, 5000, 4096
 APPROX_CUT, APPROX_END = 300, 600
-CASC_RESUME_N = 8000
+CASC_RESUME_N = 4000
 APPROX_PROFILE_STEPS = 256
-# The data layer (phase 12): the libsvm text holds the first
-# STREAM_LIBSVM_ROWS planted rows (cut from 60000 for card time, PERF.md
-# §4; the CSV keeps all of them); the Python fallback parses the first
-# STREAM_FALLBACK_ROWS rows only (pure-Python libsvm at 60000 rows took
-# 148 s, PERF.md); shards of STREAM_SHARD_ROWS rows; STREAM_STEPS
-# streaming steps held to the in-memory steps, within STREAM_W_RTOL of
+# The data layer (phase 12): the CSV holds the first STREAM_N planted rows
+# and the libsvm text the first STREAM_LIBSVM_ROWS (cut from 60000 and
+# 30000 for card time, PERF.md §4: the texts, their parses, the shard
+# conversion and (c)'s streamed passes are host work that scales with the
+# rows); the Python fallback parses the first STREAM_FALLBACK_ROWS rows
+# only (pure-Python libsvm at 60000 rows took 148 s, PERF.md; cut from
+# 10000 for card time, PERF.md §4: (a) waits for it); shards of
+# STREAM_SHARD_ROWS rows; STREAM_STEPS streaming steps held to the
+# in-memory steps, within STREAM_W_RTOL of
 # max|w| (float32 partial sums in shard order against one product, over
 # the momentum steps; cut from 64 for card time, PERF.md §4); the
 # converged streaming fit's wall budget under
 # --stream-converge; the drills' rows and shard size (8 shards, so one
 # quarantined shard stays under the 25% bad-fraction bound).
-STREAM_LIBSVM_ROWS = 30_000
-STREAM_FALLBACK_ROWS = 10_000
+STREAM_N, STREAM_LIBSVM_ROWS = 20_000, 10_000
+STREAM_FALLBACK_ROWS = 5_000
 STREAM_SHARD_ROWS = 4096
 STREAM_STEPS = 32
 STREAM_PROFILE_STEPS = 8
@@ -622,10 +685,41 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+class _AgreeClock:
+    """Host seconds and calls of ``driver._agree`` (a mesh's per-poll
+    agreement: one all-reduce and one read) while entered."""
+
+    def __enter__(self):
+        from dpsvm_tpu_torch.solver import driver
+        self.calls, self.seconds, orig = 0, 0.0, driver._agree
+
+        def spy(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return orig(*a, **kw)
+            finally:
+                self.calls += 1
+                self.seconds += time.perf_counter() - t
+
+        self._restore = lambda: setattr(driver, "_agree", orig)
+        driver._agree = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._restore()
+
+    def record(self, train_seconds: float) -> dict:
+        return {"polls_agreed": self.calls,
+                "ms_per_poll": (1e3 * self.seconds / self.calls
+                                if self.calls else None),
+                "share_of_train_seconds": self.seconds / train_seconds}
+
+
 def _gloo_card_rank(rank: int, x, y, kws) -> dict:
     """One of phase 10's two gloo ranks: the pair and the decomposition
     with this rank's shard on cuda:0, in the world group ``launch_local``
-    made (passed explicitly: gloo with CUDA tensors)."""
+    made (passed explicitly: gloo with CUDA tensors); the pair's per-poll
+    agreement timed."""
     import torch.distributed as dist
     from dpsvm_tpu_torch import SVMConfig
     from dpsvm_tpu_torch.parallel.dist_decomp import train_distributed_decomp
@@ -634,12 +728,14 @@ def _gloo_card_rank(rank: int, x, y, kws) -> dict:
     for name, kw in kws.items():
         fn = (train_distributed_decomp if name == "decomp"
               else train_distributed)
-        res = fn(x, y, SVMConfig(**kw), group=dist.group.WORLD,
-                 device="cuda:0")
+        with _AgreeClock() as clock:
+            res = fn(x, y, SVMConfig(**kw), group=dist.group.WORLD,
+                     device="cuda:0")
         out[name] = {"n_iter": res.n_iter, "rounds": res.rounds,
                      "alpha": res.alpha, "b": res.b,
                      "converged": res.converged,
-                     "seconds": res.train_seconds}
+                     "seconds": res.train_seconds,
+                     "agree": clock.record(res.train_seconds)}
     return out
 
 
@@ -790,6 +886,13 @@ class Smoke:
         self._fused_refs = {}             # _fused_on's models
         self._main_trace = None           # phase 3's f32 trace and fit
         self.stream_converge = False
+        # phase 15's (e) and (f) processes, and whether phase 15 runs
+        # after phase 14 (which then starts them)
+        self._stack_procs = None
+        self.stack_next = False
+        # phase 10 (c)'s ranks: run beside phase 12 when it follows
+        self._gloo = None
+        self.gloo_beside_stream = False
 
     def fail(self, phase: str, msg: str) -> None:
         self.failures.append(f"{phase}: {msg}")
@@ -1538,16 +1641,16 @@ class Smoke:
                 and counts["pair_replays"] * gs.GRAPH_BODIES >= res.n_iter)
 
     def main_general(self) -> None:
-        """WSS2 on the general pair through ``api.fit``, in float32 on the
-        first SUB_N rows and in bfloat16 on all N, held to the fused pair's
-        model on the same rows by the bar between paths."""
+        """WSS2 on the general pair through ``api.fit`` in both precisions
+        on the first SUB_N rows, held to the fused pair's model on the same
+        rows by the bar between paths."""
         torch = self.torch
         from dpsvm_tpu_torch import fit
         from dpsvm_tpu_torch.solver import smo as gs
         xtr, ytr, xte, yte = self.planted()
         self.rec["general"] = {}
         for prec in ("highest", "default"):
-            n = SUB_N if prec == "highest" else N
+            n = SUB_N
             cfg = self.kind_config("rbf", gamma=GAMMA, max_iter=MAIN_MAX_ITER,
                                    selection="second-order",
                                    matmul_precision=prec)
@@ -1729,8 +1832,9 @@ class Smoke:
             f"{time.perf_counter() - t:.1f} s waited): {json.dumps(out)}")
 
     def main_decomp(self) -> None:
-        """The decomposition through ``api.fit`` on the first DECOMP_SUB_N
-        rows in both precisions, held to the fused pair's model on the same
+        """The decomposition through ``api.fit`` in float32 on the first
+        DECOMP_SUB_N rows (phase 5's unshrunk reference) and in bfloat16
+        on the first SUB_N, each held to the fused pair's model on the same
         rows."""
         torch = self.torch
         from dpsvm_tpu_torch import SVMConfig, fit
@@ -1739,8 +1843,8 @@ class Smoke:
         xtr, ytr, xte, yte = self.planted()
         self.rec["decomp"] = {}
         totals = {"launches": 0, "runs": 0}
-        n = DECOMP_SUB_N
         for prec in ("highest", "default"):
+            n = DECOMP_SUB_N if prec == "highest" else SUB_N
             cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
                             max_iter=DECOMP_MAX_ITER, working_set=DECOMP_Q,
                             inner_iters=DECOMP_CAP, matmul_precision=prec)
@@ -1803,8 +1907,9 @@ class Smoke:
             train_single_device_plain)
         from dpsvm_tpu_torch.models.svm import (SVMModel, decision_function,
                                                 evaluate)
-        x, y = make_planted(5096, D, GAMMA, seed=2)
-        small = (x[:4096], y[:4096], x[4096:], y[4096:])
+        x, y = make_planted(CONV_SMALL_N + 1000, D, GAMMA, seed=2)
+        k = CONV_SMALL_N
+        small = (x[:k], y[:k], x[k:], y[k:])
         self.rec["convergence"] = {}
         for prec in ("highest", "default"):
             r = {}
@@ -2096,18 +2201,19 @@ class Smoke:
     def shrink_convergence(self) -> None:
         """The shrinking decomposition's kernel path (``fit``) against its
         plain path (``train_shrinking(plain=True)``), both on the card, on
-        planted 8000 x 784 at q = 4096, to the bars of the ``convergence``
-        phase (LibSVM bar on the training rows). The active set cannot
-        halve there without going under q (8000 / 2 < 4096), so both runs
-        stay at 8000 rows; the card tests hold kernel B on compacted,
-        padded active sets against its plain version bitwise."""
+        planted SHRINK_PLAIN_N x 784 at q = SHRINK_PLAIN_Q, to the bars of
+        the ``convergence`` phase (LibSVM bar on the training rows). The
+        active set cannot halve there without going under q, so both runs
+        keep every row; the card tests hold kernel B on compacted, padded
+        active sets against its plain version bitwise."""
         from dpsvm_tpu_torch import fit
         from dpsvm_tpu_torch.data.synthetic import make_planted
         from dpsvm_tpu_torch.models.svm import SVMModel, evaluate
         from dpsvm_tpu_torch.solver import shrink
-        x8, y8 = make_planted(8000, D, GAMMA, seed=0)
+        n, q = SHRINK_PLAIN_N, SHRINK_PLAIN_Q
+        x8, y8 = make_planted(n, D, GAMMA, seed=0)
         cfg = self.kind_config("rbf", gamma=GAMMA, max_iter=200_000,
-                               working_set=4096, inner_iters=DECOMP_CAP,
+                               working_set=q, inner_iters=DECOMP_CAP,
                                shrinking=True)
         (mk, rk), counts = self.counted(lambda: fit(x8, y8, cfg))
         self._add_b_counts(counts)
@@ -2116,7 +2222,7 @@ class Smoke:
         sizes_p = list(shrink.RUN["active_sizes"])
         mp = SVMModel.from_train_result(x8, y8, rp)
         acc_k, acc_p = evaluate(mk, x8, y8), evaluate(mp, x8, y8)
-        r = {"n": 8000, "q": 4096,
+        r = {"n": n, "q": q,
              "kernel": {"n_iter": rk.n_iter, "rounds": rk.rounds,
                         "n_sv": rk.n_sv, "converged": rk.converged,
                         "seconds": rk.train_seconds, "accuracy": acc_k,
@@ -2134,8 +2240,8 @@ class Smoke:
         if not ok:
             self.fail("shrinking", f"decomposition kernel against plain: {r}")
         self.rec["shrink_convergence"] = r
-        log(f"[shrinking] decomposition kernel against plain, 8000 x 784, "
-            f"q=4096: {json.dumps(r)}")
+        log(f"[shrinking] decomposition kernel against plain, {n} x 784, "
+            f"q={q}: {json.dumps(r)}")
 
     # ------------------------------------------------------------ phase 6
     def resume(self) -> None:
@@ -2257,9 +2363,33 @@ class Smoke:
         ``solver/batched_ovo.py``, ``models/calibration.py``,
         ``models/cv.py``, ``ops/rowcache.py``)."""
         self.multiclass_ovo()
-        self.multiclass_sweep()
-        self.multiclass_cv()
-        self.multiclass_cache()
+        try:
+            self.multiclass_sweep()
+            self.multiclass_cv()
+            self.multiclass_cache()
+        finally:
+            self._settle_mc_round_trip()
+
+    def _settle_mc_round_trip(self) -> None:
+        """Wait for the sequential model's directory round trip (spawned by
+        ``multiclass_ovo``, run beside the rest of the phase) and fail the
+        phase if the loaded arrays are not the trained ones."""
+        mc_recv, mc_proc = self._mc_rt
+        seq = self.rec["multiclass"]["sequential"]
+        t = time.perf_counter()
+        try:
+            same, io_s = mc_recv.recv()
+        except EOFError:
+            same, io_s = False, None
+        mc_proc.join()
+        seq.update(round_trip=bool(same and mc_proc.exitcode == 0),
+                   save_load_seconds=io_s,
+                   round_trip_wait_seconds=time.perf_counter() - t)
+        if not seq["round_trip"]:
+            self.fail("multiclass", f"sequential directory round trip: "
+                      f"{json.dumps(seq)}")
+        log(f"[multiclass] sequential directory round trip (spawned): "
+            f"{json.dumps({k: seq[k] for k in ('round_trip', 'save_load_seconds', 'round_trip_wait_seconds')})}")
 
     def _add_a_counts(self, counts) -> None:
         name = "fused_update_select"
@@ -2269,7 +2399,7 @@ class Smoke:
             got[name] += counts[what]
 
     def multiclass_ovo(self) -> None:
-        """10-class planted data at MNIST's training shape (MC_N x 784, C=10,
+        """10-class planted data at MNIST's width (MC_N x 784, C=10,
         gamma=0.25, eps=1e-3, float32) through ``train_multiclass`` to
         convergence: sequentially with -b (45 pairs, each through kernel
         A, whose device-counted runs must add up to the pairs' iterations)
@@ -2277,10 +2407,10 @@ class Smoke:
         replays and stats reads counted). The two are held to the bar
         between paths (per-pair n_sv within 2%, held-out accuracy within
         0.5%). The sequential model goes through save, load and evaluate
-        (45200 SVs of text: ~25 s, so the batched one is evaluated as
-        trained); the pairwise decisions of one product over all SVs are
-        held against the one-model-at-a-time ``decision_function`` loop
-        (within 5e-3, the same votes); the -b probabilities are finite,
+        (host text, so the batched one is evaluated as trained); the
+        pairwise decisions of one product over all SVs are held against
+        the one-model-at-a-time ``decision_function`` loop (within 5e-3,
+        the same votes); the -b probabilities are finite,
         sum to 1 within 1e-5, are within 1e-3 of those coupled from the
         loop's decisions, and their argmax is the vote's winner on at
         least 99% of the rows where the vote has no tie. (Not on all of
@@ -2288,15 +2418,14 @@ class Smoke:
         by the vote can lose a calibrated pair, and LIBSVM's coupling can
         pick another class even where it wins every pair; the JAX CLI
         notes ~1% of rows.) Last, the batched graph against its eager
-        loop, bitwise, for GRAPH_CHECK_ITERS steps at full width."""
+        loop, bitwise, for GRAPH_CHECK_ITERS steps at MNIST's training shape
+        (all N rows, as phase 18 times a step)."""
         from dpsvm_tpu_torch import SVMConfig
-        from dpsvm_tpu_torch.data.synthetic import make_planted_multiclass
         from dpsvm_tpu_torch.models import multiclass as mc
         from dpsvm_tpu_torch.models.svm import decision_function
         from dpsvm_tpu_torch.solver import batched_ovo as bo
-        x, y = make_planted_multiclass(MC_N + 10000, D, GAMMA, k=MC_K,
-                                       seed=0)
-        xtr, ytr, xte, yte = x[:MC_N], y[:MC_N], x[MC_N:], y[MC_N:]
+        x, y, xte, yte = self._mc_data()
+        xtr, ytr = x[:MC_N], y[:MC_N]
         cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
                         max_iter=MAIN_MAX_ITER)
         out = {}
@@ -2309,11 +2438,11 @@ class Smoke:
             wall = time.perf_counter() - t
             loaded, io_s, same = model, None, True
             if path == "sequential":
-                # the 45200-SV directory's text round trip (~25 s of host)
-                # runs in a spawned process beside the batched path, which
-                # checks that the loaded arrays are the trained ones; the
-                # trained model is evaluated (the same arrays) and its
-                # directory stays for phase 14
+                # the directory's text round trip (host seconds) runs in
+                # a spawned process beside the rest of the phase, which
+                # checks at its end that the loaded arrays are the trained
+                # ones; the trained model is evaluated (the same arrays)
+                # and its directory stays for phase 14
                 import multiprocessing
                 ctx = multiprocessing.get_context("spawn")
                 mc_recv, send = ctx.Pipe(duplex=False)
@@ -2355,22 +2484,9 @@ class Smoke:
             out[path] = r
             models[path] = (loaded, res)
             log(f"[multiclass] {path}: {json.dumps(r)}")
-        t = time.perf_counter()
-        try:
-            same, io_s = mc_recv.recv()
-        except EOFError:
-            same, io_s = False, None
-        mc_proc.join()
-        out["sequential"].update(round_trip=bool(same and mc_proc.exitcode
-                                                 == 0),
-                                 save_load_seconds=io_s,
-                                 round_trip_wait_seconds=(
-                                     time.perf_counter() - t))
-        if not out["sequential"]["round_trip"]:
-            self.fail("multiclass", f"sequential directory round trip: "
-                      f"{json.dumps(out['sequential'])}")
-        log(f"[multiclass] sequential directory round trip (spawned): "
-            f"{json.dumps({k: out['sequential'][k] for k in ('round_trip', 'save_load_seconds', 'round_trip_wait_seconds')})}")
+        # the directory round trip is settled at the phase's end
+        self._mc_rt = (mc_recv, mc_proc)
+        self.rec["multiclass"] = out
         (m_seq, r_seq), (m_bat, r_bat) = models["sequential"], \
             models["batched"]
         nsv = [(a.n_sv, b.n_sv) for a, b in zip(r_seq, r_bat)]
@@ -2426,7 +2542,8 @@ class Smoke:
                       f"{json.dumps(out['decisions'])}")
         log(f"[multiclass] between paths and decisions: "
             f"{json.dumps({k: out[k] for k in ('between_paths', 'decisions')})}")
-        # the batched graph against its eager loop
+        # the batched graph against its eager loop, on all N rows
+        xtr, ytr = x, y
         yb, valid, _ = bo.build_pair_targets(ytr, np.unique(ytr))
         c200 = dataclasses.replace(cfg, max_iter=GRAPH_CHECK_ITERS)
         g = bo.train_ovo_batched(xtr, yb, valid, c200)
@@ -2984,11 +3101,13 @@ class Smoke:
                         max_iter=MAIN_MAX_ITER)
         xs, ys = xtr[:SUB_N], ytr[:SUB_N]
         ref = self._fused_on("highest", SUB_N)
-        res, counts = self.counted(lambda: ds.train_distributed(
-            xs, ys, cfg, group=self.group))
+        with _AgreeClock() as clock:
+            res, counts = self.counted(lambda: ds.train_distributed(
+                xs, ys, cfg, group=self.group))
         acc = evaluate(SVMModel.from_train_result(xs, ys, res), xte, yte)
         r = {"n": SUB_N, "n_iter": res.n_iter, "converged": res.converged,
              "seconds": res.train_seconds,
+             "agree": clock.record(res.train_seconds),
              "us_per_iteration_wall": 1e6 * res.train_seconds / res.n_iter,
              "n_sv": res.n_sv, "heldout_accuracy": acc, "b": res.b,
              "fused": {k: ref[k] for k in ("n_sv", "heldout_accuracy",
@@ -3012,7 +3131,10 @@ class Smoke:
                                            None)
         carry = ds.init_carry(di.prob, di.init)
         step = ds.make_dist_runner(carry, di.prob, opts, two_eps)
-        carry, _ = step(carry, DIST_PREFIX_ITERS)
+        # each chunk's poll read: the runner enqueues a chunk's replays
+        # from the n_iter its last poll read
+        carry, poll = step(carry, DIST_PREFIX_ITERS)
+        poll()
         prob = gs.SMOProblem.build(xtr, ytr, cfg, self.dev)
         gcarry = gs.init_carry(prob.y)
         gcarry, _ = gs.make_chunk_runner(gcarry, prob, opts, two_eps)(
@@ -3044,17 +3166,23 @@ class Smoke:
         torch.cuda.synchronize()
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
-        carry, _ = step(carry, done + SMO_TIMED_ITERS)
+        carry, poll = step(carry, done + SMO_TIMED_ITERS)
         t1.record()
         torch.cuda.synchronize()
+        poll()
         done += SMO_TIMED_ITERS
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             p0, p1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             p0.record()
-            carry, _ = step(carry, done + SMO_TIMED_ITERS)
+            carry, poll = step(carry, done + DIST_PROFILE_ITERS)
             p1.record()
             torch.cuda.synchronize()
+        poll()
+        done += DIST_PROFILE_ITERS
+        if int(carry.n_iter) != done:
+            raise RuntimeError(f"the distributed chunks ran "
+                               f"{int(carry.n_iter)} of {done} iterations")
         ops = sorted(((_device_us(e) / 1e3, e.key, e.count)
                       for e in prof.key_averages() if _device_us(e) > 0),
                      reverse=True)
@@ -3064,8 +3192,9 @@ class Smoke:
                                "distributed pair")
         r["timing"] = {
             "us_per_iteration": 1e3 * t0.elapsed_time(t1) / SMO_TIMED_ITERS,
+            "profiled_iterations": DIST_PROFILE_ITERS,
             "kernels_per_iteration": sum(c for _, _, c in ops)
-            / SMO_TIMED_ITERS,
+            / DIST_PROFILE_ITERS,
             "busy_share": busy_ms / span_ms, "profiled_span_ms": span_ms,
             "nccl_ms": sum(t for t, n, _ in ops if "nccl" in n.lower()),
             "top_ops": [{"name": n[:80], "ms": t, "count": c}
@@ -3233,31 +3362,80 @@ class Smoke:
         through the host, so these times are not performance), on planted
         GLOO_N x 784: the pair to convergence against world size 1 over
         NCCL (the same n_iter, alpha within 1e-4), and the decomposition
-        (q = GLOO_Q) by the _check bar."""
+        (q = GLOO_Q) by the _check bar. The world-size-1 references run
+        here; the ranks run here too, or, when phase 12 follows, beside its
+        cascades (``_gloo_start``, ``_gloo_finish``)."""
         from dpsvm_tpu_torch import SVMConfig
         from dpsvm_tpu_torch.data.synthetic import make_planted
         from dpsvm_tpu_torch.parallel import dist_decomp as dd
         from dpsvm_tpu_torch.parallel import dist_smo as ds
-        from dpsvm_tpu_torch.parallel.multihost import launch_local
         x, y = make_planted(GLOO_N, D, GAMMA, seed=6)
         kws = {"pair": dict(c=C, gamma=GAMMA, epsilon=1e-3),
                "decomp": dict(c=C, gamma=GAMMA, epsilon=1e-3,
                               working_set=GLOO_Q, inner_iters=DECOMP_CAP)}
-        t = time.perf_counter()
-        ranks = launch_local(2, _gloo_card_rank, (x, y, kws), device="cpu",
-                             run_timeout_s=600)
-        wall = time.perf_counter() - t
+        # world size 1 over NCCL, the ranks' reference
         one = {"pair": ds.train_distributed(
             x, y, SVMConfig(**kws["pair"]), group=self.group),
             "decomp": dd.train_distributed_decomp(
                 x, y, SVMConfig(**kws["decomp"]), group=self.group)}
-        r = {"n": GLOO_N, "launch_wall_seconds": wall}
+        self._gloo = {"args": (x, y, kws), "one": one}
+        if self.gloo_beside_stream:
+            log("[distributed] two gloo ranks on cuda:0: run beside phase "
+                "12 (d) and (e), checked at its end")
+            return
+        self._gloo_start()
+        self._gloo_finish()
+
+    def _gloo_start(self) -> None:
+        """Start (c)'s two ranks from a thread of this process. In a whole
+        run, phase 12 starts them once its device timings are done: the
+        ranks' time is process starts and collectives staged through the
+        host, and it overlaps phase 12's host-bound cascades and drills
+        (PERF.md §4)."""
+        import threading
+        from dpsvm_tpu_torch.parallel.multihost import launch_local
+        g = self._gloo
+
+        def run():
+            t = time.perf_counter()
+            try:
+                g["ranks"] = launch_local(2, _gloo_card_rank, g["args"],
+                                          device="cpu", run_timeout_s=600)
+            except Exception as e:           # reported by _gloo_finish
+                g["error"] = e
+            g["wall"] = time.perf_counter() - t
+        g["thread"] = threading.Thread(target=run, daemon=True)
+        g["thread"].start()
+
+    def _gloo_finish(self) -> None:
+        """Wait for (c)'s ranks and hold them to world size 1; a failure is
+        phase 10's."""
+        g, self._gloo = self._gloo, None
+        g["thread"].join()
+        if "error" in g:
+            self.fail("distributed", f"two gloo ranks: "
+                      f"{type(g['error']).__name__}: {g['error']}")
+            return
+        try:
+            self._gloo_check(g)
+        except Exception as e:               # a failed check is phase 10's
+            import traceback
+            traceback.print_exc()
+            self.fail("distributed", f"two gloo ranks: "
+                      f"{type(e).__name__}: {e}")
+
+    def _gloo_check(self, g) -> None:
+        from dpsvm_tpu_torch import SVMConfig
+        (x, y, kws), one, ranks = g["args"], g["one"], g["ranks"]
+        r = {"n": GLOO_N, "launch_wall_seconds": g["wall"],
+             "beside_phase_12": self.gloo_beside_stream}
         got = ranks[0]
         agree = all(np.array_equal(o[k]["alpha"], got[k]["alpha"])
                     for o in ranks for k in got)
         p = got["pair"]
         r["pair"] = {"n_iter": [p["n_iter"], one["pair"].n_iter],
                      "seconds": [p["seconds"], one["pair"].train_seconds],
+                     "agree": [o["pair"]["agree"] for o in ranks],
                      "max_alpha_diff": float(np.abs(
                          p["alpha"] - one["pair"].alpha).max())}
         if not (agree and p["converged"]
@@ -3606,7 +3784,9 @@ class Smoke:
         """The data layer on the card (module docstring, phase 12). Host
         work that (a)'s timings can share the host's cores with runs in
         spawned processes beside it: (b)'s conversion, and the making of
-        (d)'s and (e)'s shard directories."""
+        (d)'s and (e)'s shard directories. After (c)'s device timings,
+        phase 10 (c)'s gloo ranks run beside (d) and (e) when phase 10
+        deferred them."""
         import multiprocessing
         self.rec["stream"] = {}
         ctx = multiprocessing.get_context("spawn")
@@ -3616,12 +3796,16 @@ class Smoke:
                 self.stream_native(tmp, ctx)
                 sdir = self.stream_shards(tmp)
                 self.stream_fit(sdir)
+                if self._gloo is not None:
+                    self._gloo_start()         # phase 10 (c), deferred
                 self._join("prep")
                 # phase 13's inputs, made beside (d)'s device-bound polish
                 self._start_live_prep()
                 self.stream_cascade(os.path.join(tmp, "casc_shards"))
                 self.stream_drills(tmp)
         finally:
+            if self._gloo is not None and "thread" in self._gloo:
+                self._gloo_finish()
             for _, proc in self._children:
                 if proc.is_alive():
                     proc.terminate()
@@ -3664,8 +3848,9 @@ class Smoke:
         return time.perf_counter() - t
 
     def stream_native(self, tmp: str, ctx) -> None:
-        """(a) the native parse of the planted 60000 x 784 CSV and of the
-        libsvm file of its first STREAM_LIBSVM_ROWS rows against the rows,
+        """(a) the native parse of the CSV of the first STREAM_N planted
+        rows and of the libsvm file of its first STREAM_LIBSVM_ROWS rows
+        against the rows,
         the Python fallback on their first
         STREAM_FALLBACK_ROWS rows against the native parse, and the fused
         pair's model file saved and loaded (timed, the same arrays). Once
@@ -3677,6 +3862,7 @@ class Smoke:
         from dpsvm_tpu_torch.data.loader import load_dataset
         from dpsvm_tpu_torch.models.io import load_model, save_model
         xtr, ytr, _, _ = self.planted()
+        xtr, ytr = xtr[:STREAM_N], ytr[:STREAM_N]
         csv, lib = (os.path.join(tmp, f"train.{e}") for e in ("csv",
                                                             "libsvm"))
         r = {"rows": len(ytr), "libsvm_rows": STREAM_LIBSVM_ROWS, "d": D,
@@ -3722,9 +3908,8 @@ class Smoke:
         del native_rows
         model = self._fused_f32
         if model is None:
-            model, _ = fit(xtr, ytr, SVMConfig(c=C, gamma=GAMMA,
-                                               epsilon=1e-3,
-                                               max_iter=MAIN_MAX_ITER))
+            model, _ = fit(*self.planted()[:2], SVMConfig(
+                c=C, gamma=GAMMA, epsilon=1e-3, max_iter=MAIN_MAX_ITER))
         # the model file, written and read in Python (the native writer
         # and reader measured slower: scripts/model_file_io.py)
         path = os.path.join(tmp, "model.txt")
@@ -3746,12 +3931,13 @@ class Smoke:
         os.unlink(lib)
 
     def stream_shards(self, tmp: str) -> str:
-        """(b) ``convert shards`` of the 60000-row CSV (timed in its
+        """(b) ``convert shards`` of (a)'s CSV (timed in its
         process, started by (a)), a clean ``verify()``, ``load_dataset``
         on the directory bitwise the rows."""
         from dpsvm_tpu_torch.data import stream as st
         from dpsvm_tpu_torch.data.loader import load_dataset
         xtr, ytr, _, _ = self.planted()
+        xtr, ytr = xtr[:STREAM_N], ytr[:STREAM_N]
         sdir = os.path.join(tmp, "shards")
         rc, seconds = self._conv_recv.recv()
         self._join("convert")
@@ -3802,6 +3988,7 @@ class Smoke:
         from dpsvm_tpu_torch.approx.features import build_feature_map
         from dpsvm_tpu_torch.data import stream as st
         xtr, ytr, xte, yte = self.planted()
+        xtr, ytr = xtr[:STREAM_N], ytr[:STREAM_N]
         cfg = SVMConfig(solver="approx-rff", approx_dim=APPROX_D, c=C,
                         gamma=GAMMA, epsilon=1e-9, max_iter=STREAM_STEPS,
                         chunk_iters=STREAM_STEPS)
@@ -3864,7 +4051,8 @@ class Smoke:
         if not ok:
             self.fail("stream", f"(c) fit_approx_stream: {json.dumps(r)}")
         self.rec["stream"]["c"] = r
-        log(f"[stream] (c) fit_approx_stream 60000x784: {json.dumps(r)}")
+        log(f"[stream] (c) fit_approx_stream {STREAM_N}x784: "
+            f"{json.dumps(r)}")
 
     def _stream_profile(self, sdir, cfg) -> dict:
         """The device's own time in a streamed pass over the data:
@@ -4332,6 +4520,10 @@ class Smoke:
         engine = self.serve_engine(model)
         self.serve_multiclass()
         self.serve_approx()
+        if self.stack_next:
+            # phase 15's processes boot beside the host-bound rest of this
+            # phase, after its replay timings
+            self._start_stack_procs()
         self.serve_batcher(model, path, engine)
         self.serve_sharded(model, engine)
         self.serve_fleet()
@@ -4530,18 +4722,24 @@ class Smoke:
         same data, saved here."""
         if self._mc is None:
             from dpsvm_tpu_torch import SVMConfig
-            from dpsvm_tpu_torch.data.synthetic import make_planted_multiclass
             from dpsvm_tpu_torch.models import multiclass as mc
-            x, y = make_planted_multiclass(MC_N + 10000, D, GAMMA, k=MC_K,
-                                           seed=0)
+            x, y, xte, yte = self._mc_data()
             model, _ = mc.train_multiclass(
                 x[:MC_N], y[:MC_N], SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3,
                                               max_iter=MAIN_MAX_ITER),
                 batched=True)
             mc_dir = os.path.join(self.scratch, "mc_dir")
             mc.save_multiclass(model, mc_dir)
-            self._mc = (model, x[MC_N:], y[MC_N:], mc_dir)
+            self._mc = (model, xte, yte, mc_dir)
         return self._mc
+
+    @staticmethod
+    def _mc_data():
+        """Phase 8's 10-class planted rows: MNIST's N training rows (phase
+        8 trains on the first MC_N) and 10000 held out."""
+        from dpsvm_tpu_torch.data.synthetic import make_planted_multiclass
+        x, y = make_planted_multiclass(N + 10000, D, GAMMA, k=MC_K, seed=0)
+        return x[:N], y[:N], x[N:], y[N:]
 
     def serve_approx(self) -> None:
         """(c) phase 11 (a)'s approx-rff model through the engine: one
@@ -4894,12 +5092,9 @@ class Smoke:
                 secs[part] = time.perf_counter() - t
 
         _, path = timed("model", self._serve_model)
-        # (e)'s server boots and (f)'s drill runs in processes of their own
-        # beside (a)-(d): their host work (interpreter and CUDA start, the
-        # 87.8 MB model text, shard reads) overlaps the in-process parts
-        started = time.perf_counter()
-        serve = self._stack_serve_start(path)
-        drill = self._stack_drill_start()
+        procs = self._start_stack_procs()
+        serve, drill, started = procs["serve"], procs["drill"], \
+            procs["started"]
         try:
             _, _, xte, _ = self.planted()
             # the file's model: (a), (c) and (e) load the file, (b) and
@@ -5337,6 +5532,24 @@ class Smoke:
                                f"{json.dumps(r)}")
         self.rec["stack"]["d"] = r
         log(f"[stack] (d) saturation and shedding: {json.dumps(r)}")
+
+    def _start_stack_procs(self) -> dict:
+        """(e)'s server and (f)'s drill, each in a process of its own, started
+        once: by phase 14 when phase 15 follows it, else at phase 15's
+        start. Their host work (interpreter and CUDA start, the 87.8 MB
+        model text, shard reads) then overlaps in-process work, and when
+        phase 14 started them it is done before (d)'s open-loop ramp,
+        whose p99 their boot on the card would move."""
+        if self._stack_procs is None:
+            # every perf-ledger append from here on, in this process and
+            # the ones it starts, lands in the scratch directory
+            os.environ["DPSVM_PERF_LEDGER"] = os.path.join(
+                self.scratch, "perf_ledger.jsonl")
+            _, path = self._serve_model()
+            self._stack_procs = {"serve": self._stack_serve_start(path),
+                                 "drill": self._stack_drill_start(),
+                                 "started": time.perf_counter()}
+        return self._stack_procs
 
     def _stack_serve_start(self, path) -> dict:
         """(e) ``cli serve`` started in a process of its own on the card,
@@ -5856,6 +6069,364 @@ class Smoke:
                     "train_seconds": res.train_seconds}
         return path
 
+    # ------------------------------------------------------------ phase 17
+    def resilience(self) -> None:
+        """Training resilience on the card (module docstring, phase 17):
+        (a) preemption of kernel A's prefix and the supervised resume, (b)
+        a poisoned poll under rollback / raise / ignore, (c) the rollback
+        on the decomposition (kernel B), (d) ``debug_nans`` and every hook
+        on a fault-free run, (e) the kill-one-shard drill, (f) the
+        kill-one-host drill, (g) ``doctor``."""
+        tmp = os.path.join(self.scratch, "resilience")
+        os.makedirs(tmp, exist_ok=True)
+        rec = self.rec["resilience"] = {"seconds": {}}
+
+        def check(tag, fn):
+            t = time.perf_counter()
+            try:
+                rec[tag] = fn(tmp)
+            finally:
+                rec["seconds"][tag] = round(time.perf_counter() - t, 3)
+                log(f"[resilience] ({tag}) {rec['seconds'][tag]:.1f} s: "
+                    f"{json.dumps(rec.get(tag), default=str)}")
+
+        # one after the other: (e) and (f) time recoveries, and their
+        # processes would share the host's cores
+        for tag, fn in (("a", self.res_preempt), ("b", self.res_poison),
+                        ("c", self.res_decomp), ("d", self.res_debug_nans),
+                        ("e", self.res_kill_shard),
+                        ("f", self.res_kill_host), ("g", self.res_doctor)):
+            check(tag, fn)
+
+    def _res_cfg(self, **kw):
+        from dpsvm_tpu_torch import SVMConfig
+        kw.setdefault("max_iter", RES_PREFIX)
+        kw.setdefault("chunk_iters", RES_CHUNK)
+        return SVMConfig(c=C, gamma=GAMMA, epsilon=1e-3, **kw)
+
+    @staticmethod
+    def _events(path: str) -> list:
+        from dpsvm_tpu_torch.observability.report import read_trace
+        return [(r["event"], r["n_iter"]) for r in read_trace(path)
+                if r.get("kind") == "event"]
+
+    def _res_reference(self, tmp: str) -> tuple:
+        """The uninterrupted RES_PREFIX-iteration kernel-A prefix, its final
+        (alpha, f) from a checkpoint it writes at its end (once)."""
+        if getattr(self, "_res_ref", None) is None:
+            from dpsvm_tpu_torch import train
+            from dpsvm_tpu_torch.utils.checkpoint import load_checkpoint
+            xtr, ytr, _, _ = self.planted()
+            end = os.path.join(tmp, "ref.npz")
+            res, counts = self.counted(lambda: train(xtr, ytr, self._res_cfg(
+                checkpoint_path=end, checkpoint_every=RES_PREFIX)))
+            self._add_a_counts(counts)
+            self._res_ref = (res, load_checkpoint(end), counts)
+        return self._res_ref
+
+    def _same(self, res, ck, ref, ref_ck) -> bool:
+        import numpy as np
+        return (res.n_iter == ref.n_iter and res.b == ref.b
+                and np.array_equal(res.alpha, ref.alpha)
+                and (ck is None or np.array_equal(ck.f, ref_ck.f)))
+
+    def res_preempt(self, tmp: str) -> dict:
+        """(a) kernel A's prefix preempted by PREEMPT_POLL at its 3rd poll
+        (a snapshot at 3 RES_CHUNK), resumed by ``run_with_retries``:
+        bitwise the uninterrupted prefix (alpha, f, n_iter, b), ``preempt``
+        on attempt 0's trace and ``retry`` on attempt 1's, kernel A's
+        device-counted runs the iterations the two attempts ran."""
+        import dataclasses
+        from dpsvm_tpu_torch import train
+        from dpsvm_tpu_torch.resilience import faultinject
+        from dpsvm_tpu_torch.resilience.supervisor import run_with_retries
+        from dpsvm_tpu_torch.utils.checkpoint import load_checkpoint
+        ref, ref_ck, _ = self._res_reference(tmp)
+        xtr, ytr, _, _ = self.planted()
+        ck = os.path.join(tmp, "a.npz")
+        cfg = self._res_cfg(checkpoint_path=ck, checkpoint_every=RES_CHUNK)
+
+        def attempt(resume_from, k):
+            return train(xtr, ytr, dataclasses.replace(
+                cfg, resume_from=resume_from,
+                trace_out=os.path.join(tmp, f"a{k}.jsonl")))
+
+        faultinject.install(faultinject.FaultPlan(preempt_at_poll=3))
+        try:
+            res, counts = self.counted(lambda: run_with_retries(
+                attempt, retries=1, backoff_s=0.0, checkpoint_path=ck))
+        finally:
+            faultinject.clear()
+        self._add_a_counts(counts)
+        ev0, ev1 = (self._events(os.path.join(tmp, f"a{k}.jsonl"))
+                    for k in (0, 1))
+        snap = [n for e, n in ev0 if e == "preempt"]
+        # attempt 0 ran to the snapshot, attempt 1 from it to the end
+        ok = (self._same(res, load_checkpoint(ck), ref, ref_ck)
+              and snap == [3 * RES_CHUNK]
+              and any(e == "retry" for e, _ in ev1)
+              and counts["A_runs"] == RES_PREFIX)
+        if not ok:
+            self.fail("resilience", f"(a) n_iter {res.n_iter} vs "
+                      f"{ref.n_iter}, events {ev0} / {ev1}, {counts}")
+        return {"n_iter": res.n_iter, "preempt_at": snap, "events0": ev0,
+                "events1": ev1, "A_runs": counts["A_runs"],
+                "A_launches": counts["A_launches"]}
+
+    def res_poison(self, tmp: str) -> dict:
+        """(b) NAN_ITER poisons the poll past 2.5 RES_CHUNK: with rollback
+        a ``rollback`` event to the newest checkpoint, the chunk halved and
+        the end bitwise the uninterrupted prefix; with raise a
+        ``DivergenceError`` and a ``divergence`` event; with ignore the run
+        completes with the event."""
+        from dpsvm_tpu_torch import train
+        from dpsvm_tpu_torch.resilience import faultinject
+        from dpsvm_tpu_torch.resilience.health import DivergenceError
+        from dpsvm_tpu_torch.utils.checkpoint import load_checkpoint
+        ref, ref_ck, _ = self._res_reference(tmp)
+        xtr, ytr, _, _ = self.planted()
+        out = {}
+        for policy in ("rollback", "raise", "ignore"):
+            ck = os.path.join(tmp, f"b_{policy}.npz")
+            trace = os.path.join(tmp, f"b_{policy}.jsonl")
+            cfg = self._res_cfg(checkpoint_path=ck,
+                                checkpoint_every=RES_CHUNK,
+                                on_divergence=policy, trace_out=trace)
+            faultinject.install(faultinject.FaultPlan(
+                nan_at_iter=5 * RES_CHUNK // 2))
+            err = None
+            try:
+                res, counts = self.counted(lambda: train(xtr, ytr, cfg))
+            except DivergenceError as e:
+                res, err = None, e
+            finally:
+                faultinject.clear()
+            ev = self._events(trace)
+            names = [e for e, _ in ev]
+            if policy == "rollback":
+                self._add_a_counts(counts)
+                rb = [n for e, n in ev if e == "rollback"]
+                from dpsvm_tpu_torch.observability.report import read_trace
+                halved = [r.get("chunk_iters") for r in read_trace(trace)
+                          if r.get("event") == "rollback"]
+                ok = (res is not None and rb == [2 * RES_CHUNK]
+                      and halved == [RES_CHUNK // 2]
+                      and self._same(res, load_checkpoint(ck), ref, ref_ck)
+                      and counts["A_runs"] == RES_PREFIX + RES_CHUNK)
+                out[policy] = {"rollback_to": rb, "chunk_iters": halved,
+                               "A_runs": counts["A_runs"]}
+            elif policy == "raise":
+                ok = (err is not None and err.n_iter == 3 * RES_CHUNK
+                      and ("divergence", 3 * RES_CHUNK) in ev)
+                out[policy] = {"raised_at": getattr(err, "n_iter", None)}
+            else:
+                ok = (res is not None and res.n_iter == RES_PREFIX
+                      and ("divergence", 3 * RES_CHUNK) in ev)
+                out[policy] = {"n_iter": getattr(res, "n_iter", None)}
+            out[policy]["events"] = names
+            if not ok:
+                self.fail("resilience", f"(b) {policy}: {out[policy]}, "
+                          f"events {ev}, error {err}")
+        return out
+
+    def res_decomp(self, tmp: str) -> dict:
+        """(c) the rollback on the decomposition (q = DECOMP_Q, kernel B) over
+        a RES_DECOMP_ROUNDS-round prefix: the poll past 2.2 chunks poisoned,
+        the run rolled back to the newest checkpoint with the chunk halved,
+        bitwise the same prefix resumed from that checkpoint's state at the
+        halved chunk (its own uninterrupted run: a decomposition round is
+        cut at its chunk's limit, so the chunk is part of the trajectory);
+        kernel B's launches all ran, once a round, its steps the updates
+        the run made, and the reference's launches its rounds."""
+        import dataclasses
+        from dpsvm_tpu_torch import train
+        from dpsvm_tpu_torch.observability.report import read_trace
+        from dpsvm_tpu_torch.resilience import faultinject
+        xtr, ytr, _, _ = self.planted()
+        chunk = 4 * DECOMP_CAP
+        base = self._res_cfg(working_set=DECOMP_Q, inner_iters=DECOMP_CAP,
+                             max_iter=RES_DECOMP_ROUNDS * DECOMP_CAP,
+                             chunk_iters=chunk)
+        ck = os.path.join(tmp, "c.npz")
+        trace = os.path.join(tmp, "c.jsonl")
+        faultinject.install(faultinject.FaultPlan(
+            nan_at_iter=int(2.2 * chunk)))
+        try:
+            res, counts = self.counted(lambda: train(
+                xtr, ytr, dataclasses.replace(
+                    base, checkpoint_path=ck, checkpoint_every=chunk,
+                    on_divergence="rollback", trace_out=trace)))
+        finally:
+            faultinject.clear()
+        self._add_b_counts(counts)
+        recs = read_trace(trace)
+        i = next(k for k, r in enumerate(recs) if r.get("event") == "rollback")
+        back_to, halved = recs[i]["n_iter"], recs[i]["chunk_iters"]
+        sick = [r["n_iter"] for r in recs[:i] if r.get("kind") == "chunk"][-1]
+        # the reference: the same prefix to the restored iteration, saved
+        # there, then resumed at the halved chunk
+        pre = os.path.join(tmp, "c_ref.npz")
+        train(xtr, ytr, dataclasses.replace(
+            base, max_iter=back_to, checkpoint_path=pre,
+            checkpoint_every=back_to))
+        ref, rc = self.counted(lambda: train(xtr, ytr, dataclasses.replace(
+            base, chunk_iters=halved, resume_from=pre)))
+        self._add_b_counts(rc)
+        import numpy as np
+        ok = (halved == chunk // 2
+              and res.n_iter == ref.n_iter and res.b == ref.b
+              and np.array_equal(res.alpha, ref.alpha)
+              and counts["B_launches"] == counts["B_runs"]
+              and counts["B_steps"] == sick + res.n_iter - back_to
+              and counts["A_launches"] == 0
+              and rc["B_launches"] == rc["B_runs"] == ref.rounds > 0)
+        r = {"rollback_to": back_to, "poisoned_poll": sick,
+             "chunk_iters": halved, "n_iter": res.n_iter,
+             "rounds_after": res.rounds, "B_launches": counts["B_launches"],
+             "B_steps": counts["B_steps"], "ref_rounds": ref.rounds,
+             "ref_B_launches": rc["B_launches"]}
+        if not ok:
+            self.fail("resilience", f"(c) {r}")
+        return r
+
+    def res_debug_nans(self, tmp: str) -> dict:
+        """(d) ``debug_nans`` on kernel A's prefix: one NaN planted in a row
+        of X raises ``FloatingPointError`` at the first poll; clean, the
+        prefix is bitwise the bare one with the same stats reads and one
+        flag read a poll. Then every hook on and no fault (rollback policy,
+        a health window, host heartbeats, an installed empty plan, the
+        watchdog armed): bitwise the bare prefix with the same reads."""
+        from dpsvm_tpu_torch import train
+        from dpsvm_tpu_torch.resilience import faultinject
+        from dpsvm_tpu_torch.solver import driver
+        ref, _, _ = self._res_reference(tmp)
+        xtr, ytr, _, _ = self.planted()
+        polls = RES_PREFIX // RES_CHUNK
+
+        def reads(fn):
+            s0, f0 = driver.READS["stats"], driver.READS["finite"]
+            out, counts = self.counted(fn)
+            self._add_a_counts(counts)
+            return out, (driver.READS["stats"] - s0,
+                         driver.READS["finite"] - f0)
+
+        bare, rb = reads(lambda: train(xtr, ytr, self._res_cfg()))
+        clean, rc = reads(lambda: train(xtr, ytr,
+                                        self._res_cfg(debug_nans=True)))
+        bad = xtr.copy()
+        bad[12345, 17] = float("nan")
+        raised = None
+        try:
+            train(bad, ytr, self._res_cfg(debug_nans=True))
+        except FloatingPointError as e:
+            raised = str(e)
+        del bad
+        hb = os.path.join(tmp, "heartbeats")
+        env = {"DPSVM_HOST_HEARTBEAT_DIR": hb, "DPSVM_HOST_ID": "0",
+               "DPSVM_HOST_COUNT": "1"}
+        os.environ.update(env)
+        faultinject.install(faultinject.FaultPlan())
+        try:
+            hooked, rh = reads(lambda: train(xtr, ytr, self._res_cfg(
+                on_divergence="rollback", health_window=10 ** 9,
+                checkpoint_path=os.path.join(tmp, "d.npz"))))
+        finally:
+            faultinject.clear()
+            for k in env:
+                os.environ.pop(k, None)
+        beat = os.path.exists(os.path.join(hb, "host-0.json"))
+        ok = (self._same(bare, None, ref, None)
+              and self._same(clean, None, ref, None)
+              and self._same(hooked, None, ref, None)
+              and rb == (polls, 0) and rc == (polls, polls)
+              and rh == (polls, 0) and beat
+              and raised is not None and "[0, " in raised)
+        r = {"reads_bare": rb, "reads_debug_nans": rc, "reads_hooked": rh,
+             "raised": raised, "heartbeat_file": beat}
+        if not ok:
+            self.fail("resilience", f"(d) {r}")
+        return r
+
+    def res_kill_shard(self, tmp: str) -> dict:
+        """(e) the kill-one-shard drill over two gloo ranks sharing cuda:0 on
+        GLOO_N planted rows (``resilience.kill_shard_drill``): resumed by
+        ``run_elastic`` on one rank, n_iter the uninterrupted two-rank
+        prefix's, alpha within 1e-4 of it, ``retry`` and ``reshard`` on a
+        schema-valid trace."""
+        import numpy as np
+        from dpsvm_tpu_torch.observability.schema import validate_trace
+        from dpsvm_tpu_torch.resilience import kill_shard_drill
+        xtr, ytr, _, _ = self.planted()
+        out = kill_shard_drill(os.path.join(tmp, "e"), xtr[:GLOO_N],
+                               ytr[:GLOO_N], device="cuda:0", c=C,
+                               gamma=GAMMA)
+        ref, got = out["ref"], out["got"]
+        ev = [r["event"] for r in out["trace"] if r.get("kind") == "event"]
+        delta = float(np.max(np.abs(got["alpha"] - ref["alpha"])))
+        errs = validate_trace(out["trace"])
+        ok = (got["n_iter"] == ref["n_iter"] and delta <= 1e-4
+              and "retry" in ev and "reshard" in ev and not errs)
+        r = {"n_iter": got["n_iter"], "ref_n_iter": ref["n_iter"],
+             "alpha_delta": delta, "events": ev, "schema_errors": errs}
+        if not ok:
+            self.fail("resilience", f"(e) {r}")
+        return r
+
+    def res_kill_host(self, tmp: str) -> dict:
+        """(f) ``host_loss_drill``: three host processes (``train
+        --coordinator --dist-backend gloo``, sharing cuda:0) of 64 rows,
+        one SIGKILLed at its 3rd poll, the two survivors reformed from the
+        newest checkpoint: the model within 1e-4 of ``train --shards 3``'s,
+        the trace ``host_lost`` -> ``reform``, and the recovery seconds."""
+        from dpsvm_tpu_torch.resilience import hostgroup
+        facts = hostgroup.host_loss_drill(os.path.join(tmp, "f"),
+                                          device="cuda")
+        if not (facts["host_loss_recovery_s"] > 0
+                and facts["surviving_hosts"] == 2):
+            self.fail("resilience", f"(f) {facts}")
+        return facts
+
+    def res_doctor(self, tmp: str) -> dict:
+        """(g) ``doctor`` in this process on the reference prefix's
+        checkpoint (one slot): exit 0, the backend line naming the card,
+        the roofline line the H100 data-sheet row, the collective probe's
+        milliseconds; with that slot bit-flipped (no intact slot left),
+        exit 6."""
+        import numpy as np
+        from dpsvm_tpu_torch.resilience import doctor
+        from dpsvm_tpu_torch.utils.checkpoint import load_checkpoint
+        self._res_reference(tmp)
+        ck = os.path.join(tmp, "ref.npz")
+        lines: list = []
+        rc = doctor.run_doctor(checkpoint_path=ck, timeout_s=60.0,
+                               out=lines.append)
+        import re
+        coll = next((ln for ln in lines if ln.startswith("collective:")), "")
+        got = re.search(r"in ([0-9.]+) ms$", coll)
+        ms = float(got.group(1)) if got else None
+        name = self.torch.cuda.get_device_name(0)
+        backend = next((ln for ln in lines if ln.startswith("backend:")), "")
+        roof = next((ln for ln in lines if ln.startswith("roofline:")), "")
+        snap = load_checkpoint(ck)
+        raw = bytearray(open(ck, "rb").read())
+        payload = np.ascontiguousarray(snap.alpha, np.float32).tobytes()
+        pos = raw.find(payload)
+        raw[pos + len(payload) // 2] ^= 0xFF
+        with open(ck, "wb") as fh:
+            fh.write(bytes(raw))
+        bad: list = []
+        rc_bad = doctor.run_doctor(checkpoint_path=ck, timeout_s=60.0,
+                                   out=bad.append)
+        ok = (rc == 0 and name in backend and "H100" in roof
+              and "data sheet" in roof and ms is not None
+              and rc_bad == 6 and rc_bad != rc)
+        r = {"rc": rc, "rc_flipped": rc_bad, "collective_ms": ms,
+             "backend": backend, "roofline": roof,
+             "flipped_verdict": bad[-1] if bad else None}
+        if not ok:
+            self.fail("resilience", f"(g) {r}; lines {lines}; {bad}")
+        return r
+
     def timing(self) -> None:
         """Kernel A as the main path runs it: a training run's carry at its
         start, advanced by chunks of TIMED_ITERS iterations through
@@ -6288,13 +6859,20 @@ def main(argv=None) -> int:
                    ("approx", s.approx), ("stream", s.stream),
                    ("live", s.live), ("serve", s.serve),
                    ("stack", s.stack), ("observe", s.observe),
-                   ("timing", s.timing)]
+                   ("resilience", s.resilience), ("timing", s.timing)]
     if args.only:
         keep = {"build", *args.only.split(",")}
         phases = [(n, fn) for n, fn in phases if n in keep]
+    s.stack_next = any(n == "stack" for n, _ in phases)
+    s.gloo_beside_stream = any(n == "stream" for n, _ in phases)
+    # A wedged card exits 124 with a STALL line instead of holding the
+    # script to its outer limit; every stats read and phase start pets it.
+    from dpsvm_tpu_torch.utils import watchdog
+    watchdog.arm(STALL_TIMEOUT_S)
     try:
         for name, fn in phases:
             t = time.perf_counter()
+            watchdog.pet()
             try:
                 fn()
             except Exception as e:        # every phase's failure is fatal
@@ -6306,6 +6884,12 @@ def main(argv=None) -> int:
                 break
     finally:
         import shutil
+        watchdog.disarm()
+        for proc in (p["proc"] for p in (s._stack_procs or {}).values()
+                     if isinstance(p, dict)):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         if s._live_proc is not None and s._live_proc.is_alive():
             s._live_proc.terminate()
             s._live_proc.join()

@@ -71,7 +71,7 @@ from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
 from dpsvm_tpu_torch.device import resolve_device
 from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.ops.kernels import exact_f32
-from dpsvm_tpu_torch.solver.driver import (ChunkStats, Poll,
+from dpsvm_tpu_torch.solver.driver import (ChunkStats, Poll, copy_carry_,
                                            host_training_loop, pack_stats,
                                            read_stats, resume_state)
 from dpsvm_tpu_torch.solver.smo import capture, two_eps_f32
@@ -445,6 +445,7 @@ def make_chunk_runner(carry: PrimalCarry, prob: PrimalProblem,
         return cr, Poll(poll)
 
     step.carry = carry
+    step.state = state      # the last poll's n_iter (a rollback resets it)
     return step
 
 
@@ -605,10 +606,20 @@ def fit_approx(x: np.ndarray, y: np.ndarray,
         carry = unpack_state(ckpt, dp)
     carry = carry_to_device(carry, dev)
     step = make_chunk_runner(carry, prob, plain)
+
+    def carry_from_ckpt(ck) -> PrimalCarry:
+        # the checkpoint into the carry's tensors (the captured graph
+        # keeps its buffers); the runner restarts from its n_iter
+        copy_carry_(carry, carry_to_device(unpack_state(ck, dp), dev))
+        step.state["n_iter"] = int(ck.n_iter)
+        step.carry = carry
+        return carry
+
     result = host_training_loop(
         config, gamma, carry, step,
         lambda c: pack_state(carry_to_host(c)),
-        it0=int(ckpt.n_iter) if ckpt is not None else 0, dims=(n, dp))
+        it0=int(ckpt.n_iter) if ckpt is not None else 0, dims=(n, dp),
+        carry_from_ckpt=carry_from_ckpt)
     final = carry_to_host(step.carry)
     w_out = np.asarray(final.w, np.float32)
     model = ApproxSVMModel(fmap=fmap, w=w_out[:-1].copy(),
@@ -1016,10 +1027,21 @@ def _fit_stream(ds, config: SVMConfig, task: str, init_w, dev, fmap,
             return pack_state_live(carry_to_host(c), ds.generation)
         return pack_state(carry_to_host(c))
 
+    def carry_from_ckpt(ck) -> PrimalCarry:
+        # Both halves of the trajectory state: the carry and the host's
+        # step cursor. Live, the admitted view never shrinks: a rollback
+        # to an older generation keeps the grown view (JAX
+        # ``carry_from_ckpt``).
+        state["it"] = int(ck.n_iter)
+        restored = (unpack_state_live(ck, dp)[0] if live
+                    else unpack_state(ck, dp))
+        step_chunk.carry = carry_to_device(restored, dev)
+        return step_chunk.carry
+
     step_chunk.carry = carry
     result = host_training_loop(
         config, gamma, carry, step_chunk, to_host, it0=state["it"],
-        dims=(n, dp))
+        dims=(n, dp), carry_from_ckpt=carry_from_ckpt)
     RUN["divisor"] = ds.n
     final = carry_to_host(step_chunk.carry)
     w_out = np.asarray(final.w, np.float32)

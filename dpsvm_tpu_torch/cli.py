@@ -91,7 +91,8 @@ Distributed training (``--shards P``, the reference's ``mpirun -np P``):
 without ``--coordinator`` and outside ``torchrun`` the command starts P
 ranks on this host (``parallel.multihost.launch_local``), a GPU each
 under NCCL, or gloo ranks with ``--device cpu``; more NCCL ranks than
-GPUs are refused. With ``--coordinator/--num-hosts/--host-id`` (the JAX
+GPUs are refused (``--dist-backend gloo`` lets CUDA ranks share cards,
+as the host-loss drill's hosts share one). With ``--coordinator/--num-hosts/--host-id`` (the JAX
 CLI's checks and messages) this process is one rank of a group across
 hosts; under ``torchrun`` the group comes from its environment. Every
 rank reads the dataset and trains; rank 0 alone writes the model file and
@@ -179,6 +180,10 @@ def _add_common(p: argparse.ArgumentParser, model_help: str,
                         "solver will NOT converge on them)")
     p.add_argument("-m", "--model", required=model_required,
                    default=None, help=model_help)
+    p.add_argument("-a", "--num-att", type=int, default=None,
+                   help="attribute count (inferred when omitted)")
+    p.add_argument("-x", "--num-ex", type=int, default=None,
+                   help="example count (inferred when omitted)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -309,6 +314,12 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--host-id", type=int, default=None, metavar="K",
                     help="this process's rank, 0..N-1 (requires "
                          "--coordinator)")
+    tr.add_argument("--dist-backend", default=None,
+                    choices=["nccl", "gloo"],
+                    help="the collectives of --shards/--coordinator "
+                         "(default: NCCL between CUDA ranks, gloo between "
+                         "CPU ranks); gloo with --device cuda lets ranks "
+                         "share a card, staging through the host")
     tr.add_argument("--replicate-x", action="store_true",
                     help="replicate X on every shard (reference layout)")
     tr.add_argument("--checkpoint", default=None,
@@ -324,6 +335,33 @@ def build_parser() -> argparse.ArgumentParser:
                     help="resume training from a checkpoint file "
                          "(checked at parse time; a corrupt file falls "
                          "back to its newest intact rotation slot)")
+    tr.add_argument("--chunk-iters", type=int, default=512, metavar="I",
+                    help="host poll cadence: iterations a chunk between "
+                         "convergence polls (default 512)")
+    tr.add_argument("--on-divergence", default="raise",
+                    choices=["raise", "rollback", "ignore"],
+                    help="poll-loop health policy for a sick run "
+                         "(non-finite gap, stagnation, SV collapse, a "
+                         "desynchronized mesh): 'rollback' restores the "
+                         "newest intact checkpoint and halves the poll "
+                         "chunk (needs --checkpoint)")
+    tr.add_argument("--health-window", type=int, default=0, metavar="I",
+                    help="iterations without best-gap improvement "
+                         "before the stagnation guard trips (0 = off)")
+    tr.add_argument("--retries", type=int, default=0, metavar="N",
+                    help="supervise training in a child process and "
+                         "relaunch up to N times after transient deaths "
+                         "(preemption exit 75, stall 124, SIGTERM/"
+                         "SIGKILL), resuming from the newest intact "
+                         "checkpoint")
+    tr.add_argument("--retry-backoff", type=float, default=5.0,
+                    metavar="S",
+                    help="base of the exponential retry backoff: "
+                         "attempt k waits S * 2^k seconds (default 5)")
+    tr.add_argument("--debug-nans", action="store_true",
+                    help="each poll also checks that alpha and f are "
+                         "finite and raises on the first chunk that "
+                         "leaves them not (one extra read a poll)")
     tr.add_argument("-v", "--cv", type=int, default=0, metavar="K",
                     help="k-fold cross-validation mode (LIBSVM -v): "
                          "report pooled held-out accuracy (or MSE for "
@@ -541,6 +579,47 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print only the JSON row")
     gd.add_argument("-q", "--quiet", action="store_true")
 
+    dr = sub.add_parser(
+        "doctor", help="training preflight: the card and its roofline "
+                       "row, a timed all-reduce over the requested "
+                       "ranks, checkpoint-dir writability and newest-"
+                       "slot integrity, data and host-group health; "
+                       "exits non-zero with a one-line diagnosis")
+    dr.add_argument("--shards", type=int, default=0,
+                    help="ranks to probe (0 = every visible device)")
+    dr.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="probe the card (NCCL) or the CPU (gloo)")
+    dr.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="checkpoint path a run would use: the doctor "
+                         "checks the directory is writable and the "
+                         "newest rotation slot is intact (reporting its "
+                         "recorded mesh and iteration)")
+    dr.add_argument("--data", default=None, metavar="DIR",
+                    help="shard-dataset directory to probe: manifest, "
+                         "CRC spot-check, free disk, a timed one-shard "
+                         "read; exit 7 (integrity) / 8 (disk space)")
+    dr.add_argument("--timeout", type=float, default=60.0,
+                    help="bounded wait for the collective probe")
+    dr.add_argument("--serving-url", default=None, metavar="URL",
+                    help="also report a live `serve` process's tenant "
+                         "budget, model cache and front door (never "
+                         "changes the exit code)")
+    dr.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="multi-host preflight: TCP reach of the "
+                         "coordinator (the doctor never joins a group); "
+                         "exit 9 = host group degraded")
+    dr.add_argument("--hosts-dir", default=None, metavar="DIR",
+                    help="host-group heartbeat directory: each host's "
+                         "last-beat age, iteration and generation; exit "
+                         "9 when a host is missing or stale")
+    dr.add_argument("--num-hosts", type=int, default=0, metavar="N",
+                    help="expected group size for --hosts-dir (0 = "
+                         "whatever heartbeats exist)")
+    dr.add_argument("--heartbeat-max-age", type=float, default=60.0,
+                    metavar="S",
+                    help="heartbeat age past which a host is stale "
+                         "(default 60)")
+
     inf = sub.add_parser(
         "info", help="environment diagnostics: torch, CUDA, the "
                      "card and its power limit, native helper, kernel "
@@ -740,7 +819,7 @@ def _add_serve_parsers(sub) -> None:
                     help="top rung of the bucket ladder AND the micro-"
                          "batcher's coalescing cap (default 256; the "
                          "tuned profile and --no-tuned come with the "
-                         "tuning layer, ROADMAP item 13b)")
+                         "tuning layer, ROADMAP item 13c)")
     sv.add_argument("--precision", default="highest",
                     choices=["highest", "high", "default"],
                     help="precision of the decision ladder: 'highest' "
@@ -1119,8 +1198,8 @@ def cmd_train(args: argparse.Namespace) -> int:
     if stream_train:
         x = y = None
     else:
-        x, y = load_dataset(args.input, float_labels=(
-            args.svr or args.one_class or args.nu_svr),
+        x, y = load_dataset(args.input, args.num_ex, args.num_att,
+            float_labels=(args.svr or args.one_class or args.nu_svr),
             allow_nonfinite=args.allow_nonfinite,
             mem_budget_mb=args.mem_budget_mb,
             on_bad_shard=args.on_bad_shard)
@@ -1157,6 +1236,10 @@ def cmd_train(args: argparse.Namespace) -> int:
                        trace_out=args.trace_out,
                        watch_rules=args.watch_rules,
                        bundle_dir=args.bundle_dir,
+                       chunk_iters=args.chunk_iters,
+                       on_divergence=args.on_divergence,
+                       health_window=args.health_window,
+                       debug_nans=args.debug_nans,
                        verbose=not args.quiet)
     dev = args.device
     if stream_train:
@@ -1586,7 +1669,8 @@ def cmd_test(args: argparse.Namespace) -> int:
     if os.path.isdir(args.model):
         return _test_multiclass(args)
     model = load_model(args.model)
-    x, y = load_dataset(args.input, float_labels=model.task == "svr",
+    x, y = load_dataset(args.input, args.num_ex, args.num_att,
+                        float_labels=model.task == "svr",
                         allow_nonfinite=args.allow_nonfinite,
                         mem_budget_mb=args.mem_budget_mb)
     if x.shape[1] != model.num_attributes:
@@ -2699,23 +2783,29 @@ def _train_distributed(args, argv: List[str]) -> Optional[int]:
             host, _, port = args.coordinator.rpartition(":")
             os.environ.setdefault("MASTER_ADDR", host or "127.0.0.1")
             os.environ.setdefault("MASTER_PORT", port)
-            multihost.initialize(device=args.device)
+            multihost.initialize(device=args.device,
+                                 backend=args.dist_backend)
         else:
             multihost.initialize(args.coordinator, args.num_hosts,
-                                 args.host_id, device=args.device)
+                                 args.host_id, device=args.device,
+                                 backend=args.dist_backend)
     elif args.shards > 1 and not multihost.is_initialized():
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-            multihost.initialize(device=args.device)      # torchrun
+            multihost.initialize(device=args.device,       # torchrun
+                                 backend=args.dist_backend)
         else:
             rcs = multihost.launch_local(args.shards, _train_rank, (argv,),
-                                         device=args.device)
+                                         device=args.device,
+                                         backend=args.dist_backend)
             return max(rcs)
     return None
 
 
 def _run(args) -> int:
     from dpsvm_tpu_torch.data.stream import StreamError
-    from dpsvm_tpu_torch.solver.driver import DivergenceError
+    from dpsvm_tpu_torch.resilience.health import DivergenceError
+    from dpsvm_tpu_torch.resilience.preempt import (PREEMPT_EXIT_CODE,
+                                                    PreemptedError)
     try:
         if args.command == "train":
             return cmd_train(args)
@@ -2743,13 +2833,31 @@ def _run(args) -> int:
             return cmd_watch(args)
         if args.command == "bundle":
             return cmd_bundle(args)
+        if args.command == "doctor":
+            from dpsvm_tpu_torch.resilience.doctor import run_doctor
+            return run_doctor(shards=args.shards,
+                              checkpoint_path=args.checkpoint,
+                              data_path=args.data, timeout_s=args.timeout,
+                              serving_url=args.serving_url,
+                              coordinator=args.coordinator,
+                              hosts_dir=args.hosts_dir,
+                              num_hosts=args.num_hosts,
+                              heartbeat_max_age_s=args.heartbeat_max_age,
+                              device=args.device)
         return cmd_test(args)
+    except PreemptedError as e:
+        # resumable: the supervisor (or the next run) takes the snapshot
+        print(f"preempted: {e}", file=sys.stderr)
+        return PREEMPT_EXIT_CODE
     except StreamError as e:
         # shard corruption under on_bad_shard='raise', the bad-fraction
         # abort, a budget refusal: one-line operator errors
         print(f"error: {e}", file=sys.stderr)
         return 2
     except DivergenceError as e:
+        print(f"error: {e} (see --on-divergence)", file=sys.stderr)
+        return 1
+    except FloatingPointError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     except FileNotFoundError as e:
@@ -2763,6 +2871,18 @@ def _run(args) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    if args.command == "train" and args.retries > 0:
+        # The retry supervisor: every attempt is a child process (so a
+        # stall watchdog's exit 124, a SIGKILL or a real preemption is
+        # survivable), this command minus the supervisor flags, with the
+        # newest intact checkpoint slot injected as --resume.
+        from dpsvm_tpu_torch.resilience import supervisor
+        child = ([sys.executable, "-m", "dpsvm_tpu_torch.cli"]
+                 + supervisor.strip_flags(argv, ("--retries",
+                                                 "--retry-backoff")))
+        return supervisor.supervise(
+            child, retries=args.retries, backoff_s=args.retry_backoff,
+            checkpoint_path=args.checkpoint)
     if args.command == "train" and (args.shards > 1 or args.coordinator
                                     or args.num_hosts is not None
                                     or args.host_id is not None):

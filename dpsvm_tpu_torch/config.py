@@ -226,6 +226,26 @@ class SVMConfig:
                                             # (a corrupt file falls back to
                                             # the newest intact rotation
                                             # slot)
+    on_divergence: str = "raise"            # the driver's policy when a
+                                            # poll looks sick (non-finite
+                                            # gap, stagnation, SV collapse,
+                                            # a desynchronized mesh):
+                                            # "raise" fails fast,
+                                            # "rollback" restores the
+                                            # newest intact checkpoint and
+                                            # halves chunk_iters, "ignore"
+                                            # records an event only
+    health_window: int = 0                  # iterations without best-gap
+                                            # improvement before the
+                                            # stagnation guard trips; > 0
+                                            # also arms the SV-collapse
+                                            # guard. 0 = heuristic guards
+                                            # off (the non-finite guard is
+                                            # always armed)
+    debug_nans: bool = False                # each poll also reads whether
+                                            # alpha and f are all finite
+                                            # and raises FloatingPointError
+                                            # on the first that is not
 
     # --- observability (solver/driver.py; observability/) ---
     profile_dir: Optional[str] = None       # torch.profiler output dir: a
@@ -337,6 +357,17 @@ class SVMConfig:
         if self.checkpoint_keep < 1:
             raise ValueError(
                 f"checkpoint_keep must be >= 1, got {self.checkpoint_keep}")
+        if self.on_divergence not in ("raise", "rollback", "ignore"):
+            raise ValueError("on_divergence must be 'raise', 'rollback' "
+                             f"or 'ignore', got {self.on_divergence!r}")
+        if self.health_window < 0:
+            raise ValueError(
+                f"health_window must be >= 0, got {self.health_window}")
+        if self.on_divergence == "rollback" and not self.checkpoint_path:
+            raise ValueError(
+                "on_divergence='rollback' restores the newest intact "
+                "checkpoint; set checkpoint_path (and checkpoint_every) "
+                "so one exists")
         if self.wall_budget_s < 0:
             raise ValueError(
                 f"wall_budget_s must be >= 0, got {self.wall_budget_s}")
@@ -587,7 +618,15 @@ class SVMConfig:
                      and not cascade,
                      "the shrinking loop manages its own dispatch; "
                      "the continuous watch rides the shared host "
-                     "driver")):
+                     "driver"),
+                    ("on_divergence",
+                     self.on_divergence != "raise" and not cascade,
+                     "the shrinking loop manages its own dispatch; "
+                     "divergence guards ride the shared host driver"),
+                    ("health_window",
+                     bool(self.health_window) and not cascade,
+                     "the shrinking loop manages its own dispatch; "
+                     "divergence guards ride the shared host driver")):
                 if bad:
                     raise ValueError(
                         f"shrinking does not support {field}: {what}")
@@ -648,6 +687,8 @@ def _auto_solver_plan(n: int, d: int, config: SVMConfig) -> dict:
                             and not config.metrics_out
                             and not config.watch_rules
                             and not config.bundle_dir
+                            and config.on_divergence == "raise"
+                            and not config.health_window
                             and not (config.use_pallas == "on"
                                      and config.working_set == 2))
         plan["shrinking"] = bool(want_shrink and shrink_supported)

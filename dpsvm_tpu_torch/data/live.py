@@ -232,16 +232,11 @@ def publish_manifest(directory: str, manifest: dict, *,
 # ---------------------------------------------------------------------
 
 def admission_barrier(observed_gen: int, committed_gen: int) -> int:
-    """The generation this process may commit. On one host the identity;
-    the cross-host barrier (the minimum over a host group's published
-    generations) is ROADMAP item 13b, so more than one host raises."""
-    from dpsvm_tpu_torch.parallel.multihost import host_count
-    if host_count() > 1:
-        raise NotImplementedError(
-            "live shard-log admission across hosts (the host group's "
-            "generation barrier) is not ported to dpsvm_tpu_torch yet "
-            "(ROADMAP Queue 1 item 13b); run live training on one host")
-    return int(observed_gen)
+    """The generation this process may commit: on one host the identity;
+    inside a supervised host group the minimum over the group's published
+    generations (``resilience/hostgroup.admission_barrier``)."""
+    from dpsvm_tpu_torch.resilience import hostgroup
+    return hostgroup.admission_barrier(observed_gen, committed_gen)
 
 
 class ShardLogWatcher:

@@ -19,6 +19,10 @@ bytes of the pass; ``x2`` is taken from the stored X so that K(a, a) stays
 ~1 and eta stays positive. Otherwise X is float32 and the kernel
 accumulates in fp32 FMA (no TF32 anywhere on the path).
 
+Rollback (``on_divergence="rollback"``) restores a checkpoint into the
+carry's tensors the same way, with no mirror body (JAX
+``carry_from_ckpt``).
+
 Resume (``config.resume_from``, as ``dpsvm_tpu/experimental/fused.py``
 does it): a checkpoint of a finished run is returned as it is; otherwise
 the working set is recomputed from the restored (alpha, f) (it is a pure
@@ -41,10 +45,10 @@ from dpsvm_tpu_torch.experimental.fused_step import (
     launch_fused_chunk, pack_state, run_chunk_plain, unpack_state)
 from dpsvm_tpu_torch.ops.kernels import row_norms_sq
 from dpsvm_tpu_torch.ops.selection import masked_extrema
-from dpsvm_tpu_torch.solver.driver import (Poll, device_sv_count,
-                                           gap_open, host_training_loop,
-                                           pack_stats, read_stats,
-                                           resume_state)
+from dpsvm_tpu_torch.solver.driver import (Poll, copy_carry_,
+                                           device_sv_count, gap_open,
+                                           host_training_loop, pack_stats,
+                                           read_stats, resume_state)
 
 
 def init_fused_carry(alpha: torch.Tensor, f: torch.Tensor, y: torch.Tensor,
@@ -169,10 +173,27 @@ def _run(x: np.ndarray, y: np.ndarray, config: SVMConfig,
             return st
         return cr, Poll(poll)
 
+    def carry_from_ckpt(ck) -> FusedCarry:
+        # The rollback hook: the checkpoint's (alpha, f) into the carry's
+        # tensors, the working set recomputed from them (a pure function
+        # of the state, as on resume). A rollback checkpoint was saved at
+        # a poll with the gap open and n_iter under max_iter, so the next
+        # body applies the recomputed selection with no mirror body. The
+        # device's run counter keeps counting.
+        fresh = init_fused_carry(
+            torch.from_numpy(np.asarray(ck.alpha, np.float32)).to(device),
+            torch.from_numpy(np.asarray(ck.f, np.float32)).to(device),
+            yd, float(config.c), int(ck.n_iter))
+        fresh.state[S_RUN] = carry.state[S_RUN]
+        copy_carry_(carry, fresh)
+        if ws is not None:
+            ws.n_iter = int(ck.n_iter)
+        return carry
+
     return host_training_loop(
         config, gamma, carry, step,
         lambda cr: (cr.alpha.cpu().numpy(), cr.f.cpu().numpy()),
-        it0=it0, dims=x.shape)
+        it0=it0, dims=x.shape, carry_from_ckpt=carry_from_ckpt)
 
 
 def train_single_device_fused(x: np.ndarray, y: np.ndarray,

@@ -30,7 +30,7 @@ self-contained incident directory:
                            CUDA: device facts only when this process
                            has already initialized it)
       tuned_profile.json   the active tuned-profile entry (none until
-                           the tuning layer is ported, ROADMAP item 13b)
+                           the tuning layer is ported, ROADMAP item 13c)
       perf_ledger.jsonl    the relevant perf-ledger context rows
                            (tail), when a ledger is configured
 
@@ -433,7 +433,7 @@ def _doctor_text() -> str:
 
 def _tuned_profile_entry() -> Optional[dict]:
     """The active tuned-profile entry: none until the tuning layer is
-    ported (ROADMAP item 13b)."""
+    ported (ROADMAP item 13c)."""
     return None
 
 

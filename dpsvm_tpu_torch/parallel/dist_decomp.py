@@ -43,7 +43,7 @@ from dpsvm_tpu_torch.ops.kernels import exact_f32, rows_from_dots
 from dpsvm_tpu_torch.ops.selection import (masked_scores_and_masks,
                                            top_k_first, unique_padded)
 from dpsvm_tpu_torch.parallel.dist_smo import (DistProblem, _weighted_box,
-                                               dist_stats,
+                                               ckpt_init, dist_stats,
                                                prepare_distributed_inputs)
 from dpsvm_tpu_torch.parallel.mesh import (DataMesh, all_gather, all_sum_,
                                            make_data_mesh, to_host)
@@ -265,7 +265,12 @@ def train_distributed_decomp(x: np.ndarray, y: np.ndarray,
 
     hook = (_make_growth_hook(config, n, q, build)
             if config.grow_working_set else None)
+    def carry_from_ckpt(ck):
+        ws.last = None          # the next chunk reads the restored state
+        return init_decomp_carry(di.prob, ckpt_init(ck, di.prob))
+
     return host_training_loop(
         config, gamma, carry, build(q),
         lambda cr: (to_host(mesh, cr.alpha, n), to_host(mesh, cr.f, n)),
-        poll_hook=hook, it0=int(di.init[4]), dims=x.shape, mesh=mesh)
+        poll_hook=hook, it0=int(di.init[4]), dims=x.shape, mesh=mesh,
+        carry_from_ckpt=carry_from_ckpt)

@@ -221,20 +221,31 @@ def prepare_distributed_inputs(x, y, config: SVMConfig, mesh: DataMesh,
     prob = DistProblem(mesh, n_s, xd, yd, x2d, valid, c_box, up, low, spec,
                        bool(config.shard_x), c, (wp, wn), x_pass)
 
-    def local(v, fill=0.0):
-        out = np.full((n_pad,), fill, np.float32)
-        out[:n] = np.asarray(v, np.float32)
-        return out[base:base + n_s]
-
     if ckpt is not None:
-        init = (local(ckpt.alpha), local(ckpt.f), ckpt.b_hi, ckpt.b_lo,
-                int(ckpt.n_iter))
+        init = ckpt_init(ckpt, prob)
     else:
         a0 = (np.zeros(n_s, np.float32) if alpha_init is None
-              else local(alpha_init))
-        f0 = -yp if f_init is None else local(f_init)
+              else rank_slice(alpha_init, prob))
+        f0 = -yp if f_init is None else rank_slice(f_init, prob)
         init = (a0, f0, -SENTINEL, SENTINEL, 0)
     return DistInputs(prob, init)
+
+
+def rank_slice(v, prob: DistProblem) -> np.ndarray:
+    """This rank's (n_s,) share of a global (n,) vector on the mesh's
+    padded rows (the padding rows are zero)."""
+    v = np.asarray(v, np.float32)
+    out = np.zeros((prob.n_s * prob.mesh.size,), np.float32)
+    out[:v.shape[0]] = v
+    base = prob.mesh.rank * prob.n_s
+    return out[base:base + prob.n_s]
+
+
+def ckpt_init(ck, prob: DistProblem) -> tuple:
+    """This rank's (alpha, f, b_hi, b_lo, n_iter) seed from a checkpoint's
+    global state, re-sliced for this mesh."""
+    return (rank_slice(ck.alpha, prob), rank_slice(ck.f, prob), ck.b_hi,
+            ck.b_lo, int(ck.n_iter))
 
 
 def init_carry(prob: DistProblem, init: tuple,
@@ -625,6 +636,7 @@ def make_dist_runner(carry: DistCarry, prob: DistProblem,
         return cr, Poll(poll)
 
     step.chunk = chunk
+    step.state = state      # the last poll's n_iter (a rollback resets it)
     return step
 
 
@@ -653,10 +665,13 @@ def train_distributed(x: np.ndarray, y: np.ndarray, config: SVMConfig,
     step = make_dist_runner(carry, di.prob,
                             smo.SMOOptions.from_config(config, guard_eta),
                             smo.two_eps_f32(config.epsilon), plain)
+    hook = smo.rollback_hook(carry, step, lambda ck: init_carry(
+        di.prob, ckpt_init(ck, di.prob), cache_lines=lines))
     res = host_training_loop(
         config, gamma, carry, step,
         lambda cr: (to_host(mesh, cr.alpha, n), to_host(mesh, cr.f, n)),
-        it0=int(di.init[4]), dims=x.shape, mesh=mesh)
+        it0=int(di.init[4]), dims=x.shape, mesh=mesh,
+        carry_from_ckpt=hook)
     if lines:
         hits, misses = step.last.runs
         res = dataclasses.replace(res, cache_hits=hits, cache_misses=misses)

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dpsvm_tpu_torch.parallel.multihost import gloo_on_card
+
 NO_GROUP = (
     "shards={shards} needs an initialized process group of {shards} "
     "ranks, one a device: run the CLI's train with --shards {shards} (it "
@@ -50,9 +52,10 @@ class DataMesh:
 
 
 def _rank_device(backend: str) -> torch.device:
-    """The default device of a rank: its CUDA device under NCCL (the one
-    ``multihost.initialize`` set), the CPU under gloo."""
-    if backend == "nccl":
+    """The default device of a rank: its CUDA device under NCCL or a gloo
+    group on the card (the one ``multihost.initialize`` set), else the
+    CPU."""
+    if backend == "nccl" or gloo_on_card():
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
@@ -65,8 +68,9 @@ def make_data_mesh(shards: int, group=None,
     overrides ``shards`` (the JAX package's explicit ``mesh``).
 
     The backend follows the device: NCCL between CUDA ranks, gloo between
-    CPU ranks. Only a caller that builds its own group may pair gloo with
-    CUDA tensors (gloo stages them through the host)."""
+    CPU ranks. Only a caller that builds its own group, or a world that
+    ``multihost.initialize(backend="gloo")`` put on the card, may pair
+    gloo with CUDA tensors (gloo stages them through the host)."""
     if group is None:
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError(NO_GROUP.format(shards=int(shards)))
@@ -86,7 +90,8 @@ def make_data_mesh(shards: int, group=None,
         raise RuntimeError("CUDA is not available for this rank's device")
     if dev.type == "cpu" and backend != "gloo":
         raise ValueError(f"a CPU rank needs a gloo group, got {backend}")
-    if dev.type == "cuda" and backend != "nccl" and group is None:
+    if (dev.type == "cuda" and backend != "nccl" and group is None
+            and not gloo_on_card()):
         raise ValueError(
             f"a CUDA rank of the default group needs NCCL, got {backend} "
             "(pass device='cpu' for gloo ranks)")
@@ -112,6 +117,13 @@ def all_gather(mesh: DataMesh, t: torch.Tensor) -> torch.Tensor:
 def all_sum_(mesh: DataMesh, t: torch.Tensor) -> torch.Tensor:
     """Sum ``t`` over the ranks, in place; returns it."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+    return t
+
+
+def all_max_(mesh: DataMesh, t: torch.Tensor) -> torch.Tensor:
+    """The elementwise largest of ``t`` over the ranks, in place; returns
+    it."""
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
     return t
 
 

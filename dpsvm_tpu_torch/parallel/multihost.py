@@ -4,8 +4,9 @@
 The reference scales across machines with ``mpirun --hostfile hf``
 (``svmTrainMain.cpp:144-159``, ``Makefile:74``). Here each rank is one
 process with one device, joined by ``torch.distributed``: NCCL between
-CUDA ranks, gloo between CPU ranks (the rule has no flag). Three ways to
-start a group:
+CUDA ranks, gloo between CPU ranks, or, asked for by name, gloo between
+CUDA ranks that share cards (``backend="gloo"``; the CLI's
+``--dist-backend gloo``). Three ways to start a group:
 
 * across hosts, one command a rank with an explicit coordinator:
   ``python -m dpsvm_tpu_torch train --coordinator host0:29500
@@ -44,6 +45,11 @@ import torch.distributed as dist
 INIT_TIMEOUT_S = 120.0
 
 
+#: Whether this process's group is gloo between CUDA ranks
+#: (``initialize(backend="gloo")`` on the card): ranks that share cards.
+_GLOO_ON_CARD = {"on": False}
+
+
 def _device_of(device) -> torch.device:
     if device is None:
         device = os.environ.get("DPSVM_DEVICE", "cuda")
@@ -54,7 +60,8 @@ def initialize(coordinator: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                device=None, store=None,
-               timeout_s: float = INIT_TIMEOUT_S) -> None:
+               timeout_s: float = INIT_TIMEOUT_S,
+               backend: Optional[str] = None) -> None:
     """Join (or create) the process group. Idempotent.
 
     ``coordinator`` ("host:port") with ``num_processes`` and
@@ -63,23 +70,35 @@ def initialize(coordinator: Optional[str] = None,
     environment ``torchrun`` sets is read (``env://``). The rank's device
     is ``device``, else ``DPSVM_DEVICE`` (``local_host_env``), else the
     card: a CUDA rank takes ``cuda:<LOCAL_RANK>`` and NCCL, a CPU rank
-    gloo. A missing card is an error, never a quiet move to gloo."""
+    gloo. A missing card is an error, never a quiet move to gloo.
+    ``backend="gloo"`` on CUDA ranks lets ranks share cards: the rank
+    takes ``cuda:<LOCAL_RANK mod cards>`` and gloo stages its collectives
+    through the host (slow: for drills and tests on fewer cards than
+    ranks)."""
     if is_initialized():
         return
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend}")
     dev = _device_of(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "CUDA is not available for an NCCL rank: pass "
-                "device='cpu' (CLI: --device cpu) for gloo ranks")
+                f"CUDA is not available for a {backend or 'nccl'} rank on "
+                "the card: pass device='cpu' (CLI: --device cpu) for gloo "
+                "ranks on the CPU")
         local = (dev.index if dev.index is not None else
                  int(os.environ.get("LOCAL_RANK", process_id or 0)))
+        if backend == "gloo":
+            local %= torch.cuda.device_count()
         torch.cuda.set_device(local)
-        backend = "nccl"
+        backend = backend or "nccl"
     elif dev.type == "cpu":
+        if backend == "nccl":
+            raise ValueError("NCCL needs CUDA ranks: a CPU rank is gloo")
         backend = "gloo"
     else:
         raise ValueError(f"device must be 'cuda' or 'cpu', got {dev}")
+    _GLOO_ON_CARD["on"] = dev.type == "cuda" and backend == "gloo"
     kwargs = dict(backend=backend,
                   timeout=datetime.timedelta(seconds=float(timeout_s)))
     if store is not None:
@@ -95,6 +114,12 @@ def initialize(coordinator: Optional[str] = None,
 
 def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
+
+
+def gloo_on_card() -> bool:
+    """Whether this process is a CUDA rank of a gloo group that
+    ``initialize(backend="gloo")`` made (ranks sharing cards)."""
+    return is_initialized() and _GLOO_ON_CARD["on"]
 
 
 def host_count() -> int:
@@ -186,10 +211,33 @@ def local_host_env(host_id: int, base: Optional[Dict[str, str]] = None,
     return env
 
 
+class RanksFailedError(RuntimeError):
+    """Ranks of a local world failed. ``causes`` holds the exceptions the
+    failed ranks raised, where they could be sent back (the elastic
+    supervisor looks for a lost shard or a preemption among them)."""
+
+    def __init__(self, message: str, causes=()):
+        super().__init__(message)
+        self.causes = list(causes)
+
+
+def _picklable(exc: BaseException):
+    try:
+        pickle.loads(pickle.dumps(exc))
+        return exc
+    except Exception:
+        return None
+
+
 def _rank_main(rank: int, nprocs: int, store_path: str, device: str,
                fn: Callable, args: Sequence, out_path: str,
-               timeout_s: float) -> None:
+               timeout_s: float, events: Sequence = (),
+               backend: Optional[str] = None) -> None:
     os.environ.update(local_host_env(rank, base={}, device=device))
+    if events:
+        from dpsvm_tpu_torch.solver import driver
+        for event, extra in events:
+            driver.queue_trace_event(event, **extra)
     if torch.device(device).type == "cpu":
         # the ranks share this host's cores: one share each, so that no
         # rank's thread pool fights the others'
@@ -197,13 +245,14 @@ def _rank_main(rank: int, nprocs: int, store_path: str, device: str,
     try:
         initialize(num_processes=nprocs, process_id=rank,
                    store=dist.FileStore(store_path, nprocs),
-                   timeout_s=timeout_s)
+                   timeout_s=timeout_s, backend=backend)
         result = fn(rank, *args)
         with open(out_path, "wb") as fh:
             pickle.dump(("ok", result), fh)
-    except BaseException:
+    except BaseException as e:
         with open(out_path, "wb") as fh:
-            pickle.dump(("error", traceback.format_exc()), fh)
+            pickle.dump(("error", (traceback.format_exc(), _picklable(e))),
+                        fh)
         raise SystemExit(1)
     finally:
         if is_initialized():
@@ -213,7 +262,8 @@ def _rank_main(rank: int, nprocs: int, store_path: str, device: str,
 def launch_local(nprocs: int, fn: Callable, args: Sequence = (),
                  device: str = "cuda",
                  timeout_s: float = INIT_TIMEOUT_S,
-                 run_timeout_s: Optional[float] = None) -> list:
+                 run_timeout_s: Optional[float] = None,
+                 backend: Optional[str] = None) -> list:
     """Start ``nprocs`` ranks on this host and return ``fn(rank, *args)``
     of each, in rank order (``fn`` and ``args`` must pickle: a function of
     an importable module).
@@ -222,15 +272,20 @@ def launch_local(nprocs: int, fn: Callable, args: Sequence = (),
     ``FileStore`` in a fresh temporary directory, so no port is taken) and
     one device: ``cuda:<rank>`` under NCCL, or the CPU under gloo with
     ``device="cpu"``. P ranks that would share one GPU under NCCL are
-    refused: NCCL does not run two ranks on one device. ``timeout_s``
-    bounds the rendezvous and every collective; ``run_timeout_s`` the
+    refused: NCCL does not run two ranks on one device; with
+    ``backend="gloo"`` CUDA ranks share the cards (``initialize``).
+    ``timeout_s`` bounds the rendezvous and every collective;
+    ``run_timeout_s`` the
     whole run (default: no bound beyond the collectives'). A rank that
-    fails, or a run past its bound, stops every rank and raises."""
+    fails, or a run past its bound, stops every rank and raises
+    ``RanksFailedError``. Trace events queued in this process
+    (``driver.queue_trace_event``: the elastic supervisor's ``retry``)
+    move to the ranks' queues."""
     nprocs = int(nprocs)
     dev = torch.device(device)
     if nprocs < 1:
         raise ValueError(f"need at least one rank, got {nprocs}")
-    if dev.type == "cuda":
+    if dev.type == "cuda" and backend != "gloo":
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if nprocs > have:
             raise ValueError(
@@ -239,13 +294,16 @@ def launch_local(nprocs: int, fn: Callable, args: Sequence = (),
                 f"--device cpu for gloo ranks, or fewer shards)")
     import torch.multiprocessing as mp
 
+    from dpsvm_tpu_torch.solver import driver
+    events = tuple(driver.drain_queued_events())
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="dpsvm_ranks_")
     store = os.path.join(tmp, "store")
     outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(nprocs)]
     procs = [ctx.Process(target=_rank_main,
                          args=(r, nprocs, store, str(dev), fn, tuple(args),
-                               outs[r], timeout_s), daemon=False)
+                               outs[r], timeout_s, events, backend),
+                         daemon=False)
              for r in range(nprocs)]
     for p in procs:
         p.start()
@@ -268,17 +326,21 @@ def launch_local(nprocs: int, fn: Callable, args: Sequence = (),
             if p.is_alive():
                 p.kill()
             p.join(timeout=30)
-    results, errors = [], []
+    results, errors, causes = [], [], []
     for r, (p, path) in enumerate(zip(procs, outs)):
         if os.path.exists(path):
             with open(path, "rb") as fh:
                 status, value = pickle.load(fh)
         else:
-            status, value = "error", f"exit code {p.exitcode}, no result"
+            status, value = "error", (f"exit code {p.exitcode}, no result",
+                                      None)
         if status == "ok":
             results.append(value)
         else:
-            errors.append(f"rank {r}: {value}")
+            text, exc = value
+            errors.append(f"rank {r}: {text}")
+            if exc is not None:
+                causes.append(exc)
     for path in outs:
         if os.path.exists(path):
             os.unlink(path)
@@ -286,6 +348,6 @@ def launch_local(nprocs: int, fn: Callable, args: Sequence = (),
         os.unlink(os.path.join(tmp, name))
     os.rmdir(tmp)
     if errors:
-        raise RuntimeError(f"{len(errors)} of {nprocs} local ranks "
-                           "failed:\n" + "\n".join(errors))
+        raise RanksFailedError(f"{len(errors)} of {nprocs} local ranks "
+                               "failed:\n" + "\n".join(errors), causes)
     return results

@@ -1,7 +1,9 @@
-"""Deterministic fault injection: the parts of
-``dpsvm_tpu/resilience/faultinject.py`` that the port's cascade
-(``solver/cascade.py``), shard reader (``data/stream.py``), live shard
-log (``data/live.py``) and model registry (``serving/registry.py``) read.
+"""Deterministic fault injection (port of
+``dpsvm_tpu/resilience/faultinject.py``): the knobs of the training
+driver, the checkpoint writer, the distributed and multi-host drills, the
+doctor, the cascade (``solver/cascade.py``), the shard reader
+(``data/stream.py``), the live shard log (``data/live.py``) and the
+serving pool and registry.
 
 ``DPSVM_FAULT_CASCADE_STOP_STAGE=k`` (or ``BENCH_FAULT_CASCADE_STOP_STAGE``)
 makes the cascade raise ``CascadeInterrupted`` right after its stage-k
@@ -59,8 +61,41 @@ Serving (``DPSVM_FAULT_SERVE_*``, consumed by ``serving/pool.py`` and
   alert); with ``DPSVM_FAULT_SERVE_SLOW_FOR=m`` only the first m
   computes are slowed, and the alert must then clear.
 
-The rest of the JAX module's fault knobs (checkpoint writes, NaN
-injection in training, preemption, distributed) are not ported.
+Training knobs (consumed by the shared host driver, ``solver/driver.py``,
+and ``utils/checkpoint.save_checkpoint``):
+
+* ``DPSVM_FAULT_CHECKPOINT_WRITE=k``: the k-th ``save_checkpoint`` call in
+  this process fails after the tmp write, before the rename (the old file
+  and the run survive);
+* ``DPSVM_FAULT_NAN_ITER=j``: the first poll observing ``n_iter >= j``
+  reports a NaN gap (the host's view only: the device state is intact);
+* ``DPSVM_FAULT_PREEMPT_POLL=m``: the m-th host poll raises a simulated
+  preemption signal.
+
+Distributed knobs (shard numbers 1-based; every rank of a world reads the
+same replicated stats, so every rank fires at the same poll):
+
+* ``DPSVM_FAULT_DIST_KILL_SHARD=k``: shard #k is lost at a distributed
+  poll (``DPSVM_FAULT_DIST_KILL_POLL=m``, default the 2nd): the driver
+  raises ``elastic.ShardLostError`` with no snapshot;
+* ``DPSVM_FAULT_DIST_DESYNC_AT=j``: the first poll observing
+  ``n_iter >= j`` reports one shard's probe (``DIST_DESYNC_SHARD``,
+  default the last) one bit off the rest;
+* ``DPSVM_FAULT_DIST_SLOW_SHARD=k``: shard #k's probe replays its
+  first-seen row every poll (the straggler model).
+
+Multi-host knobs (planted in one host process's environment):
+
+* ``DPSVM_FAULT_HOST_KILL=m``: this process SIGKILLs itself at its m-th
+  host poll;
+* ``DPSVM_FAULT_HOST_HANG_MS=t``: this process sleeps t ms before every
+  heartbeat publish and admission poll.
+
+``DPSVM_FAULT_PREFLIGHT_WEDGE_S=t``: the doctor's collective probe hangs
+t seconds first (past the doctor's timeout: exit 5).
+
+Every knob fires once a process (counters live on the plan), so a retry in
+the same process runs clean: the transient-fault model.
 """
 
 from __future__ import annotations
@@ -71,6 +106,8 @@ import sys
 import threading
 import time
 from typing import Optional, Tuple
+
+import numpy as np
 
 
 def _log(msg: str) -> None:
@@ -88,6 +125,20 @@ class InjectedFaultError(OSError):
 
 @dataclasses.dataclass
 class FaultPlan:
+    # training knobs (module docstring)
+    fail_checkpoint_write: int = 0   # 1-based save counter; 0 = off
+    nan_at_iter: int = 0             # poison first poll with n_iter >= j
+    preempt_at_poll: int = 0         # 1-based host-poll counter
+    # distributed knobs: shard numbers 1-based
+    dist_kill_shard: int = 0         # shard #k lost at a dist poll
+    dist_kill_poll: int = 0          # ...the m-th dist poll (default 2)
+    dist_desync_at: int = 0          # poison a probe at n_iter >= j
+    dist_desync_shard: int = 0       # which shard lies (default last)
+    dist_slow_shard: int = 0         # shard #k's probe stops advancing
+    # multi-host knobs, planted per host
+    host_kill: int = 0               # SIGKILL self at the m-th host poll
+    host_hang_ms: int = 0            # sleep before heartbeats/admissions
+    preflight_wedge_s: int = 0       # the doctor's probe hangs this long
     # data-pipeline knobs (module docstring): shard numbers 1-based
     io_read_fail_once: int = 0       # the k-th shard read fails once
     io_corrupt_shard: int = 0        # shard #k payload bit-flipped, every
@@ -110,6 +161,14 @@ class FaultPlan:
     serve_fail_reload: int = 0       # the j-th reload/rebuild fails
     serve_slow_replica_ms: int = 0   # every compute sleeps this first
     serve_slow_for: int = 0          # ...only the first m computes
+    _writes: int = 0
+    _polls: int = 0
+    _nan_fired: bool = False
+    _dist_polls: int = 0
+    _kill_fired: bool = False
+    _host_polls: int = 0
+    _desync_fired: bool = False
+    _slow_probe: Optional[tuple] = None   # frozen probe row replayed
     _cascade_fired: bool = False
     _io_reads: int = 0
     _io_fail_fired: bool = False
@@ -126,7 +185,12 @@ class FaultPlan:
     _slow_lifted_logged: bool = False
 
     def any(self) -> bool:
-        return bool(self.io_read_fail_once or self.io_corrupt_shard
+        return bool(self.fail_checkpoint_write or self.nan_at_iter
+                    or self.preempt_at_poll or self.dist_kill_shard
+                    or self.dist_desync_at or self.dist_slow_shard
+                    or self.host_kill or self.host_hang_ms
+                    or self.preflight_wedge_s
+                    or self.io_read_fail_once or self.io_corrupt_shard
                     or self.io_truncate_shard or self.io_slow_read_ms
                     or self.cascade_stop_stage or self.live_torn_publish
                     or self.live_stale_generation
@@ -134,6 +198,92 @@ class FaultPlan:
                     or self.live_shift_at_shard or self.serve_fail_reload
                     or self.serve_wedge_replica or self.serve_nan_after
                     or self.serve_slow_replica_ms)
+
+    # -- training injection points (solver/driver.py), one host loop
+
+    def note_checkpoint_write(self, path: str) -> None:
+        self._writes += 1
+        if (self.fail_checkpoint_write
+                and self._writes == self.fail_checkpoint_write):
+            _log(f"failing checkpoint write #{self._writes} -> {path}")
+            raise InjectedFaultError(
+                f"injected checkpoint-write failure #{self._writes}")
+
+    def note_poll(self) -> bool:
+        """True exactly at the configured poll: the driver then simulates
+        a preemption signal."""
+        self._polls += 1
+        if self.preempt_at_poll and self._polls == self.preempt_at_poll:
+            _log(f"simulating preemption at poll #{self._polls}")
+            return True
+        return False
+
+    def poison_stats(self, st):
+        """b_lo as NaN on the first qualifying poll (device-state
+        corruption seen at the poll boundary), and the probe faults
+        (desync, slow shard) applied to the probe tail (``st.probe``,
+        one row a rank) when one rides the stats."""
+        if (self.nan_at_iter and not self._nan_fired
+                and st.n_iter >= self.nan_at_iter):
+            self._nan_fired = True
+            _log(f"poisoning stats with NaN gap at iter {st.n_iter}")
+            st = st._replace(b_lo=float("nan"))
+        if st.probe and (self.dist_desync_at or self.dist_slow_shard):
+            rows = self.poison_probes(np.asarray(st.probe), st.n_iter)
+            st = st._replace(probe=tuple(tuple(int(v) for v in row)
+                                         for row in rows))
+        return st
+
+    def poison_probes(self, probes, n_iter: int):
+        """The probe faults on a (P, 3) int32 block: desync flips one
+        bit of one shard's b_lo lane once (the smallest disagreement at
+        the same iteration); the slow shard replays its first-seen row
+        every poll, so its heartbeat ages."""
+        probes = np.array(probes, np.int32, copy=True)
+        p = len(probes)
+        if (self.dist_desync_at and not self._desync_fired
+                and n_iter >= self.dist_desync_at and p > 1):
+            self._desync_fired = True
+            k = ((self.dist_desync_shard - 1) % p
+                 if self.dist_desync_shard else p - 1)
+            probes[k, 1] ^= 1
+            _log(f"desyncing shard {k} probe at iter {n_iter}")
+        if self.dist_slow_shard and p >= self.dist_slow_shard:
+            k = self.dist_slow_shard - 1
+            if self._slow_probe is None:
+                self._slow_probe = tuple(int(v) for v in probes[k])
+                _log(f"freezing shard {k} probe (straggler model)")
+            probes[k] = self._slow_probe
+        return probes
+
+    def dist_kill_now(self) -> int:
+        """Counted a distributed poll; the 1-based shard to lose,
+        exactly once (0 = keep running)."""
+        if not self.dist_kill_shard:
+            return 0
+        self._dist_polls += 1
+        at = self.dist_kill_poll or 2
+        if not self._kill_fired and self._dist_polls >= at:
+            self._kill_fired = True
+            _log(f"killing shard #{self.dist_kill_shard} at dist poll "
+                 f"#{self._dist_polls}")
+            return self.dist_kill_shard
+        return 0
+
+    def host_kill_now(self) -> bool:
+        """Counted a host poll; True at the configured poll, where the
+        driver SIGKILLs its own process (a real host death)."""
+        if not self.host_kill:
+            return False
+        self._host_polls += 1
+        if self._host_polls >= self.host_kill:
+            _log(f"SIGKILLing this host at host poll #{self._host_polls}")
+            return True
+        return False
+
+    def host_hang_delay_s(self) -> float:
+        """Seconds a heartbeat publish or admission poll sleeps."""
+        return self.host_hang_ms / 1000.0
 
     def io_read_begin(self, shard_idx: int) -> None:
         """Called as a shard read starts: applies the slow-read latency
@@ -296,6 +446,17 @@ def _env_int(name: str) -> int:
 
 def plan_from_env() -> Optional[FaultPlan]:
     p = FaultPlan(
+        fail_checkpoint_write=_env_int("CHECKPOINT_WRITE"),
+        nan_at_iter=_env_int("NAN_ITER"),
+        preempt_at_poll=_env_int("PREEMPT_POLL"),
+        dist_kill_shard=_env_int("DIST_KILL_SHARD"),
+        dist_kill_poll=_env_int("DIST_KILL_POLL"),
+        dist_desync_at=_env_int("DIST_DESYNC_AT"),
+        dist_desync_shard=_env_int("DIST_DESYNC_SHARD"),
+        dist_slow_shard=_env_int("DIST_SLOW_SHARD"),
+        host_kill=_env_int("HOST_KILL"),
+        host_hang_ms=_env_int("HOST_HANG_MS"),
+        preflight_wedge_s=_env_int("PREFLIGHT_WEDGE_S"),
         io_read_fail_once=_env_int("IO_READ_FAIL_ONCE"),
         io_corrupt_shard=_env_int("IO_CORRUPT_SHARD"),
         io_truncate_shard=_env_int("IO_TRUNCATE_SHARD"),
@@ -339,6 +500,13 @@ def current() -> Optional[FaultPlan]:
         if _plan is not None:
             _log(f"active plan: {_plan}")
     return _plan
+
+
+def on_checkpoint_write(path: str) -> None:
+    """``save_checkpoint``'s injection point (utils/checkpoint.py)."""
+    p = current()
+    if p is not None:
+        p.note_checkpoint_write(path)
 
 
 # Wedged replica workers block here. In-process tests release them at

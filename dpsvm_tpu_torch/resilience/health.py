@@ -1,7 +1,7 @@
 """Divergence guards: solver-state health checks at the poll boundary
-(port of ``dpsvm_tpu/resilience/health.py``; the serving pool uses
-``ReplicaMonitor``, and the training driver's wiring of
-``HealthMonitor`` is ROADMAP item 13b).
+(port of ``dpsvm_tpu/resilience/health.py``; the training driver runs a
+``HealthMonitor`` a run, the serving pool a ``ReplicaMonitor`` a
+replica).
 
 Every signal the monitor reads — n_iter, b_lo, b_hi, SV count — already
 rides the solvers' packed-stats transfer (solver/driver.py "Poll

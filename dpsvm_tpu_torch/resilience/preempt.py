@@ -52,6 +52,11 @@ class PreemptedError(RuntimeError):
             f"training preempted by signal {signum} at iteration "
             f"{n_iter} ({where})")
 
+    def __reduce__(self):
+        # ranks report their errors to the launcher by pickle
+        return (PreemptedError, (self.signum, self.n_iter,
+                                 self.checkpoint_path))
+
 
 _pending: Optional[int] = None       # signum, None = nothing pending
 _hits = 0

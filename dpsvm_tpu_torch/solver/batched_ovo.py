@@ -43,6 +43,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dpsvm_tpu_torch.utils import watchdog
 from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
 from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.ops.kernels import (dots_f32, exact_f32,
@@ -305,6 +306,7 @@ def _read_stats(carry: OvoCarry):
     s = torch.stack([carry.n_iter, carry.b_lo.view(torch.int32),
                      carry.b_hi.view(torch.int32)]).cpu().numpy()
     COUNTS["reads"] += 1
+    watchdog.pet()
     return s[0], s[1].view(np.float32), s[2].view(np.float32)
 
 

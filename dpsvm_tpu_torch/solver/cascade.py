@@ -433,7 +433,7 @@ def _approx_config(config: SVMConfig) -> SVMConfig:
         screen_margin=SCREEN_MARGIN_DEFAULT, screen_cap=0,
         trace_out=None, checkpoint_path=None, checkpoint_every=0,
         resume_from=None, profile_dir=None, metrics_port=None,
-        metrics_out=None)
+        metrics_out=None, on_divergence="raise", health_window=0)
 
 
 def _polish_config(config: SVMConfig, budget: int,
@@ -441,7 +441,12 @@ def _polish_config(config: SVMConfig, budget: int,
     """Stage-3 sub-config: the exact dual solver with the user's
     dual-family knobs intact (selection, working_set, shrinking, clip and
     precision pass through); checkpoints, the trace, the profiler and the
-    metrics exporters stay with the orchestrator."""
+    metrics exporters stay with the orchestrator. ``on_divergence`` and
+    ``health_window`` pass through, except that ``"rollback"`` becomes
+    raise (the sub-run has no checkpoint of its own: the cascade's stage
+    files are the recovery unit) and the shrinking manager, which runs
+    its own loop, takes neither."""
+    shrink = config.shrinking is True
     return dataclasses.replace(
         config, solver="exact", polish=False,
         screen_margin=SCREEN_MARGIN_DEFAULT, screen_cap=0,
@@ -450,7 +455,11 @@ def _polish_config(config: SVMConfig, budget: int,
                  else config.epsilon),
         trace_out=None, checkpoint_path=None, checkpoint_every=0,
         resume_from=None, profile_dir=None, metrics_port=None,
-        metrics_out=None)
+        metrics_out=None,
+        health_window=0 if shrink else config.health_window,
+        on_divergence=("raise" if shrink
+                       or config.on_divergence == "rollback"
+                       else config.on_divergence))
 
 
 def _calibrate(source, config: SVMConfig, model_a) -> float:

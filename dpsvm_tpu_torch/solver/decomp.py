@@ -53,6 +53,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from dpsvm_tpu_torch.utils import watchdog
 from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
 from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
@@ -350,7 +351,12 @@ def _make_growth_hook(config: SVMConfig, n: int, q0: int, build):
                   f"(occupancy {n_sv / state['q']:.2f}) -> q={new_q}",
                   file=sys.stderr, flush=True)
         state["q"] = new_q
-        return build(new_q)
+        # the rebuild may capture and build afresh: a fresh stall window
+        # on each side of it
+        watchdog.pet()
+        runner = build(new_q)
+        watchdog.pet()
+        return runner
 
     return hook
 
@@ -380,13 +386,22 @@ def train_single_device_decomp(x: np.ndarray, y: np.ndarray,
     def scalar(v, dtype):
         return torch.tensor(v, dtype=dtype, device=device)
 
+    def from_ckpt(ck) -> DecompCarry:
+        # the resume's and the rollback's carry; the rounds counter
+        # restarts at 0 (telemetry, not solver state)
+        return init_carry(prob.y)._replace(
+            alpha=vec(ck.alpha), f=vec(ck.f),
+            b_hi=scalar(float(np.float32(ck.b_hi)), torch.float32),
+            b_lo=scalar(float(np.float32(ck.b_lo)), torch.float32),
+            n_iter=scalar(int(ck.n_iter), torch.int32))
+
+    def carry_from_ckpt(ck) -> DecompCarry:
+        ws.last = None          # the next chunk reads the restored state
+        return from_ckpt(ck)
+
     ckpt = resume_state(config, n, x.shape[1], prob.gamma)
     if ckpt is not None:
-        carry = carry._replace(
-            alpha=vec(ckpt.alpha), f=vec(ckpt.f),
-            b_hi=scalar(float(np.float32(ckpt.b_hi)), torch.float32),
-            b_lo=scalar(float(np.float32(ckpt.b_lo)), torch.float32),
-            n_iter=scalar(int(ckpt.n_iter), torch.int32))
+        carry = from_ckpt(ckpt)
     else:
         if f_init is not None:
             carry = carry._replace(f=vec(f_init))
@@ -401,4 +416,5 @@ def train_single_device_decomp(x: np.ndarray, y: np.ndarray,
     return host_training_loop(
         config, prob.gamma, carry, build(q),
         lambda cr: (cr.alpha.cpu().numpy(), cr.f.cpu().numpy()),
-        poll_hook=hook, it0=int(carry.n_iter), dims=x.shape)
+        poll_hook=hook, it0=int(carry.n_iter), dims=x.shape,
+        carry_from_ckpt=carry_from_ckpt)

@@ -7,9 +7,31 @@ one device-to-host read, with the floats carried as bit patterns so every
 field is exact. A runner returns the poll unread (a ``Poll``, which makes
 the read when called: ``dispatch`` times the enqueue, ``poll`` the
 blocking read, as in the JAX driver) or already read (the decomposition
-reads once a round inside its chunk). Health monitoring, rollback,
-preemption snapshots and fault injection of the JAX driver are not
-ported yet (ROADMAP item 13b).
+reads once a round inside its chunk).
+
+Resilience (JAX ``driver.py`` "Resilience"), on every solver path:
+
+* a SIGTERM/SIGINT during the loop (``resilience/preempt.trap``) waits for
+  the next poll, where the loop saves a final checkpoint, writes a
+  ``preempt`` event and raises ``PreemptedError`` (CLI exit 75, the
+  supervisor's resume cue). With ``checkpoint_every == 0`` the JAX loop
+  has a speculative chunk in flight at that poll and snapshots after it,
+  so this loop runs that one chunk first and snapshots at its end;
+* every poll feeds a ``HealthMonitor`` (non-finite gap; with
+  ``health_window``, stagnation and SV collapse), checked before the
+  checkpoint so a sick state never overwrites a good slot. Policy
+  ``config.on_divergence``: raise, rollback (restore the newest intact
+  checkpoint through the path's ``carry_from_ckpt``, halve the chunk;
+  no hook, no checkpoint path or a spent budget degrade to raise and say
+  why) or ignore;
+* ``debug_nans``: each poll also reads one flag, whether the carry's alpha
+  and f are all finite (one device reduction), and raises
+  ``FloatingPointError`` naming the chunk's iterations (the JAX package
+  sets ``jax_debug_nans``, which has no PyTorch counterpart);
+* the deterministic faults of ``resilience/faultinject.py`` fire at their
+  poll or iteration (``NAN_ITER`` poisons the host's view of the stats,
+  never the device state), and the stall watchdog is petted at every
+  read (``utils/watchdog.py``).
 
 Checkpoints: with ``checkpoint_every > 0`` a poll that crosses an
 every-N boundary reads (alpha, f) once and saves them with the polled
@@ -18,14 +40,19 @@ packed stats. ``resume_state`` loads the checkpoint a run resumes from,
 falling back past corrupt rotation slots.
 
 Distributed runs (``parallel/``) pass their ``mesh``: every decision the
-loop takes is then one every rank takes alike. The polled scalars are
-replicated by construction; the poll also carries every rank's own view
-of them (the probe tail, ``parallel.mesh.shard_probe``), and rows that
-disagree raise ``MeshDesyncError``. The wall budget's verdict is the
-largest over the ranks (ranks whose clocks disagree would otherwise stop
-at different polls and leave the others waiting in a collective). A
-checkpoint's (alpha, f) are gathered on every rank and written by rank 0
-alone.
+loop takes is then one every rank takes alike, from the replicated stats,
+before the next collective. The poll also carries every rank's own view
+of the polled scalars (the probe tail, ``parallel.mesh.shard_probe``):
+ranks that disagree at one iteration are a desynchronized mesh, which
+writes a ``desync`` event and goes through ``on_divergence`` like any
+divergence (``DesyncError``); the rows' progress gives each rank a
+heartbeat age (``shard_ages`` on chunk records and watch samples); and the
+kill-shard drill raises ``ShardLostError`` on every rank at one poll. The
+wall budget's verdict, a pending preemption and the ``debug_nans`` flag
+are the largest over the ranks (ranks whose clocks or signals differ
+would otherwise stop at different polls and leave the others waiting in
+a collective). A checkpoint's (alpha, f) are gathered on every rank and
+written by rank 0 alone.
 
 Observability (JAX ``driver.py`` "Poll economics"): with ``trace_out``
 set every poll appends a chunk record to the run trace (the JAX
@@ -64,6 +91,7 @@ from __future__ import annotations
 import logging
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -78,14 +106,20 @@ from dpsvm_tpu_torch.observability import metrics as metricslib
 from dpsvm_tpu_torch.observability import profiler as profilerlib
 from dpsvm_tpu_torch.observability.device import memory_snapshot
 from dpsvm_tpu_torch.observability.record import SOLVER_NAMES, RunTrace
-from dpsvm_tpu_torch.parallel.mesh import all_max
+from dpsvm_tpu_torch.parallel.mesh import all_max_
+from dpsvm_tpu_torch.resilience import elastic, faultinject, hostgroup, preempt
+from dpsvm_tpu_torch.resilience.health import (DesyncError, DivergenceError,
+                                               HealthMonitor)
+from dpsvm_tpu_torch.utils import watchdog
 from dpsvm_tpu_torch.utils.checkpoint import (CheckpointCorruptError,
                                               CheckpointError,
                                               SolverCheckpoint,
                                               checkpoint_candidates,
                                               dist_checkpoint,
                                               load_checkpoint,
-                                              maybe_checkpoint)
+                                              maybe_checkpoint,
+                                              newest_intact_checkpoint,
+                                              save_checkpoint)
 from dpsvm_tpu_torch.utils.timing import PhaseTimer
 
 _logger = logging.getLogger("dpsvm_tpu_torch")
@@ -95,8 +129,10 @@ _logger = logging.getLogger("dpsvm_tpu_torch")
 CHECKPOINTS = {"saves": 0, "pulls": 0, "seconds": 0.0}
 
 # Ever, in this process: the polls' packed-stats reads (``read_stats``),
-# every path's one device-to-host read a poll.
-READS = {"stats": 0}
+# every path's one device-to-host read a poll; the ``debug_nans`` flag
+# reads of one rank (one a poll of a run that sets it); and a mesh's
+# agreement reads (``_agree``: one a poll that is not its run's last).
+READS = {"stats": 0, "finite": 0, "agree": 0}
 
 
 # Lifecycle facts queued by subsystems with no handle on the run, and the
@@ -134,14 +170,6 @@ class ChunkStats(NamedTuple):
     cache_misses: int = 0   # cumulative), for the trace's chunk record
 
 
-class DivergenceError(RuntimeError):
-    """The poll saw a non-finite optimality gap: the run cannot converge."""
-
-
-class MeshDesyncError(RuntimeError):
-    """The ranks' own views of the polled scalars disagree."""
-
-
 def device_sv_count(alpha: torch.Tensor) -> torch.Tensor:
     """count(alpha > 0) as an int32 0-d tensor, on alpha's device."""
     return (alpha > 0).sum(dtype=torch.int32)
@@ -160,6 +188,7 @@ def read_stats(stats: torch.Tensor, shards: int = 0) -> ChunkStats:
     last 3 x shards words are the distributed runs' probe tail."""
     s = stats.cpu().numpy()
     READS["stats"] += 1
+    watchdog.pet()
     b = s[1:3].view(np.float32)
     tail = len(s) - 3 * int(shards)
     probe = tuple(tuple(int(v) for v in row)
@@ -194,12 +223,59 @@ def settle(poll: Union[ChunkStats, Poll]) -> ChunkStats:
 
 
 def check_probe(st: ChunkStats) -> None:
-    """Raise ``MeshDesyncError`` when the ranks' rows of the probe tail
-    disagree (they are equal by construction on a healthy mesh)."""
-    if st.probe and any(row != st.probe[0] for row in st.probe):
-        raise MeshDesyncError(
-            "ranks disagree on the polled state (n_iter, b_lo bits, b_hi "
-            f"bits) by rank: {list(st.probe)}")
+    """Raise ``DesyncError`` when ranks at the same iteration disagree on
+    the polled gap bits (``elastic.desync_reason``): the check of a loop
+    with no ``on_divergence`` policy (the shrinking manager's)."""
+    reason = elastic.desync_reason(st.probe) if st.probe else None
+    if reason is not None:
+        raise DesyncError(reason, st.n_iter)
+
+
+def copy_carry_(dst, src):
+    """Copy every tensor of ``src`` into the same field of ``dst`` in place
+    (nested named tuples too) and return ``dst``: a rollback keeps the
+    buffers a captured CUDA graph reads and writes."""
+    for a, b in zip(dst, src):
+        if isinstance(a, torch.Tensor):
+            a.copy_(b)
+        elif isinstance(a, tuple) and a is not None:
+            copy_carry_(a, b)
+    return dst
+
+
+def _nonfinite(carry) -> torch.Tensor:
+    """A 0-d device flag: some entry of the carry's alpha or f (every
+    float tensor of a carry without them) is not finite. No read."""
+    vecs = [getattr(carry, k) for k in ("alpha", "f")
+            if isinstance(getattr(carry, k, None), torch.Tensor)]
+    if not vecs:
+        vecs = [v for v in carry if isinstance(v, torch.Tensor)
+                and v.is_floating_point()]
+    return ~torch.stack([torch.isfinite(v).all() for v in vecs]).all()
+
+
+def _agree(carry, mesh, debug_nans: bool, over: bool,
+           signum: Optional[int]) -> Tuple[bool, bool, Optional[int]]:
+    """What every rank of a poll must decide alike: (finite, over,
+    signum), the carry's finite flag (``debug_nans`` only, else True), the
+    wall budget's verdict and a pending preemption signal. One rank reads
+    only the flag (one device reduction, one read: ``READS["finite"]``);
+    the ranks of a mesh take the largest of the three over the ranks in
+    one all-reduce and one read (``READS["agree"]``), so that a poll pays
+    one collective, and none where there is nothing to decide."""
+    flag = _nonfinite(carry) if debug_nans else None
+    if mesh is None:
+        if flag is None:
+            return True, over, signum
+        READS["finite"] += 1
+        return not bool(flag.item()), over, signum
+    t = torch.tensor([0.0, float(over), float(signum or 0)],
+                     dtype=torch.float64, device=mesh.device)
+    if flag is not None:
+        t[0] = flag
+    bad, over_all, sig = all_max_(mesh, t).tolist()
+    READS["agree"] += 1
+    return bad == 0, over_all > 0, int(sig) or None
 
 
 def resume_state(config: SVMConfig, n: int, d: int, gamma: float,
@@ -208,14 +284,15 @@ def resume_state(config: SVMConfig, n: int, d: int, gamma: float,
 
     A corrupt file (truncated, bit-flipped: what ``load_checkpoint``
     rejects) falls back to the newest intact rotation slot (``state.1.npz``,
-    ...), saying what was skipped; only when every slot is unreadable does
-    the error propagate. An intact checkpoint of another problem or
+    ...), saying what was skipped and queueing a ``rollback`` event for
+    the run's trace; only when every slot is unreadable does the error
+    propagate. An intact checkpoint of another problem or
     config always raises ``CheckpointMismatchError``.
 
     ``shards`` is this run's mesh size. A checkpoint saved on another
     mesh is not a mismatch: the state is the global unpadded (alpha, f),
-    which the distributed trainers re-slice for this mesh, and a
-    ``RESHARD:`` line on stderr names both meshes."""
+    which the distributed trainers re-slice for this mesh; a ``RESHARD:``
+    line on stderr and a queued ``reshard`` event name both meshes."""
     if not config.resume_from:
         return None
     skipped = []
@@ -231,10 +308,16 @@ def resume_state(config: SVMConfig, n: int, d: int, gamma: float,
             continue
         ckpt.validate_against(n, d, config, gamma, shards=shards)
         if skipped:
+            queue_trace_event("rollback", n_iter=ckpt.n_iter,
+                              reason="corrupt checkpoint on resume",
+                              checkpoint=path, skipped=skipped)
             print(f"WARNING: resuming from rotation slot {path} "
                   f"(skipped corrupt: {skipped})",
                   file=sys.stderr, flush=True)
         if ckpt.needs_reshard(shards):
+            queue_trace_event("reshard", n_iter=ckpt.n_iter,
+                              from_shards=int(ckpt.shards),
+                              to_shards=int(shards), checkpoint=path)
             print(f"RESHARD: checkpoint {path} was saved on a "
                   f"{ckpt.mesh_desc()}; resuming on {shards} — "
                   f"re-slicing the global state onto the new mesh",
@@ -332,7 +415,10 @@ def begin_trace(config: SVMConfig, n: int, d: int, gamma: float,
     the shrinking manager and the cascade so every producer writes the
     one schema. Drains the pending-event queue right after
     the manifest; a supervised retry announces itself through
-    ``DPSVM_RETRY_ATTEMPT`` (resilience/supervisor.py)."""
+    ``DPSVM_RETRY_ATTEMPT`` (resilience/supervisor.py), and an attempt after
+    a host loss through ``DPSVM_HOST_LOST``, ``DPSVM_REFORM_FROM`` and
+    ``DPSVM_REFORM_TO`` (resilience/hostgroup.py): the dead host first,
+    then the group change."""
     pending, _PENDING_TRACE_EVENTS[:] = _PENDING_TRACE_EVENTS[:], []
     if not getattr(config, "trace_out", None):
         return None
@@ -342,6 +428,14 @@ def begin_trace(config: SVMConfig, n: int, d: int, gamma: float,
     attempt = os.environ.get("DPSVM_RETRY_ATTEMPT", "").strip()
     if attempt.isdigit():
         trace.event("retry", n_iter=it0, attempt=int(attempt))
+    lost = os.environ.get("DPSVM_HOST_LOST", "").strip()
+    if lost.isdigit():
+        trace.event("host_lost", n_iter=it0, host_id=int(lost))
+    rf = os.environ.get("DPSVM_REFORM_FROM", "").strip()
+    rt = os.environ.get("DPSVM_REFORM_TO", "").strip()
+    if rf.isdigit() and rt.isdigit():
+        trace.event("reform", n_iter=it0, from_hosts=int(rf),
+                    to_hosts=int(rt))
     for event, extra in pending:
         trace.event(event, **extra)
     return trace
@@ -422,7 +516,7 @@ class _Watch:
                         window=window, severity=severity, bundle=path)
 
     def observe(self, trace, n_iter: int, b_lo: float, b_hi: float,
-                n_sv: int) -> None:
+                n_sv: int, shard_ages=None) -> None:
         """One watch sample a poll, from host-side facts only."""
         now = time.perf_counter()
         gap = b_lo - b_hi
@@ -430,6 +524,8 @@ class _Watch:
                   "gap": gap if math.isfinite(gap) else float("inf")}
         sample["compiles"], sample["compile_seconds"] = (
             self.metrics.compile_totals())
+        if shard_ages:
+            sample["heartbeat_age"] = float(max(shard_ages))
         if (self.peaks is not None and self.flops is not None
                 and self.prev is not None and now > self.prev[1]
                 and n_iter > self.prev[0]):
@@ -456,7 +552,9 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
                        poll_hook: Optional[Callable] = None,
                        it0: int = 0,
                        dims: Optional[Tuple[int, int]] = None,
-                       mesh=None) -> TrainResult:
+                       mesh=None,
+                       carry_from_ckpt: Optional[Callable] = None
+                       ) -> TrainResult:
     """Run chunks until convergence, ``max_iter`` or the wall budget.
 
     ``step_chunk(carry, limit) -> (carry, poll)`` enqueues the carry's
@@ -468,12 +566,15 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
     n_iter at the start (a run continued mid-way). ``dims`` is the
     problem's (n, d), which a checkpoint and the trace record. ``mesh``
     (a ``parallel.mesh.DataMesh``): a distributed run; see the module
-    docstring. The trace, exporters, watch and profiler follow the
-    config (module docstring): rank 0 alone traces, exports and watches
-    a distributed run."""
+    docstring. ``carry_from_ckpt(ckpt) -> carry`` restores the carry from
+    a checkpoint for the rollback policy (None: rollback degrades to
+    raise). The trace, exporters, watch and profiler follow the config
+    (module docstring): rank 0 alone traces, exports and watches a
+    distributed run."""
     eps = float(config.epsilon)
     shards = 1 if mesh is None else mesh.size
     pipeline = config.checkpoint_every == 0
+    chunk = int(config.chunk_iters)
     n, d = (0, 0) if dims is None else (int(dims[0]), int(dims[1]))
     device = _carry_device(carry)
     solver = SOLVER_NAMES.get(type(carry).__name__, type(carry).__name__)
@@ -489,6 +590,13 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
     EVENTS[:] = queued
     for event, extra in queued if trace is not None else ():
         trace.event(event, **extra)
+    monitor = HealthMonitor(policy=config.on_divergence,
+                            window=config.health_window)
+    # The elastic instruments of a distributed run: desync detection and
+    # heartbeats over the probe tail.
+    desync = elastic.DesyncDetector()
+    heartbeats = elastic.ShardHeartbeats(shards) if shards > 1 else None
+    faults = faultinject.current()
     session = (profilerlib.ProfileSession(config.profile_dir,
                                           solver=solver, device=device)
                if config.profile_dir and lead else None)
@@ -516,10 +624,12 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
     t0 = time.perf_counter()
     n_iter = prev = last_saved = int(it0)
     pending = None
+    # set-up is done: a fresh watchdog window for the first chunk
+    watchdog.pet()
 
     def snapshot() -> SolverCheckpoint:
         # the carry as the last poll left it: the loop dispatches in
-        # sequence while checkpoints are on
+        # sequence
         alpha, f = carry_to_host(carry)
         CHECKPOINTS["pulls"] += 1
         return SolverCheckpoint(
@@ -532,94 +642,231 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
             coef0=float(config.coef0), degree=int(config.degree),
             shards=shards, host_count=shards, host_id=0)
 
+    def incident(kind: str, reason: str) -> None:
+        # a tripped guard is an incident: the black box dumps before the
+        # policy acts, so a raise still leaves its bundle
+        if watch is not None:
+            watch.incident(trace, f"health-{kind}", "page",
+                           f"health_window={config.health_window}",
+                           reason, n_iter)
+
+    elastic.register_heartbeats(heartbeats)
     try:
-        while True:
-            limit = min(n_iter + config.chunk_iters, config.max_iter)
-            with timer.phase("dispatch"):
-                carry, poll = step_chunk(carry, limit)
-            with timer.phase("poll"):
-                st = settle(poll)
-            # Device facts for this poll, all host-side: the queued
-            # capture/build records land before the chunk they delayed,
-            # and the allocator watermark is a dictionary read.
-            drained = drain_compiles(trace, st.n_iter,
-                                     metrics=train_metrics)
-            if watch is not None:
-                watch.note_compiles(drained)
-            EVENTS.extend(drain_queued_events(trace))
-            hbm = (memory_snapshot(device)
-                   if trace is not None or exporting else None)
-            if session is not None:
-                session.note_poll()
-            if pending is not None:     # chosen one poll ago: runs from here
-                step_chunk, pending = pending, None
-            n_iter, b_lo, b_hi = st.n_iter, st.b_lo, st.b_hi
-            # Finite-aware: every NaN comparison is False, so a plain
-            # `not (b_lo > ...)` would call a NaN gap converged.
-            converged = _finite_converged(b_lo, b_hi, eps)
-            done = converged or n_iter >= config.max_iter
-            if not done and not (math.isfinite(b_lo)
-                                 and math.isfinite(b_hi)):
-                if trace is not None:
-                    trace.event("divergence", n_iter=n_iter,
-                                reason="non-finite optimality gap",
-                                action="raise")
-                raise DivergenceError(
-                    f"non-finite optimality gap at iter {n_iter} "
-                    f"(b_lo={b_lo}, b_hi={b_hi}): a NaN/Inf in the data "
-                    "or the solver state")
-            check_probe(st)
-            if not done and config.wall_budget_s:
-                over = time.perf_counter() - t0 > config.wall_budget_s
-                if mesh is not None:
-                    over = all_max(mesh, float(over)) > 0
-                done = over
-                if over and trace is not None:
-                    trace.event("wall_budget", n_iter=n_iter)
-            log_progress(config, n_iter, b_lo, b_hi, done, prev)
-            prev = n_iter
-            if trace is not None:
-                trace.chunk(n_iter=n_iter, b_lo=b_lo, b_hi=b_hi,
-                            n_sv=st.n_sv, cache_hits=st.cache_hits,
-                            cache_misses=st.cache_misses, rounds=st.rounds,
-                            phases=dict(timer.seconds),
-                            phase_counts=dict(timer.counts), hbm=hbm)
-            # Same values, second consumer: the live metric registry.
-            train_metrics.on_poll(
-                n_iter=n_iter, b_lo=b_lo, b_hi=b_hi, n_sv=st.n_sv,
-                cache_hits=st.cache_hits, cache_misses=st.cache_misses,
-                phases=timer.seconds, phase_counts=timer.counts, hbm=hbm)
-            if exporting and config.metrics_out:
-                metricslib.write_snapshot(train_metrics.registry,
-                                          config.metrics_out)
-            if watch is not None:
-                watch.observe(trace, n_iter, b_lo, b_hi, st.n_sv)
-            if poll_hook is not None and not done:
-                with timer.phase("hook"):
-                    replacement = poll_hook(n_iter, carry, st)
-                if replacement is not None:
-                    if pipeline:
-                        pending = replacement
-                    else:
-                        step_chunk = replacement
+        with preempt.trap():
+            while True:
+                limit = min(n_iter + chunk, config.max_iter)
+                with timer.phase("dispatch"):
+                    carry, poll = step_chunk(carry, limit)
+                with timer.phase("poll"):
+                    st = settle(poll)
+                if faults is not None:
+                    st = faults.poison_stats(st)
+                if faults is not None and faults.note_poll():
+                    preempt.simulate(signal.SIGTERM)
+                # Finite-aware: every NaN comparison is False, so a plain
+                # `not (b_lo > ...)` would call a NaN gap converged.
+                converged = _finite_converged(st.b_lo, st.b_hi, eps)
+                done = converged or st.n_iter >= config.max_iter
+                over = bool(not done and config.wall_budget_s
+                            and time.perf_counter() - t0
+                            > config.wall_budget_s)
+                signum = None if done else preempt.pending()
+                if config.debug_nans or (mesh is not None and not done):
+                    with timer.phase("agree"):
+                        finite, over, signum = _agree(
+                            carry, mesh, config.debug_nans, over, signum)
+                    if not finite:
+                        raise FloatingPointError(
+                            f"debug_nans: non-finite alpha or f after the "
+                            f"chunk over iterations [{n_iter}, {st.n_iter}]")
+                n_iter, b_lo, b_hi = st.n_iter, st.b_lo, st.b_hi
+                if faults is not None and shards > 1:
+                    # the kill-shard drill: raised on every rank at this
+                    # poll, with no snapshot, like a real loss
+                    lost = faults.dist_kill_now()
+                    if lost:
+                        if trace is not None:
+                            trace.event("shard_lost", n_iter=n_iter,
+                                        shard=lost - 1, shards=shards)
+                        raise elastic.ShardLostError(lost - 1, shards,
+                                                     n_iter)
+                if faults is not None and faults.host_kill_now():
+                    # the host-loss drill: a real death, no cleanup
+                    os.kill(os.getpid(), signal.SIGKILL)
+                hostgroup.note_poll_heartbeat(n_iter)
+                shard_ages = (heartbeats.note_poll(st.probe)
+                              if heartbeats is not None else None)
+                # Device facts for this poll, all host-side: the queued
+                # capture/build records land before the chunk they
+                # delayed, and the allocator watermark is a dictionary
+                # read.
+                drained = drain_compiles(trace, st.n_iter,
+                                         metrics=train_metrics)
+                if watch is not None:
+                    watch.note_compiles(drained)
+                EVENTS.extend(drain_queued_events(trace))
+                hbm = (memory_snapshot(device)
+                       if trace is not None or exporting else None)
+                if session is not None:
+                    session.note_poll()
+                if pending is not None:   # chosen one poll ago: runs now
+                    step_chunk, pending = pending, None
+                if over:
+                    done = True
                     if trace is not None:
-                        trace.event("program_swap", n_iter=n_iter)
-            t_save = time.perf_counter()
-            with timer.phase("checkpoint"):
-                if mesh is None:
-                    saved = maybe_checkpoint(config, last_saved, n_iter,
-                                             snapshot)
-                else:
-                    saved = dist_checkpoint(config, last_saved, n_iter,
-                                            snapshot, mesh.rank == 0)
-            if saved != last_saved:
-                CHECKPOINTS["saves"] += 1
-                CHECKPOINTS["seconds"] += time.perf_counter() - t_save
+                        trace.event("wall_budget", n_iter=n_iter)
+                if not done and signum is not None:
+                    # The preemption snapshot (a finished run ignores the
+                    # signal: its results are about to be written).
+                    if pipeline:
+                        # the JAX loop's in-flight chunk: run it and
+                        # snapshot the state after it
+                        limit = min(n_iter + chunk, config.max_iter)
+                        with timer.phase("dispatch"):
+                            carry, poll = step_chunk(carry, limit)
+                        with timer.phase("poll"):
+                            st = settle(poll)
+                        n_iter, b_lo, b_hi = st.n_iter, st.b_lo, st.b_hi
+                    saved_to = None
+                    if config.checkpoint_path:
+                        try:
+                            with timer.phase("checkpoint"):
+                                ck = snapshot()
+                                if lead:
+                                    save_checkpoint(
+                                        config.checkpoint_path, ck,
+                                        keep=config.checkpoint_keep)
+                            saved_to = config.checkpoint_path
+                        except (OSError, CheckpointError) as e:
+                            print(f"WARNING: preemption snapshot failed "
+                                  f"({e}); previous checkpoint kept",
+                                  file=sys.stderr, flush=True)
+                    log_progress(config, n_iter, b_lo, b_hi, True, prev)
+                    if trace is not None:
+                        trace.event("preempt", n_iter=n_iter,
+                                    signal=int(signum),
+                                    checkpoint=saved_to)
+                    raise preempt.PreemptedError(signum, n_iter, saved_to)
+                log_progress(config, n_iter, b_lo, b_hi, done, prev)
+                prev = n_iter
                 if trace is not None:
-                    trace.event("checkpoint", n_iter=n_iter)
-            last_saved = saved
-            if done:
-                break
+                    trace.chunk(n_iter=n_iter, b_lo=b_lo, b_hi=b_hi,
+                                n_sv=st.n_sv, cache_hits=st.cache_hits,
+                                cache_misses=st.cache_misses,
+                                rounds=st.rounds,
+                                phases=dict(timer.seconds),
+                                phase_counts=dict(timer.counts), hbm=hbm,
+                                **({"shard_ages": shard_ages}
+                                   if shard_ages is not None else {}))
+                # Same values, second consumer: the live metric registry.
+                train_metrics.on_poll(
+                    n_iter=n_iter, b_lo=b_lo, b_hi=b_hi, n_sv=st.n_sv,
+                    cache_hits=st.cache_hits, cache_misses=st.cache_misses,
+                    phases=timer.seconds, phase_counts=timer.counts,
+                    hbm=hbm, shard_ages=shard_ages)
+                if exporting and config.metrics_out:
+                    metricslib.write_snapshot(train_metrics.registry,
+                                              config.metrics_out)
+                if watch is not None:
+                    watch.observe(trace, n_iter, b_lo, b_hi, st.n_sv,
+                                  shard_ages)
+                # Divergence guards, before the checkpoint: a sick state
+                # never overwrites a good slot. A desynchronized mesh is
+                # a divergent run and takes the same policy.
+                reason = None if done else monitor.check(
+                    n_iter=n_iter, b_lo=b_lo, b_hi=b_hi, n_sv=st.n_sv)
+                kind = "divergence"
+                if reason is None and not done:
+                    reason = desync.check(st.probe)
+                    if reason is not None:
+                        kind = "desync"
+                if reason is not None:
+                    incident(kind, reason)
+                    policy = monitor.policy
+                    if policy == "rollback" and (
+                            carry_from_ckpt is None
+                            or not config.checkpoint_path
+                            or monitor.exhausted):
+                        why = ("rollback budget exhausted"
+                               if monitor.exhausted else
+                               "this solver path has no rollback hook"
+                               if carry_from_ckpt is None else
+                               "no checkpoint_path configured")
+                        print(f"WARNING: divergence policy 'rollback' "
+                              f"unavailable ({why}); raising",
+                              file=sys.stderr, flush=True)
+                        policy = "raise"
+                    extra = {"shards": shards} if kind == "desync" else {}
+                    if policy == "ignore":
+                        print(f"WARNING: {reason} at iter {n_iter} "
+                              "(on_divergence='ignore')",
+                              file=sys.stderr, flush=True)
+                        if trace is not None:
+                            trace.event(kind, n_iter=n_iter, reason=reason,
+                                        action="ignore", **extra)
+                    elif policy == "raise":
+                        if trace is not None:
+                            trace.event(kind, n_iter=n_iter, reason=reason,
+                                        action="raise", **extra)
+                        err = (DesyncError if kind == "desync"
+                               else DivergenceError)
+                        raise err(reason, n_iter)
+                    else:
+                        best, skipped = newest_intact_checkpoint(
+                            config.checkpoint_path)
+                        if best is None:
+                            raise DivergenceError(
+                                f"{reason}; rollback found no intact "
+                                f"checkpoint (skipped {skipped})", n_iter)
+                        if trace is not None and kind == "desync":
+                            trace.event(kind, n_iter=n_iter, reason=reason,
+                                        action="rollback", **extra)
+                        ck = load_checkpoint(best)
+                        ck.validate_against(n, d, config, gamma,
+                                            shards=shards)
+                        carry = carry_from_ckpt(ck)
+                        chunk = max(chunk // 2, 1)
+                        monitor.note_rollback(ck.n_iter)
+                        desync.reset()      # the restored state re-earns
+                        print(f"WARNING: {reason} at iter {n_iter}; "
+                              f"rolled back to {best} (iter "
+                              f"{ck.n_iter}), chunk_iters now {chunk}",
+                              file=sys.stderr, flush=True)
+                        if trace is not None:
+                            trace.event("rollback", n_iter=ck.n_iter,
+                                        reason=reason, checkpoint=best,
+                                        skipped=skipped, chunk_iters=chunk)
+                        n_iter = prev = last_saved = int(ck.n_iter)
+                        # the next dispatch runs the restored carry; a
+                        # pipelined loop's sick in-flight chunk is never
+                        # run here
+                        continue
+                if poll_hook is not None and not done:
+                    with timer.phase("hook"):
+                        replacement = poll_hook(n_iter, carry, st)
+                    if replacement is not None:
+                        if pipeline:
+                            pending = replacement
+                        else:
+                            step_chunk = replacement
+                        if trace is not None:
+                            trace.event("program_swap", n_iter=n_iter)
+                t_save = time.perf_counter()
+                with timer.phase("checkpoint"):
+                    if mesh is None:
+                        saved = maybe_checkpoint(config, last_saved, n_iter,
+                                                 snapshot)
+                    else:
+                        saved = dist_checkpoint(config, last_saved, n_iter,
+                                                snapshot, mesh.rank == 0)
+                if saved != last_saved:
+                    CHECKPOINTS["saves"] += 1
+                    CHECKPOINTS["seconds"] += time.perf_counter() - t_save
+                    if trace is not None:
+                        trace.event("checkpoint", n_iter=n_iter)
+                last_saved = saved
+                if done:
+                    break
         alpha, _ = carry_to_host(carry)
         alpha = np.array(alpha, np.float32, copy=True)
         result = TrainResult(
@@ -656,6 +903,7 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
         # leak into the next run's trace.
         if watch is not None:
             watch.close()
+        elastic.register_heartbeats(None)
         live = trace if trace is not None and not trace.closed else None
         drain_compiles(live, metrics=train_metrics)
         EVENTS.extend(drain_queued_events(live))

@@ -81,6 +81,7 @@ from dpsvm_tpu_torch.solver import smo
 from dpsvm_tpu_torch.solver.decomp import (DecompCarry, DecompProblem,
                                            DecompWorkspace, make_runner)
 from dpsvm_tpu_torch.observability.device import memory_snapshot
+from dpsvm_tpu_torch.utils import watchdog
 from dpsvm_tpu_torch.solver.driver import (DivergenceError, begin_trace,
                                            check_probe, drain_compiles,
                                            gap_open, log_progress, settle,
@@ -449,6 +450,8 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
         RUN["capacities"].append(int(cap))
         out = path.make(idx, cap, alpha, f, it, b_hi, b_lo, rounds)
         RUN["seconds"]["rebuild"] += time.perf_counter() - t
+        # a new active size may capture a new graph: a fresh stall window
+        watchdog.pet()
         return out
 
     def pulled():
@@ -466,6 +469,8 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
                          env=trace_env(device))
              if config.trace_out and (mesh is None or mesh.rank == 0)
              else None)
+    # set-up is done: a fresh stall window for the first chunk
+    watchdog.pet()
     try:
         active = np.arange(n)
         step, pull = make_active(active, 0, -SENTINEL, SENTINEL, 0)
@@ -478,9 +483,9 @@ def train_shrinking(x: np.ndarray, y: np.ndarray, config: SVMConfig,
             it, b_lo, b_hi = st.n_iter, st.b_lo, st.b_hi
             if not (math.isfinite(b_lo) and math.isfinite(b_hi)):
                 raise DivergenceError(
-                    f"non-finite optimality gap at iter {it} "
-                    f"(b_lo={b_lo}, b_hi={b_hi}): a NaN/Inf in the data "
-                    "or the solver state")
+                    f"non-finite optimality gap (b_lo={b_lo}, "
+                    f"b_hi={b_hi}): a NaN/Inf in the data or the solver "
+                    "state", it)
             sub_converged = not gap_open(b_lo, b_hi, 2.0 * eps)
             capped = it >= config.max_iter
             if not capped and config.wall_budget_s:

@@ -89,7 +89,7 @@ from dpsvm_tpu_torch.ops.selection import (box_sides, extrema_of,
                                            rowwise_extrema, sided_scores,
                                            valid_rows)
 from dpsvm_tpu_torch.ops.update import alpha_pair_step
-from dpsvm_tpu_torch.solver.driver import (ChunkStats, Poll,
+from dpsvm_tpu_torch.solver.driver import (ChunkStats, Poll, copy_carry_,
                                            device_sv_count,
                                            host_training_loop, pack_stats,
                                            read_stats, resume_state)
@@ -516,7 +516,21 @@ def make_chunk_runner(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
             return st
         return cr, Poll(poll)
 
+    step.state = state      # the last poll's n_iter (a rollback resets it)
     return step
+
+
+def rollback_hook(carry, step, fresh: Callable):
+    """``carry_from_ckpt`` of a runner from ``make_chunk_runner`` (or the
+    distributed one): ``fresh(ck)`` builds a carry from the checkpoint,
+    whose tensors are copied into ``carry``'s (the captured graph keeps
+    its buffers), and the runner restarts from the checkpoint's n_iter.
+    The row cache starts cold, as in the JAX package."""
+    def carry_from_ckpt(ck):
+        copy_carry_(carry, fresh(ck))
+        step.state["n_iter"] = int(ck.n_iter)
+        return carry
+    return carry_from_ckpt
 
 
 def two_eps_f32(epsilon: float) -> float:
@@ -559,10 +573,13 @@ def train_single_device(x: np.ndarray, y: np.ndarray, config: SVMConfig,
                                                 device=device))
     step = make_chunk_runner(carry, prob, SMOOptions.from_config(
         config, guard_eta, nu_selection), two_eps_f32(config.epsilon), plain)
+    hook = rollback_hook(carry, step, lambda ck: init_carry(
+        prob.y, ck.f, ck.alpha, b_hi=ck.b_hi, b_lo=ck.b_lo,
+        n_iter=ck.n_iter, cache_lines=lines))
     res = host_training_loop(
         config, float(prob.spec.gamma), carry, step,
         lambda cr: (cr.alpha.cpu().numpy(), cr.f.cpu().numpy()),
-        it0=int(carry.n_iter), dims=x.shape)
+        it0=int(carry.n_iter), dims=x.shape, carry_from_ckpt=hook)
     if lines:
         hits, misses = step.last.runs
         res = dataclasses.replace(res, cache_hits=hits, cache_misses=misses)

@@ -48,6 +48,8 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from dpsvm_tpu_torch.resilience import faultinject
+
 # LIBSVM -t order; index = the integer stored in the checkpoint scalars.
 _KERNEL_T = ("linear", "poly", "rbf", "sigmoid", "precomputed")
 
@@ -237,6 +239,10 @@ def save_checkpoint(path: str, ckpt: SolverCheckpoint,
                      crc32=np.asarray([_crc32(alpha, f, scalars)],
                                       np.uint32),
                      mesh=mesh, shard_crc=_shard_crcs(alpha, f, shards))
+        # The injected write failure fires here, after the tmp write and
+        # before the rename, so it exercises the tmp cleanup and the
+        # old file staying intact (resilience/faultinject.py).
+        faultinject.on_checkpoint_write(path)
         _rotate(path, keep)
         os.replace(tmp, path)
     except BaseException:

@@ -1355,6 +1355,28 @@ def test_two_gloo_ranks_share_the_card(dev, nccl_world):
     np.testing.assert_allclose(r["alpha"], one.alpha, rtol=1e-4, atol=1e-4)
 
 
+def test_a_gloo_world_on_the_card_trains_on_its_default_group(
+        dev, nccl_world):
+    """``launch_local(backend="gloo")`` on the card: two CUDA ranks share
+    cuda:0 in a gloo world and train on its default group with no group
+    or device given (what ``train --dist-backend gloo`` does), against the
+    world of one over NCCL: the same n_iter, alpha within 1e-4."""
+    from torch_elastic_ranks import card_rank
+    from dpsvm_tpu_torch.parallel.dist_smo import train_distributed
+    from dpsvm_tpu_torch.parallel.multihost import launch_local
+    x, y = make_planted(1500, 64, 0.25, seed=5)
+    cfg = dict(c=10.0, gamma=0.25)
+    one = train_distributed(x, y, SVMConfig(**cfg), group=nccl_world)
+    outs = launch_local(2, card_rank, (x, y, cfg), device="cuda",
+                        backend="gloo", run_timeout_s=300)
+    assert [o["device"] for o in outs] == ["cuda:0", "cuda:0"]
+    assert all(o["converged"] for o in outs)
+    assert outs[0]["n_iter"] == outs[1]["n_iter"] == one.n_iter
+    np.testing.assert_array_equal(outs[0]["alpha"], outs[1]["alpha"])
+    np.testing.assert_allclose(outs[0]["alpha"], one.alpha, rtol=1e-4,
+                               atol=1e-4)
+
+
 # --- the approx solvers and the cascade ---------------------------------
 
 def _approx_problem(n, d=16, kind="rff", task="svc", seed=3):
@@ -1965,3 +1987,94 @@ def test_a_capture_is_recorded_once_per_graph_chunk(dev, tmp_path):
     assert gsmo.COUNTS["captures"] - caps == 2
     assert [r["program"] for r in recs] == ["smo-chunk"] * 2
     assert all(r["seconds"] > 0 and "300" in r["signature"] for r in recs)
+
+
+# --------------------------------------------------------------------
+# training resilience on the card: rollback into captured graphs and
+# kernel A's carry, preemption, debug_nans, the doctor
+
+@pytest.mark.parametrize("kw", [{}, dict(selection="second-order"),
+                                dict(working_set=64, inner_iters=16)],
+                         ids=["fused", "general", "decomp"])
+def test_rollback_on_the_card_lands_bitwise(dev, tmp_path, kw):
+    """A poisoned poll under rollback restores the checkpoint into the
+    path's device state (kernel A's carry, the general pair's captured
+    graph buffers, the decomposition's carry) and the run ends bitwise
+    on its own uninterrupted run (for the decomposition: the prefix
+    resumed from the restored state at the halved chunk)."""
+    from dpsvm_tpu_torch.observability.report import read_trace
+    from dpsvm_tpu_torch.resilience import faultinject
+    x, y = make_blobs(n=600, d=16, seed=4)
+    base = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-12, max_iter=1024,
+                     chunk_iters=128, **kw)
+    trace = str(tmp_path / "t.jsonl")
+    faultinject.install(faultinject.FaultPlan(nan_at_iter=300))
+    try:
+        rolled = train(x, y, dataclasses.replace(
+            base, checkpoint_path=str(tmp_path / "s.npz"),
+            checkpoint_every=128, on_divergence="rollback",
+            trace_out=trace))
+    finally:
+        faultinject.clear()
+    rb = [r for r in read_trace(trace) if r.get("event") == "rollback"]
+    assert [(r["n_iter"], r["chunk_iters"]) for r in rb] == [(256, 64)]
+    if "working_set" in kw:
+        pre = str(tmp_path / "pre.npz")
+        train(x, y, dataclasses.replace(base, max_iter=256,
+                                        checkpoint_path=pre,
+                                        checkpoint_every=256))
+        ref = train(x, y, dataclasses.replace(base, chunk_iters=64,
+                                              resume_from=pre))
+    else:
+        ref = train(x, y, base)
+    assert rolled.n_iter == ref.n_iter
+    assert rolled.b == ref.b
+    np.testing.assert_array_equal(rolled.alpha, ref.alpha)
+
+
+def test_preempted_kernel_a_run_resumes_bitwise_on_the_card(dev, tmp_path):
+    from dpsvm_tpu_torch.resilience import faultinject
+    from dpsvm_tpu_torch.resilience.supervisor import run_with_retries
+    x, y = make_blobs(n=600, d=16, seed=4)
+    base = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-12, max_iter=1024,
+                     chunk_iters=128)
+    ck = str(tmp_path / "s.npz")
+    faultinject.install(faultinject.FaultPlan(preempt_at_poll=3))
+    fs.reset_counts()
+    try:
+        got = run_with_retries(
+            lambda resume, k: train(x, y, dataclasses.replace(
+                base, checkpoint_path=ck, checkpoint_every=128,
+                resume_from=resume)),
+            retries=1, backoff_s=0.0, checkpoint_path=ck)
+    finally:
+        faultinject.clear()
+    assert fs.RUNS["fused_update_select"] == 1024
+    ref = train(x, y, base)
+    assert got.n_iter == ref.n_iter == 1024
+    np.testing.assert_array_equal(got.alpha, ref.alpha)
+
+
+def test_debug_nans_on_the_card(dev):
+    from dpsvm_tpu_torch.solver import driver
+    x, y = make_blobs(n=600, d=16, seed=4)
+    cfg = SVMConfig(c=C, gamma=GAMMA, epsilon=1e-12, max_iter=512,
+                    chunk_iters=128)
+    bare = train(x, y, cfg)
+    f0 = driver.READS["finite"]
+    clean = train(x, y, dataclasses.replace(cfg, debug_nans=True))
+    assert driver.READS["finite"] - f0 == 4
+    np.testing.assert_array_equal(clean.alpha, bare.alpha)
+    bad = x.copy()
+    bad[5, 3] = np.nan
+    with pytest.raises(FloatingPointError, match=r"\[0, "):
+        train(bad, y, dataclasses.replace(cfg, debug_nans=True))
+
+
+def test_doctor_on_the_card(dev, tmp_path):
+    from dpsvm_tpu_torch.resilience import doctor
+    lines = []
+    assert doctor.run_doctor(out=lines.append) == 0
+    assert torch.cuda.get_device_name(0) in lines[0]
+    coll = next(ln for ln in lines if ln.startswith("collective:"))
+    assert "OK" in coll and coll.endswith(" ms")

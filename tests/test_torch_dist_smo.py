@@ -40,8 +40,8 @@ from dpsvm_tpu.config import SVMConfig as JConfig
 from dpsvm_tpu.data.synthetic import make_blobs, make_planted, make_xor
 from dpsvm_tpu.solver.oracle import smo_reference
 from dpsvm_tpu_torch import SVMConfig, train
-from dpsvm_tpu_torch.solver.driver import (ChunkStats, MeshDesyncError,
-                                           check_probe)
+from dpsvm_tpu_torch.resilience.health import DesyncError
+from dpsvm_tpu_torch.solver.driver import ChunkStats, check_probe
 
 BLOBS = make_blobs(n=96, d=6, seed=3)
 ODD = make_blobs(n=101, d=5, seed=7)
@@ -388,7 +388,10 @@ def test_no_group_raises_naming_the_launchers():
 
 
 def test_probe_rows_that_disagree_raise():
+    # ranks at one iteration whose gap bits differ are a desync; a rank
+    # behind the others is lag, which the heartbeats report instead
     st = ChunkStats(10, 1.0, 0.0, 3, 0, (), ((10, 1, 2), (10, 1, 2)))
     check_probe(st)
-    with pytest.raises(MeshDesyncError, match="disagree"):
-        check_probe(st._replace(probe=((10, 1, 2), (9, 1, 2))))
+    check_probe(st._replace(probe=((10, 1, 2), (9, 1, 2))))
+    with pytest.raises(DesyncError, match="disagree"):
+        check_probe(st._replace(probe=((10, 1, 2), (10, 1, 3))))

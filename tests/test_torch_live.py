@@ -261,13 +261,24 @@ def test_live_and_serve_knobs_parse_from_env(monkeypatch):
 
 def test_admission_across_hosts_raises_naming_its_item(tmp_path,
                                                        monkeypatch):
-    from dpsvm_tpu_torch.parallel import multihost
+    # Admission across hosts is the host group's barrier (ROADMAP item
+    # 13b, ported): a host commits only the generation every member of
+    # its group has published, so an append waits for the peer.
+    from dpsvm_tpu_torch.resilience import hostgroup
     _x, _y, ldir = _make_log(tmp_path)
-    w = tlive.ShardLogWatcher(tstream.ShardedDataset.open(ldir))
+    ds = tstream.ShardedDataset.open(ldir)
+    w = tlive.ShardLogWatcher(ds)
+    gen0 = ds.generation
     tlive.append_shard(ldir, *_blob_rows(64, 4, 51))
-    monkeypatch.setattr(multihost, "host_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        w.poll()
+    hb = str(tmp_path / "hb")
+    monkeypatch.setenv(hostgroup.ENV_HEARTBEAT_DIR, hb)
+    monkeypatch.setenv(hostgroup.ENV_HOST_ID, "0")
+    monkeypatch.setenv(hostgroup.ENV_HOST_COUNT, "2")
+    monkeypatch.setattr(hostgroup, "_STATE",
+                        {"n_iter": 0, "generation": 0, "seq": 0})
+    assert w.poll() == [] and ds.generation == gen0   # peer 1 silent
+    hostgroup.write_heartbeat(hb, 1, n_iter=0, generation=gen0 + 1)
+    assert len(w.poll()) == 1 and ds.generation == gen0 + 1
 
 
 def test_sigkilled_writer_process_never_regresses_the_watcher(tmp_path):
