@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only stack          # build + the serving stack
     python3 chip_smoke.py --only observe        # build + observability
     python3 chip_smoke.py --only resilience     # build + training resilience
+    python3 chip_smoke.py --only tune           # build + the tuning layer
 
 Host text that only checks a file format (the model files of phases 3, 5
 and 9, phase 8's one-vs-one directory) is written and read back by
@@ -321,7 +322,28 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    collective's ms, and exit 6 with its one slot bit-flipped. The checks
    run one after another. The stall watchdog is armed for the whole
    script (STALL_TIMEOUT_S);
-18. time each kernel on its path (kernel A: CUDA events over a chunk of
+18. the tuning layer (``tune``: ``tuning/``, the CLI's ``train`` and
+   ``doctor``), each check's seconds printed with a timestamp: (a) a
+   bounded tune run on cuda:0 over planted TUNE_N x TUNE_D (gamma =
+   1/TUNE_D, C = 10, epsilon = 1e-5): TUNE_GRIDS, TUNE_PROBE_ITERS at the
+   first of TUNE_RUNGS rungs, a TUNE_DEADLINE_S deadline, its profile and
+   perf ledger in the scratch directory; rc 0, a valid entry keyed by the
+   card's name, probe rows with traces, every train probe's subtracted
+   seconds its captures and builds only, kernel A's launches and runs at
+   least the chunk_iters probes' iterations; each knob's final-rung
+   rates, its verdict, the A/B speedup and the compare gate printed; (b)
+   ``train --device cuda`` on a small CSV under that profile prints
+   ``tuned profile:`` exactly when the entry has train knobs, and under a
+   planted entry for the card exactly when no knob flag, ``--no-tuned``
+   or ``DPSVM_NO_TUNED=1`` stands in the way; an entry keyed ``cpu`` never
+   applies; (c) kernel A's fit at the tuned chunk_iters (128 and 2048
+   when the default stands) bitwise its fit at 512 (n_iter, alpha, b),
+   and on the first TUNE_BAR_N rows the fit at the tuned cache_size
+   (256 when the default stands) within the between-paths bar of the
+   fit at 512 (n_sv within 2%, held-out accuracy within 0.5%); (d)
+   ``doctor --device cuda`` prints the entry's
+   ``tuned:`` lines;
+19. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
@@ -408,6 +430,21 @@ OBS_WSS2_ITERS = 512
 # chunk) and the decomposition's rounds.
 RES_PREFIX, RES_CHUNK = 6000, 1000
 RES_DECOMP_ROUNDS = 20
+# Phase 18 (tune): the tune CLI's default planted problem (TUNE_HELD more
+# rows held out for (c)'s accuracy), a bounded grid a knob, the budget of
+# the first of TUNE_RUNGS rungs (each later rung doubles it) and the
+# run's deadline; (b)'s CSV rows; (c)'s cache lines when the default
+# stands, the rows of its between-paths bar (the first TUNE_BAR_N, cut
+# from TUNE_N for card time, PERF.md §4: the general pair's run to
+# convergence took 8.9 s of the phase's 22.5 s) and the bar.
+TUNE_N, TUNE_D, TUNE_HELD = 8192, 64, 2000
+TUNE_BAR_N = 4096
+TUNE_GRIDS = {"chunk_iters": (128, 512, 2048), "cache_lines": (0, 256),
+              "serve_max_batch": (128, 256)}
+TUNE_PROBE_ITERS, TUNE_RUNGS, TUNE_DEADLINE_S = 2000, 2, 60.0
+TUNE_CSV_ROWS = 512
+TUNE_CACHE_LINES = 256
+TUNE_NSV_RTOL, TUNE_ACC_TOL = 0.02, 0.005
 # The stall watchdog's patience: a phase whose device stops answering
 # for this long exits 124 (the phases pet it at every poll and start).
 STALL_TIMEOUT_S = 600.0
@@ -428,7 +465,7 @@ RESUME_DECOMP_K = 10 * DECOMP_CAP
 LIBSVM_ROWS = 10_000
 # Multi-class: MC_K planted classes at MNIST's width, the first MC_N of
 # MNIST's 60000 training rows to train (cut from 60000 for card time,
-# PERF.md §4; the batched graph against its eager loop and phase 18's
+# PERF.md §4; the batched graph against its eager loop and phase 19's
 # batched step keep all N) and 10000 held out; the C x gamma grid, its
 # prefix and the smaller problem it converges on; CV (on 12000 rows: cut
 # from 20000 for card time, PERF.md §4); the row cache's lines (the
@@ -580,7 +617,9 @@ STACK_IDLE_CONNS = 1000
 STACK_FAIR_WORKERS, STACK_FAIR_ROWS, STACK_FAIR_SLOW_MS = 32, 8, 160
 STACK_FAIR_INFLIGHT, STACK_FAIR_WARM_S, STACK_FAIR_S = 128, 1.0, 3.0
 STACK_SAT_START, STACK_SAT_STEPS, STACK_SAT_P99_MS = 25.0, 8, 50.0
-STACK_SAT_STEP_REQS = 40
+# run_saturate's own 100 requests a step: of 40, numpy's p99 is 61% the
+# slowest request, so one host stall decided a step
+STACK_SAT_STEP_REQS = 100
 STACK_SHED_QUEUE, STACK_SHED_SLOW_MS = 256, 50
 STACK_DRILL_ROWS, STACK_DRILL_SEED, STACK_DRILL_SHIFTED = 4096, 4, 2
 STACK_DRILL_STEPS = 60
@@ -893,6 +932,9 @@ class Smoke:
         # phase 10 (c)'s ranks: run beside phase 12 when it follows
         self._gloo = None
         self.gloo_beside_stream = False
+        # phase 18 (a)'s profile file and entry, which (b)-(d) read
+        self._tune_out = None
+        self._tune_entry = {}
 
     def fail(self, phase: str, msg: str) -> None:
         self.failures.append(f"{phase}: {msg}")
@@ -2419,7 +2461,7 @@ class Smoke:
         pick another class even where it wins every pair; the JAX CLI
         notes ~1% of rows.) Last, the batched graph against its eager
         loop, bitwise, for GRAPH_CHECK_ITERS steps at MNIST's training shape
-        (all N rows, as phase 18 times a step)."""
+        (all N rows, as phase 19 times a step)."""
         from dpsvm_tpu_torch import SVMConfig
         from dpsvm_tpu_torch.models import multiclass as mc
         from dpsvm_tpu_torch.models.svm import decision_function
@@ -5615,7 +5657,15 @@ class Smoke:
             f"max_iter={STACK_DRILL_STEPS}, holdout={STACK_DRILL_ROWS}, "
             f"trace_path={drill['trace']!r}, ledger_path="
             f"{os.path.join(self.scratch, 'drill_ledger.jsonl')!r})\n"
-            "print(json.dumps(row), flush=True)\n")
+            "print(json.dumps(row), flush=True)\n"
+            # The row, the trace and the ledger line are written and
+            # closed by now. The process then skips the interpreter's
+            # native teardown: on the card it once aborted there
+            # (std::terminate, rc -6) after a good row, and what the
+            # phase checks is the drill, not torch's exit.
+            "import os, sys\n"
+            "sys.stdout.flush()\n"
+            "os._exit(0)\n")
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             p for p in (root, os.environ.get("PYTHONPATH")) if p))
         with open(drill["out"], "w") as out:
@@ -6427,6 +6477,266 @@ class Smoke:
             self.fail("resilience", f"(g) {r}; lines {lines}; {bad}")
         return r
 
+    # ------------------------------------------------------------ phase 18
+    def tune(self) -> None:
+        """The tuning layer on the card (module docstring, phase 18): (a) a
+        bounded tune run, (b) its resolution through ``train``, (c) the
+        model bar at the tuned knobs, (d) ``doctor``'s tuned lines. The
+        profile and the perf ledger live in the scratch directory, and the
+        environment is restored after, so no later phase resolves a tuned
+        knob."""
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        tmp = os.path.join(self.scratch, "tune")
+        os.makedirs(tmp, exist_ok=True)
+        rec = self.rec["tune"] = {"seconds": {}}
+        x, y = make_planted(TUNE_N + TUNE_HELD, TUNE_D, 1.0 / TUNE_D, seed=0)
+        data = (x[:TUNE_N], y[:TUNE_N], x[TUNE_N:], y[TUNE_N:])
+        keys = ("DPSVM_PERF_LEDGER", "DPSVM_TUNED_PROFILE", "DPSVM_NO_TUNED")
+        saved = {k: os.environ.pop(k, None) for k in keys}
+        try:
+            for tag, fn in (("a", self.tune_run),
+                            ("b", self.tune_resolution),
+                            ("c", self.tune_model_bar),
+                            ("d", self.tune_doctor)):
+                t = time.perf_counter()
+                try:
+                    rec[tag] = fn(tmp, data)
+                finally:
+                    rec["seconds"][tag] = round(time.perf_counter() - t, 3)
+                    self._tune_log(
+                        f"({tag}) {rec['seconds'][tag]:.1f} s: "
+                        f"{json.dumps(rec.get(tag), default=str)}")
+        finally:
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+
+    @staticmethod
+    def _tune_log(msg: str) -> None:
+        log(f"[tune] {time.strftime('%H:%M:%S')} {msg}")
+
+    def tune_run(self, tmp: str, data) -> dict:
+        """(a) ``run_tune`` on cuda:0 over TUNE_GRIDS, its kernel-A counts
+        read around it."""
+        from dpsvm_tpu_torch import SVMConfig
+        from dpsvm_tpu_torch.observability import ledger
+        from dpsvm_tpu_torch.observability.schema import read_trace
+        from dpsvm_tpu_torch.tuning import profile as prof
+        from dpsvm_tpu_torch.tuning import tuner
+        xtr, ytr, _, _ = data
+        out = self._tune_out = os.path.join(tmp, "tuned_profile.json")
+        ledger_path = os.path.join(tmp, "ledger.jsonl")
+        os.environ["DPSVM_PERF_LEDGER"] = ledger_path
+        cfg = SVMConfig(c=C, gamma=1.0 / TUNE_D, epsilon=1e-5,
+                        max_iter=10_000_000)
+        (entry, rc), counts = self.counted(lambda: tuner.run_tune(
+            xtr, ytr, base_config=cfg, knobs=tuple(TUNE_GRIDS),
+            grids=TUNE_GRIDS, probe_iters=TUNE_PROBE_ITERS,
+            rungs=TUNE_RUNGS, deadline_s=TUNE_DEADLINE_S, profile_out=out,
+            trace_dir=os.path.join(tmp, "traces"), device="cuda:0",
+            log=self._tune_log))
+        self._add_a_counts(counts)
+        self._tune_entry = entry
+        name = self.torch.cuda.get_device_name(0)
+        probes = entry.get("probes", [])
+        train_rows = [p for p in probes if p["case"] in (
+            "tune_probe_chunk_iters", "tune_probe_cache_lines")]
+        setup = {}
+        setup_ok = bool(train_rows)
+        for p in train_rows:
+            m = p["metrics"]
+            recs = [r for r in read_trace(p["trace"])
+                    if r["kind"] == "compile"]
+            want = sum(r["seconds"] for r in recs
+                       if tuner.is_setup_program(r["program"]))
+            work = {r["program"] for r in recs
+                    if not tuner.is_setup_program(r["program"])}
+            setup[f"{m['knob']}={m['candidate']}/r{m['rung']}"] = {
+                "subtracted_s": m["compile_seconds"],
+                "programs": [r["program"] for r in recs]}
+            if abs(m["compile_seconds"] - want) > 1e-4 or not work <= {
+                    "fused-chunk"}:
+                setup_ok = False
+        chunk_iters = sum(p["metrics"]["n_iter"] for p in probes
+                          if p["case"] == "tune_probe_chunk_iters")
+        final: dict = {}
+        for p in probes:
+            m = p.get("metrics") or {}
+            if (p["case"].startswith("tune_probe_")
+                    and m.get("rung") == TUNE_RUNGS - 1):
+                final.setdefault(m["knob"], {})[m["candidate"]] = (
+                    p["value"], p["unit"])
+        rows = ledger.read(ledger_path) if os.path.exists(ledger_path) else []
+        win = entry.get("win")
+        r = {"rc": rc, "device_kind": entry.get("device_kind"),
+             "knobs": entry.get("knobs"), "final_rung_rates": final,
+             "unfinished": sorted(set(TUNE_GRIDS) - set(final)),
+             "win": None if win is None else {
+                 k: win.get(k) for k in ("speedup", "default_rate",
+                                         "tuned_rate", "budget_iters",
+                                         "compare_ok",
+                                         "compare_regressions",
+                                         "rejected")},
+             "probes": len(probes), "ledger_rows": len(rows),
+             "chunk_probe_iters": chunk_iters,
+             "A_launches": counts["A_launches"], "A_runs": counts["A_runs"],
+             "setup": setup}
+        ok = (rc == 0 and prof.validate_entry(entry) == []
+              and entry["device_kind"] == name
+              and set(prof.load_profiles(out)) == {name}
+              and all(p.get("trace") and os.path.exists(p["trace"])
+                      for p in train_rows)
+              and setup_ok and "chunk_iters" in final
+              and counts["A_launches"] >= chunk_iters > 0
+              and counts["A_runs"] >= chunk_iters
+              and len(rows) >= len(probes))
+        if not ok:
+            self.fail("tune", f"(a) {json.dumps(r, default=str)}")
+        return r
+
+    def tune_resolution(self, tmp: str, data) -> dict:
+        """(b) ``train --device cuda`` in this process under (a)'s profile
+        and under planted ones: which runs print ``tuned profile:``."""
+        import contextlib
+        import io
+        from dpsvm_tpu_torch.cli import main as cli_main
+        from dpsvm_tpu_torch.data.synthetic import save_csv
+        from dpsvm_tpu_torch.tuning import profile as prof
+        xtr, ytr, _, _ = data
+        csv = os.path.join(tmp, "small.csv")
+        save_csv(csv, xtr[:TUNE_CSV_ROWS], ytr[:TUNE_CSV_ROWS])
+        model = os.path.join(tmp, "small.svm")
+        name = self.torch.cuda.get_device_name(0)
+        planted = prof.save_entry(prof.make_entry(name, {"chunk_iters": 2048}),
+                                  os.path.join(tmp, "planted.json"))
+        cpu_only = prof.save_entry(
+            prof.make_entry("cpu", {"chunk_iters": 2048}),
+            os.path.join(tmp, "cpu_only.json"))
+
+        def line(profile, *flags, no_tuned_env=False):
+            os.environ["DPSVM_TUNED_PROFILE"] = profile
+            os.environ.pop("DPSVM_NO_TUNED", None)
+            if no_tuned_env:
+                os.environ["DPSVM_NO_TUNED"] = "1"
+            err, out = io.StringIO(), io.StringIO()
+            try:
+                with contextlib.redirect_stderr(err), \
+                        contextlib.redirect_stdout(out):
+                    rc = cli_main(["train", "-f", csv, "-m", model, "-c",
+                                   "10", "-e", "1e-5", "--device", "cuda",
+                                   *flags])
+            finally:
+                os.environ.pop("DPSVM_NO_TUNED", None)
+            got = [ln for ln in err.getvalue().splitlines()
+                   if ln.startswith("tuned profile:")]
+            return rc, got[0] if got else None
+
+        knobs = self._tune_entry.get("knobs", {})
+        train_knobs = {prof.TRAIN_KNOBS[k]: v for k, v in knobs.items()
+                       if k in prof.TRAIN_KNOBS}
+        want = ("tuned profile: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(train_knobs.items()))
+            + " (--no-tuned for built-in defaults)") if train_knobs else None
+        r = {"tuned": line(self._tune_out),
+             "tuned_chunk_512": line(self._tune_out, "--chunk-iters", "512"),
+             "tuned_no_tuned": line(self._tune_out, "--no-tuned"),
+             "planted": line(planted),
+             "planted_chunk_512": line(planted, "--chunk-iters", "512"),
+             "planted_no_tuned": line(planted, "--no-tuned"),
+             "planted_env_no_tuned": line(planted, no_tuned_env=True),
+             "cpu_only": line(cpu_only)}
+        ok = (all(rc == 0 for rc, _ in r.values())
+              and r["tuned"][1] == want
+              and "chunk_iters=" not in (r["tuned_chunk_512"][1] or "")
+              and r["planted"][1] == ("tuned profile: chunk_iters=2048 "
+                                      "(--no-tuned for built-in defaults)")
+              and all(r[k][1] is None for k in (
+                  "tuned_no_tuned", "planted_chunk_512", "planted_no_tuned",
+                  "planted_env_no_tuned", "cpu_only")))
+        if not ok:
+            self.fail("tune", f"(b) want {want!r}; {r}")
+        return r
+
+    def tune_model_bar(self, tmp: str, data) -> dict:
+        """(c) kernel A's fit at the tuned chunk_iters (128 and 2048 when
+        the default stands) bitwise its fit at 512; on the first
+        TUNE_BAR_N rows, the fit at the tuned cache_size (TUNE_CACHE_LINES
+        when the default stands) within the between-paths bar of the fit
+        at 512."""
+        from dpsvm_tpu_torch import SVMConfig, fit
+        from dpsvm_tpu_torch.models.svm import evaluate
+        xtr, ytr, xte, yte = data
+        knobs = self._tune_entry.get("knobs", {})
+        cis = ([knobs["chunk_iters"]] if "chunk_iters" in knobs
+               else [128, 2048])
+        lines = int(knobs.get("cache_lines", TUNE_CACHE_LINES))
+        base = SVMConfig(c=C, gamma=1.0 / TUNE_D, epsilon=1e-5,
+                         max_iter=10_000_000)
+
+        def one(n=TUNE_N, **kw):
+            (model, res), counts = self.counted(lambda: fit(
+                xtr[:n], ytr[:n], dataclasses.replace(base, **kw)))
+            self._add_a_counts(counts)
+            return model, res, counts
+
+        _, r512, c512 = one(chunk_iters=512)
+        ref = (r512.n_iter, r512.b, r512.alpha.tobytes())
+        bitwise, a_runs_ok = {}, c512["A_runs"] == r512.n_iter
+        for ci in cis:
+            _, res, counts = one(chunk_iters=ci)
+            bitwise[ci] = (res.n_iter, res.b, res.alpha.tobytes()) == ref
+            a_runs_ok = a_runs_ok and counts["A_runs"] == res.n_iter
+        mf, rf, cf = one(TUNE_BAR_N, chunk_iters=512)
+        mc, rcache, ccache = one(TUNE_BAR_N, cache_size=lines)
+        acc_f, acc_c = evaluate(mf, xte, yte), evaluate(mc, xte, yte)
+        a_runs_ok = a_runs_ok and cf["A_runs"] == rf.n_iter
+        r = {"chunk_iters": cis, "bitwise": bitwise,
+             "n_iter_512": r512.n_iter, "b_512": r512.b,
+             "bar_rows": TUNE_BAR_N, "n_sv_fused": rf.n_sv,
+             "acc_fused": acc_f, "cache_lines": lines,
+             "n_iter_cache": rcache.n_iter, "n_sv_cache": rcache.n_sv,
+             "acc_cache": acc_c, "cache_hits": rcache.cache_hits,
+             "cache_misses": rcache.cache_misses,
+             "seconds_fused": rf.train_seconds,
+             "seconds_cache": rcache.train_seconds,
+             "A_runs_match": a_runs_ok}
+        ok = (r512.converged and rf.converged and rcache.converged
+              and all(bitwise.values()) and a_runs_ok
+              and ccache["A_launches"] == 0
+              and ccache["pair_captures"] == 1
+              and abs(rcache.n_sv - rf.n_sv) <= TUNE_NSV_RTOL * rf.n_sv
+              and abs(acc_c - acc_f) <= TUNE_ACC_TOL)
+        if not ok:
+            self.fail("tune", f"(c) {r}")
+        return r
+
+    def tune_doctor(self, tmp: str, data) -> dict:
+        """(d) ``doctor --device cuda`` in this process under (a)'s
+        profile: its ``tuned:`` lines name the card's entry."""
+        import contextlib
+        import io
+        from dpsvm_tpu_torch.cli import main as cli_main
+        os.environ["DPSVM_TUNED_PROFILE"] = self._tune_out
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["doctor", "--device", "cuda", "--timeout", "60"])
+        tuned = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("tuned: ")]
+        name = self.torch.cuda.get_device_name(0)
+        knobs = self._tune_entry.get("knobs", {})
+        want = (f"tuned: active profile for {name!r}: "
+                + (", ".join(f"{k}={v}" for k, v in sorted(knobs.items()))
+                   or "(no knobs)"))
+        r = {"rc": rc, "tuned": tuned}
+        ok = (rc == 0 and tuned and tuned[0] == want
+              and tuned[1].startswith("tuned: provenance: git ")
+              and (self._tune_entry.get("win") is None
+                   or tuned[-1].startswith("tuned: measured win: ")))
+        if not ok:
+            self.fail("tune", f"(d) want {want!r}; {r}")
+        return r
+
     def timing(self) -> None:
         """Kernel A as the main path runs it: a training run's carry at its
         start, advanced by chunks of TIMED_ITERS iterations through
@@ -6859,7 +7169,8 @@ def main(argv=None) -> int:
                    ("approx", s.approx), ("stream", s.stream),
                    ("live", s.live), ("serve", s.serve),
                    ("stack", s.stack), ("observe", s.observe),
-                   ("resilience", s.resilience), ("timing", s.timing)]
+                   ("resilience", s.resilience), ("tune", s.tune),
+                   ("timing", s.timing)]
     if args.only:
         keep = {"build", *args.only.split(",")}
         phases = [(n, fn) for n, fn in phases if n in keep]

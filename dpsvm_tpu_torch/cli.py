@@ -60,6 +60,8 @@
     python -m dpsvm_tpu_torch grid -f train.csv --cs 1,10 \
         --gammas 0.125,0.25 [--polish --compare-sequential --out w.svm \
         --promote served.svm --json]              # the C x gamma grid
+    python -m dpsvm_tpu_torch tune [--device cpu] [--out profile.json]
+                                                   # this device's knobs
 
 ``-f`` takes a dense CSV, a libsvm file (sniffed) or a shard directory
 from ``convert shards``: ``train --solver approx-*`` streams it
@@ -85,7 +87,10 @@ perf-ledger rows (``--no-ledger`` turns them off). ``train --trace-out``,
 ``--metrics-out``, ``--metrics-port``, ``--watch-rules``, ``--bundle-dir``
 and ``--profile-dir`` observe a run; ``report``, ``compare``, ``perf``,
 ``profile``, ``watch``, ``bundle`` and ``info`` are the JAX CLI's
-subcommands of the same names (either package's traces).
+subcommands of the same names (either package's traces). ``tune`` measures
+this device's knobs into a tuned profile (``tuning/``) that ``train`` and
+``serve`` consult for knobs left at their defaults (``--no-tuned`` opts
+out).
 
 Distributed training (``--shards P``, the reference's ``mpirun -np P``):
 without ``--coordinator`` and outside ``torchrun`` the command starts P
@@ -214,9 +219,10 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("-e", "--epsilon", type=float, default=0.001)
     tr.add_argument("-n", "--max-iter", type=int, default=150_000)
     tr.add_argument("-s", "--cache-size", type=int, default=None,
-                    help="kernel-row cache lines (0 = no cache, the "
-                         "default): first-order selection on the general "
-                         "pair")
+                    help="kernel-row cache lines (0 = no cache): "
+                         "first-order selection on the general pair "
+                         "(default: the device's tuned profile when one "
+                         "is active, else 0)")
     tr.add_argument("--precision", default="highest",
                     choices=["highest", "high", "default"],
                     help="'highest'/'high': X stored float32; 'default': "
@@ -335,9 +341,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="resume training from a checkpoint file "
                          "(checked at parse time; a corrupt file falls "
                          "back to its newest intact rotation slot)")
-    tr.add_argument("--chunk-iters", type=int, default=512, metavar="I",
+    tr.add_argument("--chunk-iters", type=int, default=None, metavar="I",
                     help="host poll cadence: iterations a chunk between "
-                         "convergence polls (default 512)")
+                         "convergence polls (default: the device's tuned "
+                         "profile when one is active, else 512)")
+    tr.add_argument("--no-tuned", action="store_true",
+                    help="ignore the tuned per-device profile (`tune`): "
+                         "knobs left at their defaults stay at the "
+                         "built-in defaults (DPSVM_NO_TUNED=1 is the env "
+                         "equivalent; explicit flags always win either "
+                         "way)")
     tr.add_argument("--on-divergence", default="raise",
                     choices=["raise", "rollback", "ignore"],
                     help="poll-loop health policy for a sick run "
@@ -796,6 +809,61 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("-r", "--restore-range", default=None, metavar="PATH",
                     help="apply previously saved params (svm-scale -r; "
                          "use for test files)")
+
+    tn = sub.add_parser(
+        "tune", help="measure this device's throughput-critical knobs "
+                     "(successive-halving probes through the real "
+                     "driver and serving engine, deadline-bounded) and "
+                     "persist a per-device tuned profile that train and "
+                     "serve consult for knobs left at their defaults")
+    tn.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the device to tune (default cuda; the entry "
+                         "is keyed by the card's name, or 'cpu')")
+    tn.add_argument("-f", "--input", default=None,
+                    help="dataset whose rows drive the probes "
+                         "(synthetic planted data at --n x --d when "
+                         "omitted: probes measure throughput, not model "
+                         "quality)")
+    tn.add_argument("--n", type=int, default=8192,
+                    help="synthetic probe rows (ignored with -f)")
+    tn.add_argument("--d", type=int, default=64,
+                    help="synthetic probe features (ignored with -f)")
+    tn.add_argument("-c", "--cost", type=float, default=10.0,
+                    help="probe-problem cost (harder problems sustain "
+                         "longer measurement windows)")
+    tn.add_argument("-g", "--gamma", type=float, default=None)
+    tn.add_argument("--knobs",
+                    default="chunk_iters,cache_lines,serve_max_batch",
+                    help="comma list of knobs to probe (chunk_iters | "
+                         "cache_lines | serve_max_batch)")
+    tn.add_argument("--grid", action="append", default=[],
+                    metavar="KNOB=V1,V2,...",
+                    help="override one knob's candidate grid "
+                         "(repeatable); the built-in default value is "
+                         "always added so the comparison stays anchored")
+    tn.add_argument("--probe-iters", type=int, default=2000, metavar="I",
+                    help="iteration budget of the FIRST halving rung "
+                         "(each later rung doubles it)")
+    tn.add_argument("--rungs", type=int, default=3,
+                    help="successive-halving rungs (default 3)")
+    tn.add_argument("--deadline-s", type=float, default=300.0,
+                    help="wall deadline for the whole tune run: "
+                         "finished knobs keep their verdicts, "
+                         "unfinished knobs keep their defaults")
+    tn.add_argument("--min-win-pct", type=float, default=2.0,
+                    help="a candidate must beat the measured default by "
+                         "this percent at the final rung or the default "
+                         "is kept (default 2)")
+    tn.add_argument("--out", default=None, metavar="PATH",
+                    help="profile file (default: $DPSVM_TUNED_PROFILE, "
+                         "else dpsvm_tpu_torch/_ledger/"
+                         "tuned_profile.json)")
+    tn.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="probe and A/B trace directory (default: "
+                         "traces/tune next to the profile)")
+    tn.add_argument("--no-ledger", dest="ledger", action="store_false",
+                    default=True, help="skip the perf-ledger appends")
+    tn.add_argument("-q", "--quiet", action="store_true")
     _add_serve_parsers(sub)
     return root
 
@@ -815,11 +883,15 @@ def _add_serve_parsers(sub) -> None:
     sv.add_argument("--port", type=int, default=8317,
                     help="listen port (0 = OS-assigned; the bound port "
                          "is printed on the ready line)")
-    sv.add_argument("--max-batch", type=int, default=256,
+    sv.add_argument("--max-batch", type=int, default=None,
                     help="top rung of the bucket ladder AND the micro-"
-                         "batcher's coalescing cap (default 256; the "
-                         "tuned profile and --no-tuned come with the "
-                         "tuning layer, ROADMAP item 13c)")
+                         "batcher's coalescing cap (default: the "
+                         "device's tuned profile when one is active, "
+                         "else 256)")
+    sv.add_argument("--no-tuned", action="store_true",
+                    help="ignore the tuned per-device profile for "
+                         "serving knobs left at their defaults "
+                         "(DPSVM_NO_TUNED=1 is the env equivalent)")
     sv.add_argument("--precision", default="highest",
                     choices=["highest", "high", "default"],
                     help="precision of the decision ladder: 'highest' "
@@ -1207,7 +1279,8 @@ def cmd_train(args: argparse.Namespace) -> int:
                        degree=args.degree, coef0=args.coef0,
                        epsilon=args.epsilon, svr_epsilon=args.svr_epsilon,
                        max_iter=args.max_iter,
-                       cache_size=args.cache_size or 0,
+                       cache_size=(args.cache_size
+                                   if args.cache_size is not None else 0),
                        selection=args.selection,
                        select_impl=args.select_impl,
                        working_set=args.working_set,
@@ -1236,12 +1309,32 @@ def cmd_train(args: argparse.Namespace) -> int:
                        trace_out=args.trace_out,
                        watch_rules=args.watch_rules,
                        bundle_dir=args.bundle_dir,
-                       chunk_iters=args.chunk_iters,
+                       chunk_iters=(args.chunk_iters
+                                    if args.chunk_iters is not None
+                                    else 512),
                        on_divergence=args.on_divergence,
                        health_window=args.health_window,
                        debug_nans=args.debug_nans,
                        verbose=not args.quiet)
     dev = args.device
+    # Tuned-profile resolution: explicit value > tuned profile > built-in
+    # default (tuning/profile.py; --no-tuned / DPSVM_NO_TUNED=1 opt out;
+    # `doctor` reports the active entry). The knob flags default to None
+    # so that a flag set TO the default still counts as explicit.
+    if not args.no_tuned:
+        from dpsvm_tpu_torch.tuning import profile as tuned_profile
+        explicit_knobs = {field for field, flag in (
+            ("cache_size", args.cache_size),
+            ("chunk_iters", args.chunk_iters)) if flag is not None}
+        config, tuned_applied = tuned_profile.apply_tuned(
+            config, explicit=explicit_knobs,
+            device_kind=_device_kind(dev))
+        if tuned_applied and not args.quiet:
+            print("tuned profile: "
+                  + ", ".join(f"{k}={v}" for k, v
+                              in sorted(tuned_applied.items()))
+                  + " (--no-tuned for built-in defaults)",
+                  file=sys.stderr)
     if stream_train:
         return _train_streaming(args, config)
     if args.multiclass:
@@ -1718,6 +1811,61 @@ def cmd_test(args: argparse.Namespace) -> int:
         print(f"Brier score: {brier:.6f}")
         print(f"Log-loss: {logloss:.6f}")
     return 0
+
+
+def _device_kind(device: str) -> Optional[str]:
+    """The tuned-profile key of ``--device`` (the card's name, or
+    ``cpu``); None when the card is not there (the command reports that
+    itself)."""
+    from dpsvm_tpu_torch.tuning import profile as tuned_profile
+    if device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            return None
+    return tuned_profile.current_device_kind(device)
+
+
+def cmd_tune(args: argparse.Namespace) -> int:
+    """Measure and persist this device's tuned profile
+    (tuning/tuner.py)."""
+    from dpsvm_tpu_torch.config import SVMConfig
+    from dpsvm_tpu_torch.tuning import tuner
+
+    knobs = [k for k in args.knobs.split(",") if k]
+    unknown = [k for k in knobs if k not in tuner.DEFAULT_GRIDS]
+    if unknown:
+        print(f"error: unknown knob(s) {unknown}; pick from "
+              f"{sorted(tuner.DEFAULT_GRIDS)}", file=sys.stderr)
+        return 2
+    grids = {}
+    for spec in args.grid:
+        name, sep, vals = spec.partition("=")
+        try:
+            if not sep or name not in tuner.DEFAULT_GRIDS:
+                raise ValueError(name)
+            grids[name] = tuple(int(v) for v in vals.split(",") if v)
+        except ValueError:
+            print(f"error: --grid needs KNOB=V1,V2,... with a known "
+                  f"knob, got {spec!r}", file=sys.stderr)
+            return 2
+    if args.input:
+        from dpsvm_tpu_torch.data.loader import load_dataset
+        x, y = load_dataset(args.input, None, None)
+    else:
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        gamma = args.gamma if args.gamma is not None else 1.0 / args.d
+        x, y = make_planted(n=args.n, d=args.d, gamma=gamma, seed=0)
+    base = SVMConfig(c=args.cost, gamma=args.gamma, epsilon=1e-5,
+                     max_iter=10_000_000)
+    log = (lambda s: None) if args.quiet else (
+        lambda s: print(s, file=sys.stderr, flush=True))
+    _entry, rc = tuner.run_tune(
+        x, y, base_config=base, knobs=knobs, grids=grids,
+        probe_iters=args.probe_iters, rungs=args.rungs,
+        deadline_s=args.deadline_s, min_win_pct=args.min_win_pct,
+        profile_out=args.out, trace_dir=args.trace_dir,
+        ledger_on=args.ledger, device=args.device, log=log)
+    return rc
 
 
 def cmd_scale(args: argparse.Namespace) -> int:
@@ -2435,6 +2583,29 @@ def cmd_serve(args: argparse.Namespace) -> int:
     from dpsvm_tpu_torch.serving import ModelRegistry
     from dpsvm_tpu_torch.serving.server import ServingServer
 
+    # Tuned-profile resolution for the serving knobs left at their
+    # defaults (tuning/profile.py): explicit flags always win;
+    # --no-tuned / DPSVM_NO_TUNED=1 opt out.
+    tuned_entry = None
+    if not args.no_tuned:
+        from dpsvm_tpu_torch.tuning import profile as tuned_profile
+        kind = _device_kind(args.device)
+        tuned_entry = kind and tuned_profile.active_entry(kind)
+    if args.max_batch is None:
+        from dpsvm_tpu_torch.tuning.profile import tuned_value
+        mb = tuned_value(tuned_entry, "serve_max_batch")
+        args.max_batch = int(mb) if mb else 256
+        if mb and not args.quiet:
+            print(f"tuned profile: max_batch={args.max_batch} "
+                  "(--no-tuned for the built-in 256)", file=sys.stderr)
+    if args.hedge_ms == "off" and args.replicas >= 2:
+        from dpsvm_tpu_torch.tuning.profile import tuned_value
+        hm = tuned_value(tuned_entry, "serve_hedge_ms")
+        if hm:
+            args.hedge_ms = str(float(hm))
+            if not args.quiet:
+                print(f"tuned profile: hedge_ms={args.hedge_ms} "
+                      "(--no-tuned to disable)", file=sys.stderr)
     if args.max_batch < 1 or args.max_queue < 1:
         print("error: --max-batch and --max-queue must be >= 1",
               file=sys.stderr)
@@ -2833,6 +3004,8 @@ def _run(args) -> int:
             return cmd_watch(args)
         if args.command == "bundle":
             return cmd_bundle(args)
+        if args.command == "tune":
+            return cmd_tune(args)
         if args.command == "doctor":
             from dpsvm_tpu_torch.resilience.doctor import run_doctor
             return run_doctor(shards=args.shards,

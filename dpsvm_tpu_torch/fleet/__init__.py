@@ -23,7 +23,7 @@ set a one-shot scan does not evict, zero captures across steady packed
 traffic, packed decisions bitwise a fresh dedicated engine's, an
 over-budget admission evicting exactly the LRU resident, and the fault
 and evict events as a list matching the counters. The JAX gate's
-schema-valid fault/evict trace file is ROADMAP item 13c.
+schema-valid fault/evict trace file is ROADMAP item 13c-ii.
 
 Importing this package touches no device.
 """

@@ -30,7 +30,7 @@ Layout:
                      recorder and its incident bundles, request spans.
 
 The multi-host merge and the fleet views (``merge``, ``fleet``) are
-ROADMAP item 13c. Importing this package touches no device: ``torch`` is
+ROADMAP item 13c-ii. Importing this package touches no device: ``torch`` is
 imported inside the functions that need it (device, profiler), so
 ``report``/``compare``/``perf`` run on a machine with no card.
 """

@@ -29,8 +29,9 @@ self-contained incident directory:
       doctor.txt           host-side environment facts (never inits
                            CUDA: device facts only when this process
                            has already initialized it)
-      tuned_profile.json   the active tuned-profile entry (none until
-                           the tuning layer is ported, ROADMAP item 13c)
+      tuned_profile.json   the active tuned-profile entry, when one
+                           applies (tuning/profile.py; keyed by the card
+                           this process has initialized)
       perf_ledger.jsonl    the relevant perf-ledger context rows
                            (tail), when a ledger is configured
 
@@ -432,9 +433,11 @@ def _doctor_text() -> str:
 
 
 def _tuned_profile_entry() -> Optional[dict]:
-    """The active tuned-profile entry: none until the tuning layer is
-    ported (ROADMAP item 13c)."""
-    return None
+    try:
+        from dpsvm_tpu_torch.tuning import profile as tuned_profile
+        return tuned_profile.active_entry()
+    except Exception:
+        return None
 
 
 def _ledger_tail(limit: int = 25) -> List[dict]:

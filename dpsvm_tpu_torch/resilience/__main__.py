@@ -4,7 +4,7 @@
 included (real host processes); ``--host-drill`` runs only that drill and
 prints its facts as a final JSON line (``host_loss_recovery_s``). The JAX
 gate's ``--straggler-drill`` needs the fleet observability views, which
-are not ported (ROADMAP item 13c).
+are not ported (ROADMAP item 13c-ii).
 """
 
 from __future__ import annotations

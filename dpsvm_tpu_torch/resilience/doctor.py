@@ -26,9 +26,9 @@ wait, ending in one ``DOCTOR`` line and an exit code:
 6. **Serving** (``serving_url``): a live server's tenant budget, model
    cache and front door, reported only.
 
-The JAX doctor also prints the tuned-knob profile's resolution; the
-tuning layer is not ported (ROADMAP item 13c), so nothing is printed in
-its place.
+After the roofline line, ``tuned:`` lines say which tuned-knob profile
+entry train and serve would consult on the doctor's device
+(``tuning/profile.doctor_lines``), or why none applies.
 """
 
 from __future__ import annotations
@@ -524,6 +524,13 @@ def run_doctor(shards: int = 0, checkpoint_path: Optional[str] = None,
         out("backend: cpu (1 device; gloo collectives)")
     for line in roofline.doctor_lines(kinds):
         out(f"roofline: {line}")
+    # Which per-device knob profile train/serve would consult right now,
+    # or exactly why none applies (missing, opted out, another device,
+    # provenance-invalid).
+    from dpsvm_tpu_torch.tuning import profile as tuned_profile
+    for line in tuned_profile.doctor_lines(
+            tuned_profile.current_device_kind(dev)):
+        out(f"tuned: {line}")
     p = int(shards) or visible
     if p > visible and dev.type == "cuda":
         out(f"DOCTOR FAIL: asked for {p} shards but only {visible} "

@@ -436,7 +436,7 @@ def host_loss_drill(tmp_dir: str, *, device: str = "cuda",
         return [sys.executable, "-m", "dpsvm_tpu_torch.cli", "train",
                 "-f", data, "-m", model, "--shards", str(shards),
                 "-c", "1.0", "-g", "0.5", "-e", "1e-12", "-n", "300",
-                "--chunk-iters", "25", "--quiet", *placement,
+                "--chunk-iters", "25", "--no-tuned", "--quiet", *placement,
                 "--trace-out", trace, *extra]
 
     env0 = _clean_child_env(dict(os.environ))

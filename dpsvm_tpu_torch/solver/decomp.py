@@ -40,7 +40,7 @@ general pair): rows where it is False never enter selection, and a
 padding row drawn into W as top-k filler reaches the subsolve as a masked
 slot. A run resumes from a checkpoint with the saved (alpha, f, b_hi,
 b_lo, n_iter); its ``rounds`` count restarts at 0 (telemetry, not solver
-state). The distributed decomposition is not ported.
+state). The distributed decomposition is ``parallel/dist_decomp.py``.
 """
 
 from __future__ import annotations

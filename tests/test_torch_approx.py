@@ -51,21 +51,10 @@ from dpsvm_tpu_torch.approx import primal as tprimal
 from dpsvm_tpu_torch.approx import screening as tscreen
 from dpsvm_tpu_torch.config import SVMConfig
 from dpsvm_tpu_torch.ops.kernels import KernelSpec
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small eager steps: the tier-1
-    run puts six workers on the cores, and a worker's BLAS threads then
-    contend (measured: a 1500-row approx fit took 69 s at 8 threads
-    beside seven busy cores, 1.2 s at 1)."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _problem(n, d=16, task="svc", seed=3, held=300):

@@ -44,21 +44,10 @@ from dpsvm_tpu_torch.models.svm import decision_function as tdec
 from dpsvm_tpu_torch.models.svm import evaluate
 from dpsvm_tpu_torch.resilience import faultinject as tfault
 from dpsvm_tpu_torch.solver import cascade as tcs
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 KW = dict(c=5.0, gamma=1.0 / 16, epsilon=1e-3, max_iter=200_000)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small eager steps: the tier-1
-    run puts six workers on the cores, and a worker's BLAS threads then
-    contend (measured: a 1500-row approx fit took 69 s at 8 threads
-    beside seven busy cores, 1.2 s at 1)."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

@@ -44,6 +44,7 @@ from dpsvm_tpu_torch.models.svm import SVMModel
 from dpsvm_tpu_torch.solver import driver as tdriver
 from dpsvm_tpu_torch.solver import smo as tsmo
 from dpsvm_tpu_torch.utils import checkpoint as tckpt
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "fixtures"

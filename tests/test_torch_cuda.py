@@ -2078,3 +2078,75 @@ def test_doctor_on_the_card(dev, tmp_path):
     assert torch.cuda.get_device_name(0) in lines[0]
     coll = next(ln for ln in lines if ln.startswith("collective:"))
     assert "OK" in coll and coll.endswith(" ms")
+
+
+def test_run_tune_on_the_card_is_keyed_by_its_name(dev, tmp_path,
+                                                   monkeypatch):
+    """A tune run on the default device runs on the card and keys its
+    entry by the card's name; each train probe subtracts exactly its
+    captures and builds (kernel A's first chunk is work, not set-up)."""
+    from dpsvm_tpu_torch.observability.schema import read_trace
+    from dpsvm_tpu_torch.tuning import profile as prof
+    from dpsvm_tpu_torch.tuning import tuner
+    monkeypatch.setenv("DPSVM_PERF_LEDGER", str(tmp_path / "ledger.jsonl"))
+    x, y = make_planted(2048, 32, 1 / 32, seed=0)
+    out = str(tmp_path / "p.json")
+    entry, rc = tuner.run_tune(
+        x, y, base_config=SVMConfig(c=10.0, epsilon=1e-5,
+                                    max_iter=10_000_000),
+        knobs=("chunk_iters", "cache_lines", "serve_max_batch"),
+        grids={"chunk_iters": (128, 512), "cache_lines": (0, 64),
+               "serve_max_batch": (128, 256)},
+        probe_iters=500, rungs=2, deadline_s=300.0, profile_out=out,
+        trace_dir=str(tmp_path / "t"), log=lambda s: None)
+    name = torch.cuda.get_device_name(0)
+    assert rc == 0 and entry["device_kind"] == name
+    assert prof.active_entry(name, path=out) is not None
+    assert prof.active_entry("cpu", path=out) is None
+    seen = set()
+    for p in entry["probes"]:
+        if p["case"] not in ("tune_probe_chunk_iters",
+                             "tune_probe_cache_lines"):
+            continue
+        recs = [r for r in read_trace(p["trace"]) if r["kind"] == "compile"]
+        progs = [r["program"] for r in recs]
+        want = sum(r["seconds"] for r in recs
+                   if tuner.is_setup_program(r["program"]))
+        assert p["metrics"]["compile_seconds"] == pytest.approx(
+            want, abs=1e-4)
+        if p["case"] == "tune_probe_chunk_iters" or not p["metrics"][
+                "candidate"]:
+            assert progs == ["fused-chunk"] and want == 0.0
+        else:
+            assert progs == ["smo-chunk"] and want > 0.0
+        seen.add((p["case"], p["metrics"]["candidate"]))
+    assert {("tune_probe_cache_lines", 64),
+            ("tune_probe_chunk_iters", 128)} <= seen
+
+
+def test_fused_fit_is_bitwise_across_chunk_iters_on_the_card(dev):
+    """chunk_iters moves only the poll cadence: kernel A's fit is the same
+    to the bit (n_iter, alpha, b) at every chunk size."""
+    x, y = make_planted(4096, 64, 1 / 64, seed=0)
+    fits = {}
+    for ci in (128, 512, 2048):
+        r = train(x, y, SVMConfig(c=10.0, gamma=1 / 64, epsilon=1e-5,
+                                  max_iter=200_000, chunk_iters=ci))
+        assert r.converged
+        fits[ci] = (r.n_iter, r.b, r.alpha.tobytes())
+    assert fits[128] == fits[512] == fits[2048]
+
+
+def test_bundle_carries_the_tuned_entry_on_the_card(dev, tmp_path,
+                                                    monkeypatch):
+    from dpsvm_tpu_torch.observability import blackbox
+    from dpsvm_tpu_torch.tuning import profile as prof
+    torch.zeros(1, device=dev)
+    name = torch.cuda.get_device_name(0)
+    path = prof.save_entry(prof.make_entry(name, {"chunk_iters": 2048}),
+                           str(tmp_path / "p.json"))
+    monkeypatch.setenv(prof.PROFILE_ENV, path)
+    monkeypatch.delenv(prof.NO_TUNED_ENV, raising=False)
+    assert blackbox._tuned_profile_entry()["knobs"] == {"chunk_iters": 2048}
+    monkeypatch.setenv(prof.NO_TUNED_ENV, "1")
+    assert blackbox._tuned_profile_entry() is None

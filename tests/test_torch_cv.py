@@ -24,6 +24,7 @@ from dpsvm_tpu_torch import SVMConfig
 from dpsvm_tpu_torch.data.synthetic import make_blobs
 from dpsvm_tpu_torch.models import cv as tcv
 from tests.test_multiclass import make_three_class
+from torch_threads import one_thread  # noqa: F401
 
 KW = dict(c=1.0, gamma=0.25, epsilon=1e-3, max_iter=20_000, chunk_iters=64)
 

@@ -40,6 +40,7 @@ from dpsvm_tpu_torch.convert import decomp_carry_from_numpy
 from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
 from dpsvm_tpu_torch.solver import decomp as tdecomp
 from test_decomp import true_gap_and_b
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")

@@ -29,6 +29,7 @@ from torch_dist_scenarios import launch
 from dpsvm_tpu.config import SVMConfig as JConfig
 from dpsvm_tpu.data.synthetic import make_blobs, make_planted
 from dpsvm_tpu_torch import SVMConfig
+from torch_threads import one_thread  # noqa: F401
 
 # Problems of a few hundred pair updates (~20-35 rounds): every round
 # waits on three collectives, and gloo ranks share this host's cores.

@@ -42,6 +42,7 @@ from dpsvm_tpu.solver.oracle import smo_reference
 from dpsvm_tpu_torch import SVMConfig, train
 from dpsvm_tpu_torch.resilience.health import DesyncError
 from dpsvm_tpu_torch.solver.driver import ChunkStats, check_probe
+from torch_threads import one_thread  # noqa: F401
 
 BLOBS = make_blobs(n=96, d=6, seed=3)
 ODD = make_blobs(n=101, d=5, seed=7)

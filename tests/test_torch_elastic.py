@@ -28,22 +28,20 @@ import torch
 
 from dpsvm_tpu.data.synthetic import make_blobs
 from torch_elastic_ranks import launch
+from torch_threads import one_thread  # noqa: F401
 
 BASE = dict(c=1.0, gamma=0.5, epsilon=1e-12, max_iter=300, chunk_iters=25)
 
 
 @pytest.fixture(autouse=True)
-def _one_thread_and_clean_faults():
+def _clean_faults():
     from dpsvm_tpu.resilience import faultinject as jfi
     from dpsvm_tpu_torch.resilience import faultinject as tfi
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     jfi.clear()
     tfi.clear()
     yield
     jfi.clear()
     tfi.clear()
-    torch.set_num_threads(n)
 
 
 BLOBS = make_blobs(n=96, d=5, seed=7)

@@ -23,6 +23,7 @@ import scipy.sparse as sp
 from dpsvm_tpu.data.synthetic import make_blobs, make_xor
 from dpsvm_tpu.models import estimator as jest
 from dpsvm_tpu_torch.models import estimator as test_
+from torch_threads import one_thread  # noqa: F401
 
 CPU = dict(device="cpu")
 

@@ -55,17 +55,10 @@ from dpsvm_tpu_torch.observability.metrics import (MetricsRegistry,
                                                    TenantLabelBudget)
 from dpsvm_tpu_torch.serving import engine as teng
 from dpsvm_tpu_torch.serving.registry import ModelRegistry
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _q(n=5, d=4, seed=3):

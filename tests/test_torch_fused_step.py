@@ -23,6 +23,7 @@ from dpsvm_tpu.experimental import fused_step as jfs
 from dpsvm_tpu.experimental.fused import init_fused_carry as j_init
 from dpsvm_tpu_torch.convert import carry_from_numpy
 from dpsvm_tpu_torch.experimental import fused_step as tfs
+from torch_threads import one_thread  # noqa: F401
 
 C, GAMMA = 1.5, 0.25
 F_ATOL = 1e-6

@@ -22,6 +22,7 @@ import pytest
 
 from dpsvm_tpu.resilience import hostgroup as jhg
 from dpsvm_tpu_torch.resilience import hostgroup as thg
+from torch_threads import one_thread  # noqa: F401
 
 MODS = {"jax": jhg, "torch": thg}
 

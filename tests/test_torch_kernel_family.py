@@ -37,6 +37,7 @@ from dpsvm_tpu_torch.models.svm import decision_function as tdec
 from dpsvm_tpu_torch.ops import kernels as tk
 from dpsvm_tpu_torch.ops import selection as tsel
 from dpsvm_tpu_torch.solver.decomp import train_single_device_decomp
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

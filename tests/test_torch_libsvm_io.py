@@ -30,6 +30,7 @@ from dpsvm_tpu_torch.convert import model_from_numpy
 from dpsvm_tpu_torch.models import io as tio
 from dpsvm_tpu_torch.models import libsvm_io as tlib
 from dpsvm_tpu_torch.models.svm import decision_function
+from torch_threads import one_thread  # noqa: F401
 
 sk_svm = pytest.importorskip("sklearn.svm")
 

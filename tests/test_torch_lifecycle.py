@@ -12,14 +12,7 @@ import os
 import numpy as np
 import pytest
 import torch
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("case", range(6))

@@ -55,19 +55,10 @@ from dpsvm_tpu_torch.data import live as tlive
 from dpsvm_tpu_torch.data import stream as tstream
 from dpsvm_tpu_torch.resilience import faultinject as tfault
 from dpsvm_tpu_torch.solver import driver
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for the small eager steps (the tier-1 run puts
-    six workers on the cores)."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(autouse=True)

@@ -26,6 +26,7 @@ from dpsvm_tpu.data.synthetic import make_planted, save_csv
 from dpsvm_tpu.models.svm import evaluate as jevaluate
 from dpsvm_tpu_torch import SVMConfig, evaluate, fit, train, warm_start
 from dpsvm_tpu_torch.data import loader as tloader
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -21,6 +21,7 @@ from dpsvm_tpu_torch.data import loader as tloader
 from dpsvm_tpu_torch.data import synthetic as tsyn
 from dpsvm_tpu_torch.models import io as tio
 from dpsvm_tpu_torch.models import svm as tsvm
+from torch_threads import one_thread  # noqa: F401
 
 
 def _jax_model():

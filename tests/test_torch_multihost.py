@@ -37,6 +37,7 @@ from torch_dist_scenarios import launch
 
 from dpsvm_tpu.data.synthetic import make_blobs, save_csv
 from dpsvm_tpu_torch.parallel import multihost
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CKPT = dict(c=10.0, epsilon=1e-3, max_iter=20_000, chunk_iters=32)

@@ -41,6 +41,7 @@ from dpsvm_tpu_torch.data import loader as tloader
 from dpsvm_tpu_torch.data import scale as tscale
 from dpsvm_tpu_torch.models import io as tio
 from dpsvm_tpu_torch.native import build as nbuild
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -50,6 +50,7 @@ from dpsvm_tpu_torch.models.svm import decision_function, evaluate
 from dpsvm_tpu_torch.models.svr import predict_svr
 from dpsvm_tpu_torch.solver import smo as tsmo
 from tests.test_multiclass import make_three_class
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -11,6 +11,7 @@ import signal
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------

@@ -37,6 +37,7 @@ from dpsvm_tpu_torch.convert import model_from_numpy
 from dpsvm_tpu_torch.models import io as tio
 from dpsvm_tpu_torch.models import oneclass as toc
 from dpsvm_tpu_torch.solver import smo as tsmo
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

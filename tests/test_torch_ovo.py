@@ -39,6 +39,7 @@ from dpsvm_tpu_torch.ops.selection import rowwise_extrema
 from dpsvm_tpu_torch.solver import batched_ovo as tb
 from dpsvm_tpu_torch.solver import smo as tsmo
 from tests.test_multiclass import make_three_class
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

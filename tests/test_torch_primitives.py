@@ -16,6 +16,7 @@ from dpsvm_tpu.ops import selection as jsel
 from dpsvm_tpu.ops import update as jupd
 from dpsvm_tpu_torch.ops import selection as tsel
 from dpsvm_tpu_torch.ops import update as tupd
+from torch_threads import one_thread  # noqa: F401
 
 C = 1.5
 

@@ -14,19 +14,11 @@ import shutil
 
 import numpy as np
 import pytest
-import torch
 
 from dpsvm_tpu.data.synthetic import make_blobs
+from torch_threads import one_thread  # noqa: F401
 
 KW = dict(c=1.0, gamma=0.5, epsilon=1e-3, chunk_iters=16, max_iter=20000)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -43,15 +35,9 @@ def traces(tmp_path_factory):
     jt = str(td / "jax.jsonl")
     japi.train(x, y, JConfig(use_pallas="on", trace_out=jt, **KW))
     tt = str(td / "port.jsonl")
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        api.train(x, y, SVMConfig(trace_out=tt,
-                                  profile_dir=str(td / "prof"),
-                                  metrics_out=str(td / "m.prom"), **KW),
-                  device="cpu")
-    finally:
-        torch.set_num_threads(prev)
+    api.train(x, y, SVMConfig(trace_out=tt, profile_dir=str(td / "prof"),
+                              metrics_out=str(td / "m.prom"), **KW),
+              device="cpu")
     return {"jax": jt, "port": tt, "prof": str(td / "prof"),
             "metrics": str(td / "m.prom"), "dir": td}
 

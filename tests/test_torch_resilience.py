@@ -32,23 +32,21 @@ import pytest
 import torch
 
 from dpsvm_tpu.data.synthetic import make_blobs
+from torch_threads import one_thread  # noqa: F401
 
 B_TOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True)
-def _one_thread_and_clean_faults():
+def _clean_faults():
     from dpsvm_tpu.resilience import faultinject as jfi
     from dpsvm_tpu_torch.resilience import faultinject as tfi
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     jfi.clear()
     tfi.clear()
     yield
     jfi.clear()
     tfi.clear()
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

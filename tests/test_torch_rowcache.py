@@ -32,6 +32,7 @@ from dpsvm_tpu.ops import rowcache as jrc
 from dpsvm_tpu_torch import SVMConfig, fit, train
 from dpsvm_tpu_torch.ops import rowcache as trc
 from dpsvm_tpu_torch.solver import smo as tsmo
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

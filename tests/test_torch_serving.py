@@ -62,18 +62,11 @@ from dpsvm_tpu_torch.serving import sharded as tsharded
 from dpsvm_tpu_torch.serving.batcher import (BatcherClosedError,
                                              MicroBatcher, QueueFullError)
 from dpsvm_tpu_torch.serving.registry import ModelRegistry
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 DECISION_TOL = 5e-2          # tests/test_precision.py's bf16 bar
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(autouse=True)

@@ -63,6 +63,7 @@ from dpsvm_tpu_torch.solver import shrink as tshrink
 from dpsvm_tpu_torch.solver import smo as tsmo
 from conftest import split_train_test
 from test_decomp import true_gap_and_b
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 CHECK_ITERS = 128

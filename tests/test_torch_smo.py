@@ -45,6 +45,7 @@ from dpsvm_tpu_torch.convert import smo_carry_from_numpy
 from dpsvm_tpu_torch.models.svm import SVMModel, decision_function
 from dpsvm_tpu_torch.solver import decomp as tdecomp
 from dpsvm_tpu_torch.solver import smo as tsmo
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")

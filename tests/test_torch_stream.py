@@ -69,20 +69,10 @@ from dpsvm_tpu_torch.observability.metrics import (DataMetrics,
 from dpsvm_tpu_torch.resilience import faultinject as tfault
 from dpsvm_tpu_torch.solver import cascade as tcs
 from dpsvm_tpu_torch.solver import driver
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small eager steps: the tier-1
-    run puts six workers on the cores, and a worker's BLAS threads then
-    contend (tests/test_torch_approx.py measured 69 s against 1.2 s)."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(autouse=True)

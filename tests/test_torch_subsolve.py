@@ -28,6 +28,7 @@ from dpsvm_tpu.experimental.subsolve_kernel import pallas_inner_subsolve
 from dpsvm_tpu.solver.decomp import inner_subsolve
 from dpsvm_tpu_torch.experimental import subsolve_kernel as sk
 from test_subsolve_kernel import _block
+from torch_threads import one_thread  # noqa: F401
 
 EPS = 1e-3
 

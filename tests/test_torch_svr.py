@@ -42,6 +42,7 @@ from dpsvm_tpu_torch.models import cv as tcv
 from dpsvm_tpu_torch.models import io as tio
 from dpsvm_tpu_torch.models import svr as tsvr
 from dpsvm_tpu_torch.solver import smo as tsmo
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -24,16 +24,9 @@ import pytest
 import torch
 
 from dpsvm_tpu.data.synthetic import make_blobs, make_planted
+from torch_threads import one_thread  # noqa: F401
 
 B_TOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _records(path, keep_compiles=False):

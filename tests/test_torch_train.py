@@ -16,6 +16,7 @@ from dpsvm_tpu.experimental.fused import train_single_device_fused as j_fused
 from dpsvm_tpu.solver.oracle import smo_reference
 from dpsvm_tpu_torch import SVMConfig, evaluate, fit, train
 from dpsvm_tpu_torch.solver.driver import DivergenceError
+from torch_threads import one_thread  # noqa: F401
 
 PROBLEMS = {
     "blobs_small": (lambda: make_blobs(n=96, d=6, seed=3), 1.0, 0.5),
