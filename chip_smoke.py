@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only observe        # build + observability
     python3 chip_smoke.py --only resilience     # build + training resilience
     python3 chip_smoke.py --only tune           # build + the tuning layer
+    python3 chip_smoke.py --only fleet          # build + the fleet views
 
 Host text that only checks a file format (the model files of phases 3, 5
 and 9, phase 8's one-vs-one directory) is written and read back by
@@ -67,7 +68,10 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
 3. drive the paths at full width through the entry points a user calls:
    ``api.fit`` on planted 60000 x 784 data (C=10, gamma=0.25, eps=1e-3) to
    convergence in both precisions, then ``save_model``, ``load_model`` and
-   ``evaluate`` on 10000 held-out rows. The counts are set to 0 before each
+   ``evaluate`` on 10000 held-out rows, and the float32 fit's
+   ``--check-kkt`` report (``optimality_report`` on the card: dual,
+   primal, gap, equality residual, the recomputed KKT residual within
+   KKT_DRIFT_TOL of the solver's gap, its seconds). The counts are set to 0 before each
    path and read after it: kernel A's device-counted runs must equal the
    iterations; kernel B's launches, runs and rounds must be equal and its
    device-counted steps must add up to n_iter. The decomposition's model
@@ -164,8 +168,14 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    n_sv). (c) Two gloo ranks started by ``launch_local`` with their shards
    on cuda:0, GLOO_N x 784: the pair against world size 1 (the same
    n_iter, alpha within 1e-4), the decomposition (q = GLOO_Q) by the
-   _check bar; gloo stages CUDA tensors through the host, so these times
-   are not performance. In a whole run the two ranks run beside phase 12
+   _check bar; in the same ranks, on rows of their own, the sharded
+   approx-rff fit (``fit_approx`` over the group, D = APPROX_D) on
+   GLOO_APPROX_N x 784 against its ``shards=1`` fit (weights and held-out
+   decisions within GLOO_APPROX_RTOL, steps within GLOO_APPROX_ITER_TOL)
+   and the sharded cascade (the decomposition's polish, q = GLOO_Q) on
+   GLOO_CASC_N x 784 against its ``shards=1`` model (zero violators, the
+   bar between paths); gloo stages CUDA
+   tensors through the host, so these times are not performance. In a whole run the two ranks run beside phase 12
    (d) and (e), whose host-bound work they overlap, and are checked at
    phase 12's end (a failure is still phase 10's). (a) and (c) time the
    pair's per-poll agreement (``driver._agree``: one all-reduce and one
@@ -343,7 +353,26 @@ decomposition (kernel B, ``working_set=DECOMP_Q``,
    fit at 512 (n_sv within 2%, held-out accuracy within 0.5%); (d)
    ``doctor --device cuda`` prints the entry's
    ``tuned:`` lines;
-19. time each kernel on its path (kernel A: CUDA events over a chunk of
+19. the fleet views (``fleet``: ``observability/merge.py``,
+   ``observability/fleet.py``, ``resilience/hostgroup.straggler_drill``,
+   ``fleet.fleet_cache_drill``, the CLI's ``fleet`` and ``tenants``),
+   each check's seconds printed with a timestamp: (a) the straggler drill
+   on cuda:0: FLEET_HOSTS ``train --coordinator --dist-backend gloo`` host
+   processes of 64 rows sharing the card, host FLEET_SLOW_HOST planted at
+   FLEET_HANG_MS a poll; the run completes without a reformation, the
+   merged trace family validates and its lanes and ``report`` name the
+   host, ``skew[host-1]`` fires and clears, the hosts' ``--metrics-out``
+   sidecars federate into a valid exposition, and a fleet bundle
+   validates naming the host; (b) the cache drill: FLEET_DRILL_MODELS lazy
+   models under a budget of FLEET_DRILL_BUDGET on the card, residents
+   never above it, counters conserved, the hot set resident after a
+   one-shot scan, the cold start's p50 and p99; (c) ``cli fleet`` on (a)'s
+   sidecars and heartbeats (exit 0, the written exposition valid; exit 3
+   with a missing host added) and ``cli tenants`` on a serving trace of
+   tenant-labelled requests to a tiny model on the card and on the live
+   server's ``--url`` (exit 0, the hot tenant first; exit 1 on (b)'s trace,
+   which has no tenants). It runs alone, beside no other phase's processes;
+20. time each kernel on its path (kernel A: CUDA events over a chunk of
    TIMED_ITERS launches, its rate and share of its bound; kernel B and the
    other parts of a decomposition round over one round from a real carry,
    device times from torch.profiler; kernel B also at q in
@@ -396,6 +425,10 @@ TWO_EPS = 2e-3
 # 2 gamma |d| K <= ~0.5 here. Measured max |df|: 2.4e-7 on |f| <= 6.
 F_RTOL = 1e-5
 MAIN_MAX_ITER = 400_000
+# Phase 3's --check-kkt report: the KKT residual recomputed from a fresh
+# kernel pass may part from the solver's incremental gap by the float32
+# drift of f over the run's updates; held within the stopping tolerance.
+KKT_DRIFT_TOL = TWO_EPS
 PREFIX_ITERS = 100
 # Phase 4's converged kernel-against-plain pair runs: CONV_SMALL_N planted
 # rows and 1000 held out (cut from 4096 for card time, PERF.md §4: the
@@ -465,7 +498,7 @@ RESUME_DECOMP_K = 10 * DECOMP_CAP
 LIBSVM_ROWS = 10_000
 # Multi-class: MC_K planted classes at MNIST's width, the first MC_N of
 # MNIST's 60000 training rows to train (cut from 60000 for card time,
-# PERF.md §4; the batched graph against its eager loop and phase 19's
+# PERF.md §4; the batched graph against its eager loop and phase 20's
 # batched step keep all N) and 10000 held out; the C x gamma grid, its
 # prefix and the smaller problem it converges on; CV (on 12000 rows: cut
 # from 20000 for card time, PERF.md §4); the row cache's lines (the
@@ -510,6 +543,18 @@ DIST_PREFIX_ITERS, DIST_GRAPH_ITERS = 2000, 512
 DIST_PROFILE_ITERS = 64
 DIST_DECOMP_ROUNDS = 10
 GLOO_N, GLOO_Q = 2000, 1024
+# (c)'s sharded fits in the same two ranks: approx-rff on GLOO_APPROX_N
+# planted rows (at least 2048, so its shards=1 reference takes the same
+# full-batch steps), held to it within GLOO_APPROX_RTOL of the largest
+# weight and decision (float32 sums split over the ranks: the CPU tests
+# measured 1.1e-7 of max |w| at 2100 rows, the bar leaves room for the
+# card's cuBLAS and ~300 momentum steps) and GLOO_APPROX_ITER_TOL of the
+# steps; the cascade on GLOO_CASC_N rows with the decomposition's polish
+# at q = GLOO_Q (the gloo pair's polish, a host-staged collective an
+# iteration, took 51.5 s beside phase 12 against 0.8 s for the
+# decomposition's 40 rounds, PERF.md §4); GLOO_HELD held-out rows each.
+GLOO_APPROX_N, GLOO_CASC_N, GLOO_HELD = 4096, 2000, 1000
+GLOO_APPROX_RTOL, GLOO_APPROX_ITER_TOL = 1e-4, 0.02
 # The approx solvers and the cascade (phase 11): D = APPROX_D features;
 # the million-row path on APPROX_BIG_N rows (at most APPROX_BIG_MAX
 # steps); the cascade with the default dual knobs on CASC_N rows (+
@@ -623,6 +668,12 @@ STACK_SAT_STEP_REQS = 100
 STACK_SHED_QUEUE, STACK_SHED_SLOW_MS = 256, 50
 STACK_DRILL_ROWS, STACK_DRILL_SEED, STACK_DRILL_SHIFTED = 4096, 4, 2
 STACK_DRILL_STEPS = 60
+# The fleet views (phase 19): the straggler drill's hosts, its planted host
+# and its sleep a poll; the cache drill's lazy models and budget; the
+# tenant trace's requests and the hot tenant's share of them.
+FLEET_HOSTS, FLEET_SLOW_HOST, FLEET_HANG_MS = 3, 1, 400
+FLEET_DRILL_MODELS, FLEET_DRILL_BUDGET = 1000, 32
+FLEET_TENANT_REQS, FLEET_TENANT_HOT = 40, 0.5
 
 
 def log(msg: str) -> None:
@@ -754,15 +805,20 @@ class _AgreeClock:
                 "share_of_train_seconds": self.seconds / train_seconds}
 
 
-def _gloo_card_rank(rank: int, x, y, kws) -> dict:
+def _gloo_card_rank(rank: int, x, y, kws, fits) -> dict:
     """One of phase 10's two gloo ranks: the pair and the decomposition
     with this rank's shard on cuda:0, in the world group ``launch_local``
     made (passed explicitly: gloo with CUDA tensors); the pair's per-poll
-    agreement timed."""
+    agreement timed. ``fits``: name -> (x, y, x held out, config fields)
+    of the sharded approx fit and cascade on rows of their own, each
+    returning its model's decisions on the held-out rows."""
     import torch.distributed as dist
     from dpsvm_tpu_torch import SVMConfig
+    from dpsvm_tpu_torch.approx.primal import fit_approx
+    from dpsvm_tpu_torch.models.svm import decision_function
     from dpsvm_tpu_torch.parallel.dist_decomp import train_distributed_decomp
     from dpsvm_tpu_torch.parallel.dist_smo import train_distributed
+    from dpsvm_tpu_torch.solver.cascade import fit_cascade
     out = {}
     for name, kw in kws.items():
         fn = (train_distributed_decomp if name == "decomp"
@@ -775,6 +831,21 @@ def _gloo_card_rank(rank: int, x, y, kws) -> dict:
                      "converged": res.converged,
                      "seconds": res.train_seconds,
                      "agree": clock.record(res.train_seconds)}
+    for name, (xf, yf, xte, kw) in fits.items():
+        fn = fit_cascade if name == "cascade" else fit_approx
+        t = time.perf_counter()
+        model, res = fn(xf, yf, SVMConfig(**kw), group=dist.group.WORLD,
+                        device="cuda:0")
+        sec = time.perf_counter() - t
+        out[name] = {"n_iter": res.n_iter, "b": res.b,
+                     "converged": res.converged, "gap": res.gap,
+                     "seconds": sec,
+                     "dec": np.asarray(decision_function(model, xte)),
+                     "w": (np.asarray(model.w) if name != "cascade"
+                           else None),
+                     "n_sv": (int(model.n_sv) if name == "cascade"
+                              else None),
+                     "kkt_violators": getattr(res, "kkt_violators", None)}
     return out
 
 
@@ -935,6 +1006,7 @@ class Smoke:
         # phase 18 (a)'s profile file and entry, which (b)-(d) read
         self._tune_out = None
         self._tune_entry = {}
+        self._fleet_drill_dir = None      # phase 19 (a)'s host family
 
     def fail(self, phase: str, msg: str) -> None:
         self.failures.append(f"{phase}: {msg}")
@@ -1641,6 +1713,8 @@ class Smoke:
                 self._fused_f32 = model
                 self._main_trace = (trace, res.n_iter, res.n_sv)
             log(f"[main] {prec}: {json.dumps(r)}")
+            if prec == "highest":
+                self.main_kkt(xtr, ytr, res, cfg)
         self.rec["main_launches"] = launches
         self.rec["main_runs"] = runs
         self.main_decomp()
@@ -1648,6 +1722,28 @@ class Smoke:
         self.main_kinds()
         self.main_precomputed()
         self._settle_round_trips("main")
+
+    def main_kkt(self, x, y, res, cfg) -> None:
+        """``train --check-kkt``'s report on the float32 fused fit:
+        ``optimality_report`` on the card (one streamed kernel pass over
+        the 60000 rows), its five numbers and seconds. The recomputed KKT
+        residual must stay within KKT_DRIFT_TOL of the solver's
+        incremental gap, and every number must be finite."""
+        from dpsvm_tpu_torch.ops.diagnostics import optimality_report
+        t = time.perf_counter()
+        rep = optimality_report(x, y, res.alpha, cfg.kernel_spec(D),
+                                cfg.box_bound(y), b=res.b, device="cuda")
+        sec = time.perf_counter() - t
+        drift = abs(rep.kkt_residual - res.gap)
+        r = {"dual": rep.dual, "primal": rep.primal, "gap": rep.gap,
+             "eq_residual": rep.eq_residual,
+             "kkt_residual": rep.kkt_residual, "solver_gap": res.gap,
+             "drift": drift, "seconds": sec}
+        self.rec["main"]["check_kkt"] = r
+        finite = all(np.isfinite(v) for v in r.values())
+        if not (finite and drift <= KKT_DRIFT_TOL):
+            self.fail("main", f"--check-kkt report: {r}")
+        log(f"[main] --check-kkt on the f32 fused fit: {json.dumps(r)}")
 
     def counted(self, fn):
         """Run ``fn()`` with every count at 0 before it; return its result
@@ -2461,7 +2557,7 @@ class Smoke:
         pick another class even where it wins every pair; the JAX CLI
         notes ~1% of rows.) Last, the batched graph against its eager
         loop, bitwise, for GRAPH_CHECK_ITERS steps at MNIST's training shape
-        (all N rows, as phase 19 times a step)."""
+        (all N rows, as phase 20 times a step)."""
         from dpsvm_tpu_torch import SVMConfig
         from dpsvm_tpu_torch.models import multiclass as mc
         from dpsvm_tpu_torch.models.svm import decision_function
@@ -3420,13 +3516,91 @@ class Smoke:
             x, y, SVMConfig(**kws["pair"]), group=self.group),
             "decomp": dd.train_distributed_decomp(
                 x, y, SVMConfig(**kws["decomp"]), group=self.group)}
-        self._gloo = {"args": (x, y, kws), "one": one}
+        fits, one_fits = self._gloo_fits()
+        self._gloo = {"args": (x, y, kws, fits), "one": one,
+                      "one_fits": one_fits}
         if self.gloo_beside_stream:
             log("[distributed] two gloo ranks on cuda:0: run beside phase "
                 "12 (d) and (e), checked at its end")
             return
         self._gloo_start()
         self._gloo_finish()
+
+    def _gloo_fits(self):
+        """The sharded approx fit and cascade the ranks run, on rows of
+        their own, and their references with ``shards=1`` on this
+        process's card: approx-rff (D = APPROX_D) on GLOO_APPROX_N planted
+        rows, full-batch steps on both sides (n >= 2048); the cascade on
+        GLOO_CASC_N rows, its polish the decomposition (q = GLOO_Q: kernel
+        B on one card, the distributed decomposition over the ranks). Each
+        has GLOO_HELD held-out rows."""
+        from dpsvm_tpu_torch import SVMConfig, fit
+        from dpsvm_tpu_torch.data.synthetic import make_planted
+        from dpsvm_tpu_torch.models.svm import decision_function
+        fits, one = {}, {}
+        for name, n, seed, kw in (
+                ("approx", GLOO_APPROX_N, 21,
+                 dict(solver="approx-rff", approx_dim=APPROX_D, c=C,
+                      gamma=GAMMA, epsilon=1e-3)),
+                ("cascade", GLOO_CASC_N, 22,
+                 dict(solver="cascade", approx_dim=APPROX_D, c=C,
+                      gamma=GAMMA, epsilon=1e-3,
+                      max_iter=DECOMP_MAX_ITER, working_set=GLOO_Q,
+                      inner_iters=DECOMP_CAP))):
+            x, y = make_planted(n + GLOO_HELD, D, GAMMA, seed=seed)
+            xtr, ytr, xte, yte = x[:n], y[:n], x[n:], y[n:]
+            fits[name] = (xtr, ytr, xte, kw)
+            t = time.perf_counter()
+            model, res = fit(xtr, ytr, SVMConfig(**kw))
+            one[name] = {"model": model, "res": res, "yte": yte,
+                         "seconds": time.perf_counter() - t,
+                         "dec": np.asarray(decision_function(model, xte))}
+        return fits, one
+
+    def _gloo_sharded_check(self, got, one) -> dict:
+        """(c)'s sharded fits against their ``shards=1`` references: the
+        approx fit's weights and held-out decisions within GLOO_APPROX_RTOL
+        of the largest (float32 sums in another order over the same
+        full-batch steps) and its steps within GLOO_APPROX_ITER_TOL; the
+        cascade with no violator, its n_sv within 2% and held-out
+        accuracy within 0.5% of the reference's (the bar between
+        paths)."""
+        r = {}
+        a, ra = got["approx"], one["approx"]
+        w1 = np.asarray(ra["model"].w)
+        dw = float(np.abs(a["w"] - w1).max() / max(np.abs(w1).max(), 1e-30))
+        dd_ = float(np.abs(a["dec"] - ra["dec"]).max()
+                    / max(np.abs(ra["dec"]).max(), 1e-30))
+        r["approx"] = {"n": GLOO_APPROX_N,
+                       "n_iter": [a["n_iter"], ra["res"].n_iter],
+                       "converged": [a["converged"], ra["res"].converged],
+                       "metric": [a["gap"], ra["res"].gap],
+                       "seconds": [a["seconds"], ra["seconds"]],
+                       "w_rel_diff": dw, "dec_rel_diff": dd_}
+        if not (a["converged"] and ra["res"].converged
+                and abs(a["n_iter"] - ra["res"].n_iter)
+                <= GLOO_APPROX_ITER_TOL * ra["res"].n_iter
+                and dw <= GLOO_APPROX_RTOL and dd_ <= GLOO_APPROX_RTOL):
+            self.fail("distributed", f"two gloo ranks, sharded approx: "
+                      f"{r['approx']}")
+        c, rc = got["cascade"], one["cascade"]
+        yte = rc["yte"]
+        acc = float(np.mean(np.where(c["dec"] < 0, -1, 1) == yte))
+        acc1 = float(np.mean(np.where(rc["dec"] < 0, -1, 1) == yte))
+        n1 = int(rc["model"].n_sv)
+        r["cascade"] = {"n": GLOO_CASC_N,
+                        "n_iter": [c["n_iter"], rc["res"].n_iter],
+                        "kkt_violators": [c["kkt_violators"],
+                                          rc["res"].kkt_violators],
+                        "n_sv": [c["n_sv"], n1],
+                        "heldout_accuracy": [acc, acc1],
+                        "seconds": [c["seconds"], rc["seconds"]]}
+        if not (c["kkt_violators"] == 0 and c["converged"]
+                and abs(c["n_sv"] - n1) <= max(3, 0.02 * n1)
+                and abs(acc - acc1) <= 0.005):
+            self.fail("distributed", f"two gloo ranks, sharded cascade: "
+                      f"{r['cascade']}")
+        return r
 
     def _gloo_start(self) -> None:
         """Start (c)'s two ranks from a thread of this process. In a whole
@@ -3468,12 +3642,12 @@ class Smoke:
 
     def _gloo_check(self, g) -> None:
         from dpsvm_tpu_torch import SVMConfig
-        (x, y, kws), one, ranks = g["args"], g["one"], g["ranks"]
+        (x, y, kws, _fits), one, ranks = g["args"], g["one"], g["ranks"]
         r = {"n": GLOO_N, "launch_wall_seconds": g["wall"],
              "beside_phase_12": self.gloo_beside_stream}
         got = ranks[0]
         agree = all(np.array_equal(o[k]["alpha"], got[k]["alpha"])
-                    for o in ranks for k in got)
+                    for o in ranks for k in kws)
         p = got["pair"]
         r["pair"] = {"n_iter": [p["n_iter"], one["pair"].n_iter],
                      "seconds": [p["seconds"], one["pair"].train_seconds],
@@ -3495,6 +3669,13 @@ class Smoke:
         r["decomp"] = self._check_bar(x, y, _Res(got["decomp"]),
                                       one["decomp"],
                                       SVMConfig(**kws["decomp"]))
+        r.update(self._gloo_sharded_check(got, g["one_fits"]))
+        agree_fits = all(np.array_equal(o[k]["dec"], got[k]["dec"])
+                         for o in ranks for k in ("approx", "cascade"))
+        r["fits_ranks_agree"] = agree_fits
+        if not agree_fits:
+            self.fail("distributed", "two gloo ranks: the sharded fits' "
+                      "ranks disagree")
         self.rec["distributed"]["gloo"] = r
         log(f"[distributed] two gloo ranks on cuda:0: {json.dumps(r)}")
 
@@ -6737,6 +6918,163 @@ class Smoke:
             self.fail("tune", f"(d) want {want!r}; {r}")
         return r
 
+    # ------------------------------------------------------------ phase 19
+    def fleet(self) -> None:
+        """The fleet views on the card (module docstring, phase 19): (a)
+        the straggler drill, (b) the 1000-model cache drill, (c) the
+        ``fleet`` and ``tenants`` commands. The perf ledger lives in the
+        scratch directory (the drills append to it) and the environment
+        is restored after. A failed step fails the phase."""
+        tmp = os.path.join(self.scratch, "fleet")
+        os.makedirs(tmp, exist_ok=True)
+        rec = self.rec["fleet"] = {"seconds": {}}
+        saved = os.environ.get("DPSVM_PERF_LEDGER")
+        os.environ["DPSVM_PERF_LEDGER"] = os.path.join(tmp, "ledger.jsonl")
+        try:
+            for tag, fn in (("a", self.fleet_straggler),
+                            ("b", self.fleet_cache),
+                            ("c", self.fleet_cli)):
+                t = time.perf_counter()
+                try:
+                    rec[tag] = fn(tmp)
+                finally:
+                    rec["seconds"][tag] = round(time.perf_counter() - t, 3)
+                    self._fleet_log(
+                        f"({tag}) {rec['seconds'][tag]:.1f} s: "
+                        f"{json.dumps(rec.get(tag), default=str)}")
+        finally:
+            os.environ.pop("DPSVM_PERF_LEDGER", None)
+            if saved is not None:
+                os.environ["DPSVM_PERF_LEDGER"] = saved
+
+    @staticmethod
+    def _fleet_log(msg: str) -> None:
+        log(f"[fleet] {time.strftime('%H:%M:%S')} {msg}")
+
+    def fleet_straggler(self, tmp: str) -> dict:
+        """(a) ``straggler_drill`` on cuda:0: three host processes (gloo
+        ranks sharing the card), host 1 planted at FLEET_HANG_MS a poll;
+        the drill raises unless the merged family validates and names host
+        1 in its lanes and report, ``skew[host-1]`` fires and clears, the
+        sidecars federate into a valid exposition and the fleet bundle
+        validates naming the host."""
+        from dpsvm_tpu_torch.resilience import hostgroup
+        drill = os.path.join(tmp, "straggler")
+        facts = hostgroup.straggler_drill(drill, device="cuda",
+                                          num_hosts=FLEET_HOSTS,
+                                          slow_host=FLEET_SLOW_HOST,
+                                          hang_ms=FLEET_HANG_MS)
+        facts["bundle"] = os.path.basename(facts["bundle"])
+        self._fleet_drill_dir = drill
+        if not (facts["straggler"] == FLEET_SLOW_HOST
+                and facts["skew_fired"] >= 1 and facts["skew_cleared"] >= 1):
+            self.fail("fleet", f"(a) straggler drill: {facts}")
+        return facts
+
+    def fleet_cache(self, tmp: str) -> dict:
+        """(b) ``fleet_cache_drill`` on cuda:0: FLEET_DRILL_MODELS lazy
+        models under a budget of FLEET_DRILL_BUDGET, a hot set and a
+        one-shot scan; residents never above the budget, the counters
+        conserved, the hot set resident after the scan, the fault/evict
+        trace valid; the cold start's p50 and p99."""
+        from dpsvm_tpu_torch.fleet import fleet_cache_drill
+        row = fleet_cache_drill(os.path.join(tmp, "cache"),
+                                n_models=FLEET_DRILL_MODELS,
+                                budget=FLEET_DRILL_BUDGET, device="cuda")
+        row.pop("trace", None)
+        ok = (row["ok"] and row["peak_resident"] <= FLEET_DRILL_BUDGET
+              and row["touches"] == (row["hits"] + row["faults"]
+                                     + row["transients"])
+              and row["device"].startswith("cuda"))
+        if not ok:
+            self.fail("fleet", f"(b) fleet cache drill: {row}")
+        return row
+
+    def fleet_cli(self, tmp: str) -> dict:
+        """(c) ``cli fleet`` on (a)'s sidecars and heartbeats: exit 0, the
+        written exposition valid, host 1 the slowest or level; with a
+        missing host's source added, exit 3; then ``cli tenants`` on a
+        serving trace of tenant-labelled requests to a tiny model on the
+        card (and ``--url`` on the live server): exit 0 with the hot
+        tenant first, and exit 1 on (b)-style traffic without tenants."""
+        from dpsvm_tpu_torch.fleet import tiny_fleet
+        from dpsvm_tpu_torch.observability.metrics import validate_exposition
+        from dpsvm_tpu_torch.serving.registry import ModelRegistry
+        from dpsvm_tpu_torch.serving.server import ServingServer
+        drill = self._fleet_drill_dir
+        srcs = sorted(os.path.join(drill, f) for f in os.listdir(drill)
+                      if f.startswith("metrics_h") and f.endswith(".prom"))
+        hb = os.path.join(drill, "heartbeats")
+        expo_path = os.path.join(tmp, "fleet.prom")
+
+        def cli(*argv):
+            # the CLI's entry point in this process (a process start
+            # costs seconds of imports; neither command touches a device)
+            import contextlib
+            import io
+            from dpsvm_tpu_torch.cli import main as cli_main
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli_main(list(argv))
+            return rc, out.getvalue(), err.getvalue()
+
+        r = {}
+        rc, out, err = cli("fleet", *srcs, "--hosts-dir", hb,
+                           "--out", expo_path, "--json")
+        snap = json.loads(out) if rc == 0 else {}
+        with open(expo_path) as fh:
+            expo_errs = validate_exposition(fh.read())
+        r["fleet"] = {"rc": rc, "hosts": len(snap.get("hosts", {})),
+                      "lag": snap.get("lag"),
+                      "slowest": snap.get("slowest"),
+                      "exposition_errors": expo_errs}
+        rc_down, _, _ = cli("fleet", *srcs,
+                            os.path.join(tmp, "metrics_h9.prom"))
+        r["fleet_down_rc"] = rc_down
+        if not (rc == 0 and not expo_errs
+                and len(snap.get("hosts", {})) == FLEET_HOSTS
+                and rc_down == 3):
+            self.fail("fleet", f"(c) cli fleet: {r} {err[-400:]}")
+
+        # a serving trace with tenants: FLEET_TENANT_REQS requests to a
+        # tiny model, tenant t0 sending FLEET_TENANT_HOT of them
+        path = tiny_fleet(tmp, 1, specs=((0.5, 4),), seed=19)[0]
+        trace = os.path.join(tmp, "tenant_trace.jsonl")
+        reg = ModelRegistry()
+        reg.register("default", path, max_batch=16)
+        srv = ServingServer(reg, port=0, max_batch=16, trace_out=trace,
+                            trace_sample_rate=1.0).start()
+        try:
+            rng = np.random.default_rng(19)
+            n_hot = int(FLEET_TENANT_REQS * FLEET_TENANT_HOT)
+            for i in range(FLEET_TENANT_REQS):
+                tenant = "t0" if i < n_hot else f"t{1 + i % 3}"
+                _http_post(srv.url + "/v1/predict", {
+                    "instances": rng.standard_normal((2, 4)).tolist(),
+                    "tenant": tenant})
+            rc_url, out_url, _ = cli("tenants", "--url", srv.url, "--json")
+        finally:
+            srv.drain(timeout=30.0)
+        rc_tr, out_tr, err_tr = cli("tenants", trace, "--json")
+        att = json.loads(out_tr) if rc_tr == 0 else {}
+        live = json.loads(out_url) if rc_url == 0 else {}
+        rc_none, _, _ = cli("tenants", os.path.join(tmp, "cache",
+                                                    "fleet_drill.jsonl"))
+        rows = att.get("rows") or [{}]
+        r["tenants"] = {"rc_trace": rc_tr, "rc_url": rc_url,
+                        "rc_no_tenants": rc_none,
+                        "tenants": att.get("tenants"),
+                        "top": rows[0].get("tenant"),
+                        "top_share": rows[0].get("share"),
+                        "live_top": (live.get("rows") or [{}])[0].get(
+                            "tenant")}
+        if not (rc_tr == 0 and rc_url == 0 and rc_none == 1
+                and rows[0].get("tenant") == "t0"
+                and r["tenants"]["live_top"] == "t0"):
+            self.fail("fleet", f"(c) cli tenants: {r} {err_tr[-400:]}")
+        return r
+
     def timing(self) -> None:
         """Kernel A as the main path runs it: a training run's carry at its
         start, advanced by chunks of TIMED_ITERS iterations through
@@ -7170,7 +7508,7 @@ def main(argv=None) -> int:
                    ("live", s.live), ("serve", s.serve),
                    ("stack", s.stack), ("observe", s.observe),
                    ("resilience", s.resilience), ("tune", s.tune),
-                   ("timing", s.timing)]
+                   ("fleet", s.fleet), ("timing", s.timing)]
     if args.only:
         keep = {"build", *args.only.split(",")}
         phases = [(n, fn) for n, fn in phases if n in keep]

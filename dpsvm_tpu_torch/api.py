@@ -224,7 +224,7 @@ def sweep_c(x: np.ndarray, y: np.ndarray, cs,
 
 def warm_start(x: np.ndarray, y: np.ndarray, alpha: np.ndarray,
                config: Optional[SVMConfig] = None, device: Device = None,
-               guard_eta: bool = False) -> TrainResult:
+               guard_eta: bool = False, group=None) -> TrainResult:
     """Continue training from a previous solution's alpha.
 
     Recomputes f = K (alpha*y) - y in one streamed kernel pass
@@ -233,7 +233,7 @@ def warm_start(x: np.ndarray, y: np.ndarray, alpha: np.ndarray,
     ``epsilon``), and a converged alpha returns after the first poll. The
     alphas must come from a run with the same C and weights: membership
     of the box's corners is an exact comparison against this config's
-    bounds."""
+    bounds. ``group``: as ``train``'s (a distributed continuation)."""
     from dpsvm_tpu_torch.ops.diagnostics import _stream_kv
 
     config = config or SVMConfig()
@@ -270,4 +270,4 @@ def warm_start(x: np.ndarray, y: np.ndarray, alpha: np.ndarray,
                     block=4096, device=dev)
     return train(x, y, config, device=dev,
                  f_init=(kv - yf).astype(np.float32), alpha_init=alpha,
-                 guard_eta=guard_eta)
+                 guard_eta=guard_eta, group=group)

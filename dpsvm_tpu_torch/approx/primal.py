@@ -18,6 +18,14 @@ metric the host loop polls is that exact gradient's L2 norm: ``b_lo`` =
 metric, ``b_hi`` = 0, so the host loop's gap test is ``metric <= 2 eps``;
 ``n_sv`` is the last step's margin violators.
 
+``shards > 1`` (or a process group) takes full-batch steps on
+row-sharded features, as the JAX package's sharded path does: every rank
+featurizes its contiguous share of the shuffled rows, the step size's
+statistics (the squared-norm sum and each power-iteration product) are
+summed over the ranks, and a step's gradient and margin violators are
+one all-reduce (``parallel/mesh.all_sum_``); every rank then takes the
+same update from the same replicated sums.
+
 Problems of ``_FULLBATCH_ROWS`` rows or more take full-batch steps: each
 is two matrix-vector products over the (n_pad, D + 1) feature matrix (a
 pass over it to f = phi u, a pass back to phi' g), so a step is
@@ -71,6 +79,8 @@ from dpsvm_tpu_torch.config import SENTINEL, SVMConfig, TrainResult
 from dpsvm_tpu_torch.device import resolve_device
 from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.ops.kernels import exact_f32
+from dpsvm_tpu_torch.parallel.mesh import (all_gather, all_sum_,
+                                           make_data_mesh, shard_probe)
 from dpsvm_tpu_torch.solver.driver import (ChunkStats, Poll, copy_carry_,
                                            host_training_loop, pack_stats,
                                            read_stats, resume_state)
@@ -251,6 +261,8 @@ class PrimalProblem:
     task: str
     svr_eps: float
     two_eps: float          # 2 eps as the float32 the condition adds
+    mesh: object = None     # parallel.mesh.DataMesh of a sharded run: phi,
+                            # y and rw hold this rank's rows
 
     @property
     def check_every(self) -> int:
@@ -298,9 +310,17 @@ def primal_step(s: PrimalCarry, prob: PrimalProblem) -> PrimalCarry:
     # Nesterov: the gradient at the lookahead point w + beta v.
     u = s.w + beta * s.v
     g, act = residual_grad(prob, torch.matmul(pb, u), yb, rb)
-    grad = torch.matmul(g, pb) / prob.denom + prob.lam * u * prob.reg_mask
-    return descend(s, prob, grad, torch.sum(act & (rb > 0),
-                                            dtype=torch.int32))
+    gp = torch.matmul(g, pb)
+    nact = torch.sum(act & (rb > 0), dtype=torch.int32)
+    if prob.mesh is not None:
+        # the global product: this rank's rows' share and its violators,
+        # summed over the ranks in one all-reduce (exact counts below
+        # 2^24 rows)
+        packed = torch.cat([gp, nact.to(torch.float32).reshape(1)])
+        all_sum_(prob.mesh, packed)
+        gp, nact = packed[:-1], packed[-1].to(torch.int32)
+    grad = gp / prob.denom + prob.lam * u * prob.reg_mask
+    return descend(s, prob, grad, nact)
 
 
 def descend(s: PrimalCarry, prob: PrimalProblem, grad,
@@ -376,6 +396,8 @@ class GraphChunk:
         with torch.cuda.stream(side), exact_f32():
             primal_body(carry, prob, self.limit)
         torch.cuda.current_stream().wait_stream(side)
+        if prob.mesh is not None:   # the NCCL communicator is up
+            torch.cuda.synchronize(carry.w.device)
         self.graph = torch.cuda.CUDAGraph()
         with capture(self.graph, program="primal-chunk",
                      signature=compilewatch.shape_signature(prob.phi)):
@@ -398,12 +420,18 @@ class GraphChunk:
         return replays
 
 
-def _stats(s: PrimalCarry) -> torch.Tensor:
-    """The poll's packed stats: [n_iter, metric bits, 0.0 bits, nact, 0]."""
+def _stats(s: PrimalCarry, mesh=None) -> torch.Tensor:
+    """The poll's packed stats: [n_iter, metric bits, 0.0 bits, nact, 0],
+    and on a mesh every rank's probe row after them (one all-gather): the
+    desync check and shard heartbeats of ``solver/driver``."""
     zero = torch.zeros_like(s.metric)
-    return pack_stats(s.n_iter, s.metric.view(torch.int32),
-                      zero.view(torch.int32), s.nact,
-                      torch.zeros_like(s.n_iter))
+    stats = pack_stats(s.n_iter, s.metric.view(torch.int32),
+                       zero.view(torch.int32), s.nact,
+                       torch.zeros_like(s.n_iter))
+    if mesh is None:
+        return stats
+    probes = all_gather(mesh, shard_probe(s.n_iter, s.metric, zero))
+    return torch.cat([stats, probes.reshape(-1)])
 
 
 def make_chunk_runner(carry: PrimalCarry, prob: PrimalProblem,
@@ -415,7 +443,10 @@ def make_chunk_runner(carry: PrimalCarry, prob: PrimalProblem,
     chunk."""
     state = {"n_iter": int(carry.n_iter), "bodies": 0}
     chunk = None
-    if carry.w.is_cuda and not plain:
+    mesh = prob.mesh
+    # a graph holds NCCL collectives, not gloo's (host-staged) ones
+    if carry.w.is_cuda and not plain and (mesh is None
+                                          or mesh.backend == "nccl"):
         chunk = GraphChunk(carry, prob)
         RUN.update(graph_ms=0.0, graph_bodies=0)
 
@@ -430,10 +461,11 @@ def make_chunk_runner(carry: PrimalCarry, prob: PrimalProblem,
 
     def step(cr: PrimalCarry, limit: int):
         cr = advance(cr, limit)
-        stats = _stats(cr)
+        stats = _stats(cr, mesh)
 
         def poll() -> ChunkStats:
-            st: ChunkStats = read_stats(stats)
+            st: ChunkStats = read_stats(stats, 0 if mesh is None
+                                        else mesh.size)
             COUNTS["reads"] += 1
             if chunk is not None:  # the read synchronised: events are done
                 RUN["graph_ms"] += chunk.events[0].elapsed_time(
@@ -449,11 +481,13 @@ def make_chunk_runner(carry: PrimalCarry, prob: PrimalProblem,
     return step
 
 
-def _power_lambda_max(phi: torch.Tensor, n: int) -> float:
+def _power_lambda_max(phi: torch.Tensor, n: int, mesh=None) -> float:
     """lambda_max((1/n) Phi'Phi) by seeded power iteration on the device,
     from the JAX package's start vector (pad rows are zero, so they drop
     out). Deterministic, so the step size and the trajectory are a pure
-    function of the config and the data."""
+    function of the config and the data. On a mesh ``phi`` is this rank's
+    rows and each product Phi'(Phi v) is summed over the ranks, so every
+    rank iterates on the same vector."""
     rng = np.random.default_rng(0)
     v0 = rng.standard_normal(phi.shape[1]).astype(np.float32)
     v0 /= np.linalg.norm(v0)
@@ -462,7 +496,10 @@ def _power_lambda_max(phi: torch.Tensor, n: int) -> float:
     lmax = 0.0
     with exact_f32():
         for _ in range(_POWER_ITERS):
-            w = torch.matmul(torch.matmul(phi, v), phi) / nf
+            w = torch.matmul(torch.matmul(phi, v), phi)
+            if mesh is not None:
+                all_sum_(mesh, w)
+            w = w / nf
             norm = torch.linalg.vector_norm(w)
             lmax = float(norm)
             if lmax <= 0.0:            # all-zero features: regularizer only
@@ -482,14 +519,19 @@ def _check_svc_labels(y: np.ndarray) -> np.ndarray:
 
 
 def build_problem(x: np.ndarray, yv: np.ndarray, config: SVMConfig,
-                  task: str, fmap: FeatureMap, device: torch.device
-                  ) -> PrimalProblem:
+                  task: str, fmap: FeatureMap, device: torch.device,
+                  mesh=None) -> PrimalProblem:
     """Shuffle once (seeded by approx_seed), featurize on the device with
     the bias lane, and derive the step size (the JAX package's
-    ``fit_approx`` set-up)."""
+    ``fit_approx`` set-up). With ``mesh`` (a sharded run) the steps are
+    full batch: the shuffled rows are padded to a multiple of the ranks,
+    each rank featurizes its contiguous share, and the step size's
+    statistics are summed over the ranks."""
     n = x.shape[0]
     dp = fmap.dim + 1
-    if n >= _FULLBATCH_ROWS:
+    if mesh is not None:
+        batch = n_pad = -(-n // mesh.size) * mesh.size
+    elif n >= _FULLBATCH_ROWS:
         batch = n_pad = -(-n // 256) * 256
     else:
         batch = min(_BATCH, 1 << (n - 1).bit_length())
@@ -497,10 +539,17 @@ def build_problem(x: np.ndarray, yv: np.ndarray, config: SVMConfig,
     # Contiguous minibatches over class-sorted input would be class-pure:
     # shuffle once, deterministically.
     perm = np.random.default_rng(config.approx_seed).permutation(n)
+    # this process's rows of the shuffled, padded problem
+    lo, n_loc = ((0, n_pad) if mesh is None
+                 else (mesh.rank * (n_pad // mesh.size),
+                       n_pad // mesh.size))
     t0 = time.perf_counter()
-    phi, sq = featurize_padded(fmap, x, n_pad, rows=perm, bias=True,
-                               device=device,
+    phi, sq = featurize_padded(fmap, x, n_loc, rows=perm[lo:lo + n_loc],
+                               bias=True, device=device,
                                precision=config.matmul_precision)
+    if mesh is not None:
+        sq = float(all_sum_(mesh, torch.tensor(sq, dtype=torch.float64,
+                                               device=device)))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_feat = time.perf_counter() - t0
@@ -515,7 +564,7 @@ def build_problem(x: np.ndarray, yv: np.ndarray, config: SVMConfig,
         # Full batch: the spectral estimate (converges from below; the 1.1
         # margin and the plateau decay cover the rest), the trace bound
         # as a ceiling.
-        lmax = _power_lambda_max(phi, n)
+        lmax = _power_lambda_max(phi, n, mesh)
         curv = min(msq, 1.1 * lmax)
     else:
         # Every slice's data Hessian has trace at most (n_pad/n) msq.
@@ -530,6 +579,7 @@ def build_problem(x: np.ndarray, yv: np.ndarray, config: SVMConfig,
                           np.float32(config.weight_neg))
     else:
         rw[:n] = 1.0
+    yp, rw = yp[lo:lo + n_loc], rw[lo:lo + n_loc]
     reg_mask = np.ones((dp,), np.float32)
     reg_mask[-1] = 0.0
 
@@ -538,7 +588,8 @@ def build_problem(x: np.ndarray, yv: np.ndarray, config: SVMConfig,
 
     n_batches = n_pad // batch
     RUN.clear()
-    RUN.update(n_pad=n_pad, lmax=lmax, big_l=big_l, msq=msq,
+    RUN.update(n_pad=n_pad, shards=1 if mesh is None else mesh.size,
+               lmax=lmax, big_l=big_l, msq=msq,
                phi_device=str(phi.device), phi_shape=tuple(phi.shape),
                phi_bytes=int(phi.numel() * phi.element_size()),
                featurize_seconds=t_feat)
@@ -549,13 +600,13 @@ def build_problem(x: np.ndarray, yv: np.ndarray, config: SVMConfig,
         denom=f32(n / n_batches), n_real=f32(n), lam=f32(lam),
         lr=f32(1.0 / big_l), n_batches=n_batches, batch=batch, task=task,
         svr_eps=float(np.float32(config.svr_epsilon)),
-        two_eps=two_eps_f32(config.epsilon))
+        two_eps=two_eps_f32(config.epsilon), mesh=mesh)
 
 
 def fit_approx(x: np.ndarray, y: np.ndarray,
                config: Optional[SVMConfig] = None,
                task: str = "svc", *, init_w=None, device=None,
-               plain: bool = False
+               plain: bool = False, group=None
                ) -> Tuple[ApproxSVMModel, TrainResult]:
     """Featurize + primal-solve; the approx path's ``api.fit``.
 
@@ -565,7 +616,17 @@ def fit_approx(x: np.ndarray, y: np.ndarray,
     violators (there is no SV set). ``init_w`` warm-starts the weights
     from a packed (dp,) vector (``warm_start_vector(model)``); a
     configured ``resume_from`` checkpoint takes precedence. ``device``
-    None means the GPU; ``plain`` runs the eager loop on any device."""
+    None means the GPU; ``plain`` runs the eager loop on any device.
+
+    ``config.shards > 1`` (or a ``group``, which then overrides it) trains
+    over the ranks of a ``torch.distributed`` group, one process a
+    device, every rank called with the same full (x, y): full-batch steps
+    on row-sharded features, one all-reduce of the (D + 1) gradient a
+    step (``parallel/mesh.all_sum_``), every decision taken from
+    replicated stats, and every rank returns the same model. On NCCL
+    ranks a chunk is a captured graph with the collectives inside, on
+    gloo ranks the eager loop; ``device`` is the rank's device (default:
+    its CUDA device under NCCL, the CPU under gloo)."""
     config = config or SVMConfig()
     config.validate()
     if config.solver not in ("approx-rff", "approx-nystrom"):
@@ -573,11 +634,6 @@ def fit_approx(x: np.ndarray, y: np.ndarray,
                          "'approx-nystrom'")
     if task not in ("svc", "svr"):
         raise ValueError(f"task must be 'svc' or 'svr', got {task!r}")
-    if config.shards > 1:
-        raise NotImplementedError(
-            "the approx solvers with shards > 1 (the sharded full-batch "
-            "path) are not ported to dpsvm_tpu_torch yet (ROADMAP Queue 1 "
-            "item 9, what the port lacks); train with shards=1")
     x = np.asarray(densify(x), np.float32)
     if x.ndim != 2:
         raise ValueError(f"x must be (n, d), got shape {x.shape}")
@@ -586,7 +642,12 @@ def fit_approx(x: np.ndarray, y: np.ndarray,
         raise ValueError(f"y must be ({x.shape[0]},), got {y.shape}")
     yv = (_check_svc_labels(y) if task == "svc"
           else np.asarray(y, np.float32))
-    dev = resolve_device(device)
+    mesh = None
+    if config.shards > 1 or group is not None:
+        mesh = make_data_mesh(config.shards, group, device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
     n, d = x.shape
     gamma = float(config.resolve_gamma(d))
     spec = config.kernel_spec(d)
@@ -594,14 +655,15 @@ def fit_approx(x: np.ndarray, y: np.ndarray,
     fmap = build_feature_map(kind, x, config.approx_dim,
                              config.approx_seed, spec)
     dp = fmap.dim + 1                      # + bias feature
-    prob = build_problem(x, yv, config, task, fmap, dev)
+    prob = build_problem(x, yv, config, task, fmap, dev, mesh)
 
     carry = init_carry(dp)
     if init_w is not None:
         carry = _apply_init_w(carry, init_w, dp)
     # Checkpoint identity: (n, Dp) names the packed primal problem the way
     # (n, d) names a dual one; the map is deterministic in the config.
-    ckpt = resume_state(config, n, dp, gamma)
+    ckpt = resume_state(config, n, dp, gamma,
+                        shards=1 if mesh is None else mesh.size)
     if ckpt is not None:
         carry = unpack_state(ckpt, dp)
     carry = carry_to_device(carry, dev)
@@ -619,7 +681,7 @@ def fit_approx(x: np.ndarray, y: np.ndarray,
         config, gamma, carry, step,
         lambda c: pack_state(carry_to_host(c)),
         it0=int(ckpt.n_iter) if ckpt is not None else 0, dims=(n, dp),
-        carry_from_ckpt=carry_from_ckpt)
+        mesh=mesh, carry_from_ckpt=carry_from_ckpt)
     final = carry_to_host(step.carry)
     w_out = np.asarray(final.w, np.float32)
     model = ApproxSVMModel(fmap=fmap, w=w_out[:-1].copy(),

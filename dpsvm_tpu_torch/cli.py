@@ -228,6 +228,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="'highest'/'high': X stored float32; 'default': "
                          "X stored bfloat16 (half the bytes per "
                          "iteration); accumulation is float32 always")
+    tr.add_argument("--polish", action="store_true",
+                    help="two-phase precision schedule: fast bf16 bulk "
+                         "solve, then an exact-f32 warm-start refinement "
+                         "to the same epsilon — exact-arithmetic final "
+                         "KKT at near-bf16 wall-clock")
     tr.add_argument("--weight-pos", type=_finite_weight, default=1.0,
                     help="cost weight for y=+1 examples (box bound "
                          "C*weight; LIBSVM -w1)")
@@ -432,6 +437,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="like -b, but fit the sigmoid on 5-fold "
                          "held-out decision values (LIBSVM's -b 1 "
                          "procedure; 5 extra trainings)")
+    tr.add_argument("--check-kkt", action="store_true",
+                    help="post-train optimality report: dual/primal "
+                         "objective, duality gap, and the KKT residual "
+                         "recomputed from scratch (bounds the solver's "
+                         "incremental-f drift)")
     tr.add_argument("--on-bad-shard", default="raise",
                     choices=["raise", "quarantine"],
                     help="streaming-ingest policy when a shard fails its "
@@ -649,7 +659,8 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("trace", help="trace JSONL written by --trace-out "
                                   "(either package's), or a directory "
                                   "of traces — the newest *.jsonl is "
-                                  "picked")
+                                  "picked, and a multi-host trace_h* "
+                                  "family is merged, a lane a host")
     rp.add_argument("--json", action="store_true",
                     help="machine-readable digest instead of the human "
                          "rendering")
@@ -865,7 +876,68 @@ def build_parser() -> argparse.ArgumentParser:
                     default=True, help="skip the perf-ledger appends")
     tn.add_argument("-q", "--quiet", action="store_true")
     _add_serve_parsers(sub)
+    _add_fleet_view_parsers(sub)
     return root
+
+
+def _add_fleet_view_parsers(sub) -> None:
+    tns = sub.add_parser(
+        "tenants", help="per-tenant cost attribution table: who "
+                        "spends the fleet's device compute, rows and "
+                        "queue time — from a serving trace's span "
+                        "records or a live /metricsz endpoint")
+    tsrc = tns.add_mutually_exclusive_group(required=True)
+    tsrc.add_argument("--url", default=None,
+                      help="base URL (or full /metricsz URL) of a "
+                           "live `serve` process: renders its tenant "
+                           "cost ledger")
+    tsrc.add_argument("trace", nargs="?", default=None,
+                      help="serving trace JSONL (serve --trace-out), "
+                           "or a directory — newest *.jsonl; costs "
+                           "are attributed from sampled span trees")
+    tns.add_argument("--top", type=int, default=None, metavar="K",
+                     help="show only the K most expensive tenants by "
+                          "attributed wall time (default: all)")
+    tns.add_argument("--json", action="store_true",
+                     help="machine-readable rows instead of the table")
+    tns.add_argument("--timeout", type=float, default=10.0,
+                     help="--url fetch timeout seconds")
+
+    fl = sub.add_parser(
+        "fleet", help="multi-host metrics federation: fold N hosts' "
+                      "`train --metrics-out` snapshot files and/or "
+                      "live /metricsz URLs into ONE fleet table + "
+                      "Prometheus exposition (counters summed, ages "
+                      "maxed, group iteration min'ed, per-host lanes "
+                      "under a bounded `host` label)")
+    fl.add_argument("sources", nargs="+", metavar="SRC",
+                    help="per-host sources: metrics snapshot files "
+                         "(metrics_h0.prom ...) and/or base URLs of "
+                         "live `train --metrics-port` / `serve` "
+                         "processes; host ids parse from the names "
+                         "(h0/host-1/...), else positional")
+    fl.add_argument("--hosts-dir", default=None, metavar="DIR",
+                    help="host-group heartbeat directory (--coordinator "
+                         "runs write host-K.json there): joins "
+                         "generation/seq liveness into the table")
+    fl.add_argument("--out", default=None, metavar="FILE",
+                    help="also write the federated Prometheus "
+                         "exposition here (the fleet-level "
+                         "--metrics-out; '-' = stdout)")
+    fl.add_argument("--watch", action="store_true",
+                    help="evaluate the fleet alert rules (default: "
+                         "the built-in fleet set — heartbeat-stale "
+                         "page, reform-storm page, iteration-skew "
+                         "warn) against one federated sample and use "
+                         "the watch exit codes (4 warn / 5 page)")
+    fl.add_argument("--rules", default=None, metavar="FILE",
+                    help="alert-rules JSON for --watch (default: the "
+                         "built-in fleet rules)")
+    fl.add_argument("--json", action="store_true",
+                    help="machine-readable fleet snapshot instead of "
+                         "the table")
+    fl.add_argument("--timeout", type=float, default=5.0,
+                    help="per-URL fetch timeout seconds (default 5)")
 
 
 def _add_serve_parsers(sub) -> None:
@@ -1071,8 +1143,8 @@ def _add_serve_parsers(sub) -> None:
 def _train_conflicts(args: argparse.Namespace):
     """(error message or None, class_weight) from the flags alone, before
     the dataset is parsed: the JAX CLI's rules and messages for the flags
-    the port has. Its rows on flags the port does not have (``--pallas``,
-    ``--polish``, ``--check-kkt``) drop out."""
+    the port has. Its rows on the flag the port does not have
+    (``--pallas``) drop out."""
     if args.model_format == "libsvm" and args.multiclass:
         return ("--model-format libsvm applies to binary models; "
                 "--multiclass writes a directory of reference-format "
@@ -1080,15 +1152,19 @@ def _train_conflicts(args: argparse.Namespace):
     if args.gamma_sweep is not None and args.c_sweep is None:
         return "--gamma-sweep extends --c-sweep (pass both)", None
     if args.solver != "exact":
-        # The cascade's outputs are ordinary SV models, so --model-format
-        # libsvm stays valid there; the batched programs stay
-        # dual-solver-only.
+        # The cascade's outputs are ordinary SV models with full-length
+        # duals, so --check-kkt and --model-format libsvm stay valid
+        # there; the batched programs stay dual-solver-only.
         approx = args.solver.startswith("approx")
         for flag, on, hint in (
                 ("--c-sweep", args.c_sweep is not None,
                  " (the batched sweep is a dual-solver program)"),
                 ("--batched", args.batched,
                  " (the batched program solves the dual iteration)"),
+                ("--check-kkt", approx and args.check_kkt,
+                 " (KKT/duality-gap reporting is dual-specific; the "
+                 "primal path reports its gradient-norm metric in the "
+                 "run trace — --solver cascade supports it)"),
                 ("--model-format libsvm",
                  approx and args.model_format == "libsvm",
                  " (approx models persist as .npz — no SV lines to "
@@ -1110,6 +1186,9 @@ def _train_conflicts(args: argparse.Namespace):
         if args.model and os.path.isfile(args.model):
             return (f"-m {args.model} is an existing file; --multiclass "
                     "writes a model DIRECTORY"), None
+        if args.check_kkt:
+            return ("--check-kkt reports on a single binary subproblem; "
+                    "it does not apply to --multiclass runs"), None
         if args.checkpoint or args.resume:
             return ("--checkpoint/--resume are single-model flags; they "
                     "cannot be shared across the pairwise multiclass "
@@ -1178,6 +1257,7 @@ def _train_conflicts(args: argparse.Namespace):
                 ("--probability-cv" if args.probability_cv
                  else "--probability",
                  args.probability or args.probability_cv, ""),
+                ("--check-kkt", args.check_kkt, ""),
                 ("--multiclass", args.multiclass,
                  " (CV dispatches to one-vs-one automatically when the "
                  "labels have more than two classes)"),
@@ -1213,6 +1293,8 @@ def _train_conflicts(args: argparse.Namespace):
                       else "--probability",
                       (args.probability_cv or
                        (args.probability and not nu_multiclass))),
+                     ("--check-kkt", args.check_kkt),
+                     ("--polish", args.polish),
                      ("--weight-pos/--weight-neg",
                       args.weight_pos != 1.0 or args.weight_neg != 1.0),
                      # these modes' duals live on an equality
@@ -1290,6 +1372,7 @@ def cmd_train(args: argparse.Namespace) -> int:
                        weight_neg=args.weight_neg,
                        clip=args.clip or "independent",
                        matmul_precision=args.precision,
+                       polish=args.polish,
                        shrinking=args.shrinking,
                        checkpoint_path=args.checkpoint,
                        checkpoint_every=args.checkpoint_every,
@@ -1399,6 +1482,25 @@ def cmd_train(args: argparse.Namespace) -> int:
         save_platt(args.model, pa, pb)
         print(f"Platt calibration: A={pa:.6f} B={pb:.6f} "
               f"(saved {args.model}.platt.json)")
+    if args.check_kkt:
+        from dpsvm_tpu_torch.ops.diagnostics import optimality_report
+        # One streamed kernel pass yields every metric; box_bound gives the
+        # C_i the solver used with class weights.
+        rep = optimality_report(x, y, result.alpha,
+                                config.kernel_spec(x.shape[1]),
+                                config.box_bound(y), b=result.b,
+                                device=dev)
+        # The solver keeps f incrementally; kkt_residual recomputes b_lo -
+        # b_hi from scratch, so its difference from the solver's final gap
+        # bounds the accumulated drift.
+        print(f"Dual objective: {rep.dual:.6f}")
+        print(f"Primal objective: {rep.primal:.6f}")
+        print(f"Duality gap: {rep.gap:.6f}")
+        print(f"Equality residual sum(alpha*y): {rep.eq_residual:.6f} "
+              "(nonzero = the reference's independent-clip drift)")
+        print(f"KKT residual (recomputed): {rep.kkt_residual:.6f} "
+              f"(solver's incremental gap: {result.gap:.6f}, "
+              f"drift {abs(rep.kkt_residual - result.gap):.2e})")
     return 0
 
 
@@ -1420,6 +1522,11 @@ def _train_streaming(args, config) -> int:
               "which needs the materialized dataset; use "
               "--probability (streamed decisions) or materialize",
               file=sys.stderr)
+        return 2
+    if args.check_kkt:
+        print("error: --check-kkt recomputes the KKT residual over the "
+              "materialized training set; streaming shard training "
+              "never materializes it", file=sys.stderr)
         return 2
     ds = ShardedDataset.open(args.input)
     task = "svr" if args.svr else "svc"
@@ -2132,6 +2239,153 @@ def _pipe_safe_print(text: str) -> None:
         os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
 
 
+def cmd_tenants(args: argparse.Namespace) -> int:
+    """``tenants``: the by-tenant cost table. Two sources, one row shape:
+    a serving trace's sampled span trees (full percentiles) or a live
+    /metricsz cost ledger (running totals, no percentiles). HTTP and file
+    I/O only, no device. Exit 0 = rendered, 1 = the source has no tenant
+    attribution, 2 = unreachable or invalid."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from dpsvm_tpu_torch.observability.report import render_tenant_table
+
+    if args.url:
+        url = args.url.rstrip("/")
+        if not url.endswith("/metricsz"):
+            url += "/metricsz"
+        try:
+            with urllib.request.urlopen(url, timeout=args.timeout) as r:
+                obj = json.loads(r.read())
+        except (urllib.error.URLError, OSError,
+                json.JSONDecodeError) as e:
+            print(f"error: cannot read {url}: {e}", file=sys.stderr)
+            return 2
+        tn = obj.get("tenants") if isinstance(obj, dict) else None
+        if not isinstance(tn, dict):
+            print("error: no 'tenants' block in /metricsz — is this a "
+                  "`dpsvm serve` endpoint?", file=sys.stderr)
+            return 1
+        per = tn.get("per_tenant") or {}
+        total_wall = sum(float(d.get("wall_ms", 0.0))
+                         for d in per.values())
+        rows = []
+        for ten, d in per.items():
+            wall = float(d.get("wall_ms", 0.0))
+            rows.append({
+                "tenant": ten,
+                "requests": int(d.get("requests", 0)),
+                "rows": int(d.get("rows", 0)),
+                "wall_ms": round(wall, 3),
+                "share": (wall / total_wall) if total_wall else 0.0,
+                "queue_wait_ms": float(d.get("queue_wait_ms", 0.0)),
+                "compute_ms": float(d.get("compute_ms", 0.0)),
+                "p50_ms": None, "p99_ms": None,
+                "errors": int(d.get("errors", 0)),
+                "deadline_504": int(d.get("deadline_504", 0)),
+                "models": []})
+        rows.sort(key=lambda r: (-r["wall_ms"], r["tenant"]))
+        if args.top is not None:
+            rows = rows[:max(int(args.top), 1)]
+        digest = {"source": url,
+                  "budget": tn.get("budget"), "live": tn.get("live"),
+                  "evictions": tn.get("evictions"),
+                  "overflow": tn.get("overflow"), "rows": rows}
+        if args.json:
+            _pipe_safe_print(json.dumps(digest))
+            return 0
+        head = (f"tenants (live): budget {tn.get('budget')}, "
+                f"{tn.get('live')} live series, "
+                f"{tn.get('evictions')} evictions, "
+                f"{tn.get('overflow')} folded into 'other'")
+        _pipe_safe_print("\n".join(
+            [head, ""] + render_tenant_table(rows)))
+        return 0
+
+    from dpsvm_tpu_torch.observability.report import (load_trace,
+                                                      resolve_trace_path,
+                                                      tenant_attribution)
+    try:
+        records = load_trace(resolve_trace_path(args.trace))
+    except FileNotFoundError as e:
+        print(f"error: no such trace: {e}", file=sys.stderr)
+        return 2
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    att = tenant_attribution(records, top=args.top)
+    if att is None:
+        print("error: no tenant-attributed span roots in this trace "
+              "(pre-v4 schema, or --trace-sample-rate 0)",
+              file=sys.stderr)
+        return 1
+    if args.json:
+        _pipe_safe_print(json.dumps(att))
+        return 0
+    head = (f"tenants (trace): {att['tenants']} attributed, "
+            f"{att['total_wall_ms']:,.1f} ms total wall")
+    _pipe_safe_print("\n".join(
+        [head, ""] + render_tenant_table(att["rows"])))
+    return 0
+
+
+def cmd_fleet(args: argparse.Namespace) -> int:
+    """``fleet``: N hosts' metrics sources -> one fleet snapshot. HTTP and
+    file I/O only, no device, so it runs from any machine that reaches
+    the hosts. Exit codes: 0 = rendered clean, 2 = unusable source list,
+    3 = a host was unreachable or unreadable, and with --watch the watch
+    codes on top (4 = warn fired, 5 = page fired)."""
+    import json
+
+    from dpsvm_tpu_torch.observability import fleet, slo
+
+    try:
+        state = fleet.collect(args.sources, timeout=args.timeout)
+        heartbeats = (fleet.read_heartbeats(args.hosts_dir)
+                      if args.hosts_dir else None)
+        snap = fleet.federate(state, heartbeats=heartbeats)
+    except fleet.FleetError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.out:
+        expo = fleet.render_exposition(snap)
+        if args.out == "-":
+            _pipe_safe_print(expo)
+        else:
+            with open(args.out, "w") as fh:
+                fh.write(expo)
+    tower = None
+    if args.watch:
+        try:
+            tower = slo.Watchtower(slo.load_rules(args.rules,
+                                                  default="fleet"))
+        except (OSError, ValueError, slo.RuleError) as e:
+            print(f"error: bad rules: {e}", file=sys.stderr)
+            return 2
+        tower.observe(fleet.fleet_watch_sample(snap))
+    down = sorted(h for h, d in snap["hosts"].items() if not d.get("up"))
+    if args.json:
+        digest = dict(snap, down=down)
+        if tower is not None:
+            digest["alerts"] = tower.states()
+        _pipe_safe_print(json.dumps(digest))
+    else:
+        text = fleet.render_fleet_table(snap)
+        if down:
+            text += ("\n  UNREACHABLE host(s): "
+                     + ", ".join(str(h) for h in down))
+        if tower is not None:
+            firing = tower.firing()
+            text += ("\n  alerts: " + ("; ".join(
+                f"{s['rule']} {s['severity'].upper()} ({s['reason']})"
+                for s in firing) if firing else "none firing"))
+        _pipe_safe_print(text)
+    if tower is not None and tower.exit_code():
+        return tower.exit_code()
+    return 3 if down else 0
+
+
 def cmd_report(args: argparse.Namespace) -> int:
     """Render a run-telemetry trace (either package's). Pure file I/O:
     nothing touches a device, so it works on a machine with no card.
@@ -2162,8 +2416,8 @@ def cmd_report(args: argparse.Namespace) -> int:
                             stall_timeout=args.stall_timeout,
                             width=width)
     try:
-        # a directory resolves to its newest trace (a multi-host
-        # trace_h* family is refused: merging is not ported)
+        # a directory resolves to its newest trace; a multi-host
+        # trace_h* family is merged onto one timeline
         records = load_trace_auto(args.trace)
     except FileNotFoundError as e:
         print(f"error: no such trace: {e}", file=sys.stderr)
@@ -3006,6 +3260,10 @@ def _run(args) -> int:
             return cmd_bundle(args)
         if args.command == "tune":
             return cmd_tune(args)
+        if args.command == "tenants":
+            return cmd_tenants(args)
+        if args.command == "fleet":
+            return cmd_fleet(args)
         if args.command == "doctor":
             from dpsvm_tpu_torch.resilience.doctor import run_doctor
             return run_doctor(shards=args.shards,

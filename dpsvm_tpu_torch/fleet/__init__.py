@@ -22,8 +22,10 @@ counter conservation (touches == hits + faults + transients), a resident
 set a one-shot scan does not evict, zero captures across steady packed
 traffic, packed decisions bitwise a fresh dedicated engine's, an
 over-budget admission evicting exactly the LRU resident, and the fault
-and evict events as a list matching the counters. The JAX gate's
-schema-valid fault/evict trace file is ROADMAP item 13c-ii.
+and evict events matching the counters, both as a list and as a
+schema-valid serving trace file. ``--drill`` runs ``fleet_cache_drill``:
+1000 lazy models under a budget of 32, a skewed stream, one JSON row
+(``fleet_cold_start_p99_ms``) appended to the perf ledger (kind "fleet").
 
 Importing this package touches no device.
 """
@@ -40,7 +42,8 @@ from dpsvm_tpu_torch.fleet.packer import (GroupPacker, GroupSpec,
 __all__ = [
     "ModelCache", "GroupPacker", "GroupSpec", "PackedGroup", "packable",
     "train_grid", "GridResult", "GridCell", "holdout_split",
-    "sequential_grid_seconds", "promote_winner", "selfcheck", "main",
+    "sequential_grid_seconds", "promote_winner", "selfcheck",
+    "fleet_cache_drill", "main",
 ]
 
 _LAZY = {
@@ -110,6 +113,10 @@ def selfcheck(tmp_dir: Optional[str] = None, device=None) -> List[str]:
     try:
         from dpsvm_tpu_torch.device import resolve_device
         from dpsvm_tpu_torch.observability.metrics import MetricsRegistry
+        from dpsvm_tpu_torch.observability.record import (
+            close_serving_trace, open_serving_trace)
+        from dpsvm_tpu_torch.observability.schema import (read_trace,
+                                                          validate_trace)
         from dpsvm_tpu_torch.serving import engine as eng
         from dpsvm_tpu_torch.serving.registry import ModelRegistry
 
@@ -131,9 +138,14 @@ def selfcheck(tmp_dir: Optional[str] = None, device=None) -> List[str]:
 
         events: list = []
         metrics = MetricsRegistry()
+        trace_path = os.path.join(base, "fleet_selfcheck.jsonl")
+        tr = open_serving_trace(trace_path, models={})
+
+        def on_event(e, **kw):
+            events.append((e, kw))
+            tr.event(e, **kw)
         cache = ModelCache(registry, budget=budget, max_batch=16,
-                           device=dev, metrics=metrics,
-                           on_event=lambda e, **kw: events.append((e, kw)))
+                           device=dev, metrics=metrics, on_event=on_event)
         rng = np.random.default_rng(3)
         q = rng.standard_normal((5, d)).astype(np.float32)
 
@@ -241,6 +253,23 @@ def selfcheck(tmp_dir: Optional[str] = None, device=None) -> List[str]:
             if int(got) != st[k]:
                 problems.append(f"dpsvm_fleet_model_{k}_total {got} != "
                                 f"{st[k]}")
+
+        # 7) the fault/evict story is a schema-valid trace file
+        close_serving_trace(tr, requests=st["touches"], errors=0,
+                            seconds=_time.perf_counter() - t0,
+                            model_faults=st["faults"],
+                            model_evictions=st["evictions"])
+        records = read_trace(trace_path)
+        tprobs = validate_trace(records)
+        if tprobs:
+            problems.append(f"fleet trace failed schema validation: "
+                            f"{tprobs}")
+        traced = [r["event"] for r in records if r.get("kind") == "event"]
+        for ev, key in (("model_fault", "faults"),
+                        ("model_evict", "evictions")):
+            if traced.count(ev) != st[key]:
+                problems.append(f"trace carries {traced.count(ev)} {ev} "
+                                f"events for {st[key]} {key}")
     except Exception as e:              # noqa: BLE001 - the gate reports
         import traceback
         traceback.print_exc()
@@ -251,6 +280,113 @@ def selfcheck(tmp_dir: Optional[str] = None, device=None) -> List[str]:
     return problems
 
 
+def fleet_cache_drill(tmp_dir: Optional[str] = None,
+                      trace_path: Optional[str] = None,
+                      n_models: int = 1000, budget: int = 32,
+                      device=None) -> dict:
+    """The 1000-model residency drill: register ``n_models`` lazily,
+    replay a deterministic skewed stream (a hot set that fits the budget,
+    then a one-shot scan of every model), and check that the budget
+    holds: residents never above it, the hot set resident through the
+    scan, counters conserved, every hydration's cold start measured, the
+    fault/evict trace schema-valid. Returns one JSON-able row (``metric:
+    fleet_cold_start_p99_ms``, ``ok`` the verdict); ``main`` appends it
+    to the perf ledger (kind "fleet"). ``device`` None means the GPU."""
+    import os
+    import tempfile
+    import time as _time
+
+    import numpy as np
+
+    from dpsvm_tpu_torch.device import resolve_device
+    from dpsvm_tpu_torch.observability.record import (close_serving_trace,
+                                                      open_serving_trace)
+    from dpsvm_tpu_torch.observability.schema import (read_trace,
+                                                      validate_trace)
+    from dpsvm_tpu_torch.serving.registry import ModelRegistry
+
+    dev = resolve_device(device)
+    ctx = tempfile.TemporaryDirectory() if tmp_dir is None else None
+    base = tmp_dir if tmp_dir is not None else ctx.name
+    os.makedirs(base, exist_ok=True)
+    row: dict = {"metric": "fleet_cold_start_p99_ms", "unit": "ms",
+                 "models": int(n_models), "budget": int(budget),
+                 "device": str(dev), "ok": False}
+    try:
+        d = 4
+        # a few artifacts shared by many names: the cache is keyed on
+        # names (a registration is a tenant), so 1000 names churn without
+        # 1000 file writes
+        arts = tiny_fleet(base, 8, specs=((0.5, d), (0.25, d)), seed=13)
+        registry = ModelRegistry()
+        t0 = _time.perf_counter()
+        for i in range(n_models):
+            registry.register(f"t{i:05d}", arts[i % len(arts)], lazy=True)
+        row["register_seconds"] = round(_time.perf_counter() - t0, 3)
+
+        if trace_path is None:
+            trace_path = os.path.join(base, "fleet_drill.jsonl")
+        tr = open_serving_trace(trace_path, models={})
+        cache = ModelCache(registry, budget=budget, max_batch=16,
+                           device=dev, on_event=tr.event)
+        rng = np.random.default_rng(5)
+        q = rng.standard_normal((4, d)).astype(np.float32)
+
+        # the hot set: 3/4 of the budget, touched repeatedly -> resident
+        hot = [f"t{i:05d}" for i in range(
+            0, n_models, n_models // (budget * 3 // 4))]
+        hot = hot[:budget * 3 // 4]
+        peak_resident = 0
+        for _ in range(3):
+            for name in hot:
+                cache.infer(name, q)
+                peak_resident = max(peak_resident,
+                                    cache.stats()["resident"])
+        # the one-shot tail: every model once, in name order
+        for i in range(n_models):
+            cache.infer(f"t{i:05d}", q)
+            if i % 250 == 0:
+                peak_resident = max(peak_resident,
+                                    cache.stats()["resident"])
+        st = cache.stats()
+        peak_resident = max(peak_resident, st["resident"])
+        seconds = _time.perf_counter() - t0
+        close_serving_trace(tr, requests=st["touches"], errors=0,
+                            seconds=seconds, model_faults=st["faults"],
+                            model_evictions=st["evictions"])
+        tprobs = validate_trace(read_trace(trace_path))
+        cold = np.asarray(cache.cold_start_ms, np.float64)
+        row.update({
+            "value": round(st["cold_start_p99_ms"], 3),
+            "cold_start_p50_ms": (round(float(np.percentile(cold, 50)), 3)
+                                  if cold.size else None),
+            "touches": st["touches"], "hits": st["hits"],
+            "faults": st["faults"], "transients": st["transients"],
+            "evictions": st["evictions"],
+            "resident": st["resident"],
+            "peak_resident": peak_resident,
+            "resident_bytes": st["resident_bytes"],
+            "packer": st["packer"],
+            "hot_models": len(hot),
+            "seconds": round(seconds, 3),
+            "trace": trace_path,
+            "trace_valid": not tprobs,
+        })
+        hot_resident = all(cache.is_resident(n) for n in hot)
+        conserved = (st["touches"] ==
+                     st["hits"] + st["faults"] + st["transients"])
+        row["conserved"] = conserved
+        row["hot_set_survived_scan"] = hot_resident
+        row["ok"] = bool(conserved and hot_resident and not tprobs
+                         and peak_resident <= budget
+                         and st["faults"] >= len(hot)
+                         and row["value"] > 0.0)
+    finally:
+        if ctx is not None:
+            ctx.cleanup()
+    return row
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     """``python -m dpsvm_tpu_torch.fleet --selfcheck`` entry point."""
     import argparse
@@ -259,12 +395,33 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--selfcheck", action="store_true",
                    help="64 lazy models under a cache budget of 8 "
                         "(module docstring)")
+    p.add_argument("--drill", action="store_true",
+                   help="the 1000-model fleet_cache_drill: lazy-boot a "
+                        "1000-name registry, replay a skewed stream "
+                        "under a budget of 32, and print ONE JSON row "
+                        "(fleet_cold_start_p99_ms, trace-pointed); "
+                        "exits 0 iff the budget held and counters "
+                        "conserved")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the models are served (default: the GPU)")
     args = p.parse_args(argv)
-    if not args.selfcheck:
+    if not (args.selfcheck or args.drill):
         p.print_help()
         return 2
+    if args.drill:
+        import json
+        import os
+
+        from dpsvm_tpu_torch.observability import ledger
+        row = fleet_cache_drill(
+            trace_path=os.environ.get("BENCH_TRACE_OUT") or None,
+            device=args.device)
+        if row.get("value") is not None:
+            ledger.append("fleet_cache_drill", row, kind="fleet",
+                          value=row["value"], unit="ms",
+                          direction="lower")
+        print(json.dumps(row))
+        return 0 if row.get("ok") else 1
     problems = selfcheck(device=args.device)
     if problems:
         for pr in problems:

@@ -29,8 +29,12 @@ Layout:
 * ``slo``, ``blackbox``, ``spans`` — the watchtower, the flight
                      recorder and its incident bundles, request spans.
 
-The multi-host merge and the fleet views (``merge``, ``fleet``) are
-ROADMAP item 13c-ii. Importing this package touches no device: ``torch`` is
+* ``merge``, ``fleet`` — the fleet views: a multi-host trace family on
+                     one timeline, N hosts' metric surfaces federated
+                     into one exposition, a fleet bundle's artifacts.
+                     Stdlib only.
+
+Importing this package touches no device: ``torch`` is
 imported inside the functions that need it (device, profiler), so
 ``report``/``compare``/``perf`` run on a machine with no card.
 """
@@ -177,6 +181,8 @@ def selfcheck(tmp_dir: Optional[str] = None,
     problems += _selfcheck_spans(tmp_dir)
     problems += _selfcheck_roofline(tmp_dir)
     problems += _selfcheck_watch(tmp_dir)
+    problems += _selfcheck_tenants(tmp_dir)
+    problems += _selfcheck_fleet(tmp_dir)
     problems += _selfcheck_driver(tmp_dir, device)
     return problems
 
@@ -391,6 +397,170 @@ def _watch_storm_drill(td: str) -> List[str]:
         except Exception:
             pass
         faultinject.clear()
+    return problems
+
+
+def _selfcheck_tenants(tmp_dir: Optional[str] = None) -> List[str]:
+    """The per-tenant attribution gate: multi-tenant stub traffic with a
+    planted hog -> per-tenant series land on both /metricsz faces
+    (validator-clean exposition) -> the tenant-fair-share rule fires
+    NAMING the hog -> the incident bundle carries the tenant -> the
+    trace's span roots attribute every sampled request to its
+    tenant."""
+    import json
+    import os
+    import tempfile
+    import time
+    import urllib.error
+    import urllib.request
+
+    from dpsvm_tpu_torch.observability import blackbox
+    from dpsvm_tpu_torch.observability.metrics import validate_exposition
+
+    try:
+        import numpy as np
+
+        from dpsvm_tpu_torch.serving.loadgen import tenant_of
+        from dpsvm_tpu_torch.serving.server import ServingServer
+    except Exception as e:              # pragma: no cover — env issue
+        return [f"tenant drill setup failed: {e}"]
+
+    class _Engine:
+        num_attributes = 4
+        calibrated = False
+        manifest = {"task": "selfcheck-stub", "num_attributes": 4}
+
+        def infer(self, x, want):
+            n = int(np.shape(x)[0])
+            return {k: (np.ones(n, np.int32) if k == "labels"
+                        else np.zeros(n, np.float32))
+                    for k in want}
+
+        def bucket_counts(self):
+            return {}
+
+    class _Registry:
+        def __init__(self):
+            self._e = _Engine()
+
+        def names(self):
+            return ["default", "aux"]
+
+        def engine(self, name):
+            return self._e
+
+        def build(self, name):
+            return _Engine()
+
+        def manifests(self):
+            return {n: dict(self._e.manifest, generation=1)
+                    for n in self.names()}
+
+    problems: List[str] = []
+    with tempfile.TemporaryDirectory(dir=tmp_dir) as td:
+        bundle_dir = os.path.join(td, "tenant-bundles")
+        trace_path = os.path.join(td, "tenant-trace.jsonl")
+        rules = [{"name": "tenant-fair-share", "kind": "fair_share",
+                  "severity": "warn", "per_tenant": True,
+                  "window_s": 0.8, "share_above": 0.5,
+                  "min_tenants": 2, "for_s": 0.0,
+                  "clear_after_s": 10.0}]
+        srv = None
+        try:
+            srv = ServingServer(_Registry(), port=0, max_batch=4,
+                                max_delay_ms=0.2, watch_rules=rules,
+                                bundle_dir=bundle_dir,
+                                trace_out=trace_path,
+                                trace_sample_rate=1.0,
+                                tenant_budget=8).start()
+
+            def post(i):
+                body = {"instances": [[0.0] * 4],
+                        "model": ("aux" if i % 7 == 3 else "default"),
+                        "tenant": tenant_of(i, 8, 0.8)}
+                req = urllib.request.Request(
+                    srv.url + "/v1/predict",
+                    data=json.dumps(body).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=10) as r:
+                    r.read()
+
+            deadline = time.monotonic() + 20.0
+            fired = {}
+            i = 0
+            while time.monotonic() < deadline and not fired:
+                post(i)
+                i += 1
+                fired = next(
+                    (s for s in srv.watch.states()
+                     if s["state"] == "firing"
+                     and s["rule"].startswith("tenant-fair-share[")),
+                    {})
+            if not fired:
+                problems.append("planted hot tenant never fired the "
+                                "fair-share rule")
+            elif fired.get("tenant") != "t0":
+                problems.append("fair-share fired for "
+                                f"{fired.get('tenant')!r}, not the "
+                                "planted hog t0")
+            # both /metricsz faces carry the per-tenant series
+            with urllib.request.urlopen(
+                    srv.url + "/metricsz?format=prometheus",
+                    timeout=10) as r:
+                expo = r.read().decode()
+            errs = validate_exposition(expo)
+            if errs:
+                problems.append("per-tenant exposition invalid: "
+                                f"{errs}")
+            if 'dpsvm_tenant_requests_total{tenant="t0"}' not in expo:
+                problems.append("tenant series missing from the "
+                                "prometheus exposition")
+            with urllib.request.urlopen(srv.url + "/metricsz",
+                                        timeout=10) as r:
+                mz = json.loads(r.read())
+            per = (mz.get("tenants") or {}).get("per_tenant") or {}
+            if not per or max(
+                    per, key=lambda t: per[t]["requests"]) != "t0":
+                problems.append("JSON cost ledger did not rank the "
+                                f"hog first: {sorted(per)}")
+            for name in ("default", "aux"):
+                if name not in (mz.get("per_model") or {}):
+                    problems.append(f"per_model block lost {name!r}")
+        except Exception as e:
+            problems.append(f"tenant drill crashed: {e!r}")
+        finally:
+            try:
+                if srv is not None:
+                    srv.drain(timeout=10.0)
+            except Exception:
+                pass
+        # the incident bundle names the culprit and validates clean
+        bundles = [b for b in (os.listdir(bundle_dir)
+                               if os.path.isdir(bundle_dir) else [])
+                   if b.startswith("incident-")]
+        if not bundles:
+            problems.append("fair-share fired but dumped no bundle")
+        else:
+            bpath = blackbox.resolve_bundle_dir(bundle_dir)
+            errs = blackbox.validate_bundle(bpath)
+            if errs:
+                problems.append(f"tenant bundle invalid: {errs}")
+            inc = blackbox.load_incident(bpath)
+            if inc.get("tenant") != "t0":
+                problems.append("incident.json does not name the "
+                                f"tenant: {inc.get('tenant')!r}")
+        # every sampled span root attributes its request to a tenant
+        try:
+            records = load_trace(trace_path)
+        except (OSError, ValueError) as e:
+            problems.append(f"tenant trace unreadable: {e}")
+            records = []
+        roots = [r for r in records
+                 if r.get("kind") == "span" and r.get("name") == "request"]
+        if not roots:
+            problems.append("tenant trace recorded no request roots")
+        if any("tenant" not in r for r in roots):
+            problems.append("a sampled span root lost its tenant")
     return problems
 
 
@@ -635,6 +805,205 @@ def _selfcheck_driver(tmp_dir: Optional[str] = None,
         if not os.path.isfile(os.path.join(obs["profile_dir"],
                                            "profile_summary.json")):
             problems.append("the profiler wrote no summary")
+    return problems
+
+
+def _selfcheck_fleet(tmp_dir: Optional[str] = None) -> List[str]:
+    """The fleet-observability gate: a synthetic 3-host trace family with a planted straggler must
+    merge into ONE schema-v5 validator-clean timeline whose lanes and
+    report NAME the straggler -> a mismatched fingerprint must refuse
+    to merge -> the skew rule fires naming the laggard host and
+    clears after it catches up -> per-host metrics snapshots federate
+    into a validator-clean exposition with the right aggregation
+    (iterations min'ed, compiles summed) -> the fleet incident bundle
+    carries every host's artifacts and re-validates. The subprocess
+    twin (real hosts, real hang fault) is
+    ``resilience/hostgroup.py straggler_drill``."""
+    import json
+    import os
+    import tempfile
+
+    from dpsvm_tpu_torch.observability import blackbox, fleet, merge, slo
+    from dpsvm_tpu_torch.observability.metrics import write_snapshot
+    from dpsvm_tpu_torch.observability.report import (host_lanes,
+                                                      load_trace_auto)
+
+    problems: List[str] = []
+    with tempfile.TemporaryDirectory(dir=tmp_dir) as td:
+        # one schema-v4 run through the REAL writer, then three host
+        # copies of it: same wall-clock start (equal manifest `unix`
+        # anchors), host 1 holding the group longer at every chunk —
+        # the planted straggler
+        base = os.path.join(td, "template.jsonl")
+        tr = RunTrace(base, config={"kernel": "rbf", "shards": 3,
+                                    "shard_x": True, "coef0": 0.0,
+                                    "degree": 3},
+                      n=3000, d=16, gamma=0.5, solver="dist-smo",
+                      it0=0, env={"backend": "cpu",
+                                  "device_kind": "host",
+                                  "device_count": 1})
+        for i in range(4):
+            tr.chunk(n_iter=(i + 1) * 128, b_lo=0.4 - 0.1 * i,
+                     b_hi=-(0.4 - 0.1 * i), n_sv=40 + i,
+                     cache_hits=i, cache_misses=i, rounds=i,
+                     phases={"dispatch": 0.01, "poll": 0.02})
+        tr.summary(converged=True, n_iter=512, b=0.0, b_lo=1e-3,
+                   b_hi=-1e-3, n_sv=44, train_seconds=1.0,
+                   cache_hits=4, cache_misses=4,
+                   phases={"dispatch": 0.04, "poll": 0.08},
+                   phase_counts={"dispatch": 4, "poll": 4})
+        tr.close()
+        template = load_trace(base)
+        fam = os.path.join(td, "fam")
+        os.makedirs(fam)
+        for h in (0, 1, 2):
+            recs = [dict(r) for r in template]
+            recs[0]["unix"] = 1.7e9          # same wall-clock start
+            chunk_i = 0
+            for r in recs[1:]:
+                if not isinstance(r.get("t"), (int, float)):
+                    continue
+                if r.get("kind") == "chunk":
+                    chunk_i += 1
+                lag = 0.4 * chunk_i if h == 1 else 0.0
+                r["t"] = round(1.0 * chunk_i + lag + 0.001 * h, 6)
+            with open(os.path.join(fam, f"trace_h{h}.jsonl"),
+                      "w") as fh:
+                for r in recs:
+                    fh.write(json.dumps(r) + "\n")
+        merged = merge.merge_dir(fam)
+        errs = validate_trace(merged)
+        if errs:
+            problems.append(f"merged fleet trace invalid: {errs}")
+        lanes = host_lanes(merged)
+        if lanes is None or lanes["straggler"] != 1:
+            problems.append("planted straggler not attributed: "
+                            f"{lanes and lanes['straggler']}")
+        text = render_report(merged)
+        if "straggler: host 1" not in text:
+            problems.append("fleet report lost the straggler line")
+        # dpsvm report on the directory must auto-merge the family;
+        # the single-trace resolver must refuse it naming the hosts
+        if len(load_trace_auto(fam)) != len(merged):
+            problems.append("load_trace_auto did not merge the "
+                            "trace family")
+        try:
+            resolve_trace_path(fam)
+            problems.append("resolve_trace_path silently picked one "
+                            "host of a multi-host family")
+        except ValueError:
+            pass
+        # mismatched run fingerprints must refuse to merge
+        bad = os.path.join(td, "bad")
+        os.makedirs(bad)
+        for h, gamma in ((0, 0.5), (1, 0.25)):
+            recs = [dict(r) for r in template]
+            recs[0]["gamma"] = gamma
+            with open(os.path.join(bad, f"trace_h{h}.jsonl"),
+                      "w") as fh:
+                for r in recs:
+                    fh.write(json.dumps(r) + "\n")
+        try:
+            merge.merge_dir(bad)
+            problems.append("mismatched fingerprints merged anyway")
+        except merge.MergeError:
+            pass
+        # the skew rule: host 1 a full chunk behind over the window
+        # fires NAMING it, then clears once the lanes level; the
+        # per-host heartbeat template expands over the same sample
+        tower = slo.Watchtower(slo.load_rules(None, default="fleet"))
+        fired = []
+        for i in range(80):
+            front = 128.0 * (1 + i // 8)
+            sample = {}
+            for h in (0, 1, 2):
+                lagging = h == 1 and i <= 32
+                sample[f"host:{h}:n_iter"] = (front - 64.0 if lagging
+                                              else front)
+                sample[f"host:{h}:heartbeat_age_seconds"] = 1.0
+            sample["generation"] = 0.0
+            fired += [t for t in tower.observe(sample, t=float(i))
+                      if t["rule"] == "iteration-skew"]
+        if not fired or fired[0]["state"] != "firing":
+            problems.append("planted iteration skew never fired")
+        elif (fired[0].get("host") != 1
+              or "skew[host-1]" not in fired[0]["reason"]):
+            problems.append("skew rule did not name host 1: "
+                            f"{fired[0]}")
+        if not any(t["state"] == "ok" for t in fired):
+            problems.append("skew alert did not clear after the "
+                            "laggard caught up")
+        if not any(s["rule"] == "host-heartbeat-stale[host-2]"
+                   for s in tower.states()):
+            problems.append("per-host heartbeat template did not "
+                            "expand over the active hosts")
+        # federation: two sidecar snapshots -> one fleet snapshot,
+        # iterations min'ed, compiles summed, exposition valid
+        srcs = []
+        for h, (iters, compiles) in enumerate(((500.0, 3),
+                                               (380.0, 2))):
+            reg = MetricsRegistry()
+            reg.gauge("dpsvm_train_iterations", "it").set(iters)
+            reg.gauge("dpsvm_train_gap", "gap").set(0.01 * (h + 1))
+            reg.counter("dpsvm_train_compiles_total",
+                        "compiles").inc(compiles)
+            path = os.path.join(td, f"metrics_h{h}.prom")
+            write_snapshot(reg, path, seq=5 + h)
+            srcs.append(path)
+        snap = fleet.federate(fleet.collect(srcs))
+        agg = snap["aggregate"]
+        if (agg.get("dpsvm_train_iterations") != 380.0
+                or agg.get("dpsvm_train_compiles_total") != 5.0):
+            problems.append(f"federation aggregation drifted: {agg}")
+        if snap["lag"] != 120.0 or snap["slowest"] != 1:
+            problems.append("fleet lag/slowest drifted: "
+                            f"{snap['lag']}/{snap['slowest']}")
+        expo = fleet.render_exposition(snap)
+        errs = validate_exposition(expo)
+        if errs:
+            problems.append(f"fleet exposition invalid: {errs}")
+        if 'dpsvm_host_iterations{host="1"} 380' not in expo:
+            problems.append("per-host iteration lane missing from "
+                            "the fleet exposition")
+        if "host:1:n_iter" not in fleet.fleet_watch_sample(snap):
+            problems.append("fleet watch sample lost the host lanes")
+        # the fleet incident bundle: every host's artifacts ride
+        # along and the bundle re-validates
+        hb_dir = os.path.join(td, "hosts")
+        os.makedirs(hb_dir)
+        for h in (0, 1, 2):
+            with open(os.path.join(hb_dir, f"host-{h}.json"),
+                      "w") as fh:
+                json.dump({"host": h, "n_iter": 512, "generation": 0,
+                           "pid": 1000 + h, "t": 1.7e9, "seq": 9}, fh)
+        arts = fleet.host_artifacts(fam, hb_dir)
+        if sorted(arts) != [0, 1, 2]:
+            problems.append(f"host_artifacts lost hosts: "
+                            f"{sorted(arts)}")
+        fr = blackbox.FlightRecorder(blackbox.make_manifest(
+            solver="selfcheck-fleet"))
+        fr.event("alert", rule="iteration-skew", window="30s",
+                 severity="warn", state="firing",
+                 reason=fired[0]["reason"] if fired else "skew")
+        bpath = blackbox.dump_bundle(
+            os.path.join(td, "bundles"), recorder=fr,
+            rule="iteration-skew", severity="warn", window="30s",
+            reason="selfcheck skew",
+            extra={"extra": {"host": 1}}, host_artifacts=arts)
+        if not bpath:
+            problems.append("fleet bundle dump failed")
+        else:
+            errs = blackbox.validate_bundle(bpath)
+            if errs:
+                problems.append(f"fleet bundle invalid: {errs}")
+            inc = blackbox.load_incident(bpath)
+            if (inc.get("extra") or {}).get("host") != 1:
+                problems.append("fleet incident lost the straggler "
+                                "host")
+            if not os.path.exists(os.path.join(
+                    bpath, "host-1-heartbeat.json")):
+                problems.append("fleet bundle lost host 1's "
+                                "heartbeat artifact")
     return problems
 
 

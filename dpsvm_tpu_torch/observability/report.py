@@ -4,10 +4,9 @@ of ``dpsvm_tpu/observability/report.py``).
 Everything here is pure file I/O over the JSONL schema
 (observability/schema.py): nothing touches a device, so reports render
 on a machine with no card. The schema is the JAX package's, so either
-package's report reads either package's trace. Merging a multi-host
-trace family onto one timeline (the JAX package's
-``observability/merge.py``) is not ported: a directory holding such a
-family is refused with its host list.
+package's report reads either package's trace. A directory holding a
+multi-host trace family is merged onto one timeline
+(observability/merge.py) and rendered with a lane a host.
 """
 
 from __future__ import annotations
@@ -16,38 +15,13 @@ import math
 import os
 import sys
 import time
-import re
 from typing import Callable, Dict, List, Optional
 
+from dpsvm_tpu_torch.observability import merge as _merge
+from dpsvm_tpu_torch.observability.merge import discover_family
 from dpsvm_tpu_torch.observability.schema import (TERMINAL_EVENTS,
                                                   read_trace,
                                                   validate_trace)
-
-#: the per-host trace naming of a multi-host group run (the JAX
-#: package's ``observability/merge.TRACE_FAMILY_RE``)
-TRACE_FAMILY_RE = re.compile(
-    r"^trace_h(?P<host>\d+)(?:_a(?P<attempt>\d+))?\.jsonl$")
-
-
-def discover_family(dir_path: str) -> Dict[int, str]:
-    """Map host id -> newest per-host trace path under ``dir_path`` (the
-    highest attempt ``_a{N}``; a bare ``trace_h{K}.jsonl`` is attempt 0);
-    {} when the directory holds no family members."""
-    best: Dict[int, tuple] = {}
-    try:
-        names = os.listdir(dir_path)
-    except OSError:
-        return {}
-    for name in names:
-        m = TRACE_FAMILY_RE.match(name)
-        if not m:
-            continue
-        host = int(m.group("host"))
-        attempt = int(m.group("attempt") or 0)
-        if host not in best or attempt > best[host][0]:
-            best[host] = (attempt, os.path.join(dir_path, name))
-    return {h: p for h, (_a, p) in sorted(best.items())}
-
 
 def load_trace(path: str) -> List[dict]:
     """read + validate; raises ValueError with every problem listed."""
@@ -74,9 +48,9 @@ def resolve_trace_path(path: str) -> str:
         raise ValueError(
             f"{path}: holds a {len(family)}-host trace family "
             f"(hosts {', '.join(str(h) for h in sorted(family))}) — "
-            "a single newest file would be one arbitrary host's view, "
-            "and merging a family is not ported: name one host's file "
-            "explicitly.")
+            "a single newest file would be one arbitrary host's view. "
+            "Use `dpsvm report` on the directory (merges the family) "
+            "or name one host's file explicitly.")
     candidates = [os.path.join(path, f) for f in os.listdir(path)
                   if f.endswith(".jsonl")]
     if not candidates:
@@ -86,10 +60,20 @@ def resolve_trace_path(path: str) -> str:
 
 
 def load_trace_auto(path: str) -> List[dict]:
-    """``load_trace`` of a file, or of a directory's newest trace (the
-    entry point behind ``report`` and ``compare``). A directory holding
-    a multi-host ``trace_h*`` family is refused (``resolve_trace_path``):
-    the port does not merge host families."""
+    """``load_trace`` that understands group runs: a directory holding a
+    multi-host ``trace_h*`` family is merged onto one fleet timeline
+    (observability/merge.py) and validated; anything else resolves to
+    one file (``resolve_trace_path``). The entry point behind ``report``
+    and ``compare``."""
+    if os.path.isdir(path):
+        family = discover_family(path)
+        if len(family) > 1:
+            records = _merge.merge_paths(family)
+            errors = validate_trace(records)
+            if errors:
+                raise ValueError(f"merged trace family {path} is "
+                                 "invalid: " + "; ".join(errors))
+            return records
     return load_trace(resolve_trace_path(path))
 
 

@@ -2,9 +2,11 @@
 
 ``--selfcheck`` runs ``resilience.selfcheck`` with the kill-one-host drill
 included (real host processes); ``--host-drill`` runs only that drill and
-prints its facts as a final JSON line (``host_loss_recovery_s``). The JAX
-gate's ``--straggler-drill`` needs the fleet observability views, which
-are not ported (ROADMAP item 13c-ii).
+prints its facts as a final JSON line (``host_loss_recovery_s``);
+``--straggler-drill`` runs the fleet views' drill (3 local hosts, host 1
+planted at 400 ms a poll: the merged trace, the report, the ``skew`` rule,
+the federated exposition and a fleet bundle must name it) and prints its
+facts as a final JSON line (``straggler_behind_s``).
 """
 
 from __future__ import annotations
@@ -27,12 +29,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "one SIGKILLed mid-run, the survivors reformed "
                         "from the newest intact checkpoint); prints its "
                         "facts as a final JSON line")
+    p.add_argument("--straggler-drill", action="store_true",
+                   help="run the fleet views' straggler drill: 3 local "
+                        "hosts, host 1 planted at 400 ms a poll; the "
+                        "merged trace, report, skew rule, federated "
+                        "exposition and fleet bundle all name it; prints "
+                        "its facts as a final JSON line")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where every run trains (default cuda); the "
                         "drills' ranks and hosts are gloo ranks that "
                         "share the card")
     args = p.parse_args(argv)
-    if not (args.selfcheck or args.host_drill):
+    if not (args.selfcheck or args.host_drill or args.straggler_drill):
         p.print_help()
         return 2
     if args.device == "cuda":
@@ -41,6 +49,18 @@ def main(argv: Optional[List[str]] = None) -> int:
             print("error: CUDA is not available (pass --device cpu)",
                   file=sys.stderr)
             return 2
+    if args.straggler_drill:
+        from dpsvm_tpu_torch.resilience import hostgroup
+        with tempfile.TemporaryDirectory() as td:
+            facts = hostgroup.straggler_drill(td, device=args.device)
+        print("straggler drill OK: "
+              f"host {facts['straggler']} behind "
+              f"{facts['straggler_behind_s']:.2f}s over "
+              f"{facts['hosts']} hosts, skew fired and cleared, "
+              "exposition and bundle valid", file=sys.stderr)
+        facts.pop("bundle", None)      # a path in a directory now gone
+        print(json.dumps(facts))
+        return 0
     if args.host_drill:
         from dpsvm_tpu_torch.resilience import hostgroup
         with tempfile.TemporaryDirectory() as td:

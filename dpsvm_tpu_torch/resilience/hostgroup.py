@@ -152,6 +152,12 @@ def _group() -> Optional[tuple]:
     return hb_dir, hid, count
 
 
+def in_group() -> bool:
+    """True inside a supervised host group (the supervisor set its
+    environment)."""
+    return _group() is not None
+
+
 def note_poll_heartbeat(n_iter: int) -> None:
     """The driver's poll hook: publish liveness. A no-op outside a host
     group; never raises (a full disk must not kill training: the
@@ -532,5 +538,214 @@ def host_loss_drill(tmp_dir: str, *, device: str = "cuda",
     }
     ledger.append("host_loss_drill", facts, kind="robust",
                   value=facts["host_loss_recovery_s"], unit="s",
+                  direction="lower", host_count=num_hosts)
+    return facts
+
+
+# ---------------------------------------------------------------------
+# The straggler drill.
+
+def straggler_drill(tmp_dir: str, *, device: str = "cuda",
+                    num_hosts: int = 3, slow_host: int = 1,
+                    hang_ms: int = 400, deadline_s: float = 240.0) -> dict:
+    """Straggler attribution end to end on this machine: train the
+    distributed pair across ``num_hosts`` real host processes (gloo ranks
+    on ``device``, sharing the card as ``host_loss_drill``'s do) with
+    ``DPSVM_FAULT_HOST_HANG_MS`` planted on ``slow_host``; the run must
+    complete without a reformation (a straggler is slow, not dead), and
+    the fleet views must name the host:
+
+    1. the trace family merges (observability/merge.py) into a
+       schema-valid fleet trace whose lanes attribute the straggler to
+       ``slow_host`` and leave the others clean, and ``report`` says so;
+    2. a ``skew`` rule replayed over the merged chunks fires
+       ``skew[host-K]`` for ``slow_host`` and clears once progress drains
+       to a common front;
+    3. the hosts' ``--metrics-out`` sidecars federate into an exposition
+       that passes ``validate_exposition``;
+    4. a fleet incident bundle carries every host's heartbeat, trace tail
+       and doctor line, validates, and its incident names the host.
+
+    Raises AssertionError on a failed expectation; returns the drill facts
+    (ledger row ``straggler_drill``, kind="robust")."""
+    from dpsvm_tpu_torch.data.synthetic import make_blobs
+    from dpsvm_tpu_torch.device import resolve_device
+    from dpsvm_tpu_torch.observability import (blackbox, fleet, ledger,
+                                               merge)
+    from dpsvm_tpu_torch.observability.metrics import validate_exposition
+    from dpsvm_tpu_torch.observability.report import (host_lanes,
+                                                      render_report)
+    from dpsvm_tpu_torch.observability.schema import validate_trace
+    from dpsvm_tpu_torch.observability.slo import Watchtower
+
+    placement = (["--device", "cuda", "--dist-backend", "gloo"]
+                 if resolve_device(device).type == "cuda"
+                 else ["--device", "cpu"])
+    tmp = os.path.abspath(tmp_dir)
+    os.makedirs(tmp, exist_ok=True)
+    x, y = make_blobs(n=64, d=4, seed=11)
+    data = os.path.join(tmp, "drill.csv")
+    with open(data, "w") as fh:
+        for row, label in zip(x, y):
+            fh.write(f"{int(label)}," +
+                     ",".join(f"{v:.9g}" for v in row) + "\n")
+    hb_dir = os.path.join(tmp, "heartbeats")
+    metrics_paths = {hid: os.path.join(tmp, f"metrics_h{hid}.prom")
+                     for hid in range(num_hosts)}
+
+    def make_argv(hid: int, hosts: int, coordinator: str,
+                  attempt: int) -> List[str]:
+        return [sys.executable, "-m", "dpsvm_tpu_torch.cli", "train",
+                "-f", data,
+                "-m", os.path.join(tmp, f"model_h{hid}_a{attempt}.txt"),
+                "--shards", str(hosts),
+                "-c", "1.0", "-g", "0.5", "-e", "1e-12", "-n", "300",
+                "--chunk-iters", "25", "--no-tuned", "--quiet", *placement,
+                "--trace-out",
+                os.path.join(tmp, f"trace_h{hid}_a{attempt}.jsonl"),
+                "--metrics-out", metrics_paths[hid],
+                "--coordinator", coordinator,
+                "--num-hosts", str(hosts), "--host-id", str(hid)]
+
+    env0 = _clean_child_env(dict(os.environ))
+    env0.pop(ENV_HEARTBEAT_DIR, None)
+    t0 = time.time()
+    res = run_host_group(
+        make_argv, num_hosts=num_hosts, heartbeat_dir=hb_dir,
+        retries=0, deadline_s=min(float(deadline_s),
+                                  max(30.0, 100.0 * hang_ms / 1000.0)),
+        env_base=env0,
+        first_attempt_env={int(slow_host): {
+            "DPSVM_FAULT_HOST_HANG_MS": str(int(hang_ms))}})
+    wall_s = time.time() - t0
+    if res.losses or res.hosts != num_hosts:
+        raise AssertionError(
+            f"straggler drill must complete without a reformation, "
+            f"got losses={res.losses} hosts={res.hosts}")
+
+    # 1. merge and lane attribution
+    merged = merge.merge_dir(tmp)
+    errs = validate_trace(merged)
+    if errs:
+        raise AssertionError(
+            f"drill: merged trace fails schema validation: {errs}")
+    merged_path = merge.write_merged(
+        merged, os.path.join(tmp, "trace_fleet.jsonl"))
+    lanes = host_lanes(merged)
+    if lanes is None or lanes.get("straggler") != int(slow_host):
+        raise AssertionError(
+            f"drill: merged lanes did not attribute the straggler to "
+            f"host {slow_host}: {lanes and lanes.get('straggler')}")
+    by_host = {h["host"]: h for h in lanes["hosts"]}
+    slow_behind = float(by_host[int(slow_host)]["behind_s"] or 0.0)
+    for h, lane in by_host.items():
+        if h == int(slow_host):
+            continue
+        if float(lane["behind_s"] or 0.0) >= max(0.5 * slow_behind,
+                                                 hang_ms / 2000.0):
+            raise AssertionError(
+                f"drill: host {h}'s lane is not clean "
+                f"(behind {lane['behind_s']}s vs straggler "
+                f"{slow_behind}s)")
+    report_text = render_report(merged)
+    if f"straggler: host {slow_host}" not in report_text:
+        raise AssertionError(
+            f"drill: report does not name host {slow_host}:\n"
+            f"{report_text}")
+
+    # 2. the skew rule replayed over the merged trace: per-host n_iter
+    # lanes in fleet-time order, then every host at the common final
+    # front, which must clear it
+    chunks = [r for r in merged if r.get("kind") == "chunk"
+              and isinstance(r.get("host"), int)]
+    span = max(r["t"] for r in chunks) - min(r["t"] for r in chunks)
+    window_s = max(0.5, 0.25 * span)
+    tower = Watchtower([
+        {"name": "iteration-skew", "kind": "skew", "severity": "warn",
+         "metric": "n_iter", "window_s": window_s,
+         "lag_above": 10.0, "clear_after_s": window_s / 2}])
+    latest: Dict[int, float] = {}
+    transitions: List[dict] = []
+    for rec in chunks:
+        latest[rec["host"]] = float(rec["n_iter"])
+        transitions += tower.observe(
+            {f"host:{k}:n_iter": v for k, v in latest.items()},
+            t=float(rec["t"]))
+    t_end = max(r["t"] for r in chunks)
+    front = max(latest.values())
+    drain = {f"host:{k}:n_iter": front for k in latest}
+    t_drain = t_end
+    while t_drain < t_end + 2.0 * window_s + 1.0:
+        t_drain += 0.1
+        transitions += tower.observe(drain, t=t_drain)
+    fired = [tr for tr in transitions if tr["state"] == "firing"
+             and tr["rule"] == "iteration-skew"]
+    cleared = [tr for tr in transitions if tr["state"] == "ok"
+               and tr["rule"] == "iteration-skew"]
+    if not fired or fired[0].get("host") != int(slow_host) \
+            or f"skew[host-{slow_host}]" not in fired[0]["reason"]:
+        raise AssertionError(
+            f"drill: skew[host-{slow_host}] did not fire "
+            f"(transitions: {transitions})")
+    if not cleared:
+        raise AssertionError(
+            f"drill: skew did not clear on drain "
+            f"(transitions: {transitions})")
+
+    # 3. federation of the per-host sidecars
+    state = fleet.collect({h: p for h, p in metrics_paths.items()
+                           if os.path.exists(p)})
+    if len(state) != num_hosts:
+        raise AssertionError(
+            f"drill: expected {num_hosts} metrics sidecars, got "
+            f"{sorted(state)}")
+    snap = fleet.federate(state, heartbeats=fleet.read_heartbeats(hb_dir))
+    expo = fleet.render_exposition(snap)
+    expo_errs = validate_exposition(expo)
+    if expo_errs:
+        raise AssertionError(
+            f"drill: federated exposition invalid: {expo_errs}")
+
+    # 4. the fleet incident bundle
+    arts = fleet.host_artifacts(tmp, hb_dir)
+    if sorted(arts) != list(range(num_hosts)):
+        raise AssertionError(
+            f"drill: expected artifacts for hosts "
+            f"{list(range(num_hosts))}, got {sorted(arts)}")
+    recorder = blackbox.FlightRecorder(
+        blackbox.make_manifest(solver="dist-smo"))
+    recorder.event("skew", n_iter=int(front), host=int(slow_host))
+    bundle = blackbox.dump_bundle(
+        os.path.join(tmp, "bundles"), recorder=recorder,
+        rule="iteration-skew", severity="warn", window=f"{window_s:g}s",
+        reason=fired[0]["reason"],
+        extra={"extra": {"host": int(slow_host),
+                         "merged_trace": os.path.basename(merged_path)}},
+        host_artifacts=arts)
+    problems = blackbox.validate_bundle(bundle)
+    if problems:
+        raise AssertionError(f"drill: fleet bundle invalid: {problems}")
+    with open(os.path.join(bundle, "incident.json")) as fh:
+        incident = json.load(fh)
+    if incident.get("extra", {}).get("host") != int(slow_host) \
+            or f"skew[host-{slow_host}]" not in str(incident.get("reason")):
+        raise AssertionError(
+            f"drill: bundle incident does not name host {slow_host}")
+
+    facts = {
+        "metric": "straggler_behind_s",
+        "straggler_behind_s": round(slow_behind, 3),
+        "drill_wall_s": round(wall_s, 3),
+        "hosts": num_hosts,
+        "straggler": int(slow_host),
+        "hang_ms": int(hang_ms),
+        "skew_fired": len(fired),
+        "skew_cleared": len(cleared),
+        "exposition_families": sum(1 for line in expo.splitlines()
+                                   if line.startswith("# TYPE")),
+        "bundle": bundle,
+    }
+    ledger.append("straggler_drill", facts, kind="robust",
+                  value=facts["straggler_behind_s"], unit="s",
                   direction="lower", host_count=num_hosts)
     return facts

@@ -54,6 +54,7 @@ visible; those deciders run eagerly (no graph).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -184,7 +185,8 @@ class _Bucket:
     """One rung on the card: a static input block, the graph of the
     decision program over it, and its output."""
 
-    def __init__(self, fn, rows: int, d: int, device, pool, stream):
+    def __init__(self, fn, rows: int, d: int, device, pool, stream,
+                 collect: bool = True):
         from dpsvm_tpu_torch.solver.smo import capture
         self.x = torch.zeros((rows, d), dtype=torch.float32, device=device)
         self.host = torch.zeros((rows, d), dtype=torch.float32).pin_memory()
@@ -199,7 +201,8 @@ class _Bucket:
         # the ladder's own capture stream: its own cuBLAS workspace
         with capture(self.graph, pool=pool, thread_local=True,
                      stream=stream, program=f"serve-bucket/rows={rows}",
-                     signature=compilewatch.shape_signature(self.x)):
+                     signature=compilewatch.shape_signature(self.x),
+                     collect=collect):
             self.out = fn(self.x)
         COUNTS["captures"] += 1
 
@@ -235,18 +238,29 @@ class Ladder:
 
     def warmup(self) -> None:
         """Capture every bucket's graph (the card; eager ladders have
-        nothing to prepare)."""
+        nothing to prepare). One collection before the ladder and the
+        collector held off over its captures (``smo.capture``): a
+        collection a bucket was most of a fleet cache fault's cold start
+        on the card."""
         if not self.graphs:
             return
         with self.lock:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
                 self._stream = torch.cuda.Stream(self.device)
-            for b in self.buckets:
-                if b not in self._graphs:
-                    self._graphs[b] = _Bucket(self.fn, b, self.d,
-                                              self.device, self._pool,
-                                              self._stream)
+            gc.collect()
+            enabled = gc.isenabled()
+            gc.disable()
+            try:
+                for b in self.buckets:
+                    if b not in self._graphs:
+                        self._graphs[b] = _Bucket(self.fn, b, self.d,
+                                                  self.device, self._pool,
+                                                  self._stream,
+                                                  collect=False)
+            finally:
+                if enabled:
+                    gc.enable()
 
     @property
     def captured(self) -> int:

@@ -42,7 +42,9 @@ a manifest (solver="cascade"), ``cascade_resume``, ``screen``,
 events and a summary whose phase split (approx/screen/polish/verify)
 ``report`` renders. The stage sub-runs write no traces of their own.
 
-Not ported: ``shards > 1`` (ROADMAP item 14).
+Sharded (``shards > 1``): the approx stage and the polish take the mesh,
+the calibration probe runs with ``shards=1`` on each rank, and rank 0
+alone writes the trace and the stage files (``fit_cascade``).
 """
 
 from __future__ import annotations
@@ -149,17 +151,18 @@ class _ArraySource:
     device."""
 
     def __init__(self, x: np.ndarray, y: np.ndarray, device,
-                 block: int = 8192):
+                 block: int = 8192, group=None):
         self.x = x
         self.y = np.asarray(y)
         self.n, self.d = x.shape
         self.device = device
         self.block = block
+        self.group = group          # a sharded run's process group
 
     def fit_approx(self, cfg: SVMConfig, init_w=None):
         from dpsvm_tpu_torch.approx.primal import fit_approx
         return fit_approx(self.x, self.y, cfg, init_w=init_w,
-                          device=self.device)
+                          device=self.device, group=self.group)
 
     def decisions(self, model, x) -> np.ndarray:
         from dpsvm_tpu_torch.models.svm import decision_function
@@ -305,10 +308,13 @@ class _StageState:
     counters) and the stage-1 approx model beside it
     (``<path>.cascade.approx.npz``). Writes are atomic (tmp + rename)."""
 
-    def __init__(self, base: str, fingerprint: dict):
+    def __init__(self, base: str, fingerprint: dict, writes: bool = True):
         self.path = base + ".cascade.npz"
         self.approx_path = base + ".cascade.approx.npz"
         self.fingerprint = fingerprint
+        # the ranks of a sharded cascade compute the same state: rank 0
+        # alone writes it
+        self.writes = bool(writes)
 
     def load(self) -> Optional[dict]:
         if not os.path.exists(self.path):
@@ -357,6 +363,8 @@ class _StageState:
     def save(self, stage: int, counters, *, kept_idx=None, alpha=None,
              n_band: int = 0, b_lo: float = 0.0, b_hi: float = 0.0,
              converged: bool = False, wnd_idx=None) -> None:
+        if not self.writes:
+            return
         arrays = dict(format=np.str_(_STATE_FORMAT),
                       stage=np.int64(stage),
                       counters=np.asarray(counters, np.int64),
@@ -385,13 +393,16 @@ class _StageState:
 
     def save_approx_model(self, model) -> None:
         from dpsvm_tpu_torch.approx.model import save_approx_model
-        save_approx_model(model, self.approx_path)
+        if self.writes:
+            save_approx_model(model, self.approx_path)
 
     def load_approx_model(self):
         from dpsvm_tpu_torch.approx.model import load_approx_model
         return load_approx_model(self.approx_path)
 
     def cleanup(self) -> None:
+        if not self.writes:
+            return
         for p in (self.path, self.approx_path):
             try:
                 os.unlink(p)
@@ -507,26 +518,30 @@ def _screen_cap(config: SVMConfig, d: int) -> int:
 
 def fit_cascade(x: np.ndarray, y: np.ndarray,
                 config: Optional[SVMConfig] = None, *,
-                approx_init_w=None, device=None
+                approx_init_w=None, device=None, group=None
                 ) -> Tuple[SVMModel, CascadeResult]:
     """In-memory cascade (module docstring). Returns an ordinary
     ``SVMModel`` plus a ``CascadeResult`` whose ``alpha`` is the
     full-length dual vector (zeros at screened-out rows). ``device`` None
-    means the GPU."""
+    means the GPU.
+
+    ``config.shards > 1`` (or a ``group``, which then overrides it) runs
+    it over the ranks of a process group (default: the world group),
+    every rank called with the same full (x, y): the
+    approx stage and the polish take the mesh (``fit_approx`` and
+    ``api.warm_start`` with ``shards``), the calibration probe runs on
+    each rank with ``shards=1``, screening and the verify sweep are
+    replicated, and rank 0 alone writes the trace and the stage files.
+    Every rank returns the same model."""
     from dpsvm_tpu_torch.api import _check_xy
 
     config = config or SVMConfig()
     config.validate()
     if config.solver != "cascade":
         raise ValueError("fit_cascade needs solver='cascade'")
-    if config.shards > 1:
-        raise NotImplementedError(
-            "the cascade with shards > 1 is not ported to dpsvm_tpu_torch "
-            "yet (ROADMAP Queue 1 item 9, what the port lacks); run it "
-            "with shards=1")
     x, y = _check_xy(x, y)
     model, result = _run_cascade(
-        _ArraySource(x, y, resolve_device(device)), config,
+        _ArraySource(x, y, resolve_device(device), group=group), config,
         approx_init_w=approx_init_w)
     full = np.zeros((x.shape[0],), np.float32)
     full[result._kept_idx] = result.alpha
@@ -556,8 +571,23 @@ def fit_cascade_stream(ds, config: Optional[SVMConfig] = None,
         config, approx_init_w=approx_init_w)
 
 
-def _begin_trace(config: SVMConfig, n: int, d: int, gamma: float, device):
-    if not config.trace_out:
+def _lead(config: SVMConfig, group=None) -> bool:
+    """Whether this process writes the cascade's trace and stage files:
+    always on one device; rank 0 of a sharded run's group, which must be
+    up (``parallel/mesh.NO_GROUP`` otherwise)."""
+    if config.shards <= 1 and group is None:
+        return True
+    import torch.distributed as dist
+
+    from dpsvm_tpu_torch.parallel.mesh import NO_GROUP
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(NO_GROUP.format(shards=int(config.shards)))
+    return dist.get_rank(group) == 0
+
+
+def _begin_trace(config: SVMConfig, n: int, d: int, gamma: float, device,
+                 group=None):
+    if not config.trace_out or not _lead(config, group):
         return None
     from dpsvm_tpu_torch.solver.driver import begin_trace, trace_env
     return begin_trace(config, n, d, gamma, "cascade",
@@ -569,7 +599,7 @@ def _run_cascade(source, config: SVMConfig, *, approx_init_w=None
     """The three stages under the cascade's one run trace."""
     trace = _begin_trace(config, source.n, source.d,
                          float(config.resolve_gamma(source.d)),
-                         source.device)
+                         source.device, getattr(source, "group", None))
     if trace is not None and getattr(source, "kind", None) == "stream":
         source.notify_quarantine = (
             lambda k, reason: trace.event(
@@ -592,7 +622,9 @@ def _stages(source, config: SVMConfig, trace, approx_init_w
     phases = {"approx": 0.0, "screen": 0.0, "polish": 0.0, "verify": 0.0}
     plan = faultinject.current()
     state = (_StageState(config.checkpoint_path,
-                         _fingerprint(config, n, d, gamma, approx_init_w))
+                         _fingerprint(config, n, d, gamma, approx_init_w),
+                         writes=_lead(config, getattr(source, "group",
+                                                      None)))
              if config.checkpoint_path else None)
     st = state.load() if state is not None else None
     RUN.clear()
@@ -733,7 +765,8 @@ def _stages(source, config: SVMConfig, trace, approx_init_w
             res_p = warm_start(x_kept, y_kept, alpha,
                                _polish_config(config, budget,
                                               epsilon=round_eps),
-                               device=source.device)
+                               device=source.device,
+                               group=getattr(source, "group", None))
             phases["polish"] += time.perf_counter() - t0
             alpha = np.asarray(res_p.alpha, np.float32)
             polish_iters += int(res_p.n_iter)

@@ -570,7 +570,8 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
     a checkpoint for the rollback policy (None: rollback degrades to
     raise). The trace, exporters, watch and profiler follow the config
     (module docstring): rank 0 alone traces, exports and watches a
-    distributed run."""
+    distributed run, except in a supervised host group, where every host
+    does, each to its own paths."""
     eps = float(config.epsilon)
     shards = 1 if mesh is None else mesh.size
     pipeline = config.checkpoint_every == 0
@@ -579,13 +580,17 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
     device = _carry_device(carry)
     solver = SOLVER_NAMES.get(type(carry).__name__, type(carry).__name__)
     lead = mesh is None or mesh.rank == 0
-    observed = lead and bool(config.trace_out or config.metrics_out
+    # In a supervised host group every host has its own trace and metrics
+    # paths (the fleet views merge and federate them); elsewhere the ranks
+    # of one command share them, so rank 0 alone writes.
+    obs = lead or hostgroup.in_group()
+    observed = obs and bool(config.trace_out or config.metrics_out
                              or config.metrics_port is not None
                              or config.watch_rules or config.bundle_dir
                              or config.profile_dir)
     env = trace_env(device) if observed else None
     queued = drain_queued_events()
-    trace = (begin_trace(config, n, d, gamma, solver, it0, env) if lead
+    trace = (begin_trace(config, n, d, gamma, solver, it0, env) if obs
              else None)
     EVENTS[:] = queued
     for event, extra in queued if trace is not None else ():
@@ -599,7 +604,7 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
     faults = faultinject.current()
     session = (profilerlib.ProfileSession(config.profile_dir,
                                           solver=solver, device=device)
-               if config.profile_dir and lead else None)
+               if config.profile_dir and obs else None)
     # Host-loop accounting, not device time: "dispatch" buckets the
     # enqueue calls, "poll" the blocking stats reads.
     timer = PhaseTimer(annotate=session.annotation
@@ -608,14 +613,14 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
         session.attach_timer(timer)
     train_metrics = metricslib.TrainingMetrics(solver=solver, n=n, d=d)
     watch = None
-    if lead and (config.bundle_dir or config.watch_rules):
+    if obs and (config.bundle_dir or config.watch_rules):
         watch = _Watch(config, train_metrics, solver, n, d, gamma, shards,
                        env)
         trace = watch.tee(trace)
-    exporting = lead and (config.metrics_port is not None
+    exporting = obs and (config.metrics_port is not None
                           or bool(config.metrics_out))
     sidecar = None
-    if lead and config.metrics_port is not None:
+    if obs and config.metrics_port is not None:
         sidecar = metricslib.MetricsServer(train_metrics.registry,
                                            port=config.metrics_port)
         print(f"metrics: http://127.0.0.1:{sidecar.port}/metricsz"

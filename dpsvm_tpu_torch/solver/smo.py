@@ -377,7 +377,8 @@ def run_chunk_plain(carry: SMOCarry, prob: SMOProblem, opts: SMOOptions,
 @contextlib.contextmanager
 def capture(graph: "torch.cuda.CUDAGraph", pool=None,
             thread_local: bool = False, stream=None, *,
-            program: str = "graph", signature: Optional[str] = None):
+            program: str = "graph", signature: Optional[str] = None,
+            collect: bool = True):
     """``torch.cuda.graph(graph, pool=pool)`` with TF32 off, after a
     collection and with Python's cycle collector held off until it ends: a
     collection inside a capture can release the CUDA objects of dead
@@ -393,8 +394,12 @@ def capture(graph: "torch.cuda.CUDAGraph", pool=None,
     (the replicas of a serving pool) need capture streams of their own, or
     their products share a workspace and race. Each capture is one
     observation of ``program`` at ``signature`` for the run trace
-    (``observability/compilewatch``), with the capture's seconds."""
-    gc.collect()
+    (``observability/compilewatch``), with the capture's seconds.
+    ``collect=False`` skips the collection, for a caller that collected
+    once and holds the collector off over several captures (a full
+    collection costs ~0.1-1 s in a process of many objects)."""
+    if collect:
+        gc.collect()
     enabled = gc.isenabled()
     gc.disable()
     mode = "thread_local" if thread_local else "global"

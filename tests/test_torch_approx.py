@@ -383,7 +383,9 @@ def test_api_refusals_match_jax():
         assert msgs[0] == msgs[1]
     with pytest.raises(ValueError, match="fit_approx needs"):
         tprimal.fit_approx(x, y, SVMConfig(), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # shards > 1 trains over a process group (tests/
+    # test_torch_sharded_fits.py); without one it says how to start it
+    with pytest.raises(RuntimeError, match="needs an initialized process"):
         tprimal.fit_approx(x, y, SVMConfig(solver="approx-rff", shards=2),
                            device=CPU)
     with pytest.raises(ValueError, match="labels must be"):

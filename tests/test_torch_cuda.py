@@ -2150,3 +2150,62 @@ def test_bundle_carries_the_tuned_entry_on_the_card(dev, tmp_path,
     assert blackbox._tuned_profile_entry()["knobs"] == {"chunk_iters": 2048}
     monkeypatch.setenv(prof.NO_TUNED_ENV, "1")
     assert blackbox._tuned_profile_entry() is None
+
+
+# ------------------------------------------- sharded approx, KKT report, fleet
+
+def test_sharded_approx_step_on_the_card(dev, nccl_world):
+    """The sharded full-batch approx fit in a world of one over NCCL (the
+    captured chunk with the all-reduce inside), its eager loop, and the
+    one-device fit: the same steps, weights within 1e-5 of the largest
+    (row padding differs: to the ranks against 256 rows)."""
+    from dpsvm_tpu_torch.approx import primal
+    x, y = make_planted(2304, 32, 1.0 / 32, seed=7)
+    cfg = SVMConfig(solver="approx-rff", approx_dim=256, c=10.0,
+                    gamma=1.0 / 32, epsilon=1e-3, max_iter=20_000)
+    fits = {}
+    for tag, kw in (("mesh", dict(group=nccl_world)),
+                    ("mesh-eager", dict(group=nccl_world, plain=True)),
+                    ("one", {})):
+        primal.reset_counts()
+        model, res = primal.fit_approx(x, y, cfg, device="cuda", **kw)
+        assert res.converged, tag
+        fits[tag] = (np.concatenate([model.w, [model.b]]), res.n_iter,
+                     dict(primal.COUNTS), primal.RUN["shards"])
+    w1, n1, _, _ = fits["one"]
+    for tag in ("mesh", "mesh-eager"):
+        w, n, counts, shards = fits[tag]
+        assert shards == 1 and abs(n - n1) <= 0.01 * n1, (tag, n, n1)
+        np.testing.assert_allclose(w, w1, rtol=0,
+                                   atol=1e-5 * np.abs(w1).max())
+    assert fits["mesh"][2]["captures"] == 1
+    assert fits["mesh-eager"][2]["captures"] == 0
+
+
+def test_kkt_report_on_the_card_matches_the_cpu(dev):
+    from dpsvm_tpu_torch.ops.diagnostics import optimality_report
+    x, y = make_planted(3000, 96, 0.25, seed=4)
+    res = train(x, y, SVMConfig(c=10.0, gamma=0.25, epsilon=1e-3),
+                device=dev)
+    reps = [optimality_report(x, y, res.alpha, 0.25, 10.0, b=res.b,
+                              device=d) for d in ("cuda", "cpu")]
+    scale = max(abs(reps[1].primal), abs(reps[1].dual), 1.0)
+    for k in ("dual", "primal", "gap", "eq_residual", "kkt_residual"):
+        assert abs(getattr(reps[0], k) - getattr(reps[1], k)) <= \
+            1e-5 * scale, k
+    assert abs(reps[0].kkt_residual - res.gap) <= 2e-3
+
+
+def test_fleet_cache_drill_holds_its_bounds_on_the_card(dev, tmp_path):
+    from dpsvm_tpu_torch.fleet import fleet_cache_drill
+    from dpsvm_tpu_torch.serving import engine as E
+    caps = E.COUNTS["captures"]
+    row = fleet_cache_drill(str(tmp_path), n_models=200, budget=16,
+                            device="cuda")
+    assert row["ok"] and row["device"].startswith("cuda")
+    assert row["peak_resident"] <= 16 and row["evictions"] == 0
+    assert row["touches"] == row["hits"] + row["faults"] + row["transients"]
+    # every fault repacks its group's ladder once; transients capture
+    # nothing
+    rungs = len(E.bucket_ladder(16))
+    assert E.COUNTS["captures"] - caps == row["packer"]["repacks"] * rungs

@@ -398,9 +398,16 @@ def test_run_with_retries_resumes_after_preemption(tmp_path):
             raise PreemptedError(signal.SIGTERM, 10 * (attempt + 1))
         return "done"
 
+    from dpsvm_tpu_torch.solver import driver
     assert run_with_retries(fn, retries=3, backoff_s=0.0,
                             sleep=lambda s: None) == "done"
     assert [a for _, a in calls] == [0, 1, 2]
+    # fn trains nothing, so the attempts' retry markers are still queued
+    # for the next run's trace: take them, so none leaks into a later
+    # test's trace
+    assert [(e, kw["attempt"]) for e, kw in driver.drain_queued_events()
+            ] == [("retry", 1), ("retry", 2)]
     with pytest.raises(PreemptedError):
         run_with_retries(fn, retries=0, backoff_s=0.0)
+    assert driver.drain_queued_events() == []
     assert is_transient(75) and not is_transient(1)

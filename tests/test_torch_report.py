@@ -98,14 +98,19 @@ def test_follow_ends_on_the_summary(traces, capsys):
 
 
 def test_a_host_family_directory_is_refused(tmp_path):
+    # one file of a family is refused; the family merges, and files that
+    # are no run traces refuse to merge
     from dpsvm_tpu_torch.observability.report import (discover_family,
-                                                      load_trace_auto)
+                                                      load_trace_auto,
+                                                      resolve_trace_path)
     for name in ("trace_h0.jsonl", "trace_h1_a1.jsonl", "trace_h1.jsonl"):
         (tmp_path / name).write_text("")
     assert discover_family(str(tmp_path)) == {
         0: str(tmp_path / "trace_h0.jsonl"),
         1: str(tmp_path / "trace_h1_a1.jsonl")}
     with pytest.raises(ValueError, match="2-host trace family"):
+        resolve_trace_path(str(tmp_path))
+    with pytest.raises(ValueError, match="does not start with a manifest"):
         load_trace_auto(str(tmp_path))
 
 

@@ -117,6 +117,32 @@ def _one(sc: dict) -> dict:
             out = _result(res)
             out["run"] = {k: v for k, v in shrink.RUN.items()
                           if k != "rebuilt"}
+        elif what == "approx":
+            from dpsvm_tpu_torch.approx.primal import fit_approx
+            model, res = fit_approx(x, y, config, task=sc.get("task", "svc"),
+                                    device="cpu")
+            out = dict(n_iter=int(res.n_iter), b=float(res.b),
+                       gap=float(res.gap), converged=bool(res.converged),
+                       n_sv=int(res.n_sv),
+                       alpha=np.concatenate([model.w, [model.b]]).astype(
+                           np.float32))
+            if sc.get("x_test") is not None:
+                from dpsvm_tpu_torch.models.svm import decision_function
+                out["dec"] = np.asarray(decision_function(
+                    model, sc["x_test"], device="cpu"))
+        elif what == "cascade":
+            from dpsvm_tpu_torch.solver.cascade import fit_cascade
+            model, res = fit_cascade(x, y, config, device="cpu")
+            out = dict(n_iter=int(res.n_iter), b=float(res.b),
+                       converged=bool(res.converged),
+                       alpha=np.asarray(res.alpha, np.float32),
+                       n_kept=int(res.n_kept),
+                       kkt_violators=int(res.kkt_violators),
+                       readmit_rounds=int(res.readmit_rounds))
+            if sc.get("x_test") is not None:
+                from dpsvm_tpu_torch.models.svm import decision_function
+                out["dec"] = np.asarray(decision_function(
+                    model, sc["x_test"], device="cpu"))
         elif what == "mesh":
             try:
                 make_data_mesh(sc["shards"], device="cpu")
