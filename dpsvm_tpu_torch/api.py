@@ -49,6 +49,7 @@ from dpsvm_tpu_torch.config import SVMConfig, TrainResult
 from dpsvm_tpu_torch.device import resolve_device
 from dpsvm_tpu_torch.models.svm import SVMModel
 from dpsvm_tpu_torch.utils import densify
+from dpsvm_tpu_torch.utils.timing import span
 
 Device = Optional[Union[str, torch.device]]
 
@@ -97,7 +98,8 @@ def train(x: np.ndarray, y: np.ndarray,
             "the cascade is a multi-stage schedule — train through "
             "api.fit (which returns the right model kind), or "
             "approx.fit_approx / solver.cascade.fit_cascade directly")
-    x, y = _check_xy(x, y)
+    with span("fit.check"):
+        x, y = _check_xy(x, y)
     config = config.resolved(x.shape[0], x.shape[1])
     if config.kernel == "precomputed" and x.shape[0] != x.shape[1]:
         raise ValueError("precomputed kernel training needs the square "
@@ -188,7 +190,13 @@ def fit(x: np.ndarray, y: np.ndarray, config: Optional[SVMConfig] = None,
     an ``ApproxSVMModel``, which every consumer (``decision_function``,
     ``models/io``, CV, multi-class) dispatches on; ``"cascade"`` to the
     three-stage schedule (``solver/cascade.fit_cascade``), which returns
-    an ordinary ``SVMModel``."""
+    an ordinary ``SVMModel``.
+
+    The exact route's profiler ranges (``utils/timing.span``): ``fit``
+    around the call, and inside it ``fit.check`` (``train``'s
+    validation), the solver path's own (the fused pair's ``fit.upload``,
+    the driver's ``train.loop`` and ``train.download``) and
+    ``fit.compact`` (``SVMModel.from_train_result``)."""
     config = config or SVMConfig()
     if config.solver == "cascade":
         from dpsvm_tpu_torch.solver.cascade import fit_cascade
@@ -196,9 +204,12 @@ def fit(x: np.ndarray, y: np.ndarray, config: Optional[SVMConfig] = None,
     if config.solver != "exact":
         from dpsvm_tpu_torch.approx.primal import fit_approx
         return fit_approx(x, y, config, device=device)
-    x = densify(x)      # from_train_result consumes x too
-    result = train(x, y, config, device=device)
-    return SVMModel.from_train_result(x, y, result), result
+    with span("fit"):
+        x = densify(x)      # from_train_result consumes x too
+        result = train(x, y, config, device=device)
+        with span("fit.compact"):
+            model = SVMModel.from_train_result(x, y, result)
+    return model, result
 
 
 def sweep_c(x: np.ndarray, y: np.ndarray, cs,

@@ -49,6 +49,7 @@ from dpsvm_tpu_torch.solver.driver import (Poll, copy_carry_,
                                            device_sv_count, gap_open,
                                            host_training_loop, pack_stats,
                                            read_stats, resume_state)
+from dpsvm_tpu_torch.utils.timing import span
 
 
 def init_fused_carry(alpha: torch.Tensor, f: torch.Tensor, y: torch.Tensor,
@@ -128,10 +129,11 @@ def _mirror_body(carry: FusedCarry, ws, n_iter: int, launch) -> None:
 def _run(x: np.ndarray, y: np.ndarray, config: SVMConfig,
          device: torch.device, plain: bool) -> TrainResult:
     """The fused pair's loop, through ``launch_fused_chunk`` (the kernel
-    on CUDA tensors) or, with ``plain``, through ``run_chunk_plain``."""
+    on CUDA tensors) or, with ``plain``, through ``run_chunk_plain``.
+    The span ``fit.upload`` covers host arrays to device state: X's copy
+    up, the first selection and the workspace."""
     config.validate()
     gamma = float(config.resolve_gamma(x.shape[1]))
-    xd, x2, yd, alpha, f = _prepare(x, y, config, device)
     consts = _consts(config, gamma)
     ckpt = resume_state(config, x.shape[0], x.shape[1], gamma)
     it0 = 0
@@ -139,11 +141,14 @@ def _run(x: np.ndarray, y: np.ndarray, config: SVMConfig,
         if not gap_open(ckpt.b_lo, ckpt.b_hi, 2.0 * config.epsilon):
             return _finished(ckpt, gamma)
         it0 = int(ckpt.n_iter)
-        alpha = torch.from_numpy(np.asarray(ckpt.alpha, np.float32)).to(
-            device)
-        f = torch.from_numpy(np.asarray(ckpt.f, np.float32)).to(device)
-    carry = init_fused_carry(alpha, f, yd, float(config.c), it0)
-    ws = None if plain else FusedWorkspace(xd, n_iter=it0)
+    with span("fit.upload"):
+        xd, x2, yd, alpha, f = _prepare(x, y, config, device)
+        if ckpt is not None:
+            alpha = torch.from_numpy(np.asarray(ckpt.alpha,
+                                                np.float32)).to(device)
+            f = torch.from_numpy(np.asarray(ckpt.f, np.float32)).to(device)
+        carry = init_fused_carry(alpha, f, yd, float(config.c), it0)
+        ws = None if plain else FusedWorkspace(xd, n_iter=it0)
 
     def run(cr: FusedCarry, limit: int):
         if plain:

@@ -22,7 +22,7 @@ Layout:
                      the training and data feeders, the ``--metrics-port``
                      sidecar and ``--metrics-out`` snapshots.
 * ``profiler``     — windowed ``torch.profiler`` sessions with
-                     phase-named ``record_function`` ranges and the
+                     phase-named ranges (``utils/timing.span``) and the
                      ``profile summarize`` reconciliation sidecar.
 * ``roofline``     — achieved against the H100 data-sheet peaks.
 * ``ledger``       — the perf ledger and its historical gate.

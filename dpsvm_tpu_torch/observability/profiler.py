@@ -10,9 +10,10 @@ so the artifact is small and shaped alike for every run of a config:
   polls. Env overrides: ``DPSVM_PROFILE_SKIP_POLLS`` /
   ``DPSVM_PROFILE_POLLS``, the JAX package's integers.
 * **Phase annotations**: the driver's ``PhaseTimer`` buckets
-  (``dispatch`` / ``poll`` / ``checkpoint`` / ``hook``) are wrapped in
-  ``torch.profiler.record_function`` ranges named after the phases, so
-  the timeline carries the run trace's ``phase_counts`` vocabulary.
+  (``dispatch`` / ``poll`` / ``checkpoint`` / ``hook``) open
+  ``utils/timing.span`` ranges named after the phases, which land in the
+  window as in any profiler, so the timeline carries the run trace's
+  ``phase_counts`` vocabulary.
 * **CUDA activity on the card, CPU activity on the CPU**; the raw
   artifact is a Chrome trace (``*.pt.trace.json``), not the JAX
   package's xplane, and is not expected to cross packages.
@@ -30,7 +31,6 @@ its error and never takes the run down.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import time
@@ -104,10 +104,8 @@ class ProfileSession:
     Lifecycle (driven by the shared host driver):
 
     * construction — decides the window; nothing starts yet;
-    * ``annotation(name)`` — the PhaseTimer hook: returns a
-      ``record_function(name)`` context manager inside the window and a
-      no-op outside it (the names are recorded either way, so the
-      sidecar knows the annotation vocabulary);
+    * ``attach_timer(timer)`` — the driver's PhaseTimer, whose phase
+      names are the sidecar's annotation vocabulary;
     * ``note_poll()`` — called once per host poll; starts the device
       trace when the skip window ends, stops it when the capture
       window is full;
@@ -137,7 +135,6 @@ class ProfileSession:
         self._stopped_at_poll: Optional[int] = None
         self._t_start: Optional[float] = None
         self._window_seconds = 0.0
-        self._phases_seen: List[str] = []
         self._snap_seconds: Dict[str, float] = {}
         self._snap_counts: Dict[str, int] = {}
         self._win_seconds: Dict[str, float] = {}
@@ -153,16 +150,10 @@ class ProfileSession:
         reports window-local phase time, not whole-run time."""
         self._timer = timer
 
-    def annotation(self, name: str):
-        if name not in self._phases_seen:
-            self._phases_seen.append(name)
-        if not self._active:
-            return contextlib.nullcontext()
-        try:
-            import torch
-            return torch.profiler.record_function(str(name))
-        except Exception:
-            return contextlib.nullcontext()
+    def _phases(self) -> List[str]:
+        """The annotation vocabulary: the attached timer's phases so far,
+        in the order they first ran."""
+        return list(self._timer.counts) if self._timer is not None else []
 
     # -- window management --------------------------------------------
 
@@ -210,8 +201,7 @@ class ProfileSession:
                 self._prof.export_chrome_trace(os.path.join(
                     self.log_dir, f"dpsvm_{os.getpid()}_"
                     f"{int(time.time() * 1e3)}.pt.trace.json"))
-                self._device = device_times(self._prof,
-                                            self._phases_seen)
+                self._device = device_times(self._prof, self._phases())
             except Exception as e:
                 self._error = f"profiler stop failed: {e}"
             self._prof = None
@@ -255,9 +245,9 @@ class ProfileSession:
                 "phases": {
                     name: {"seconds": self._win_seconds.get(name, 0.0),
                            "calls": self._win_counts.get(name, 0)}
-                    for name in sorted(set(self._phases_seen)
+                    for name in sorted(set(self._phases())
                                        | set(self._win_seconds))},
-                "annotations": list(self._phases_seen),
+                "annotations": self._phases(),
                 "device": dict(self._device),
                 "activities": ["cpu", "cuda"] if self.cuda else ["cpu"],
                 "artifacts": find_artifacts(self.log_dir),

@@ -51,6 +51,7 @@ from dpsvm_tpu_torch.solver.decomp import (DecompWorkspace,
                                            _make_growth_hook, rank_q_update)
 from dpsvm_tpu_torch.solver.driver import (gap_open, host_training_loop,
                                            read_stats, resume_state)
+from dpsvm_tpu_torch.utils.timing import span
 
 # Packed-stats reads of the distributed round loops, ever (one a round,
 # plus the first of each run).
@@ -124,7 +125,6 @@ def _dist_decomp_step(carry: DistDecompCarry, prob: DistProblem, *,
     alpha and f are updated in place."""
     mesh, n_s, spec = prob.mesh, prob.n_s, prob.spec
     alpha, f = carry.alpha, carry.f
-    span = torch.profiler.record_function
 
     with span("decomp.select"):
         f_up, f_low, _, _ = masked_scores_and_masks(alpha, prob.y, f,

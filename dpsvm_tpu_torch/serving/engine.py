@@ -72,6 +72,7 @@ from dpsvm_tpu_torch.models.svm import (SVMModel, decision_block,
 from dpsvm_tpu_torch.observability import compilewatch
 from dpsvm_tpu_torch.ops.kernels import exact_f32
 from dpsvm_tpu_torch.serving.batcher import KNOWN_OUTPUTS
+from dpsvm_tpu_torch.utils.timing import span
 
 AnyModel = Union[SVMModel, MulticlassModel]
 
@@ -287,7 +288,16 @@ class Ladder:
             return self.fn(xb)
 
     def run(self, x: np.ndarray) -> np.ndarray:
-        """(m, d) float32 rows -> (m,) or (m, P) float32 decisions."""
+        """(m, d) float32 rows -> (m,) or (m, P) float32 decisions. The
+        call is the profiler range ``engine.run``, and its passes
+        ``engine.pad`` (the padded block), ``engine.upload`` (its copy
+        up), ``engine.replay`` (the graphs or eager blocks),
+        ``engine.download`` (the read of the outputs) and, on the
+        many-pass path, ``engine.gather`` (``utils/timing.span``)."""
+        with span("engine.run"):
+            return self._run(x)
+
+    def _run(self, x: np.ndarray) -> np.ndarray:
         m = x.shape[0]
         plan = self.plan(m)
         with self.lock:
@@ -295,38 +305,51 @@ class Ladder:
                 _, take, b = plan[0]
                 g = self._graphs.get(b) if self.graphs else None
                 if g is not None:
-                    hv = g.host.numpy()
-                    hv[:take] = x
-                    hv[take:] = 0.0
-                    g.x.copy_(g.host, non_blocking=True)
-                    out = g.replay().cpu().numpy()
+                    with span("engine.pad"):
+                        hv = g.host.numpy()
+                        hv[:take] = x
+                        hv[take:] = 0.0
+                    with span("engine.upload"):
+                        g.x.copy_(g.host, non_blocking=True)
+                    with span("engine.replay"):
+                        dev_out = g.replay()
                 else:
-                    block = np.zeros((b, self.d), np.float32)
-                    block[:take] = x
-                    out = self._eager(torch.from_numpy(block).to(
-                        self.device)).cpu().numpy()
+                    with span("engine.pad"):
+                        block = np.zeros((b, self.d), np.float32)
+                        block[:take] = x
+                    with span("engine.upload"):
+                        dev_in = torch.from_numpy(block).to(self.device)
+                    with span("engine.replay"):
+                        dev_out = self._eager(dev_in)
+                with span("engine.download"):
+                    out = dev_out.cpu().numpy()
                 self.counts[b] += 1
                 return out[:take]
             # several passes: one copy up of every padded block, one read
             # of every output
             starts = np.cumsum([0] + [b for _, _, b in plan])
-            pad = np.zeros((int(starts[-1]), self.d), np.float32)
-            for (lo, take, _), s in zip(plan, starts):
-                pad[s:s + take] = x[lo:lo + take]
-            dev_in = torch.from_numpy(pad).to(self.device)
+            with span("engine.pad"):
+                pad = np.zeros((int(starts[-1]), self.d), np.float32)
+                for (lo, take, _), s in zip(plan, starts):
+                    pad[s:s + take] = x[lo:lo + take]
+            with span("engine.upload"):
+                dev_in = torch.from_numpy(pad).to(self.device)
             outs = []
-            for (_, _, b), s in zip(plan, starts):
-                g = self._graphs.get(b) if self.graphs else None
-                if g is not None:
-                    g.x.copy_(dev_in[s:s + b])
-                    outs.append(g.replay().clone())
-                else:
-                    outs.append(self._eager(dev_in[s:s + b]))
-                self.counts[b] += 1
-            full = torch.cat(outs).cpu().numpy()
-        keep = np.concatenate([np.arange(s, s + take) for (_, take, _), s
-                               in zip(plan, starts)])
-        return full[keep]
+            with span("engine.replay"):
+                for (_, _, b), s in zip(plan, starts):
+                    g = self._graphs.get(b) if self.graphs else None
+                    if g is not None:
+                        g.x.copy_(dev_in[s:s + b])
+                        outs.append(g.replay().clone())
+                    else:
+                        outs.append(self._eager(dev_in[s:s + b]))
+                    self.counts[b] += 1
+            with span("engine.download"):
+                full = torch.cat(outs).cpu().numpy()
+        with span("engine.gather"):
+            keep = np.concatenate([np.arange(s, s + take)
+                                   for (_, take, _), s in zip(plan, starts)])
+            return full[keep]
 
     def device_bytes(self) -> int:
         return int(sum(g.device_bytes() for g in self._graphs.values()))

@@ -66,6 +66,7 @@ from dpsvm_tpu_torch.solver.driver import (ChunkStats, device_sv_count,
                                            gap_open, host_training_loop,
                                            pack_stats, read_stats,
                                            resume_state)
+from dpsvm_tpu_torch.utils.timing import span
 
 # Elements of one (q, columns) block of the rank-q pass: 1 GiB in float32.
 # Two such blocks are alive at once (the dots and the kernel block).
@@ -161,7 +162,6 @@ def decomp_step(carry: DecompCarry, prob: DecompProblem, *, q: int,
     ``inner_subsolve_plain``. Rows where ``valid`` is False are in
     neither index set. alpha and f are updated in place."""
     alpha, f, y = carry.alpha, carry.f, prob.y
-    span = torch.profiler.record_function
 
     with span("decomp.select"):
         # Top q/2 violators per side.

@@ -120,7 +120,7 @@ from dpsvm_tpu_torch.utils.checkpoint import (CheckpointCorruptError,
                                               maybe_checkpoint,
                                               newest_intact_checkpoint,
                                               save_checkpoint)
-from dpsvm_tpu_torch.utils.timing import PhaseTimer
+from dpsvm_tpu_torch.utils.timing import PhaseTimer, span
 
 _logger = logging.getLogger("dpsvm_tpu_torch")
 
@@ -607,8 +607,7 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
                if config.profile_dir and obs else None)
     # Host-loop accounting, not device time: "dispatch" buckets the
     # enqueue calls, "poll" the blocking stats reads.
-    timer = PhaseTimer(annotate=session.annotation
-                       if session is not None else None)
+    timer = PhaseTimer()
     if session is not None:
         session.attach_timer(timer)
     train_metrics = metricslib.TrainingMetrics(solver=solver, n=n, d=d)
@@ -657,7 +656,9 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
 
     elastic.register_heartbeats(heartbeats)
     try:
-        with preempt.trap():
+        # train.loop: the chunks and polls; its self time is the loop's
+        # bookkeeping between the phases
+        with preempt.trap(), span("train.loop"):
             while True:
                 limit = min(n_iter + chunk, config.max_iter)
                 with timer.phase("dispatch"):
@@ -872,8 +873,9 @@ def host_training_loop(config: SVMConfig, gamma: float, carry,
                 last_saved = saved
                 if done:
                     break
-        alpha, _ = carry_to_host(carry)
-        alpha = np.array(alpha, np.float32, copy=True)
+        with span("train.download"):
+            alpha, _ = carry_to_host(carry)
+            alpha = np.array(alpha, np.float32, copy=True)
         result = TrainResult(
             alpha=alpha,
             b=(b_lo + b_hi) / 2.0,            # svmTrainMain.cpp:329

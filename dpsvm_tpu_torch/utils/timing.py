@@ -7,11 +7,20 @@ enqueue, not the work, so ``PhaseTimer`` accumulates named host buckets
 (``dispatch``, ``poll``, ``hook``, ``checkpoint`` ...) and, where a phase
 must measure finished device work, synchronizes on the tensor a ``fence``
 returns before the bucket closes.
+
+``span(name)`` is the port's one way to open a named range on the
+profiler's timeline: a ``torch.profiler.record_function`` while a torch
+profiler records on this thread (``train --profile-dir``'s window, a
+benchmark's capture, a caller's own ``torch.profiler.profile``), so the
+range lands on the clock of the device's kernels and copies and nests
+under the range open around it; otherwise a shared null context, at the
+cost of one flag check. ``PhaseTimer.phase`` opens one for each phase.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import time
 from collections import defaultdict
 from typing import Callable, Dict, Optional
@@ -27,18 +36,26 @@ def _block(value) -> None:
             torch.cuda.current_stream(dev).synchronize()
 
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a torch profiler records on
+    this thread, else the shared null context (module docstring). A
+    process that has not imported torch records nothing, and is not made
+    to import it."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
 class PhaseTimer:
-    def __init__(self, annotate: Optional[Callable[[str], object]] = None
-                 ) -> None:
-        """annotate: optional hook returning a context manager for a
-        phase name, the profiler's integration point
-        (observability/profiler.ProfileSession.annotation wraps each phase
-        in a ``torch.profiler.record_function`` span of the same name, so
-        the device timeline and the host buckets share one vocabulary).
-        None = timing only."""
+    def __init__(self) -> None:
+        """Each phase is also a ``span`` of the same name, so a profiler's
+        timeline and the host buckets share one vocabulary."""
         self.seconds: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
-        self._annotate = annotate
 
     @contextlib.contextmanager
     def phase(self, name: str, fence: Optional[Callable[[], object]] = None):
@@ -46,15 +63,13 @@ class PhaseTimer:
         work behind its result is waited for, so the bucket measures
         finished device work, not the enqueue. (A callable, because the
         tensors to fence on are usually made inside the block.)"""
-        ann = (self._annotate(name) if self._annotate is not None
-               else contextlib.nullcontext())
         t0 = time.perf_counter()
         try:
-            with ann:
+            with span(name):
                 try:
                     yield
                 finally:
-                    # the fence inside the annotation span: the blocked
+                    # the fence inside the phase's span: the blocked
                     # device wait is attributed to the phase it ends
                     if fence is not None:
                         _block(fence())
